@@ -8,12 +8,16 @@ Phases, each printing one JSON line:
 1. probe   — torch/CUDA versions, the card and its power limit; requires
              compute capability 9.0; turns TF32 off for f32 matmuls.
 2. build   — compiles ``ops/csrc/flash_attn.cu`` for sm_90a and prints the
-             build time and the ``-Xptxas -v`` report.
+             build time and, from the ``-Xptxas -v`` report, registers,
+             spills and shared memory of all six kernel builds (three
+             kernels, head dims 64 and 128); fails on any spill of the
+             forward or dK/dV kernel at head dim 64.
 3. kernels — runs the fwd, bwd_dq and bwd_dkv kernels at the BERT-base
              shapes [32, 12, 512, 64] bf16, (a) non-causal with padding
              segments and (b) causal, against their plain PyTorch versions
-             in f32 on the same inputs, and times them beside the plain
-             versions and ``scaled_dot_product_attention``.
+             in f32 on the same inputs, checks that a second launch on the
+             same inputs gives the same bits, and times them beside the
+             plain versions and ``scaled_dot_product_attention``.
 4. slice   — trains BERT-base masked-LM (768/12/12/3072, S = 512, batch 32)
              for 20 steps through ``cli train --flash_attention`` on a seeded
              token dataset, after checking flash attention against the dense
@@ -29,6 +33,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -101,17 +106,61 @@ def probe() -> dict:
     return {"name": name, "smi": smi}
 
 
+KERNEL_IDS = {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 2}  # ldt_flash_smem_bytes
+
+
+def _ptxas_kernels(report: str) -> list:
+    """Per kernel build in a ``-Xptxas -v`` report: registers, spill bytes
+    and static shared memory."""
+    rows, row = [], None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_kernelILi(\d+)E",
+                             entry.group(1))
+            row = None
+            if name:
+                row = {"kernel": name.group(1), "head_dim": int(name.group(2))}
+                rows.append(row)
+            continue
+        if row is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            row["spill_stores"] = int(spill.group(1))
+            row["spill_loads"] = int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            row["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            row["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return rows
+
+
 def build() -> None:
     from lance_distributed_training_tpu_torch.ops import _build, flash
 
     t0 = time.monotonic()
-    flash._library()
+    lib = flash._library()
     report = _build.build_report("flash_attn")
-    ptxas = [line.strip() for line in report["ptxas"].splitlines()
-             if "Used" in line or "spill" in line or "Compiling entry" in line]
+    kernels = _ptxas_kernels(report["ptxas"])
+    for row in kernels:
+        row["dynamic_smem_bytes"] = lib.ldt_flash_smem_bytes(
+            KERNEL_IDS[row["kernel"]], row["head_dim"])
     emit("build", seconds=time.monotonic() - t0,
          nvcc_seconds=report["seconds"], cached=report["cached"],
-         ptxas=ptxas)
+         kernels=kernels)
+    builds = {(r["kernel"], r["head_dim"]) for r in kernels}
+    want = {(k, d) for k in KERNEL_IDS for d in flash.HEAD_DIMS}
+    if builds != want or not all("registers" in r for r in kernels):
+        raise RuntimeError(f"ptxas report covers {sorted(builds)}, "
+                           f"expected {sorted(want)}")
+    spills = [r for r in kernels
+              if r["kernel"] in ("fwd", "bwd_dkv") and r["head_dim"] == 64
+              and (r.get("spill_stores", 0) or r.get("spill_loads", 0))]
+    if spills:
+        raise RuntimeError(f"ptxas spills at head dim 64: {spills}")
 
 
 def _bounds(b: int, h: int, s: int, d: int) -> dict:
@@ -188,6 +237,22 @@ def kernels() -> dict:
         bad = [n for n in err if not err[n] <= tol[n]]
         if bad:
             raise RuntimeError(f"kernels {mode}: {bad} above tolerance")
+        # The same inputs again must give the same bits (no atomics).
+        o2, lse2 = flash.flash_attention_fwd(q, k, v, seg, causal, scale)
+        dq2 = flash.flash_attention_bwd_dq(q, k, v, seg, lse_ref, do, di,
+                                           causal, scale)
+        dk2, dv2 = flash.flash_attention_bwd_dkv(q, k, v, seg, lse_ref, do,
+                                                 di, causal, scale)
+        same = {
+            "fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
+            "bwd_dq": torch.equal(dq, dq2),
+            "bwd_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2),
+        }
+        emit("kernels", mode=mode, bit_identical_on_repeat=same)
+        if not all(same.values()):
+            raise RuntimeError(f"kernels {mode}: a second launch differs: "
+                               f"{same}")
+        del o2, lse2, dq2, dk2, dv2
         errors["fwd"] = max(errors["fwd"], err["o"])
         errors["bwd_dq"] = max(errors["bwd_dq"], err["dq"])
         errors["bwd_dkv"] = max(errors["bwd_dkv"], err["dk"], err["dv"])
@@ -227,14 +292,17 @@ def kernels() -> dict:
     sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd)
     di_ms = time_ms(lambda: (o.float() * do.float()).sum(-1))
     bounds = _bounds(b, h, s, d)
-    emit("kernels", timing="a_padded", kernel_ms=ms, plain_ms=plain_ms,
+    library = {"fwd": sdpa_fwd, "bwd_dq": None, "bwd_dkv": None}
+    table = {n: {
+        "ms": ms[n], "plain_ms": plain_ms[n], "library_ms": library[n],
+        "bound_ms": bounds[n]["bound_ms"], "bound_by": bounds[n]["bound_by"],
+        "tflops": bounds[n]["flops"] / (ms[n] * 1e-3) / 1e12,
+        "share_of_bound": bounds[n]["bound_ms"] / ms[n],
+    } for n in ms}
+    emit("kernels", timing="a_padded", table=table,
          library_ms={"sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd_ms},
-         di_plain_op_ms=di_ms,
-         bound_ms={n: v["bound_ms"] for n, v in bounds.items()},
-         bound_by={n: v["bound_by"] for n, v in bounds.items()})
-    return {"errors": errors, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": {"fwd": sdpa_fwd, "bwd_dq": None, "bwd_dkv": None},
-            "bounds": bounds}
+         di_plain_op_ms=di_ms)
+    return {"errors": errors, "table": table}
 
 
 def _dense_vs_flash_check() -> None:
@@ -359,11 +427,7 @@ def main(argv=None) -> int:
         "name": f"flash_attention_{name}", "route": "cuda",
         "source": SOURCE, "replaces": REPLACES[name],
         "launches": launches[name],
-        "max_abs_err": timing["errors"][name],
-        "ms": timing["ms"][name], "plain_ms": timing["plain_ms"][name],
-        "bound_ms": timing["bounds"][name]["bound_ms"],
-        "bound_by": timing["bounds"][name]["bound_by"],
-        "library_ms": timing["library_ms"][name],
+        "max_abs_err": timing["errors"][name], **timing["table"][name],
     } for name in ("fwd", "bwd_dq", "bwd_dkv")]
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

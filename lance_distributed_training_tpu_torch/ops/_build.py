@@ -67,10 +67,13 @@ def _target(stem: str) -> Path:
 def build_library(stem: str) -> Path:
     """Compile ``csrc/<stem>.cu`` unless a library of the same hash exists;
     returns its path. The compiler's ``-Xptxas -v`` report (registers,
-    shared memory, spills) is kept for :func:`build_report`."""
+    shared memory, spills) is kept beside the library and for
+    :func:`build_report`."""
     target = _target(stem)
+    report = target.with_suffix(".ptxas.txt")
     if target.exists():
-        _reports.setdefault(stem, {"seconds": 0.0, "cached": True, "ptxas": ""})
+        ptxas = report.read_text() if report.exists() else ""
+        _reports.setdefault(stem, {"seconds": 0.0, "cached": True, "ptxas": ptxas})
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
@@ -84,9 +87,10 @@ def build_library(stem: str) -> Path:
             f"nvcc failed for {stem}.cu (exit {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
+    ptxas = proc.stdout + proc.stderr
+    report.write_text(ptxas)
     os.replace(tmp, target)
-    _reports[stem] = {"seconds": seconds, "cached": False,
-                      "ptxas": proc.stdout + proc.stderr}
+    _reports[stem] = {"seconds": seconds, "cached": False, "ptxas": ptxas}
     return target
 
 

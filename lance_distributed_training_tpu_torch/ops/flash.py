@@ -3,7 +3,8 @@
 Counterpart of ``lance_distributed_training_tpu/ops/flash.py``, which calls
 the Pallas TPU kernel ``jax.experimental.pallas.ops.tpu.flash_attention``.
 Here the forward, dQ and dK/dV passes are CUDA kernels written for sm_90a
-(``csrc/flash_attn.cu``) with the Pallas kernel's semantics:
+(``csrc/flash_attn.cu``; the forward and dK/dV through wgmma and a TMA
+ring, dQ through WMMA) with the Pallas kernel's semantics:
 
 * a query attends a key iff their segment ids are equal (and, when causal,
   the key does not come after the query); a key-validity mask ``[B,1,1,S]``
@@ -30,7 +31,7 @@ from . import _build
 __all__ = [
     "LAUNCHES",
     "MASK_VALUE",
-    "TILE",
+    "TILES",
     "segment_attention_mask",
     "flash_attention_reference",
     "flash_attention_bwd_dq_reference",
@@ -43,7 +44,13 @@ __all__ = [
 ]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-TILE = 64  # rows per tile on both sequence axes, fixed in csrc/flash_attn.cu
+# (query rows, key rows) of one tile of each kernel, by head dim, fixed when
+# csrc/flash_attn.cu is compiled (FwdCfg, DkvCfg and the dQ kernel's BQ/BK).
+TILES = {
+    "fwd": {64: (128, 128), 128: (128, 64)},
+    "bwd_dq": {64: (64, 64), 128: (64, 64)},
+    "bwd_dkv": {64: (64, 128), 128: (64, 128)},
+}
 HEAD_DIMS = (64, 128)
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
@@ -140,6 +147,8 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.ldt_flash_error_string.argtypes = [ctypes.c_int]
         lib.ldt_flash_error_string.restype = ctypes.c_char_p
+        lib.ldt_flash_smem_bytes.argtypes = [i32, i32]
+        lib.ldt_flash_smem_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -300,22 +309,32 @@ def flash_attention(q, k, v, segment_ids=None, causal=False,
                                  float(sm_scale))
 
 
-def make_flash_attention(block_q: int = TILE, block_k: int = TILE,
-                         causal: bool = False):
+def make_flash_attention(block_q: Optional[int] = None,
+                         block_k: Optional[int] = None, causal: bool = False):
     """Build an ``attention_fn(q, k, v, mask=None, dtype=None,
     segment_ids=None)`` for :class:`..models.transformer.SelfAttention`.
 
     q/k/v are ``[B, H, S, D]``; ``mask`` is the key-validity mask
     ``[B, 1, 1, S]``, lowered to segment ids; ``segment_ids`` (packed
-    sequences) supersedes it. The kernels' tiles are fixed at
-    ``TILE x TILE`` when they are compiled, so other block sizes raise."""
-    if (block_q, block_k) != (TILE, TILE):
+    sequences) supersedes it. The kernels' tiles are fixed per kernel and
+    head dim when they are compiled (:data:`TILES`). Block sizes left at
+    ``None`` take them; given ones must be the forward's tile for some head
+    dim, and a call at another head dim raises."""
+    fwd_tiles = TILES["fwd"]
+    requested = (block_q, block_k)
+    if requested != (None, None) and requested not in fwd_tiles.values():
         raise ValueError(
-            f"block sizes ({block_q}, {block_k}) not available: the kernels "
-            f"are compiled for {TILE} x {TILE} tiles"
+            f"block sizes {requested} not available: the forward kernel's "
+            f"tiles are compiled as {fwd_tiles} (head dim: (q, k))"
         )
 
     def attention_fn(q, k, v, mask=None, dtype=None, segment_ids=None):
+        d = q.shape[-1]
+        if requested != (None, None) and fwd_tiles.get(d) != requested:
+            raise ValueError(
+                f"block sizes {requested} not available at head dim {d}: "
+                f"the forward kernel's tiles are {fwd_tiles}"
+            )
         seg = segment_ids
         if seg is None and mask is not None:
             seg = mask.reshape(mask.shape[0], mask.shape[-1])

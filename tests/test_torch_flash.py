@@ -167,9 +167,50 @@ def test_kernel_input_checks_raise(bad, error):
         flash._check("bwd_dq", **_launch_args(**bad))
 
 
-def test_other_block_sizes_raise():
+@pytest.mark.parametrize("block_q,block_k", [(512, 512), (64, 64), (128, 32)])
+def test_other_block_sizes_raise(block_q, block_k):
     with pytest.raises(ValueError, match="tiles"):
-        flash.make_flash_attention(block_q=512, block_k=512)
+        flash.make_flash_attention(block_q=block_q, block_k=block_k)
+
+
+@pytest.mark.parametrize("d", flash.HEAD_DIMS)
+def test_forward_tile_block_sizes_follow_the_head_dim(d):
+    q, k, v, _ = (_t(x) for x in _inputs(6, (B, H, S, d)))
+    want = flash.make_flash_attention()(q, k, v)
+    tile = flash.TILES["fwd"][d]
+    got = flash.make_flash_attention(*tile)(q, k, v)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    other = next(t for t in flash.TILES["fwd"].values() if t != tile)
+    with pytest.raises(ValueError, match="head dim"):
+        flash.make_flash_attention(*other)(q, k, v)
+
+
+def _source_tiles(d):
+    """``(query rows, key rows)`` of each kernel's tile at head dim ``d``,
+    read from the constants of ``csrc/flash_attn.cu``."""
+    import re
+    from pathlib import Path
+
+    src = (Path(flash.__file__).parent / "csrc" / "flash_attn.cu").read_text()
+
+    def const(name, scope=src):
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", scope).group(1)
+        expr = re.sub(r"(.+?) \? (\S+) : (\S+)", r"(\2 if \1 else \3)", expr)
+        return eval(expr, {"D": d})
+
+    def struct(name):
+        return re.search(rf"struct {name} {{(.*?)\n}};", src, re.S).group(1)
+
+    fwd, dkv = struct("FwdCfg"), struct("DkvCfg")
+    return {"fwd": (const("BM", fwd), const("BN", fwd)),
+            "bwd_dq": (const("BQ"), const("BK")),
+            "bwd_dkv": (const("BM", dkv), const("BN", dkv))}
+
+
+@pytest.mark.parametrize("d", flash.HEAD_DIMS)
+def test_tiles_match_the_kernel_source(d):
+    assert set(flash.TILES) == set(flash.LAUNCHES)
+    assert {n: tiles[d] for n, tiles in flash.TILES.items()} == _source_tiles(d)
 
 
 # -------------------------------------------------------------- on the card
@@ -182,18 +223,27 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("name,seg,causal", CASES, ids=[c[0] for c in CASES])
-def test_kernels_match_plain_on_card(cuda_device, d, name, seg, causal):
-    # S = 200: not a multiple of the 64-row tile, so the ragged edge is hit.
-    shape = (2, 3, 200, d)
-    q, k, v, do = (torch.from_numpy(x).to(cuda_device, torch.bfloat16)
-                   for x in _inputs(4, shape))
+def _card_inputs(device, shape, seed, seg):
+    """bf16 q, k, v, dO on the card, and ``seg`` stretched to the sequence
+    (its last column repeated) or None."""
+    q, k, v, do = (torch.from_numpy(x).to(device, torch.bfloat16)
+                   for x in _inputs(seed, shape))
     if seg is not None:
-        seg = np.concatenate([seg, np.repeat(seg[:, -1:], 200 - S, 1)], 1)
-        seg = torch.from_numpy(seg).to(cuda_device)
-    scale = 1.0 / d ** 0.5
+        reps = -(-shape[0] // seg.shape[0])
+        seg = np.tile(seg, (reps, 1))[:shape[0]]
+        if shape[2] >= seg.shape[1]:
+            seg = np.concatenate(
+                [seg, np.repeat(seg[:, -1:], shape[2] - seg.shape[1], 1)], 1)
+        seg = torch.from_numpy(np.ascontiguousarray(seg[:, :shape[2]]))
+        seg = seg.to(device)
+    return q, k, v, do, seg
+
+
+def _check_kernels_against_plain(q, k, v, do, seg, causal):
+    """Run the three kernels and hold them against the plain versions in
+    f32: |dO| within 2e-2, |dlse| within 1e-3, each gradient within 2% of
+    the reference's largest entry. Returns the kernels' outputs."""
+    scale = 1.0 / q.shape[-1] ** 0.5
     before = dict(flash.LAUNCHES)
     o, lse = flash.flash_attention_fwd(q, k, v, seg, causal, scale)
     f32 = [t.float() for t in (q, k, v, do)]
@@ -216,6 +266,39 @@ def test_kernels_match_plain_on_card(cuda_device, d, name, seg, causal):
         assert err <= 2e-2 * ref.abs().max().item()
     assert {n: flash.LAUNCHES[n] - before[n] for n in before} == {
         "fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
+    return o, lse, dq, dk, dv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [200, 48, 130, 300])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("name,seg,causal", CASES, ids=[c[0] for c in CASES])
+def test_kernels_match_plain_on_card(cuda_device, d, s, name, seg, causal):
+    # S = 48 lies below one tile; 130, 200 and 300 are not multiples of the
+    # 64- and 128-row tiles, so the ragged edge is hit.
+    q, k, v, do, seg = _card_inputs(cuda_device, (2, 3, s, d), 4, seg)
+    _check_kernels_against_plain(q, k, v, do, seg, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("name,seg,causal", CASES[:2],
+                         ids=[c[0] for c in CASES[:2]])
+def test_kernels_match_plain_over_many_waves_on_card(cuda_device, d, name,
+                                                     seg, causal):
+    # 16 x 24 heads x 3 tiles of 128 rows: several waves of blocks per SM.
+    q, k, v, do, seg = _card_inputs(cuda_device, (16, 24, 320, d), 7, seg)
+    _check_kernels_against_plain(q, k, v, do, seg, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_repeat_launch_is_bit_identical_on_card(cuda_device, d):
+    q, k, v, do, seg = _card_inputs(cuda_device, (4, 6, 300, d), 8, PACKED)
+    first = _check_kernels_against_plain(q, k, v, do, seg, False)
+    second = _check_kernels_against_plain(q, k, v, do, seg, False)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
