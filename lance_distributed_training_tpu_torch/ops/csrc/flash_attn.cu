@@ -27,21 +27,24 @@
 // per key tile), so no block writes another's output: no atomics, and the
 // result is the same bit for bit from launch to launch.
 //
-// The forward and dK/dV kernels are built for Hopper:
+// The three kernels share one design:
 //  * Every matrix product is a warpgroup product (wgmma.mma_async, 64 rows
 //    per warpgroup) with f32 accumulators in registers. Products whose left
-//    operand is a probability tile (P V, P^T dO, dS^T Q) take it from
+//    operand is a probability tile (P V; dS K; P^T dO, dS^T Q) take it from
 //    registers: wgmma's accumulator layout, packed to bf16, is its A-operand
 //    layout, so scores never go through shared memory.
 //  * Large tiles arrive by TMA (cp.async.bulk.tensor) through tensor maps
 //    over the 3-D view [B*H, S, D] with 128-byte swizzle, the layout the
 //    wgmma descriptors read. Rows past S are zero-filled by the hardware; a
-//    head dim of 128 is two 64-column panels. Outputs leave by TMA stores
-//    from the same layout, which clip rows past S.
-//  * The streamed tiles (K/V in the forward; Q, dO and the per-row lse, di
-//    and segment ids in dK/dV) pass through a ring of STAGES buffers guarded
-//    by full/empty mbarriers, so the next tiles load while this one is
-//    computed.
+//    head dim of 128 is two 64-column panels. One stage tile serves as a
+//    K-major B (K in Q K^T) and an MN-major B (K in dS K, read with the
+//    transpose bit). Outputs leave by TMA stores from the same layout, which
+//    clip rows past S.
+//  * The block's own rows (Q in the forward; Q and dO in dQ; K and V in
+//    dK/dV) load once; the streamed tiles (K, V and the keys' segment ids in
+//    the forward and dQ; Q, dO and the per-row lse, di and segment ids in
+//    dK/dV) pass through a ring of STAGES buffers guarded by full/empty
+//    mbarriers, so the next tiles load while this one is computed.
 //  * Scale, mask and softmax run in registers in the log2 domain (exp2 of a
 //    pre-scaled score). Each accumulator row lives in one 4-thread quad, so
 //    a row max or sum is two shuffles. A tile whose keys all share the
@@ -50,9 +53,10 @@
 //    gives in f32; it is not multiplied by log2(e), which would overflow to
 //    -inf. Either way a masked entry weighs exp(0) = 1 while its row has
 //    seen only masked keys and 0 once the row sees an allowed key, and
-//    every query attends at least itself.
+//    every query attends at least itself. The backward kernels give a row
+//    past S lse = +inf, so its P and dS are exactly 0.
 // Warp specialisation: each block has two consumer warpgroups (128 query
-// rows in the forward, 128 keys in dK/dV, 64 each) and one producer
+// rows in the forward and dQ, 128 keys in dK/dV, 64 each) and one producer
 // warpgroup, of which one warp issues the TMA copies and writes the per-row
 // vectors. ptxas budgets registers by warpgroup (168 a thread for three), so
 // the producer gives its registers up with setmaxnreg (down to 40) and the
@@ -60,13 +64,10 @@
 // two 64 x 64 score tiles, and spills at 168. The two consumer warpgroups
 // share the ring and overlap each other's softmax with their products
 // through the warp schedulers.
-// Forward tiles: 128 keys per stage at D = 64; 64 at D = 128, which keeps
-// the 64-float output accumulator and the score tile (32 floats) well
-// inside the consumers' registers. dK/dV: 64 queries per stage for both
-// head dims.
-//
-// The dQ kernel keeps its first design: WMMA (mma.sync) on 64 x 64 tiles
-// with synchronous loads, four warps of 16 rows each.
+// Tiles: the forward and dQ stream 128 keys per stage at D = 64 and 64 at
+// D = 128, which keeps the 64-float output accumulator and the score tiles
+// (S and, in dQ, dP and the packed dS) inside the consumers' registers;
+// dK/dV streams 64 queries per stage for both head dims.
 //
 // Plain C interface (loaded with ctypes): every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError() after the
@@ -78,211 +79,17 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 
-// ----------------------------------------------------------------- dQ
-// The dQ kernel's tiles and helpers: WMMA on 64 x 64 tiles, four warps of
-// 16 rows, tiles copied through registers between two __syncthreads().
-
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // key rows per tile
-constexpr int WARPS = 4;      // each warp owns a 16-row strip of the tile
-constexpr int THREADS = WARPS * 32;
-constexpr int LDT = BK + 4;   // f32 score tile leading dim (floats)
-constexpr int LDP = BK + 8;   // bf16 probability tile leading dim
-
-__host__ __device__ constexpr int ld_in(int d) { return d + 8; }  // bf16 tile
-__host__ __device__ constexpr size_t align128(size_t x) {
-  return (x + 127) & ~size_t(127);
-}
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBr;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBc;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// Copy rows [row0, row0 + 64) of a [S, D] bf16 matrix into a shared tile with
-// leading dim ld_in(D); rows at or past S are zero-filled. 16-byte vectors.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int S) {
-  constexpr int VEC = 8;  // bf16 per 16-byte vector
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += THREADS) {
-    int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld_in(D) + c) = val;
-  }
-}
-
-// Rows [row0, row0 + 64) of a per-row f32 vector (lse, di); zero past S.
-__device__ __forceinline__ void load_rowvec(float* dst, const float* src, int row0, int S) {
-  for (int i = threadIdx.x; i < 64; i += THREADS) dst[i] = (row0 + i < S) ? src[row0 + i] : 0.f;
-}
-
-__device__ __forceinline__ void load_seg(int* dst, const int* seg, int row0, int S) {
-  for (int i = threadIdx.x; i < 64; i += THREADS)
-    dst[i] = (seg != nullptr && row0 + i < S) ? seg[row0 + i] : 0;
-}
-
-// Score-space mask for query qi and key kj: -inf for a key past the end,
-// MASK_VALUE (additive) for a key the query may not attend, else 0.
-__device__ __forceinline__ float mask_add(int qi, int kj, int S, int sq, int sk, bool causal) {
-  if (kj >= S) return -INFINITY;
-  bool ok = (sq == sk) && (!causal || kj <= qi);
-  return ok ? 0.f : MASK_VALUE;
-}
-
-// acc(16 x 64, f32, into shared at out with leading dim LDT) = A(16 x D) * B^T
-// where A rows start at a (leading dim lda) and B is 64 x D at b (leading dim
-// ldb), both row-major bf16.
-template <int D>
-__device__ __forceinline__ void strip_abT(float* out, const bf16* a, int lda, const bf16* b, int ldb) {
-  #pragma unroll
-  for (int n = 0; n < BK / 16; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBc fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, lda);
-      wmma::load_matrix_sync(fb, b + n * 16 * ldb + kk * 16, ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, LDT, wmma::mem_row_major);
-  }
-}
-
-// acc[n] (16 x 16 fragments over D) += P(16 x 64, bf16, leading dim LDP) * M(64 x D)
-template <int D>
-__device__ __forceinline__ void strip_pm(FragC* acc, const bf16* p, const bf16* m) {
-  #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, p + kk * 16, LDP);
-    #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBr fb;
-      wmma::load_matrix_sync(fb, m + kk * 16 * ld_in(D) + n * 16, ld_in(D));
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// Write a 64 x D f32 staging tile (leading dim ld_in(D)) times `scale` to
-// rows [row0, row0 + 64) of a [S, D] bf16 matrix, skipping rows past S.
-template <int D>
-__device__ __forceinline__ void store_tile(bf16* dst, const float* st, int row0, int S, float scale) {
-  for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
-    int r = i / D, c = i % D;
-    if (row0 + r < S) dst[(size_t)(row0 + r) * D + c] = __float2bfloat16(st[r * ld_in(D) + c] * scale);
-  }
-}
-
-template <int D>
-struct DqSmem {
-  static constexpr size_t q = 0;
-  static constexpr size_t dout = align128(q + sizeof(bf16) * 64 * ld_in(D));
-  static constexpr size_t k = align128(dout + sizeof(bf16) * 64 * ld_in(D));
-  // v follows k directly: together they stage the 64 x D f32 dQ tile.
-  static constexpr size_t v = k + sizeof(bf16) * 64 * ld_in(D);
-  static constexpr size_t s = align128(v + sizeof(bf16) * 64 * ld_in(D));
-  static constexpr size_t dp = align128(s + sizeof(float) * 64 * LDT);
-  static constexpr size_t ds = align128(dp + sizeof(float) * 64 * LDT);
-  static constexpr size_t lse = align128(ds + sizeof(bf16) * 64 * LDP);
-  static constexpr size_t di = lse + sizeof(float) * 64;
-  static constexpr size_t segq = di + sizeof(float) * 64;
-  static constexpr size_t segk = segq + sizeof(int) * 64;
-  static constexpr size_t total = segk + sizeof(int) * 64;
-};
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ seg,
-                    const float* __restrict__ lse, const bf16* __restrict__ dout,
-                    const float* __restrict__ di, bf16* __restrict__ dq,
-                    int H, int S, int causal, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  typedef DqSmem<D> L;
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sdP = reinterpret_cast<float*>(smem + L::dp);
-  bf16* sdS = reinterpret_cast<bf16*>(smem + L::ds);
-  float* sLse = reinterpret_cast<float*>(smem + L::lse);
-  float* sDi = reinterpret_cast<float*>(smem + L::di);
-  int* sSegQ = reinterpret_cast<int*>(smem + L::segq);
-  int* sSegK = reinterpret_cast<int*>(smem + L::segk);
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const size_t base = bh * (size_t)S * D;
-  const int* segb = seg != nullptr ? seg + (size_t)b * S : nullptr;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-
-  load_tile<D>(sQ, q + base, q0, S);
-  load_tile<D>(sdO, dout + base, q0, S);
-  load_rowvec(sLse, lse + bh * S, q0, S);
-  load_rowvec(sDi, di + bh * S, q0, S);
-  load_seg(sSegQ, segb, q0, S);
-
-  FragC acc[D / 16];
-  #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  const int q_last = min(q0 + BQ, S) - 1;
-  int n_kv = (S + BK - 1) / BK;
-  if (causal) n_kv = min(n_kv, q_last / BK + 1);
-
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<D>(sK, k + base, k0, S);
-    load_tile<D>(sV, v + base, k0, S);
-    load_seg(sSegK, segb, k0, S);
-    __syncthreads();
-
-    strip_abT<D>(sS + r0 * LDT, sQ + r0 * ld_in(D), ld_in(D), sK, ld_in(D));
-    strip_abT<D>(sdP + r0 * LDT, sdO + r0 * ld_in(D), ld_in(D), sV, ld_in(D));
-    __syncwarp();
-    for (int i = lane; i < 16 * BK; i += 32) {
-      const int r = r0 + i / BK, c = i % BK, qi = q0 + r;
-      float p = 0.f;
-      if (qi < S)
-        p = __expf(sS[r * LDT + c] * scale +
-                   mask_add(qi, k0 + c, S, sSegQ[r], sSegK[c], causal) - sLse[r]);
-      sdS[r * LDP + c] = __float2bfloat16(p * (sdP[r * LDT + c] - sDi[r]));
-    }
-    __syncwarp();
-    strip_pm<D>(acc, sdS + r0 * LDP, sK);
-  }
-
-  __syncthreads();  // K/V no longer read: reuse them as the f32 staging tile
-  float* stage = reinterpret_cast<float*>(smem + L::k);
-  #pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(stage + r0 * ld_in(D) + n * 16, acc[n], ld_in(D), wmma::mem_row_major);
-  __syncthreads();
-  store_tile<D>(dq + base, stage, q0, S, scale);
-}
-
-
 // ================================================================= Hopper
-// Building blocks of the forward and dK/dV kernels (PTX for sm_90a).
+// Building blocks of the three kernels (PTX for sm_90a).
 
 constexpr int CONSUMER_WARPS = 8;                  // two warpgroups
 constexpr int CONSUMERS = CONSUMER_WARPS * 32;
@@ -549,6 +356,85 @@ __device__ __forceinline__ int copy_segments(int* dst, const int* seg, int row0,
   return lo == hi ? lo : (-2147483647 - 1);
 }
 
+// A block's barriers, from `bars`: one for its resident tiles, then the
+// ring's full[STAGES] (one arrival, the producer's) and empty[STAGES] (one
+// arrival a consumer thread).
+template <int STAGES>
+__device__ __forceinline__ void init_barriers(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&bars[1 + s], 1);
+      mbar_init(&bars[1 + STAGES + s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer warp of the kernels that stream keys (forward, dQ; config C):
+// per ring stage, the keys' segment ids and their uniform flag, then K and V
+// by TMA onto the stage's full barrier.
+template <typename C>
+__device__ __forceinline__ void produce_kv(unsigned char* smem, const CUtensorMap* tm_k,
+                                           const CUtensorMap* tm_v, uint64_t* full,
+                                           uint64_t* empty, const int* segb, int n_kv, int S,
+                                           int bh, int lane) {
+  int* sSegK = reinterpret_cast<int*>(smem + C::segk);
+  int* sUni = reinterpret_cast<int*>(smem + C::uni);
+  for (int t = 0; t < n_kv; ++t) {
+    const int s = t % C::STAGES, k0 = t * C::BN;
+    if (t >= C::STAGES) mbar_wait(&empty[s], ((t / C::STAGES) & 1) ^ 1);
+    const int uni = copy_segments(sSegK + s * C::BN, segb, k0, C::BN, S, lane);
+    if (lane == 0) sUni[s] = uni;
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
+      unsigned char* sK = smem + C::kv + s * 2 * C::KV_BYTES;
+      for (int c = 0; c < C::NCOL; ++c) {
+        tma_load(sK + c * C::BN * 128, tm_k, &full[s], PANEL * c, k0, bh);
+        tma_load(sK + C::KV_BYTES + c * C::BN * 128, tm_v, &full[s], PANEL * c, k0, bh);
+      }
+    }
+  }
+}
+
+// Scale a warpgroup's 64 x BN score tile to the log2 domain and mask it in
+// place. This thread holds query rows qa and qb = qa + 8 (segments sqa, sqb)
+// and keys k0 + 8j + 2t + {0, 1}; `sk` holds the stage's key segments, `uni`
+// the one they all share (INT_MIN if mixed). A key past S gets -inf; one of
+// another segment or (causal) after the row's query gets MASK_VALUE. The
+// mask is skipped when every key shares both rows' segment, lies before S
+// and (causal) at or before both rows' queries.
+template <int BN>
+__device__ __forceinline__ void scale_and_mask(float (&sc)[BN / 2], float scale_log2,
+                                               const int* sk, int uni, int k0, int S, int qa,
+                                               int qb, int sqa, int sqb, int causal, int t4) {
+  const bool need_mask =
+      uni != sqa || uni != sqb || k0 + BN > S || (causal && k0 + BN - 1 > qa);
+  if (need_mask) {
+    #pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      const int2 skv = *reinterpret_cast<const int2*>(sk + col);
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + col + (e & 1);
+        const int segk_j = (e & 1) ? skv.y : skv.x;
+        const bool row_b = e >= 2;
+        float x = sc[4 * j + e] * scale_log2;
+        if (kj >= S) x = -INFINITY;
+        else if (segk_j != (row_b ? sqb : sqa) || (causal && kj > (row_b ? qb : qa)))
+          x = MASK_VALUE;
+        sc[4 * j + e] = x;
+      }
+    }
+  } else {
+    #pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] *= scale_log2;
+  }
+}
+
 // ----------------------------------------------------------------- forward
 
 template <int D>
@@ -590,15 +476,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   int n_kv = (S + C::BN - 1) / C::BN;
   if (causal) n_kv = min(n_kv, (min(q0 + C::BM, S) - 1) / C::BN + 1);
 
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_barriers<C::STAGES>(q_full);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp >= CONSUMER_WARPS) {
@@ -611,21 +489,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       for (int c = 0; c < C::NCOL; ++c)
         tma_load(smem + C::q + c * C::BM * 128, &tm_q, q_full, PANEL * c, q0, bh);
     }
-    for (int t = 0; t < n_kv; ++t) {
-      const int s = t % C::STAGES, k0 = t * C::BN;
-      if (t >= C::STAGES) mbar_wait(&empty[s], ((t / C::STAGES) & 1) ^ 1);
-      const int uni = copy_segments(sSegK + s * C::BN, segb, k0, C::BN, S, lane);
-      if (lane == 0) sUni[s] = uni;
-      __syncwarp();
-      if (lane == 0) {
-        mbar_arrive_expect_tx(&full[s], 2 * C::KV_BYTES);
-        unsigned char* sK = smem + C::kv + s * 2 * C::KV_BYTES;
-        for (int c = 0; c < C::NCOL; ++c) {
-          tma_load(sK + c * C::BN * 128, &tm_k, &full[s], PANEL * c, k0, bh);
-          tma_load(sK + C::KV_BYTES + c * C::BN * 128, &tm_v, &full[s], PANEL * c, k0, bh);
-        }
-      }
-    }
+    produce_kv<C>(smem, &tm_k, &tm_v, full, empty, segb, n_kv, S, bh, lane);
     return;
   }
 
@@ -664,32 +528,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     wgmma_commit_and_wait();
     reg_fence(sc);
 
-    // Scale and mask in registers.
-    const int uni = sUni[s];
-    const bool need_mask = uni != sqa || uni != sqb || k0 + C::BN > S ||
-                           (causal && k0 + C::BN - 1 > qa);
-    if (need_mask) {
-      const int* sk = sSegK + s * C::BN;
-      #pragma unroll
-      for (int j = 0; j < C::BN / 8; ++j) {
-        const int col = 8 * j + 2 * t4;
-        const int2 skv = *reinterpret_cast<const int2*>(sk + col);
-        #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kj = k0 + col + (e & 1);
-          const int segk_j = (e & 1) ? skv.y : skv.x;
-          const bool row_b = e >= 2;
-          float x = sc[4 * j + e] * scale_log2;
-          if (kj >= S) x = -INFINITY;
-          else if (segk_j != (row_b ? sqb : sqa) || (causal && kj > (row_b ? qb : qa)))
-            x = MASK_VALUE;
-          sc[4 * j + e] = x;
-        }
-      }
-    } else {
-      #pragma unroll
-      for (int i = 0; i < C::BN / 2; ++i) sc[i] *= scale_log2;
-    }
+    scale_and_mask<C::BN>(sc, scale_log2, sSegK + s * C::BN, sUni[s], k0, S, qa, qb, sqa,
+                          sqb, causal, t4);
 
     // Online softmax: the row max over the quad, then P = exp2(S - m).
     float mx_a = m_a, mx_b = m_b;
@@ -760,6 +600,153 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
 }
 
+// ----------------------------------------------------------------- dQ
+
+template <int D>
+struct DqCfg {
+  static constexpr int BM = 128;                  // query rows per block
+  static constexpr int BN = D == 64 ? 128 : 64;   // keys per ring stage
+  static constexpr int STAGES = 3;
+  static constexpr int NCOL = D / PANEL;
+  static constexpr uint32_t Q_BYTES = NCOL * BM * 128;   // one of Q, dO
+  static constexpr uint32_t KV_BYTES = NCOL * BN * 128;  // one of K, V
+  // Byte offsets from the 1024-aligned base: Q, dO, then the ring as in
+  // FwdCfg (stage s holds K at kv + 2 s KV_BYTES and V right after it).
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t dout = q + Q_BYTES;
+  static constexpr uint32_t kv = dout + Q_BYTES;
+  static constexpr uint32_t segk = kv + STAGES * 2 * KV_BYTES;   // [STAGES][BN] int
+  static constexpr uint32_t uni = segk + STAGES * BN * 4;        // [STAGES] int
+  static constexpr uint32_t bars = (uni + STAGES * 4 + 7) & ~7u;  // q_full, full[], empty[]
+  static constexpr size_t smem = bars + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(HOPPER_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_dq,
+                    const int* __restrict__ seg, const float* __restrict__ lse,
+                    const float* __restrict__ di, int H, int S, int causal, float scale) {
+  typedef DqCfg<D> C;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const int* sSegK = reinterpret_cast<const int*>(smem + C::segk);
+  const int* sUni = reinterpret_cast<const int*>(smem + C::uni);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::bars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int q0 = blockIdx.x * C::BM, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const int* segb = seg != nullptr ? seg + (size_t)b * S : nullptr;
+  int n_kv = (S + C::BN - 1) / C::BN;
+  if (causal) n_kv = min(n_kv, (min(q0 + C::BM, S) - 1) / C::BN + 1);
+
+  init_barriers<C::STAGES>(q_full);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= CONSUMER_WARPS) {
+    // Producer warpgroup: its first warp loads Q and dO once, then K, V and
+    // the keys' segment ids per stage; the other three only give up registers.
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp != CONSUMER_WARPS) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * C::Q_BYTES);
+      for (int c = 0; c < C::NCOL; ++c) {
+        tma_load(smem + C::q + c * C::BM * 128, &tm_q, q_full, PANEL * c, q0, bh);
+        tma_load(smem + C::dout + c * C::BM * 128, &tm_do, q_full, PANEL * c, q0, bh);
+      }
+    }
+    produce_kv<C>(smem, &tm_k, &tm_v, full, empty, segb, n_kv, S, bh, lane);
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  // Consumers: warpgroup wg owns query rows [64 wg, 64 wg + 64) of the block;
+  // this thread holds rows ra and ra + 8 of them, key columns 8j + 2t + {0, 1}.
+  // Its rows' lse (times log2 e), di and segment ids stay in registers; a
+  // row past S gets lse = +inf, so its P and dS are exactly 0.
+  const int wg = warp / 4, t4 = lane % 4;
+  const int ra = 16 * (warp % 4) + lane / 4;
+  const int qa = q0 + 64 * wg + ra, qb = qa + 8;
+  const int sqa = (segb != nullptr && qa < S) ? segb[qa] : 0;
+  const int sqb = (segb != nullptr && qb < S) ? segb[qb] : 0;
+  const float* lse_bh = lse + (size_t)bh * S;
+  const float* di_bh = di + (size_t)bh * S;
+  const float lse_a = qa < S ? lse_bh[qa] * LOG2E : INFINITY;
+  const float lse_b = qb < S ? lse_bh[qb] * LOG2E : INFINITY;
+  const float di_a = qa < S ? di_bh[qa] : 0.f;
+  const float di_b = qb < S ? di_bh[qb] : 0.f;
+  const float scale_log2 = scale * LOG2E;
+  unsigned char* sQ = smem + C::q + 64 * wg * 128;  // this warpgroup's rows, panel 0
+  unsigned char* sdO = smem + C::dout + 64 * wg * 128;
+
+  float dq[D / 2];
+  #pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_kv; ++t) {
+    const int s = t % C::STAGES, k0 = t * C::BN;
+    mbar_wait(&full[s], (t / C::STAGES) & 1);
+    unsigned char* sK = smem + C::kv + s * 2 * C::KV_BYTES;
+    unsigned char* sV = sK + C::KV_BYTES;
+
+    // S = Q K^T and dP = dO V^T over D in 16-wide slices.
+    float sc[C::BN / 2], dp[C::BN / 2];
+    wgmma_fence();
+    #pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss(sc, sw128_desc(sQ + c * C::BM * 128 + off, 16),
+               sw128_desc(sK + c * C::BN * 128 + off, 16), kk > 0);
+    }
+    #pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss(dp, sw128_desc(sdO + c * C::BM * 128 + off, 16),
+               sw128_desc(sV + c * C::BN * 128 + off, 16), kk > 0);
+    }
+    wgmma_commit_and_wait();
+    reg_fence(sc);
+    reg_fence(dp);
+
+    // P = exp2(S scale log2 e + mask - lse log2 e), dS = P (dP - di).
+    scale_and_mask<C::BN>(sc, scale_log2, sSegK + s * C::BN, sUni[s], k0, S, qa, qb, sqa,
+                          sqb, causal, t4);
+    #pragma unroll
+    for (int i = 0; i < C::BN / 2; ++i) {
+      const bool row_b = i % 4 >= 2;
+      dp[i] = exp2_approx(sc[i] - (row_b ? lse_b : lse_a)) * (dp[i] - (row_b ? di_b : di_a));
+    }
+
+    // dQ += dS K: dS from registers, K MN-major from the stage, 16 keys a step.
+    uint32_t dsa[C::BN / 16][4];
+    acc_to_a<C::BN>(dp, dsa);
+    wgmma_fence();
+    #pragma unroll
+    for (int kk = 0; kk < C::BN / 16; ++kk)
+      wgmma_rs(dq, dsa[kk], sw128_desc(sK + kk * 16 * 128, C::BN * 128));
+    wgmma_commit_and_wait();
+    reg_fence(dq);
+    mbar_arrive(&empty[s]);
+  }
+
+  // Epilogue: stage dQ (times the scale) in this warpgroup's (no longer read)
+  // rows of the Q tile and store it by TMA.
+  acc_to_smem<D>(sQ, C::BM * 128, dq, scale, scale, ra, t4);
+  fence_proxy_async();
+  warpgroup_sync(wg);
+  if (threadIdx.x % 128 == 0 && q0 + 64 * wg < S) {
+    for (int c = 0; c < C::NCOL; ++c)
+      tma_store(&tm_dq, sQ + c * C::BM * 128, PANEL * c, q0 + 64 * wg, bh);
+    tma_store_wait();
+  }
+}
+
 // ----------------------------------------------------------------- dK, dV
 
 template <int D>
@@ -808,15 +795,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int qt0 = causal ? k0 / C::BM : 0;
   const int n_q = (S + C::BM - 1) / C::BM - qt0;
 
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_barriers<C::STAGES>(kv_full);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp >= CONSUMER_WARPS) {
@@ -1034,12 +1013,19 @@ template <int D>
 int bwd_dq(const void* q, const void* k, const void* v, const int* seg, const float* lse,
            const void* dout, const float* di, void* dq, int B, int H, int S, int causal,
            float scale, cudaStream_t stream) {
-  cudaError_t e = prepare(flash_bwd_dq_kernel<D>, DqSmem<D>::total);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, DqSmem<D>::total, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, seg, lse, (const bf16*)dout, di,
-      (bf16*)dq, H, S, causal, scale);
+  typedef DqCfg<D> C;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  int e;
+  if ((e = make_map(&tq, q, B * H, S, D, C::BM)) != 0) return e;
+  if ((e = make_map(&tk, k, B * H, S, D, C::BN)) != 0) return e;
+  if ((e = make_map(&tv, v, B * H, S, D, C::BN)) != 0) return e;
+  if ((e = make_map(&tdo, dout, B * H, S, D, C::BM)) != 0) return e;
+  if ((e = make_map(&tdq, dq, B * H, S, D, 64)) != 0) return e;
+  cudaError_t ce = prepare(flash_bwd_dq_kernel<D>, C::smem);
+  if (ce != cudaSuccess) return (int)ce;
+  dim3 grid((S + C::BM - 1) / C::BM, H, B);
+  flash_bwd_dq_kernel<D><<<grid, HOPPER_THREADS, C::smem, stream>>>(
+      tq, tk, tv, tdo, tdq, seg, lse, di, H, S, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1117,7 +1103,7 @@ int ldt_flash_smem_bytes(int kernel, int D) {
   if (D != 64 && D != 128) return -1;
   switch (kernel) {
     case 0: return (int)(D == 64 ? FwdCfg<64>::smem : FwdCfg<128>::smem);
-    case 1: return (int)(D == 64 ? DqSmem<64>::total : DqSmem<128>::total);
+    case 1: return (int)(D == 64 ? DqCfg<64>::smem : DqCfg<128>::smem);
     case 2: return (int)(D == 64 ? DkvCfg<64>::smem : DkvCfg<128>::smem);
     default: return -1;
   }

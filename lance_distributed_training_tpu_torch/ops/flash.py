@@ -3,8 +3,8 @@
 Counterpart of ``lance_distributed_training_tpu/ops/flash.py``, which calls
 the Pallas TPU kernel ``jax.experimental.pallas.ops.tpu.flash_attention``.
 Here the forward, dQ and dK/dV passes are CUDA kernels written for sm_90a
-(``csrc/flash_attn.cu``; the forward and dK/dV through wgmma and a TMA
-ring, dQ through WMMA) with the Pallas kernel's semantics:
+(``csrc/flash_attn.cu``; all three through wgmma, a TMA ring and a
+producer warpgroup) with the Pallas kernel's semantics:
 
 * a query attends a key iff their segment ids are equal (and, when causal,
   the key does not come after the query); a key-validity mask ``[B,1,1,S]``
@@ -45,10 +45,10 @@ __all__ = [
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # (query rows, key rows) of one tile of each kernel, by head dim, fixed when
-# csrc/flash_attn.cu is compiled (FwdCfg, DkvCfg and the dQ kernel's BQ/BK).
+# csrc/flash_attn.cu is compiled (FwdCfg, DqCfg and DkvCfg).
 TILES = {
     "fwd": {64: (128, 128), 128: (128, 64)},
-    "bwd_dq": {64: (64, 64), 128: (64, 64)},
+    "bwd_dq": {64: (128, 128), 128: (128, 64)},
     "bwd_dkv": {64: (64, 128), 128: (64, 128)},
 }
 HEAD_DIMS = (64, 128)
@@ -134,22 +134,25 @@ def flash_attention_bwd_dkv_reference(q, k, v, segment_ids, lse, do, di,
 # ------------------------------------------------------------ kernels
 
 
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``flash_attn.cu``."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ldt_flash_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [f32, ptr]
+    lib.ldt_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 5 + [f32, ptr]
+    lib.ldt_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ptr]
+    for fn in (lib.ldt_flash_fwd, lib.ldt_flash_bwd_dq, lib.ldt_flash_bwd_dkv):
+        fn.restype = ctypes.c_int
+    lib.ldt_flash_error_string.argtypes = [ctypes.c_int]
+    lib.ldt_flash_error_string.restype = ctypes.c_char_p
+    lib.ldt_flash_smem_bytes.argtypes = [i32, i32]
+    lib.ldt_flash_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = _build.load_library(_SOURCE)
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ldt_flash_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [f32, ptr]
-        lib.ldt_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 5 + [f32, ptr]
-        lib.ldt_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ptr]
-        for fn in (lib.ldt_flash_fwd, lib.ldt_flash_bwd_dq,
-                   lib.ldt_flash_bwd_dkv):
-            fn.restype = ctypes.c_int
-        lib.ldt_flash_error_string.argtypes = [ctypes.c_int]
-        lib.ldt_flash_error_string.restype = ctypes.c_char_p
-        lib.ldt_flash_smem_bytes.argtypes = [i32, i32]
-        lib.ldt_flash_smem_bytes.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind_library(_build.load_library(_SOURCE))
     return _lib
 
 

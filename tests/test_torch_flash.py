@@ -201,9 +201,9 @@ def _source_tiles(d):
     def struct(name):
         return re.search(rf"struct {name} {{(.*?)\n}};", src, re.S).group(1)
 
-    fwd, dkv = struct("FwdCfg"), struct("DkvCfg")
+    fwd, dq, dkv = struct("FwdCfg"), struct("DqCfg"), struct("DkvCfg")
     return {"fwd": (const("BM", fwd), const("BN", fwd)),
-            "bwd_dq": (const("BQ"), const("BK")),
+            "bwd_dq": (const("BM", dq), const("BN", dq)),
             "bwd_dkv": (const("BM", dkv), const("BN", dkv))}
 
 
@@ -277,6 +277,21 @@ def test_kernels_match_plain_on_card(cuda_device, d, s, name, seg, causal):
     # S = 48 lies below one tile; 130, 200 and 300 are not multiples of the
     # 64- and 128-row tiles, so the ragged edge is hit.
     q, k, v, do, seg = _card_inputs(cuda_device, (2, 3, s, d), 4, seg)
+    _check_kernels_against_plain(q, k, v, do, seg, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [40, 190])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("name,seg,causal", CASES, ids=[c[0] for c in CASES])
+def test_kernels_match_plain_with_a_warpgroup_past_s_on_card(cuda_device, d, s,
+                                                             name, seg,
+                                                             causal):
+    # The last 128-row query block of the forward and dQ ends past S, and its
+    # second warpgroup (block rows 64-127) lies wholly past S: those rows get
+    # lse = +inf in dQ and their TMA store is skipped.
+    assert s % 128 and s % 128 <= 64
+    q, k, v, do, seg = _card_inputs(cuda_device, (2, 3, s, d), 9, seg)
     _check_kernels_against_plain(q, k, v, do, seg, causal)
 
 
