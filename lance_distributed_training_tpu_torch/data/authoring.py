@@ -1,19 +1,27 @@
-"""Dataset authoring — tokenised text → fixed-length token rows.
+"""Dataset authoring — tokenised text rows and synthetic image rows.
 
-Counterpart of ``create_text_token_dataset`` in
+Counterpart of ``create_text_token_dataset`` and
+``create_synthetic_classification_dataset`` in
 ``lance_distributed_training_tpu/data/authoring.py``; the rows and the
-schema are the same, so either package trains on the other's datasets.
+schemas are the same (the same seed gives the same JPEG bytes and labels),
+so either package trains on the other's datasets.
 """
 
 from __future__ import annotations
 
+import io
 from typing import Iterator, Sequence
 
+import numpy as np
 import pyarrow as pa
 
 from .format import Dataset, write_dataset
 
-__all__ = ["create_text_token_dataset"]
+__all__ = ["IMAGE_SCHEMA", "create_synthetic_classification_dataset",
+           "create_text_token_dataset"]
+
+# The image-classification schema: JPEG bytes and an integer label.
+IMAGE_SCHEMA = pa.schema([("image", pa.binary()), ("label", pa.int64())])
 
 _ROWS_PER_BATCH = 4096
 
@@ -77,5 +85,46 @@ def create_text_token_dataset(
 
     return write_dataset(
         gen(), output_path, schema=schema, mode="overwrite",
+        max_rows_per_file=fragment_size,
+    )
+
+
+def create_synthetic_classification_dataset(
+    output_path: str,
+    rows: int,
+    num_classes: int = 101,
+    image_size: int = 224,
+    fragment_size: int = 12500,
+    unique_images: int = 64,
+    seed: int = 0,
+    jpeg_quality: int = 85,
+) -> Dataset:
+    """FOOD101-shaped synthetic dataset: ``unique_images`` seeded uniform
+    noise images encoded as JPEG, repeated over ``rows`` rows with seeded
+    labels in ``[0, num_classes)``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    pool = []
+    for _ in range(min(unique_images, rows)):
+        arr = (rng.random((image_size, image_size, 3)) * 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="JPEG", quality=jpeg_quality)
+        pool.append(buf.getvalue())
+
+    def gen() -> Iterator[pa.RecordBatch]:
+        done = 0
+        while done < rows:
+            n = min(_ROWS_PER_BATCH, rows - done)
+            images = [pool[(done + i) % len(pool)] for i in range(n)]
+            labels = rng.integers(0, num_classes, n)
+            yield pa.record_batch(
+                [pa.array(images, pa.binary()), pa.array(labels, pa.int64())],
+                schema=IMAGE_SCHEMA,
+            )
+            done += n
+
+    return write_dataset(
+        gen(), output_path, schema=IMAGE_SCHEMA, mode="overwrite",
         max_rows_per_file=fragment_size,
     )

@@ -7,7 +7,8 @@ process_count, shuffle, seed, epoch)`` it yields the same batches in the
 same order. One daemon thread reads and decodes the plan into a bounded
 queue; the consumer copies each batch into pinned staging buffers and on to
 the device with ``non_blocking`` copies on the current stream. No worker
-pool, cache or autotuner yet.
+pool, cache or autotuner yet. :func:`make_eval_pipeline` is the
+full-coverage eval loader on the same thread and staging.
 """
 
 from __future__ import annotations
@@ -21,9 +22,15 @@ import pyarrow as pa
 import torch
 
 from .format import Dataset
-from .samplers import ReadRange, assert_equal_step_counts, make_plan
+from .samplers import (
+    ReadRange,
+    assert_equal_step_counts,
+    make_plan,
+    padded_eval_index_batches,
+)
 
-__all__ = ["TrainLoader", "PinnedStager", "make_train_pipeline"]
+__all__ = ["EvalLoader", "TrainLoader", "PinnedStager", "make_eval_pipeline",
+           "make_train_pipeline"]
 
 _JOIN_TIMEOUT_S = 10.0
 
@@ -147,6 +154,46 @@ class TrainLoader:
                     pass
                 producer.join(timeout=0.05)
             producer.join(timeout=_JOIN_TIMEOUT_S)
+
+
+class EvalLoader(TrainLoader):
+    """Iterate the eval plan's device batches: each plan item is
+    ``(indices, weights)``, read through ``read_fn`` and decoded, with the
+    weights riding the batch as ``_weight``."""
+
+    def __init__(self, read_fn: Callable[[np.ndarray], pa.Table],
+                 plan: Sequence, decode_fn: Callable[[pa.Table], dict],
+                 device: torch.device, prefetch: int = 2):
+        super().__init__(None, plan, decode_fn, device, prefetch)
+        self.read_fn = read_fn
+
+    def host_batches(self) -> Iterator[dict]:
+        for idx, weights in self.plan:
+            out = dict(self.decode_fn(self.read_fn(idx)))
+            out["_weight"] = weights
+            yield out
+
+
+def make_eval_pipeline(
+    read_fn: Callable[[np.ndarray], pa.Table],
+    num_rows: int,
+    global_batch: int,
+    process_index: int,
+    process_count: int,
+    decode_fn: Callable,
+    device: torch.device,
+    prefetch: int = 2,
+) -> EvalLoader:
+    """Full-coverage eval loader: every row exactly once, one batch shape.
+
+    The tail is padded back to a full global batch by wrap-around rows and
+    each batch carries ``_weight`` in {0, 1}^[B] marking the pads, which
+    the weighted eval step uses. ``read_fn`` maps an index array to an
+    Arrow table (``Dataset.take``). Batches, order and weights are the JAX
+    package's ``make_eval_pipeline``'s."""
+    plan = padded_eval_index_batches(num_rows, global_batch, process_index,
+                                     process_count)
+    return EvalLoader(read_fn, plan, decode_fn, device, prefetch=prefetch)
 
 
 def make_train_pipeline(

@@ -21,6 +21,7 @@ __all__ = [
     "sharded_fragment_plan",
     "assert_equal_step_counts",
     "make_plan",
+    "padded_eval_index_batches",
 ]
 
 
@@ -142,6 +143,35 @@ def sharded_fragment_plan(fragment_rows: Sequence[int], batch_size: int,
             cursor = (cursor + span) % my_rows
         plan.append(ranges)
     return plan
+
+
+def padded_eval_index_batches(num_rows: int, global_batch: int,
+                              process_index: int, process_count: int
+                              ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Full-coverage eval plan: every row exactly once at one batch shape.
+
+    The tail batch is padded back to ``global_batch`` by wrap-around rows
+    carried with weight 0.0, so a weighted metric counts each row once.
+    Returns this process's ``(indices, weights)`` per step: its
+    ``global_batch // process_count`` slice of each global batch."""
+    _check_topology(process_index, process_count)
+    per_process, rem = divmod(global_batch, process_count)
+    if rem:
+        raise ValueError(
+            f"global batch {global_batch} not divisible by "
+            f"{process_count} processes"
+        )
+    if num_rows <= 0:
+        return []
+    n_batches = -(-num_rows // global_batch)
+    padded = n_batches * global_batch
+    pos = np.arange(padded) % num_rows
+    weights = (np.arange(padded) < num_rows).astype(np.float32)
+    out = []
+    for b in range(n_batches):
+        lo = b * global_batch + process_index * per_process
+        out.append((pos[lo:lo + per_process], weights[lo:lo + per_process]))
+    return out
 
 
 def make_plan(sampler_type: str, fragment_rows: Sequence[int],

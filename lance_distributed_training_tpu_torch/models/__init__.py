@@ -1,9 +1,18 @@
 """Models and tasks."""
 
-from .convert import load_flax_params, torch_state_dict_from_flax
-from .tasks import Task, get_task, masked_lm_task
+from .convert import (
+    load_flax_params,
+    load_flax_resnet,
+    resnet_state_dict_from_flax,
+    torch_state_dict_from_flax,
+)
+from .registry import get_model_and_loss
+from .resnet import ResNet, resnet18, resnet34, resnet50, resnet101, resnet152
+from .tasks import Task, classification_task, get_task, masked_lm_task
 from .transformer import TransformerEncoder, bert_base, bert_small
 
-__all__ = ["Task", "TransformerEncoder", "bert_base", "bert_small",
-           "get_task", "load_flax_params", "masked_lm_task",
-           "torch_state_dict_from_flax"]
+__all__ = ["ResNet", "Task", "TransformerEncoder", "bert_base", "bert_small",
+           "classification_task", "get_model_and_loss", "get_task",
+           "load_flax_params", "load_flax_resnet", "masked_lm_task",
+           "resnet101", "resnet152", "resnet18", "resnet34", "resnet50",
+           "resnet_state_dict_from_flax", "torch_state_dict_from_flax"]

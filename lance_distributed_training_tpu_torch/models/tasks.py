@@ -1,10 +1,11 @@
 """Task abstraction: model + forward + loss + metric as one unit.
 
 Counterpart of ``lance_distributed_training_tpu/models/tasks.py``, ported for
-``masked_lm``. The JAX task draws its MLM mask with ``jax.random``; here
-``forward`` takes an explicit ``mlm_mask`` or draws one from a
+``classification`` and ``masked_lm``. The JAX tasks draw their random masks
+(the MLM mask, the per-image flip) with ``jax.random``; here ``forward``
+takes the draw explicitly (``mlm_mask``, ``flip_mask``) or makes it from a
 ``torch.Generator`` (the two generators give different bits, so parity
-tests pass the mask in).
+tests pass the draw in).
 """
 
 from __future__ import annotations
@@ -15,21 +16,73 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.image import normalize_flip
+from .resnet import RESNETS
 from .transformer import bert_base, bert_small
 
-__all__ = ["Task", "get_task", "masked_lm_task", "TASK_REGISTRY"]
+__all__ = ["Task", "get_task", "classification_task", "masked_lm_task",
+           "TASK_REGISTRY"]
 
-TASK_REGISTRY = ("masked_lm",)
+TASK_REGISTRY = ("classification", "masked_lm")
 
 
 @dataclasses.dataclass(frozen=True)
 class Task:
     name: str
     model: Any  # torch.nn.Module
-    forward: Callable  # (batch, train, generator=None, mlm_mask=None) -> outputs
+    forward: Callable  # (batch, train, generator=None, <task's mask>=None) -> outputs
     loss: Callable  # (outputs, batch) -> scalar tensor
     metric: Callable  # (outputs, batch) -> per-example tensor
     metric_name: str = "accuracy"
+    # (module) -> the same task running ``module``, e.g. a DDP wrapper
+    with_model: Optional[Callable] = None
+
+
+def classification_task(model, augment: bool = True) -> Task:
+    """Image classification over ``{image: u8 [B, H, W, 3], label}``
+    batches: K1 normalises (and in training flips) the images on the
+    device, the model (a ResNet) maps them to f32 logits. ``forward`` puts
+    the model in training or eval mode to match ``train``; ``flip_mask``
+    (``[B]``) is the per-image flip draw, made from ``generator`` with
+    p = 0.5 when not given."""
+
+    def forward(batch, train: bool, generator: Optional[torch.Generator] = None,
+                flip_mask: Optional[torch.Tensor] = None):
+        images = batch["image"]
+        if not (train and augment):
+            flip_mask = None
+        elif flip_mask is None and generator is not None:
+            flip_mask = torch.rand(images.shape[0], generator=generator,
+                                   device=images.device) < 0.5
+        if flip_mask is not None:
+            flip_mask = flip_mask.to(images.device)
+        x = normalize_flip(images, flip_mask)  # NHWC bf16
+        model.train(train)
+        return model(x.permute(0, 3, 1, 2))  # channels_last NCHW view
+
+    def loss(logits, batch):
+        return F.cross_entropy(logits.float(), batch["label"].long())
+
+    def metric(logits, batch):
+        return (logits.argmax(-1) == batch["label"].long()).float()
+
+    return Task("classification", model, forward, loss, metric,
+                with_model=lambda module: classification_task(module, augment))
+
+
+def _classification_task(num_classes: int, model_name: str, augment: bool,
+                         device=None,
+                         generator: Optional[torch.Generator] = None,
+                         **model_kwargs) -> Task:
+    """A ResNet classification task; the model is built on ``device`` and
+    initialised from ``generator``."""
+    ctor = RESNETS.get(model_name)
+    if ctor is None:
+        raise ValueError(f"Invalid model name: {model_name} "
+                         f"(have {sorted(RESNETS)})")
+    model = ctor(num_classes=num_classes, device=device, generator=generator,
+                 **model_kwargs)
+    return classification_task(model, augment)
 
 
 MASK_PROB = 0.15  # share of valid positions masked per training step
@@ -74,7 +127,7 @@ def masked_lm_task(model) -> Task:
         return (hit * w).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
 
     return Task("masked_lm", model, forward, loss, metric,
-                metric_name="masked_token_accuracy")
+                metric_name="masked_token_accuracy", with_model=masked_lm_task)
 
 
 def _masked_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
@@ -91,14 +144,20 @@ def _masked_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
     return masked_lm_task(model)
 
 
-def get_task(task_type: str, *, model_name: Optional[str] = None,
+def get_task(task_type: str, *, num_classes: int = 101,
+             model_name: Optional[str] = None, image_size: int = 224,
              seq_len: int = 128, vocab_size: Optional[int] = None,
-             attention_fn: Optional[Callable] = None, device=None,
-             generator: Optional[torch.Generator] = None) -> Task:
-    """The task for ``task_type``; only ``masked_lm`` is ported."""
+             augment: bool = True, attention_fn: Optional[Callable] = None,
+             device=None, generator: Optional[torch.Generator] = None) -> Task:
+    """The task for ``task_type``: ``classification`` (a ResNet, default
+    ``resnet50``) or ``masked_lm`` (default ``bert_base``). ``image_size``
+    is the JAX signature's; the ResNets take any size."""
+    if task_type == "classification":
+        return _classification_task(num_classes, model_name or "resnet50",
+                                    augment, device, generator)
     if task_type == "masked_lm":
         return _masked_lm_task(vocab_size, model_name or "bert_base", seq_len,
                                attention_fn, device, generator)
-    if task_type in ("classification", "causal_lm", "contrastive"):
+    if task_type in ("causal_lm", "contrastive"):
         raise NotImplementedError(f"task_type {task_type!r} is not yet ported")
     raise ValueError(f"Invalid task type: {task_type}")

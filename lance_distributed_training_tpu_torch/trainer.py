@@ -1,11 +1,18 @@
 """The trainer: one ``train()`` over a pluggable input pipeline and task.
 
-Counterpart of ``lance_distributed_training_tpu/trainer.py`` for the text
-path on a single device: ``TrainConfig`` (its masked-LM subset plus
-``device``), the learning-rate schedules, the optimizers (SGD with momentum,
-AdamW, global-norm clipping), the train step and the loop. The loss stays
-on the device: per-step losses are fetched only at log points and at the
-end, never with a per-step ``.item()``.
+Counterpart of ``lance_distributed_training_tpu/trainer.py`` for image
+classification (ResNet) and masked-LM text: ``TrainConfig`` (the subset of
+the JAX flags these paths use, plus ``device``), the learning-rate
+schedules, the optimizers (SGD with momentum, AdamW, global-norm clipping),
+the train step, the weighted eval (``make_eval_step``, ``evaluate``) and the
+loop. The loss stays on the device: per-step losses are fetched only at log
+points and at the end, never with a per-step ``.item()``.
+
+Data parallelism: with ``coordinator_address``/``num_processes``/
+``process_id`` each process joins a ``torch.distributed`` group, owns one
+device, reads ``batch_size / world`` rows of each global batch through the
+samplers' rank arguments, and trains a DDP replica whose BatchNorm takes
+the global batch's statistics, as the JAX step does over its sharded batch.
 
 The device is the caller's choice: ``device="cuda"`` (the default) raises
 when no card is present rather than falling back to the CPU.
@@ -15,16 +22,26 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import statistics
 import time
 from typing import Callable, Optional, Union
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from .data.decode import decoder_for_task
 from .data.format import Dataset
-from .data.pipeline import make_train_pipeline
+from .data.pipeline import make_eval_pipeline, make_train_pipeline
+from .models.resnet import set_sync_group
 from .models.tasks import Task, get_task
 from .ops.flash import make_flash_attention
+from .parallel.mesh import (
+    maybe_initialize_distributed,
+    process_topology,
+    shutdown_distributed,
+    sync_global_devices,
+)
 from .utils.metrics import MetricLogger, StepTimer
 
 __all__ = [
@@ -34,18 +51,23 @@ __all__ = [
     "lr_schedule_fn",
     "make_optimizer",
     "make_train_step",
+    "make_eval_step",
+    "evaluate",
     "clip_by_global_norm_",
 ]
+
+PORTED_TASKS = ("classification", "masked_lm")
 
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The JAX trainer's flags that the text path uses, plus ``device``."""
+    """The JAX trainer's flags that the ported paths use, plus ``device``."""
 
     dataset_path: str
     task_type: str = "classification"
+    num_classes: int = 101
     sampler_type: str = "batch"  # batch | fragment | full
-    batch_size: int = 512
+    batch_size: int = 512  # GLOBAL batch, across processes
     epochs: int = 10
     max_steps: int = 0  # >0: stop after N train steps regardless of epochs
     lr: float = 0.05
@@ -56,15 +78,23 @@ class TrainConfig:
     warmup_steps: int = 0
     total_steps: Optional[int] = None  # schedule horizon; None = derived
     grad_clip: float = 0.0  # >0: clip gradients by global norm
-    model_name: Optional[str] = None  # default per task (bert_base)
+    no_ddp: bool = False  # single process even when a coordinator is given
+    model_name: Optional[str] = None  # default per task (resnet50 / bert_base)
+    image_size: int = 224
     seq_len: int = 128
     vocab_size: Optional[int] = None  # None = the model's own default
     prefetch: int = 2
     shuffle: bool = False  # epoch batch-order reshuffle (batch sampler)
+    augment: bool = True  # per-image horizontal flip, p = 0.5 (classification)
+    eval_at_end: bool = True  # classification: process 0 evaluates every
+    # row of the train data once after training (make_eval_pipeline)
     seed: int = 0
     log_every: int = 50
     flash_attention: bool = False  # the hand-written CUDA flash kernels
     device: str = "cuda"  # cuda | cpu: where the model and the step run
+    coordinator_address: Optional[str] = None  # host:port of process 0
+    num_processes: Optional[int] = None  # world size
+    process_id: Optional[int] = None  # this process's rank
 
 
 def resolve_device(name: str) -> torch.device:
@@ -165,21 +195,27 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 def make_train_step(task: Task, optimizer: torch.optim.Optimizer,
                     lr: Union[float, Callable[[int], float], None] = None,
                     grad_clip: float = 0.0):
-    """``step(batch, generator=None, mlm_mask=None) -> loss``: forward,
-    backward, optional clipping and one optimizer update. ``lr`` is what
+    """``step(batch, generator=None, mlm_mask=None, flip_mask=None) ->
+    loss``: forward, backward, optional clipping and one optimizer update.
+    The task's random draw (masked-LM: ``mlm_mask``, classification:
+    ``flip_mask``) is given or made from ``generator``. ``lr`` is what
     :func:`make_optimizer` returned: a schedule sets each update's rate, a
     float leaves the optimizer's own. The returned loss is the pre-update
-    loss, detached and still on the device."""
+    loss, detached and still on the device. BatchNorm's running statistics
+    update in the forward."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
     updates = 0
 
-    def step(batch, generator=None, mlm_mask=None):
+    def step(batch, generator=None, mlm_mask=None, flip_mask=None):
         nonlocal updates
         if callable(lr):
             for group in optimizer.param_groups:
                 group["lr"] = lr(updates)
         optimizer.zero_grad(set_to_none=True)
-        outputs = task.forward(batch, True, generator, mlm_mask)
+        draws = {name: value for name, value in
+                 (("mlm_mask", mlm_mask), ("flip_mask", flip_mask))
+                 if value is not None}
+        outputs = task.forward(batch, True, generator, **draws)
         loss = task.loss(outputs, batch)
         loss.backward()
         if grad_clip > 0:
@@ -191,12 +227,49 @@ def make_train_step(task: Task, optimizer: torch.optim.Optimizer,
     return step
 
 
+def make_eval_step(task: Task):
+    """``step(batch) -> (metric_sum, example_count)``, both device
+    scalars. A batch carrying ``_weight`` (the eval loader's pad mask)
+    contributes ``(metric·w).sum(), w.sum()``, so wrap-around pad rows count
+    zero; otherwise the count is the batch size."""
+
+    def step(batch):
+        batch = dict(batch)
+        w = batch.pop("_weight", None)
+        with torch.no_grad():
+            m = task.metric(task.forward(batch, False), batch).float()
+        if w is None:
+            return m.sum(), torch.tensor(float(m.shape[0]), device=m.device)
+        w = w.to(device=m.device, dtype=torch.float32)
+        return (m * w).sum(), w.sum()
+
+    return step
+
+
+def evaluate(loader, eval_step) -> tuple[float, float]:
+    """``(mean metric, weighted example count)`` over a loader. The
+    per-batch sums accumulate on the device; the only host sync is the
+    fetch at the end."""
+    num = den = None
+    for batch in loader:
+        part, count = eval_step(batch)
+        num = part if num is None else num + part
+        den = count if den is None else den + count
+    if den is None:
+        return 0.0, 0.0
+    total = float(den)
+    return (float(num) / total if total else 0.0), total
+
+
 class _StepLog:
     """Per-step losses (device scalars) and, on the card, per-step CUDA
-    event pairs; :meth:`drain` fetches them in one sync at a log point."""
+    event pairs; :meth:`drain` fetches them in one sync at a log point.
+    Across processes the drained losses are the global batch's: each
+    process's local mean, averaged over the group."""
 
-    def __init__(self, cuda: bool):
+    def __init__(self, cuda: bool, world: int = 1):
         self.cuda = cuda
+        self.world = world
         self._losses: list[torch.Tensor] = []
         self._events: list[tuple] = []
         self.losses: list[float] = []
@@ -218,7 +291,11 @@ class _StepLog:
 
     def drain(self) -> None:
         if self._losses:
-            self.losses.extend(torch.stack(self._losses).float().tolist())
+            losses = torch.stack(self._losses).float()
+            if self.world > 1:
+                dist.all_reduce(losses)
+                losses /= self.world
+            self.losses.extend(losses.tolist())
             self._losses.clear()
         for start, end in self._events:
             end.synchronize()
@@ -227,25 +304,75 @@ class _StepLog:
 
 
 def train(config: TrainConfig) -> dict:
-    """Train ``config.task_type`` on ``config.dataset_path`` on one device.
+    """Train ``config.task_type`` on ``config.dataset_path``.
 
     Returns ``{"steps", "epochs", "losses", "step_ms", "device", …}``:
-    ``losses`` holds every step's loss and, on the card, ``step_ms`` every
-    step's time between CUDA events around it."""
-    device = resolve_device(config.device)
-    if config.task_type != "masked_lm":
+    ``losses`` holds every step's loss (the global batch's) and, on the
+    card, ``step_ms`` every step's time between CUDA events around it;
+    classification adds ``images_per_sec`` (the images of the steps after
+    the first log point over their wall time, loader waits included, closed
+    by a device sync; the whole loop when there is no later step),
+    ``images_per_sec_whole_run`` (every image over the whole loop, warm-up
+    included), ``decoder_arm`` and, with ``eval_at_end``,
+    ``eval_accuracy`` and ``eval_rows``. ``model`` is the trained module."""
+    if config.task_type not in PORTED_TASKS:
         raise NotImplementedError(
-            f"task_type {config.task_type!r} is not yet ported (masked_lm only)"
+            f"task_type {config.task_type!r} is not yet ported "
+            f"(ported: {', '.join(PORTED_TASKS)})"
         )
+    device = resolve_device(config.device)
+    if not config.no_ddp:
+        maybe_initialize_distributed(config.coordinator_address,
+                                     config.num_processes, config.process_id,
+                                     device)
+    try:
+        return _train(config, device)
+    finally:
+        shutdown_distributed()
+
+
+def _train(config: TrainConfig, device: torch.device) -> dict:
+    rank, world = process_topology()
+    if config.no_ddp:
+        rank, world = 0, 1
+    if device.type == "cuda":
+        if device.index is None:
+            index = (rank % torch.cuda.device_count() if world > 1
+                     else torch.cuda.current_device())
+            device = torch.device("cuda", index)
+        torch.cuda.set_device(device)
+    per_process, rem = divmod(config.batch_size, world)
+    if rem:
+        raise ValueError(f"global batch {config.batch_size} not divisible by "
+                         f"{world} processes")
+    image = config.task_type == "classification"
     dataset = Dataset(config.dataset_path)
-    attention_fn = make_flash_attention() if config.flash_attention else None
     init_gen = torch.Generator().manual_seed(config.seed)
-    task = get_task(config.task_type, model_name=config.model_name,
-                    seq_len=config.seq_len, vocab_size=config.vocab_size,
-                    attention_fn=attention_fn, device=device,
-                    generator=init_gen)
+    if image:
+        if device.type == "cuda":
+            torch.backends.cudnn.benchmark = True  # conv autotuning, as XLA
+        task = get_task("classification", num_classes=config.num_classes,
+                        model_name=config.model_name,
+                        image_size=config.image_size, augment=config.augment,
+                        device=device, generator=init_gen)
+        decode = decoder_for_task("classification",
+                                  image_size=config.image_size)
+    else:
+        attention_fn = (make_flash_attention() if config.flash_attention
+                        else None)
+        task = get_task(config.task_type, model_name=config.model_name,
+                        seq_len=config.seq_len, vocab_size=config.vocab_size,
+                        attention_fn=attention_fn, device=device,
+                        generator=init_gen)
+        decode = decoder_for_task(config.task_type, seq_len=config.seq_len)
+    train_task = task
+    if world > 1:
+        set_sync_group(task.model, dist.group.WORLD)
+        ddp = DistributedDataParallel(
+            task.model, device_ids=[device.index] if device.type == "cuda"
+            else None, broadcast_buffers=False)
+        train_task = task.with_model(ddp)
     mask_gen = torch.Generator(device=device).manual_seed(config.seed + 1)
-    decode = decoder_for_task(config.task_type, seq_len=config.seq_len)
 
     total_steps = config.total_steps
     if total_steps is None and config.lr_schedule != "constant":
@@ -253,23 +380,27 @@ def train(config: TrainConfig) -> dict:
                        * config.epochs)
     optimizer, lr = make_optimizer(config, task.model.parameters(),
                                    total_steps)
-    step = make_train_step(task, optimizer, lr, config.grad_clip)
+    step = make_train_step(train_task, optimizer, lr, config.grad_clip)
 
-    logger = MetricLogger()
+    logger = MetricLogger(active=rank == 0)
     timer = StepTimer()
-    log = _StepLog(device.type == "cuda")
+    log = _StepLog(device.type == "cuda", world)
+    if image:
+        logger.log({"decoder_arm": decode.arm})
     global_step = 0
     stop = False
     history = []
+    lo, hi = rank * per_process, (rank + 1) * per_process
     t_start = time.perf_counter()
+    warm = None  # (steps, time) at the first log point: warm-up ends there
     try:
         for epoch in range(config.epochs):
             loader = make_train_pipeline(
-                dataset, config.sampler_type, config.batch_size, 0, 1, decode,
-                device, prefetch=config.prefetch, shuffle=config.shuffle,
-                seed=config.seed, epoch=epoch,
+                dataset, config.sampler_type, per_process, rank, world,
+                decode, device, prefetch=config.prefetch,
+                shuffle=config.shuffle, seed=config.seed, epoch=epoch,
             )
-            epoch_losses = []
+            epoch_steps = 0
             it = iter(loader)
             try:
                 while not stop:
@@ -280,22 +411,34 @@ def train(config: TrainConfig) -> dict:
                         break
                     timer.step_start()
                     start = log.start()
-                    loss = step(batch, mask_gen)
+                    if image and config.augment:
+                        # One draw over the global batch, sliced per
+                        # process: the flips do not depend on the world size.
+                        draw = torch.rand(config.batch_size, generator=mask_gen,
+                                          device=device) < 0.5
+                        loss = step(batch, flip_mask=draw[lo:hi])
+                    else:
+                        loss = step(batch, mask_gen)
                     log.stop(start, loss)
                     timer.step_stop()
-                    epoch_losses.append(loss)
+                    epoch_steps += 1
                     global_step += 1
                     if 0 < config.max_steps <= global_step:
                         stop = True
                     if config.log_every and global_step % config.log_every == 0:
                         log.drain()  # the one host sync of this window
-                        w = timer.window(config.batch_size, config.seq_len)
+                        if warm is None:
+                            warm = (global_step, time.perf_counter())
+                        w = timer.window(config.batch_size,
+                                         None if image else config.seq_len,
+                                         images=image)
+                        rate = "images_per_sec" if image else "tokens_per_sec"
                         logger.log({
                             "step": global_step,
                             "epoch": epoch,
                             "loss": round(log.losses[-1], 4),
                             "step_ms": w["step_ms"],
-                            "tokens_per_sec": w["tokens_per_sec"],
+                            rate: w[rate],
                             "loader_stall_pct": (
                                 100.0 * w["loader_s"]
                                 / (w["loader_s"] + w["step_s"])
@@ -304,17 +447,40 @@ def train(config: TrainConfig) -> dict:
                         })
             finally:
                 it.close()
-            if epoch_losses:
-                mean = float(torch.stack(epoch_losses).float().mean())
+            if epoch_steps:
+                log.drain()
+                mean = statistics.fmean(log.losses[-epoch_steps:])
                 history.append({"epoch": epoch, "train_loss": mean})
                 logger.log({"epoch": epoch, "train_loss": mean,
                             "steps": global_step})
             if stop:
                 break
         log.drain()
+        t_end = time.perf_counter()
+        train_time = t_end - t_start
+        results = {}
+        if image and config.eval_at_end:
+            if rank == 0:
+                columns = decode.required_columns
+                loader = make_eval_pipeline(
+                    lambda idx: dataset.take(idx, columns=columns),
+                    dataset.count_rows(), config.batch_size, 0, 1, decode,
+                    device, prefetch=config.prefetch)
+                acc, rows = evaluate(loader, make_eval_step(task))
+                results = {"eval_accuracy": acc, "eval_rows": rows}
+                logger.log(dict(results))
+            sync_global_devices()
     finally:
         logger.close()
-    total_time = time.perf_counter() - t_start
+    if image:
+        timed_steps, timed_s = global_step, train_time
+        if warm is not None and global_step > warm[0]:
+            timed_steps, timed_s = global_step - warm[0], t_end - warm[1]
+        results.update(
+            images_per_sec=config.batch_size * timed_steps / timed_s,
+            images_per_sec_whole_run=config.batch_size * global_step
+            / train_time,
+            decoder_arm=decode.arm)
     return {
         "steps": global_step,
         "epochs": len(history),
@@ -322,7 +488,11 @@ def train(config: TrainConfig) -> dict:
         "losses": log.losses,
         "step_ms": log.step_ms,
         "loader_stall_pct": timer.loader_stall_pct,
-        "total_time": total_time,
+        "train_time": train_time,
+        "total_time": time.perf_counter() - t_start,
         "device": str(device),
+        "world_size": world,
         "model_params": sum(p.numel() for p in task.model.parameters()),
+        "model": task.model,
+        **results,
     }

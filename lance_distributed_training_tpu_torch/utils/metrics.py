@@ -2,8 +2,8 @@
 
 Counterpart of ``MetricLogger`` and ``StepTimer`` in
 ``lance_distributed_training_tpu/utils/metrics.py``, without the wandb sink
-and the metrics registry. The progress window adds ``tokens_per_sec`` and
-``step_ms``.
+and the metrics registry. The progress window adds ``step_ms`` and, by the
+kind of batch, ``tokens_per_sec`` or ``images_per_sec``.
 """
 
 from __future__ import annotations
@@ -19,11 +19,15 @@ __all__ = ["MetricLogger", "StepTimer"]
 class MetricLogger:
     """Metric sink: one ``[metrics] k=v, …`` line on stdout per record and
     the record as one JSON line in ``jsonl_path`` (default
-    ``$LDT_METRICS_PATH`` or ``metrics.jsonl``). Single process: the
-    process-0 gate of the JAX logger comes with distributed training."""
+    ``$LDT_METRICS_PATH`` or ``metrics.jsonl``). Under data parallelism
+    only process 0 logs (``active=False`` elsewhere), as the JAX logger
+    does."""
 
-    def __init__(self, jsonl_path: Optional[str] = None):
+    def __init__(self, jsonl_path: Optional[str] = None, active: bool = True):
         self._jsonl = None
+        self.active = active
+        if not active:
+            return
         path = jsonl_path or os.environ.get("LDT_METRICS_PATH", "metrics.jsonl")
         try:
             self._jsonl = open(path, "a")
@@ -31,6 +35,8 @@ class MetricLogger:
             self._jsonl = None
 
     def log(self, metrics: dict, step: Optional[int] = None) -> None:
+        if not self.active:
+            return
         record = dict(metrics)
         if step is not None:
             record["step"] = step
@@ -94,11 +100,12 @@ class StepTimer:
         return 100.0 * self.loader_s / total if total > 0 else 0.0
 
     def window(self, batch_size: Optional[int] = None,
-               seq_len: Optional[int] = None) -> dict:
+               seq_len: Optional[int] = None, images: bool = False) -> dict:
         """Deltas since the previous call: ``steps``, ``loader_s``,
         ``step_s``, ``wall_s``, ``step_ms`` (wall time per step), and with
-        ``batch_size`` (and ``seq_len``) ``examples_per_sec``
-        (``tokens_per_sec``, padded grid tokens) against the wall width."""
+        ``batch_size`` ``examples_per_sec`` against the wall width, named
+        again as ``tokens_per_sec`` (times ``seq_len``, padded grid tokens)
+        or as ``images_per_sec`` (``images``: a batch of images)."""
         now = time.perf_counter()
         out = {
             "steps": self.steps - self._w_steps,
@@ -112,6 +119,8 @@ class StepTimer:
             out["examples_per_sec"] = steps * batch_size / wall if wall > 0 else 0.0
             if seq_len:
                 out["tokens_per_sec"] = out["examples_per_sec"] * seq_len
+            if images:
+                out["images_per_sec"] = out["examples_per_sec"]
         self._w_loader = self.loader_s
         self._w_step = self.step_s
         self._w_steps = self.steps

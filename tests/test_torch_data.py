@@ -3,11 +3,15 @@
 Each package reads the datasets the other writes; the port's sampler plans,
 decoders and loader yield exactly the JAX package's plans and batches for
 the same ``(sampler_type, batch_size, process_index, process_count,
-shuffle, seed, epoch)``.
+shuffle, seed, epoch)``. The image half: both packages author the same
+JPEG bytes from a seed, the image decoder gives the JAX decoder's pixels in
+its native and its PIL arm, and the eval loader the JAX eval loader's
+batches, order, pads and ``_weight``.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from lance_distributed_training_tpu.data import authoring as jax_authoring
 from lance_distributed_training_tpu.data import format as jax_format
@@ -142,4 +146,165 @@ def test_pack_mode_and_image_tasks_not_yet_ported():
     with pytest.raises(NotImplementedError):
         TokenDecoder(mode="pack")
     with pytest.raises(NotImplementedError):
-        decoder_for_task("classification")
+        decoder_for_task("contrastive")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        decoder_for_task("classification", device_decode=True)
+
+
+# ------------------------------------------------------------- image data
+
+IMAGE_SIZE = 32
+IMAGE_ROWS = 45  # fragments of 20, 20, 5
+
+
+@pytest.fixture(scope="module")
+def image_datasets(tmp_path_factory):
+    """The same synthetic JPEG dataset written once by each package."""
+    from lance_distributed_training_tpu_torch.data import (
+        create_synthetic_classification_dataset,
+    )
+
+    root = tmp_path_factory.mktemp("images")
+    kw = dict(rows=IMAGE_ROWS, num_classes=7, image_size=IMAGE_SIZE,
+              fragment_size=20, unique_images=12, seed=3)
+    jax_authoring.create_synthetic_classification_dataset(
+        str(root / "by_jax"), **kw)
+    create_synthetic_classification_dataset(str(root / "by_port"), **kw)
+    return root / "by_jax", root / "by_port"
+
+
+def test_image_writers_produce_the_same_bytes(image_datasets):
+    from lance_distributed_training_tpu_torch.data import IMAGE_SCHEMA
+
+    by_jax, by_port = (Dataset(p) for p in image_datasets)
+    assert by_port.schema == IMAGE_SCHEMA == jax_authoring.IMAGE_SCHEMA
+    assert by_jax.fragment_rows() == by_port.fragment_rows() == [20, 20, 5]
+    _tables_equal(by_jax.take(range(IMAGE_ROWS)),
+                  by_port.take(range(IMAGE_ROWS)))
+
+
+@pytest.fixture
+def jax_native(tmp_path, monkeypatch):
+    """The JAX package's native decoder, built privately for this test:
+    its own build links every process into one shared temp file, which
+    concurrent test workers can break (``native/jpeg.py:52``)."""
+    from lance_distributed_training_tpu.native import jpeg as jax_jpeg
+
+    monkeypatch.setattr(jax_jpeg, "_LIB_PATH", str(tmp_path / "jax_ldt.so"))
+    monkeypatch.setattr(jax_jpeg, "_lib", None)
+    monkeypatch.setattr(jax_jpeg, "_load_failed", False)
+    monkeypatch.delenv("LDT_DISABLE_NATIVE", raising=False)
+    return jax_jpeg
+
+
+@pytest.mark.parametrize("arm", ["native", "pil"])
+@pytest.mark.parametrize("size", [IMAGE_SIZE, 24, 40])
+def test_image_decoder_matches_jax_bit_for_bit(image_datasets, jax_native,
+                                               arm, size):
+    from lance_distributed_training_tpu.data.decode import (
+        ImageClassificationDecoder as JaxImageDecoder,
+    )
+    from lance_distributed_training_tpu_torch.data import (
+        ImageClassificationDecoder,
+    )
+
+    table = Dataset(image_datasets[1]).take(range(IMAGE_ROWS))
+    use_native = arm == "native"
+    want_dec = JaxImageDecoder(image_size=size, use_native=use_native)
+    got_dec = ImageClassificationDecoder(image_size=size,
+                                         use_native=use_native)
+    assert got_dec.arm == arm
+    assert (want_dec._native is not None) == use_native
+    want, got = want_dec(table), got_dec(table)
+    assert sorted(got) == sorted(want) == ["image", "label"]
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key])
+    assert got["image"].shape == (IMAGE_ROWS, size, size, 3)
+    # The per-payload entry point gives the same pixels as the column one.
+    payloads = table.column("image").to_pylist()[:5]
+    np.testing.assert_array_equal(got_dec.decode_payloads(payloads),
+                                  want["image"][:5])
+
+
+def test_image_decoder_arm_and_task_dispatch():
+    from lance_distributed_training_tpu_torch.data import (
+        ImageClassificationDecoder,
+    )
+    from lance_distributed_training_tpu_torch.native import native_available
+
+    dec = decoder_for_task("classification", image_size=48)
+    assert isinstance(dec, ImageClassificationDecoder)
+    assert dec.image_size == 48 and dec.required_columns == ["image", "label"]
+    assert dec.arm == ("native" if native_available() else "pil")
+    assert ImageClassificationDecoder(use_native=False).arm == "pil"
+    with pytest.raises(ValueError, match="classification"):
+        decoder_for_task("masked_lm", device_decode=True)
+
+
+@pytest.mark.parametrize("rows,batch,count", [(45, 8, 1), (45, 8, 2),
+                                              (40, 8, 4), (3, 6, 3),
+                                              (0, 4, 1)])
+def test_eval_plans_match(rows, batch, count):
+    from lance_distributed_training_tpu_torch.data import (
+        padded_eval_index_batches,
+    )
+
+    for index in range(count):
+        want = jax_samplers.padded_eval_index_batches(rows, batch, index,
+                                                      count)
+        got = padded_eval_index_batches(rows, batch, index, count)
+        assert len(got) == len(want)
+        for (gi, gw), (wi, ww) in zip(got, want):
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gw, ww)
+            assert gw.dtype == ww.dtype == np.float32
+
+
+@pytest.mark.parametrize("index,count", [(0, 1), (1, 2)])
+def test_eval_loader_matches_jax(image_datasets, index, count):
+    from lance_distributed_training_tpu.data.pipeline import (
+        make_eval_pipeline as jax_make_eval_pipeline,
+    )
+    from lance_distributed_training_tpu_torch.data import (
+        ImageClassificationDecoder,
+        make_eval_pipeline,
+    )
+
+    path = image_datasets[1]
+    jax_ds, port_ds = jax_format.Dataset(path), Dataset(path)
+    dec = ImageClassificationDecoder(image_size=IMAGE_SIZE, use_native=False)
+    want = list(jax_make_eval_pipeline(
+        lambda idx: jax_ds.take(idx), IMAGE_ROWS, 16, index, count, dec))
+    got = list(make_eval_pipeline(
+        lambda idx: port_ds.take(idx), IMAGE_ROWS, 16, index, count, dec,
+        "cpu"))
+    assert len(got) == len(want) == 3  # 45 rows: 48 slots, 3 of them pads
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w) == ["_weight", "image", "label"]
+        for key in w:
+            arr = g[key].numpy()
+            assert arr.dtype == np.asarray(w[key]).dtype, key
+            np.testing.assert_array_equal(arr, np.asarray(w[key]))
+    # Rank 1 of 2 holds rows 8-15, 24-31 and 40-47 of the padded 48.
+    weights = np.concatenate([g["_weight"].numpy() for g in got])
+    assert weights.sum() == (IMAGE_ROWS if count == 1 else 21)
+
+
+def test_train_pipeline_carries_image_pages_unchanged(image_datasets):
+    from lance_distributed_training_tpu_torch.data import (
+        ImageClassificationDecoder,
+    )
+
+    dec = ImageClassificationDecoder(image_size=IMAGE_SIZE)
+    ds = Dataset(image_datasets[1])
+    loader = make_train_pipeline(ds, "batch", 16, 0, 1, dec, "cpu")
+    host = list(loader.host_batches())
+    staged = list(loader)
+    assert len(staged) == len(host) == 2
+    for g, w in zip(staged, host):
+        assert g["image"].dtype == torch.uint8
+        assert tuple(g["image"].shape) == (16, IMAGE_SIZE, IMAGE_SIZE, 3)
+        assert g["label"].dtype == torch.int32
+        np.testing.assert_array_equal(g["image"].numpy(), w["image"])
+        np.testing.assert_array_equal(g["label"].numpy(), w["label"])

@@ -168,7 +168,7 @@ def test_cli_without_device_cpu_raises_without_a_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv", [
     ["--num_workers", "2"],
     ["serve-data"],
-    ["--task_type", "classification"],
+    ["--task_type", "contrastive"],
 ])
 def test_cli_unported_surface_raises(tmp_path, argv):
     path = _token_dataset(tmp_path)
