@@ -7,13 +7,15 @@ Phases, each printing one JSON line:
 
 1. probe   — torch/CUDA versions, the card and its power limit; requires
              compute capability 9.0; turns TF32 off for f32 matmuls.
-2. build   — compiles ``ops/csrc/flash_attn.cu`` and ``ops/csrc/image.cu``
-             for sm_90a and the native JPEG decoder, all at once, and prints
-             the build times and, from the ``-Xptxas -v`` reports,
-             registers, spills and shared memory of all six flash kernel
-             builds (three kernels, head dims 64 and 128) and of K1; fails
-             on any spill of any of the three flash kernels at head dim 64
-             and on any spill of K1.
+2. build   — compiles ``ops/csrc/flash_attn.cu``, ``ops/csrc/image.cu``
+             and ``ops/csrc/jpeg_decode.cu`` for sm_90a, the native JPEG
+             decoder and the coefficient extractor (``native/ldt_coeffs.cpp``,
+             g++ alone), all at once, and prints the build times and, from
+             the ``-Xptxas -v`` reports, registers, spills and shared memory
+             of all six flash kernel builds (three kernels, head dims 64 and
+             128), of K1 and of K2's two kernels; fails on any spill of any
+             of the three flash kernels at head dim 64, of K1 or of K2, and
+             when the extractor does not build.
 3. kernels — runs the fwd, bwd_dq and bwd_dkv kernels at the BERT-base
              shapes [32, 12, 512, 64] bf16, (a) non-causal with padding
              segments and (b) causal, against their plain PyTorch versions
@@ -32,17 +34,37 @@ Phases, each printing one JSON line:
              events around 20 launches back to back, median of 5) beside the
              plain version and a device-to-device copy of the same bytes;
              the bound takes the card's published memory rate.
-6. classification — trains ResNet-50 (224 px, 101 classes, global batch
+6. jpeg_kernels — K2 (``ops/csrc/jpeg_decode.cu``) against its plain
+             PyTorch version on the card, bit for bit: at the path's shape
+             (pages ``int16 [512, 28, 28, 64]`` and ``[512, 14, 14, 64]``
+             extracted here from the seeded classification set →
+             ``uint8 [512, 224, 224, 3]``) and at ragged cases (odd sizes,
+             grayscale, progressive, re-encoded 4:4:4, a zero-geometry
+             row; out sizes 224, 32 and 40), and on a repeat launch; times
+             it (CUDA events around 20 launches back to back, median of 5)
+             beside the plain version; the bound is the larger of its bytes
+             over 3.35 TB/s and its IDCT's integer operations over 67 T/s,
+             the card's f32 rate outside the tensor cores (the nearest row
+             of the published rates: 32-bit integer arithmetic issues no
+             faster). Prints
+             the extractor's time for the 512 images and its threads.
+7. classification — trains ResNet-50 (224 px, 101 classes, global batch
              512, SGD lr 0.05 momentum 0.9, flips, eval at the end) for 20
              steps through ``cli train`` on a seeded FOOD-101-shaped JPEG
              dataset (``create_synthetic_classification_dataset``, 20
              batches of rows; each row labelled by its image, so that
              there is something to learn), host-decoded by the native
              decoder or PIL; the eval pass covers every row once.
+8. device_decode — the same run through ``cli train --device_decode``:
+             the host extracts coefficient pages, K2 decodes them on the
+             card for each of the 20 train and 20 eval batches; checks the
+             decoder arm, K2's 40 launches, the falling loss and the eval
+             over every row, and prints the step, the rates, the stall and
+             the entropy and K2 times.
 
 Every check that fails raises, so the script exits non-zero. The last three
 lines are the card's ``nvidia-smi`` name and power limit, the kernel table
-as JSON (the three flash kernels and K1, each with its launches on its
+as JSON (the three flash kernels, K1 and K2, each with its launches on its
 path), and ``{"ok": true, "device": {...}}``.
 """
 
@@ -61,7 +83,7 @@ import time
 import numpy as np
 
 PHASES = ("probe", "build", "kernels", "slice", "image_kernels",
-          "classification")
+          "jpeg_kernels", "classification", "device_decode")
 SHAPE = (32, 12, 512, 64)  # B, H, S, D at BERT-base, seq 512
 STEPS = 20
 LAYERS = 12
@@ -75,6 +97,8 @@ IMAGE_SHAPE = (512, 224, 224, 3)  # B, H, W, C of the classification path
 IMAGE_OPS = 3  # f32 operations a K1 element takes: divide, subtract, divide
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 IMAGE_BATCH, IMAGE_CLASSES = 512, 101
+JPEG_SOURCE = "lance_distributed_training_tpu_torch/ops/csrc/jpeg_decode.cu"
+JPEG_REPLACES = "lance_distributed_training_tpu/ops/jpeg_device.py:180"
 UNIQUE_IMAGES = 64  # distinct images (and labels) of the classification set
 UPSTREAM = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 REPLACES = {
@@ -199,19 +223,27 @@ def build() -> dict:
     compiler process each), then check their reports."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from lance_distributed_training_tpu_torch.native import jpeg
-    from lance_distributed_training_tpu_torch.ops import _build, flash, image
+    from lance_distributed_training_tpu_torch.native import coeffs, jpeg
+    from lance_distributed_training_tpu_torch.ops import (
+        _build,
+        flash,
+        image,
+        jpeg_device,
+    )
 
     t0 = time.monotonic()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(5) as pool:
         futures = [pool.submit(_build.build_library, stem)
-                   for stem in ("flash_attn", "image")]
+                   for stem in ("flash_attn", "image", "jpeg_decode")]
         native = pool.submit(jpeg.native_available)
+        extractor = pool.submit(coeffs.default_threads)
         for future in futures:
             future.result()
         native_ok = native.result()
+        extractor_threads = extractor.result()  # raises if it did not build
     lib = flash._library()
     image._library()
+    jpeg_device._library()
     report = _build.build_report("flash_attn")
     kernels = _ptxas_kernels(report["ptxas"])
     for row in kernels:
@@ -220,11 +252,16 @@ def build() -> dict:
     image_report = _build.build_report("image")
     image_rows = _ptxas_kernels(image_report["ptxas"],
                                 r"(image_normalize)_kernel")
+    jpeg_report = _build.build_report("jpeg_decode")
+    jpeg_rows = _ptxas_kernels(jpeg_report["ptxas"],
+                               r"(jpeg_idct|jpeg_color_resize)_kernel")
     emit("build", seconds=time.monotonic() - t0,
          nvcc_seconds=report["seconds"], cached=report["cached"],
          kernels=kernels, image_nvcc_seconds=image_report["seconds"],
-         image_kernels=image_rows, native_decoder=native_ok,
-         native_decoder_error=jpeg.build_error())
+         image_kernels=image_rows,
+         jpeg_nvcc_seconds=jpeg_report["seconds"], jpeg_kernels=jpeg_rows,
+         native_decoder=native_ok, native_decoder_error=jpeg.build_error(),
+         coefficient_extractor_threads=extractor_threads)
     builds = {(r["kernel"], r["head_dim"]) for r in kernels}
     want = {(k, d) for k in KERNEL_IDS for d in flash.HEAD_DIMS}
     if builds != want or not all("registers" in r for r in kernels):
@@ -237,7 +274,13 @@ def build() -> dict:
         raise RuntimeError(f"ptxas report of image.cu: {image_rows}")
     if _spilled(image_rows[0]):
         raise RuntimeError(f"ptxas spills in K1: {image_rows}")
-    return {"image_ptxas": image_rows[0]}
+    if (sorted(r["kernel"] for r in jpeg_rows)
+            != ["jpeg_color_resize", "jpeg_idct"]
+            or not all("registers" in r for r in jpeg_rows)):
+        raise RuntimeError(f"ptxas report of jpeg_decode.cu: {jpeg_rows}")
+    if any(_spilled(r) for r in jpeg_rows):
+        raise RuntimeError(f"ptxas spills in K2: {jpeg_rows}")
+    return {"image_ptxas": image_rows[0], "jpeg_ptxas": jpeg_rows}
 
 
 def _bounds(b: int, h: int, s: int, d: int) -> dict:
@@ -579,14 +622,14 @@ def _learnable_dataset(drawn: str, path: str, rows: int) -> None:
     write_dataset(table, path, schema=IMAGE_SCHEMA, mode="create")
 
 
-def classification_run() -> dict:
-    """ResNet-50 classification through ``cli train`` for STEPS steps."""
+def classification_run(device_decode: bool = False) -> dict:
+    """ResNet-50 classification through ``cli train`` for STEPS steps, fed
+    pixels decoded on the host or, with ``device_decode``, coefficient
+    pages that K2 decodes on the card."""
     import torch
     from lance_distributed_training_tpu_torch import cli, ops
-    from lance_distributed_training_tpu_torch.data import (
-        create_synthetic_classification_dataset,
-    )
 
+    phase = "device_decode" if device_decode else "classification"
     rows = IMAGE_BATCH * STEPS
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "food")
@@ -602,6 +645,7 @@ def classification_run() -> dict:
             "--num_classes", str(IMAGE_CLASSES),
             "--batch_size", str(IMAGE_BATCH), "--max_steps", str(STEPS),
             "--epochs", "1", "--log_every", "5", "--device", "cuda",
+            *(["--device_decode"] if device_decode else []),
         ])
         launches = dict(ops.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
@@ -622,11 +666,15 @@ def classification_run() -> dict:
         "eval_batches": eval_batches,
         "decoder": result["decoder_arm"],
         "image_normalize_launches": launches["image_normalize"],
+        "jpeg_decode_launches": launches["jpeg_decode"],
         "dataset_seconds": author_s, "train_seconds": result["train_time"],
         "total_seconds": result["total_time"],
         "model_params": result["model_params"],
     }
-    emit("classification", **fields)
+    if device_decode:
+        fields.update({k: result.get(k) for k in (
+            "decode_entropy_ms", "decode_device_ms", "decode_threads")})
+    emit(phase, **fields)
     if steps != STEPS or len(losses) != STEPS:
         raise RuntimeError(f"ran {steps} steps, expected {STEPS}")
     if not all(np.isfinite(losses)):
@@ -639,7 +687,138 @@ def classification_run() -> dict:
     if launches["image_normalize"] != STEPS + eval_batches:
         raise RuntimeError(f"K1 launched {launches['image_normalize']} "
                            f"times, expected {STEPS + eval_batches}")
+    k2_want = STEPS + eval_batches if device_decode else 0
+    if launches["jpeg_decode"] != k2_want:
+        raise RuntimeError(f"K2 launched {launches['jpeg_decode']} times, "
+                           f"expected {k2_want}")
+    if device_decode:
+        if fields["decoder"] != "coeff":
+            raise RuntimeError(f"decoder arm {fields['decoder']!r}, "
+                               f"expected 'coeff'")
+        missing = [k for k in ("decode_entropy_ms", "decode_device_ms",
+                               "decode_threads") if not fields[k]]
+        if missing:
+            raise RuntimeError(f"device_decode run reported no {missing}")
+        return {"launches": {"jpeg_decode": launches["jpeg_decode"]}}
     return {"launches": {"image_normalize": launches["image_normalize"]}}
+
+
+def _ragged_payloads() -> list:
+    """JPEGs unlike the path's: odd sizes, grayscale, progressive,
+    restart markers, 4:4:4 (which the decoder re-encodes) and bytes no
+    decoder reads (a zeroed page with zero geometry)."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+
+    def jpeg(shape, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8)).save(
+            buf, format="JPEG", **kw)
+        return buf.getvalue()
+
+    return [jpeg((97, 225, 3), quality=85), jpeg((33, 17, 3), quality=10),
+            jpeg((40, 33), quality=90), jpeg((224, 224, 3), quality=95,
+                                             progressive=True),
+            jpeg((61, 80, 3), quality=85, restart_marker_blocks=3),
+            jpeg((48, 40, 3), quality=85, subsampling=0),
+            bytes(rng.integers(0, 256, 300, dtype=np.uint8)),
+            jpeg((300, 260, 3), quality=85)]
+
+
+def _idct_ops(pages: dict) -> int:
+    """Integer operations of K2's IDCT: per 8x8 block a dequantizing
+    multiply for each of its 64 coefficients and two passes of 64 outputs,
+    each 8 multiply-adds (2 operations)."""
+    blocks = sum(int(np.prod(pages[k].shape[:3]))
+                 for k in ("jpeg_coef_y", "jpeg_coef_cb", "jpeg_coef_cr"))
+    return blocks * (64 + 2 * 64 * 8 * 2)
+
+
+def jpeg_kernels() -> dict:
+    """K2 against its plain version, bit for bit, then timed, at pages
+    extracted here from the classification set."""
+    import torch
+    from lance_distributed_training_tpu_torch.data import (
+        CoeffImageDecoder,
+        Dataset,
+        create_synthetic_classification_dataset,
+    )
+    from lance_distributed_training_tpu_torch.ops import jpeg_device
+
+    dev = torch.device("cuda")
+
+    def on_card(pages: dict) -> list:
+        return [torch.from_numpy(pages[k]).to(dev)
+                for k in jpeg_device.COEFF_KEYS]
+
+    def kernel(args, size):
+        return jpeg_device.decode_coeff_batch(*args, out_size=size)
+
+    def plain(args, size):
+        return jpeg_device.decode_coeff_batch_reference(*args, out_size=size)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        create_synthetic_classification_dataset(
+            os.path.join(tmp, "food"), rows=IMAGE_BATCH,
+            num_classes=IMAGE_CLASSES, image_size=224,
+            unique_images=UNIQUE_IMAGES)
+        table = Dataset(os.path.join(tmp, "food")).take(
+            np.arange(IMAGE_BATCH))
+    decoder = CoeffImageDecoder(image_size=224)
+    for _ in range(3):
+        pages = decoder(table)
+    entropy_ms = decoder.entropy_ms
+    jpeg_bytes = sum(len(v) for v in table.column("image").to_pylist())
+    cases = [("path", on_card(pages), 224)]
+    ragged = CoeffImageDecoder(image_size=224).decode_payloads(
+        _ragged_payloads())
+    for size in (224, 32, 40):
+        cases.append((f"ragged_{size}", on_card(ragged), size))
+    checked = []
+    for label, args, size in cases:
+        got = kernel(args, size)
+        want = plain(args, size)
+        again = kernel(args, size)
+        torch.cuda.synchronize()
+        row = {"case": label, "pages": list(args[0].shape),
+               "out": list(got.shape),
+               "bit_identical": torch.equal(got, want),
+               "bit_identical_on_repeat": torch.equal(got, again)}
+        checked.append(row)
+        if not (row["bit_identical"] and row["bit_identical_on_repeat"]):
+            diff = (got.int() - want.int()).abs().max().item()
+            emit("jpeg_kernels", failed=row, max_abs_err=diff)
+            raise RuntimeError(f"K2 differs from its plain version at "
+                               f"{label}")
+    emit("jpeg_kernels", checks=checked, max_abs_err=0.0,
+         ragged_geometry=ragged["jpeg_geom"].tolist())
+
+    args = cases[0][1]
+    if list(args[0].shape) != [IMAGE_BATCH, 28, 28, 64]:
+        raise RuntimeError(f"path pages {list(args[0].shape)}, expected "
+                           f"[{IMAGE_BATCH}, 28, 28, 64]")
+    ms = time_back_to_back_ms(lambda: kernel(args, 224))
+    plain_ms = time_back_to_back_ms(lambda: plain(args, 224), launches=3,
+                                    reps=3, warmup=1)
+    moved = sum(t.numel() * t.element_size() for t in args)
+    moved += IMAGE_BATCH * 224 * 224 * 3
+    ops_count = _idct_ops(pages)
+    t_bytes = moved / PEAK_BYTES
+    t_ops = ops_count / PEAK_F32_FLOPS
+    fields = {
+        "pages": list(args[0].shape), "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None, "bytes": moved, "int_ops": ops_count,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "entropy_ms_512": entropy_ms, "extractor_threads": decoder.threads,
+        "jpeg_bytes_512": jpeg_bytes,
+    }
+    fields["share_of_bound"] = fields["bound_ms"] / ms
+    emit("jpeg_kernels", timing="path_shape", **fields)
+    return fields
 
 
 def main(argv=None) -> int:
@@ -660,8 +839,12 @@ def main(argv=None) -> int:
     timing = kernels() if "kernels" in phases else None
     launches = slice_run()["launches"] if "slice" in phases else None
     k1 = image_kernels() if "image_kernels" in phases else None
+    k2 = jpeg_kernels() if "jpeg_kernels" in phases else None
     if "classification" in phases:
         launches = {**(launches or {}), **classification_run()["launches"]}
+    if "device_decode" in phases:
+        launches = {**(launches or {}),
+                    **classification_run(device_decode=True)["launches"]}
     if set(phases) != set(PHASES):
         return 0  # a partial run prints no result
     print(card["smi"], flush=True)
@@ -678,6 +861,15 @@ def main(argv=None) -> int:
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None, "share_of_bound": k1["share_of_bound"],
         "registers": ptxas["image_ptxas"]["registers"],
+    })
+    table.append({
+        "name": "jpeg_decode", "route": "cuda", "source": JPEG_SOURCE,
+        "replaces": JPEG_REPLACES, "launches": launches["jpeg_decode"],
+        "max_abs_err": 0.0, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": None, "share_of_bound": k2["share_of_bound"],
+        "registers": {r["kernel"]: r["registers"]
+                      for r in ptxas["jpeg_ptxas"]},
     })
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

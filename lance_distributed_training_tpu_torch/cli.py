@@ -3,12 +3,13 @@
 Counterpart of ``lance_distributed_training_tpu/cli.py`` for the ported
 paths, image classification (its defaults: ResNet-50, 224 px, 101 classes,
 global batch 512, SGD lr 0.05 momentum 0.9, flips, eval at the end) and
-masked-LM text, plus ``--device {cuda,cpu}`` (default ``cuda``, which
-raises when no card is present). Any other flag of the JAX CLI raises "not
+masked-LM text, ``--device_decode`` (JPEG decode split at the entropy
+boundary, K2 on the device), plus ``--device {cuda,cpu}`` (default
+``cuda``, which raises when no card is present). Any other flag of the JAX CLI raises "not
 yet ported"; so do the other subcommands and task types. Usage::
 
     python -m lance_distributed_training_tpu_torch.cli train \\
-        --dataset_path /data/food101 --max_steps 20
+        --dataset_path /data/food101 --max_steps 20 [--device_decode]
     python -m lance_distributed_training_tpu_torch.cli train \\
         --dataset_path /data/c4_tokens --task_type masked_lm \\
         --model_name bert_base --seq_len 512 --flash_attention \\
@@ -85,6 +86,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flash_attention", action="store_true",
                    help="attention through the hand-written CUDA flash "
                         "kernels (the plain version on the CPU)")
+    dd = p.add_mutually_exclusive_group()
+    dd.add_argument("--device_decode", action="store_true",
+                    help="split JPEG decode at the entropy boundary: the "
+                         "host does only the Huffman half and ships "
+                         "coefficient pages; dequantize, IDCT, upsample, "
+                         "colour and resize run on the device (K2; "
+                         "classification only; raises if the extractor "
+                         "cannot be built)")
+    dd.add_argument("--no_device_decode", action="store_true",
+                    help="the host pixel-decode path (the default)")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="cuda (default) raises without a card; cpu runs the "
@@ -110,6 +121,8 @@ def main(argv=None) -> dict:
     args = vars(build_parser().parse_args(argv))
     args["augment"] = not args.pop("no_augment")
     args["eval_at_end"] = not args.pop("no_eval_at_end")
+    no_device_decode = args.pop("no_device_decode")
+    args["device_decode"] = args["device_decode"] and not no_device_decode
     return train(TrainConfig(**args))
 
 

@@ -5,8 +5,9 @@ text tasks and image classification. The image decoder turns JPEG bytes
 into a uint8 NHWC page through the native batch decoder (``native/``) when
 its library builds, else through PIL on a thread pool, as the JAX decoder
 does; normalisation and augmentation run on the device (``ops/image.py``).
-Decoding for ``contrastive`` and the coefficient pages of
-``device_decode`` are not ported yet.
+With ``device_decode`` the host stops at the entropy boundary
+(:class:`~.device_decode.CoeffImageDecoder`) and K2 decodes on the card.
+Decoding for ``contrastive`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -127,13 +128,15 @@ def decoder_for_task(task_type: str, seq_len: Optional[int] = None,
     """The task-type → decode-hook dispatch. ``classification`` gets the
     :class:`ImageClassificationDecoder` at ``image_size``; for the text
     tasks, ``seq_len`` selects the padded :class:`~.token_pack.TokenDecoder`
-    and without it the plain :func:`numeric_decoder` runs."""
+    and without it the plain :func:`numeric_decoder` runs. With
+    ``device_decode`` classification gets the
+    :class:`~.device_decode.CoeffImageDecoder` (``arm == "coeff"``), which
+    raises when its extractor cannot be built."""
     if task_type == "classification":
         if device_decode:
-            raise NotImplementedError(
-                "device_decode (coefficient pages for the on-device JPEG "
-                "kernel) is not yet ported"
-            )
+            from .device_decode import CoeffImageDecoder
+
+            return CoeffImageDecoder(image_size=image_size)
         return ImageClassificationDecoder(image_size=image_size)
     if device_decode:
         raise ValueError(

@@ -29,7 +29,8 @@ import numpy as np
 import pyarrow as pa
 
 __all__ = ["BUILD_DIR", "batch_decode_jpeg", "batch_decode_jpeg_arrow",
-           "native_available", "build_error"]
+           "build_error", "build_library", "library_path",
+           "native_available"]
 
 _SRC = Path(__file__).resolve().parent / "ldt_decode.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -42,16 +43,22 @@ _lib: Optional[ctypes.CDLL] = None
 _error: Optional[str] = None  # why the library is unavailable, once tried
 
 
-def _target() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes())
-    digest.update(" ".join(_FLAGS + _LIBS).encode())
-    return BUILD_DIR / f"libldt_decode_{digest.hexdigest()[:16]}.so"
+def library_path(src: Path, flags: list, stem: str) -> Path:
+    """Where the library built from ``src`` with ``flags`` lives: under
+    :data:`BUILD_DIR`, named by the hash of both."""
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
 
-def _build(target: Path) -> None:
+def build_library(src: Path, target: Path, flags: list,
+                  libs: tuple = ()) -> None:
+    """Compile ``src`` into ``target`` with ``g++``: linked under a temp
+    name of this process, then renamed over the target. Raises
+    ``OSError`` with the compiler's error."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = ["g++", *_FLAGS, str(_SRC), "-o", str(tmp), *_LIBS]
+    cmd = ["g++", *flags, str(src), "-o", str(tmp), *libs]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=300)
@@ -84,10 +91,10 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _error is not None:
             return _lib
-        target = _target()
+        target = library_path(_SRC, _FLAGS + _LIBS, "ldt_decode")
         try:
             if not target.exists():
-                _build(target)
+                build_library(_SRC, target, _FLAGS, _LIBS)
             lib = ctypes.CDLL(str(target))
             if lib.ldt_decode_abi_version() != _ABI_VERSION:
                 raise OSError(f"{target.name}: ABI version "

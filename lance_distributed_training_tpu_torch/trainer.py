@@ -8,6 +8,12 @@ the train step, the weighted eval (``make_eval_step``, ``evaluate``) and the
 loop. The loss stays on the device: per-step losses are fetched only at log
 points and at the end, never with a per-step ``.item()``.
 
+Device decode (``device_decode``, classification only): the loader ships
+JPEG coefficient pages (``data/device_decode.py``) and K2
+(``ops/jpeg_device.py``) turns them into the uint8 batch on the device,
+after the H2D copy and before the step, for the train and the eval
+batches alike; its device time is read from CUDA events at log points.
+
 Data parallelism: with ``coordinator_address``/``num_processes``/
 ``process_id`` each process joins a ``torch.distributed`` group, owns one
 device, reads ``batch_size / world`` rows of each global batch through the
@@ -36,6 +42,7 @@ from .data.pipeline import make_eval_pipeline, make_train_pipeline
 from .models.resnet import set_sync_group
 from .models.tasks import Task, get_task
 from .ops.flash import make_flash_attention
+from .ops.jpeg_device import make_batch_transform
 from .parallel.mesh import (
     maybe_initialize_distributed,
     process_topology,
@@ -91,6 +98,8 @@ class TrainConfig:
     seed: int = 0
     log_every: int = 50
     flash_attention: bool = False  # the hand-written CUDA flash kernels
+    device_decode: bool = False  # classification: the host stops at the
+    # JPEG entropy boundary and K2 decodes the coefficient pages on the device
     device: str = "cuda"  # cuda | cpu: where the model and the step run
     coordinator_address: Optional[str] = None  # host:port of process 0
     num_processes: Optional[int] = None  # world size
@@ -261,6 +270,42 @@ def evaluate(loader, eval_step) -> tuple[float, float]:
     return (float(num) / total if total else 0.0), total
 
 
+class _DeviceTimes:
+    """CUDA event pairs around one piece of device work per step, read at
+    log points (:meth:`drain`), so timing adds no host sync of its own. On
+    the CPU nothing is timed."""
+
+    def __init__(self, cuda: bool):
+        self.cuda = cuda
+        self._events: list[tuple] = []
+        self.ms: list[float] = []
+
+    def run(self, fn, *args):
+        if not self.cuda:
+            return fn(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        self._events.append((start, end))
+        return out
+
+    def drain(self) -> list[float]:
+        """The times recorded since the last drain, in ms."""
+        new = []
+        for start, end in self._events:
+            end.synchronize()
+            new.append(start.elapsed_time(end))
+        self._events.clear()
+        self.ms.extend(new)
+        return new
+
+
+def _mean(values) -> Optional[float]:
+    return statistics.fmean(values) if values else None
+
+
 class _StepLog:
     """Per-step losses (device scalars) and, on the card, per-step CUDA
     event pairs; :meth:`drain` fetches them in one sync at a log point.
@@ -314,11 +359,38 @@ def train(config: TrainConfig) -> dict:
     by a device sync; the whole loop when there is no later step),
     ``images_per_sec_whole_run`` (every image over the whole loop, warm-up
     included), ``decoder_arm`` and, with ``eval_at_end``,
-    ``eval_accuracy`` and ``eval_rows``. ``model`` is the trained module."""
+    ``eval_accuracy`` and ``eval_rows``; with ``device_decode`` also
+    ``decode_entropy_ms`` (median host time of a batch's entropy decode,
+    over the train loop), ``decode_threads`` and, on the card,
+    ``decode_device_ms`` (median K2 time of a train batch). ``model`` is the
+    trained module."""
     if config.task_type not in PORTED_TASKS:
         raise NotImplementedError(
             f"task_type {config.task_type!r} is not yet ported "
             f"(ported: {', '.join(PORTED_TASKS)})"
+        )
+    if config.device_decode and config.task_type != "classification":
+        raise ValueError(
+            "device_decode splits the JPEG decode loop and currently "
+            f"supports task_type='classification' only, got "
+            f"{config.task_type!r}"
+        )
+    if (config.device_decode and (config.num_processes or 1) > 1
+            and not config.no_ddp):
+        import warnings
+
+        # Each process's decoder grows its page grid to its own shard's
+        # largest image. The port assembles no global batch, so unequal
+        # grids do not fail as they do in the JAX trainer, but on a
+        # mixed-size corpus the processes decode pages of different sizes
+        # and the slowest sets every step's pace.
+        warnings.warn(
+            "device_decode with multi-process local decode: each process "
+            "grows its coefficient grid to its own shard's largest image, "
+            "so on a mixed-size corpus the processes decode unequal pages "
+            "and the slowest paces every step; such corpora should stream "
+            "pixels (--no_device_decode)",
+            stacklevel=2,
         )
     device = resolve_device(config.device)
     if not config.no_ddp:
@@ -356,7 +428,8 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                         image_size=config.image_size, augment=config.augment,
                         device=device, generator=init_gen)
         decode = decoder_for_task("classification",
-                                  image_size=config.image_size)
+                                  image_size=config.image_size,
+                                  device_decode=config.device_decode)
     else:
         attention_fn = (make_flash_attention() if config.flash_attention
                         else None)
@@ -385,6 +458,10 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     logger = MetricLogger(active=rank == 0)
     timer = StepTimer()
     log = _StepLog(device.type == "cuda", world)
+    coeff = config.device_decode
+    transform = make_batch_transform(config.image_size) if coeff else None
+    k2_times = _DeviceTimes(device.type == "cuda")
+    entropy_seen = 0  # decode.entropy_ms entries already logged
     if image:
         logger.log({"decoder_arm": decode.arm})
     global_step = 0
@@ -411,6 +488,8 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                         break
                     timer.step_start()
                     start = log.start()
+                    if transform is not None:
+                        batch = k2_times.run(transform, batch)
                     if image and config.augment:
                         # One draw over the global batch, sliced per
                         # process: the flips do not depend on the world size.
@@ -433,6 +512,19 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                                          None if image else config.seq_len,
                                          images=image)
                         rate = "images_per_sec" if image else "tokens_per_sec"
+                        extra = {}
+                        if coeff:
+                            # The decoder's batches since the last log (its
+                            # producer thread may run ahead of the steps).
+                            seen = len(decode.entropy_ms)
+                            extra = {
+                                "decode_entropy_ms": _mean(
+                                    decode.entropy_ms[entropy_seen:seen]),
+                                "decode_device_ms": _mean(k2_times.drain()),
+                            }
+                            extra = {k: v for k, v in extra.items()
+                                     if v is not None}
+                            entropy_seen = seen
                         logger.log({
                             "step": global_step,
                             "epoch": epoch,
@@ -444,6 +536,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                                 / (w["loader_s"] + w["step_s"])
                                 if w["loader_s"] + w["step_s"] > 0 else 0.0
                             ),
+                            **extra,
                         })
             finally:
                 it.close()
@@ -459,6 +552,15 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         t_end = time.perf_counter()
         train_time = t_end - t_start
         results = {}
+        if coeff:
+            k2_times.drain()
+            results = {
+                "decode_entropy_ms": statistics.median(decode.entropy_ms)
+                if decode.entropy_ms else None,
+                "decode_device_ms": statistics.median(k2_times.ms)
+                if k2_times.ms else None,
+                "decode_threads": decode.threads,
+            }
         if image and config.eval_at_end:
             if rank == 0:
                 columns = decode.required_columns
@@ -466,9 +568,14 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                     lambda idx: dataset.take(idx, columns=columns),
                     dataset.count_rows(), config.batch_size, 0, 1, decode,
                     device, prefetch=config.prefetch)
-                acc, rows = evaluate(loader, make_eval_step(task))
-                results = {"eval_accuracy": acc, "eval_rows": rows}
-                logger.log(dict(results))
+                eval_step = make_eval_step(task)
+                if transform is not None:
+                    eval_step = (lambda b, _step=eval_step:
+                                 _step(transform(b)))
+                acc, rows = evaluate(loader, eval_step)
+                evaluated = {"eval_accuracy": acc, "eval_rows": rows}
+                results.update(evaluated)
+                logger.log(evaluated)
             sync_global_devices()
     finally:
         logger.close()

@@ -13,7 +13,9 @@ loader is not in this measurement):
   pipeline over a synthetic FOOD-101-shaped JPEG dataset (host decode,
   pinned H2D), so that the trace shows what the loader costs the card;
   ``--loader stage`` runs the same pipeline with the decode replaced by
-  one batch decoded ahead (reads, staging and H2D only).
+  one batch decoded ahead (reads, staging and H2D only); ``--loader
+  coeff`` is the ``--device_decode`` arm (host entropy decode into
+  coefficient pages, pinned H2D, K2 on the card before each step).
 
 It warms up and traces a few steps with ``torch.profiler``. Prints one JSON
 line: the step time between CUDA events (no profiler), then, from a
@@ -23,7 +25,7 @@ the device's idle share over the traced window, and the top kernels. Run
 from the root of a checkout on a machine with a card:
 
     python3 scripts/torch_slice_profile.py [--task classification
-        [--loader decode|stage]]
+        [--loader decode|stage|coeff]]
         [--steps 5] [--batch N] [--out DIR]
 
 ``--out`` also writes the profiler's table and a Chrome trace there.
@@ -50,6 +52,9 @@ from lance_distributed_training_tpu_torch.data import (  # noqa: E402
     make_train_pipeline,
 )
 from lance_distributed_training_tpu_torch.models.tasks import get_task  # noqa: E402
+from lance_distributed_training_tpu_torch.ops.jpeg_device import (  # noqa: E402
+    make_batch_transform,
+)
 from lance_distributed_training_tpu_torch.ops.flash import (  # noqa: E402
     make_flash_attention,
 )
@@ -65,7 +70,7 @@ IMAGE_BATCH, IMAGE_SIZE, CLASSES = 512, 224, 101
 
 def _kind(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                   "image_normalize"):
+                   "image_normalize", "jpeg_idct", "jpeg_color_resize"):
         if kernel + "_kernel" in name:
             return kernel
     low = name.lower()
@@ -87,11 +92,12 @@ def main(argv=None) -> int:
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--batch", type=int, default=None,
                         help="batch size (default: the path's own)")
-    parser.add_argument("--loader", choices=["decode", "stage"],
+    parser.add_argument("--loader", choices=["decode", "stage", "coeff"],
                         default=None,
                         help="classification: feed the steps from the "
                              "trainer's JPEG pipeline, decoding each batch "
-                             "or re-staging one decoded ahead")
+                             "on the host, re-staging one decoded ahead, or "
+                             "extracting coefficient pages for K2")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -133,14 +139,18 @@ def main(argv=None) -> int:
     train_step = make_train_step(task, optimizer, lr)
     batches = itertools.repeat(batch)
     decoder_arm = tmp = None
+    transform = None
     if args.loader and args.task == "classification":
         tmp = tempfile.TemporaryDirectory()
         path = os.path.join(tmp.name, "food")
         create_synthetic_classification_dataset(
             path, rows=batch_size * (3 + 2 * args.steps),
             num_classes=CLASSES, image_size=IMAGE_SIZE)
-        decode = decoder_for_task("classification", image_size=IMAGE_SIZE)
+        decode = decoder_for_task("classification", image_size=IMAGE_SIZE,
+                                  device_decode=args.loader == "coeff")
         decoder_arm = decode.arm
+        if args.loader == "coeff":
+            transform = make_batch_transform(IMAGE_SIZE)
         dataset = Dataset(path)
         if args.loader == "stage":
             decoder_arm = "none"
@@ -151,7 +161,10 @@ def main(argv=None) -> int:
 
     def step():
         # Each task draws its mask (MLM positions, flips) from gen.
-        train_step(next(batches), gen)
+        batch = next(batches)
+        if transform is not None:
+            batch = transform(batch)
+        train_step(batch, gen)
 
     for _ in range(3):
         step()

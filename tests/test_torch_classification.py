@@ -106,8 +106,10 @@ def _port_task(variables, augment=True, dtype=torch.float32):
     return classification_task(model, augment)
 
 
-@pytest.mark.parametrize("weight_decay", [0.0, 1e-3], ids=["sgd", "sgd_l2"])
-def test_three_sgd_steps_match_jax(monkeypatch, weight_decay):
+def _three_sgd_steps(monkeypatch, weight_decay, batches):
+    """Three SGD steps on ``batches`` (numpy dicts) by the JAX step under
+    x64 and by the port in float64, from the same weights and flips:
+    ``(jax losses, port losses, jax running var, flips, port task)``."""
     kw = dict(optimizer="sgd", lr=0.05, momentum=0.9,
               weight_decay=weight_decay)
     with jax.enable_x64(True):
@@ -127,7 +129,7 @@ def test_three_sgd_steps_match_jax(monkeypatch, weight_decay):
             rng, step_rng = jax.random.split(rng)
             draws.append(np.asarray(jax.random.bernoulli(
                 step_rng, 0.5, (BATCH, 1, 1, 1))).reshape(-1).copy())
-            state, loss = jax_step(state, _batch(s), step_rng)
+            state, loss = jax_step(state, batches[s], step_rng)
             want.append(float(loss))
         want_var = np.asarray(state.batch_stats["norm_init"]["var"])
 
@@ -138,8 +140,15 @@ def test_three_sgd_steps_match_jax(monkeypatch, weight_decay):
     step = trainer.make_train_step(task, optimizer, lr)
     got = []
     for s in range(3):
-        batch = {k: torch.from_numpy(v) for k, v in _batch(s).items()}
+        batch = {k: torch.from_numpy(v) for k, v in batches[s].items()}
         got.append(float(step(batch, flip_mask=torch.from_numpy(draws[s]))))
+    return want, got, want_var, draws, task
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-3], ids=["sgd", "sgd_l2"])
+def test_three_sgd_steps_match_jax(monkeypatch, weight_decay):
+    want, got, want_var, draws, task = _three_sgd_steps(
+        monkeypatch, weight_decay, [_batch(s) for s in range(3)])
     assert want[0] != want[2] and 0 < sum(map(np.sum, draws)) < 3 * BATCH
     np.testing.assert_allclose(got, want, rtol=RTOL)
     # The running statistics moved as the JAX step's did.
@@ -174,6 +183,94 @@ def test_weighted_eval_matches_jax_on_a_padded_tail(jax_task, tmp_path):
     plain = [{k: v for k, v in b.items() if k != "_weight"} for b in loader]
     _, unweighted = trainer.evaluate(plain, trainer.make_eval_step(task))
     assert unweighted == 24
+
+
+# ------------------------------------------- --device_decode: K2's batches
+
+
+@pytest.fixture
+def jax_coeff(tmp_path, monkeypatch):
+    """The JAX package's coefficient decoder and K2 transform, over its
+    native extractor built privately for this test (its own build links
+    every process into one shared temp file)."""
+    from lance_distributed_training_tpu.data import device_decode
+    from lance_distributed_training_tpu.native import jpeg as jax_jpeg
+    from lance_distributed_training_tpu.ops import jpeg_device
+
+    monkeypatch.setattr(jax_jpeg, "_LIB_PATH", str(tmp_path / "jax_ldt.so"))
+    monkeypatch.setattr(jax_jpeg, "_lib", None)
+    monkeypatch.setattr(jax_jpeg, "_load_failed", False)
+    monkeypatch.delenv("LDT_DISABLE_NATIVE", raising=False)
+    return (device_decode.CoeffImageDecoder(image_size=SIZE),
+            jpeg_device.make_batch_transform(SIZE))
+
+
+def _port_coeff():
+    from lance_distributed_training_tpu_torch.data import CoeffImageDecoder
+    from lance_distributed_training_tpu_torch.ops.jpeg_device import (
+        make_batch_transform,
+    )
+
+    return CoeffImageDecoder(image_size=SIZE), make_batch_transform(SIZE)
+
+
+def test_three_sgd_steps_with_device_decode_match_jax(jax_coeff, monkeypatch,
+                                                      tmp_path):
+    """Both sides decode the same JPEG rows through their device-decode
+    arm (coefficient pages, then K2), get the same pixels bit for bit, and
+    take three SGD steps on them within ``RTOL``, as
+    ``test_three_sgd_steps_match_jax`` does on random pixels."""
+    dataset = Dataset(_image_dataset(tmp_path))
+    jax_decode, jax_transform = jax_coeff
+    port_decode, port_transform = _port_coeff()
+    batches = []
+    for s in range(3):
+        table = dataset.take(np.arange(s * BATCH, (s + 1) * BATCH))
+        want = {k: np.array(v) for k, v in
+                jax_transform(jax_decode(table)).items()}
+        got = port_transform({k: torch.from_numpy(v) for k, v in
+                              port_decode(table).items()})
+        assert sorted(got) == sorted(want) == ["image", "label"]
+        for key in want:
+            np.testing.assert_array_equal(got[key].numpy(), want[key])
+        batches.append(want)
+    want, got, want_var, _, task = _three_sgd_steps(monkeypatch, 0.0,
+                                                     batches)
+    assert want[0] != want[2]
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+    np.testing.assert_allclose(task.model.bn1.running_var.numpy(), want_var,
+                               rtol=RTOL)
+
+
+def test_weighted_eval_with_device_decode_matches_jax(jax_coeff, jax_task,
+                                                      tmp_path):
+    """The eval loaders carry coefficient pages and ``_weight``; each side
+    decodes them with its K2 ahead of its eval step, as the trainers do."""
+    rows, global_batch = 20, 8
+    create_synthetic_classification_dataset(
+        str(tmp_path / "food"), rows=rows, num_classes=10, image_size=SIZE,
+        fragment_size=7)
+    dataset = Dataset(tmp_path / "food")
+    jax_decode, jax_transform = jax_coeff
+    port_decode, port_transform = _port_coeff()
+    variables = _variables(1)
+    state = jax_trainer.TrainState.create(
+        apply_fn=None, params=variables["params"],
+        batch_stats=variables["batch_stats"], tx=optax.sgd(0.1))
+    jax_eval = jax_trainer.make_eval_step(jax_task, get_mesh(
+        jax.devices()[:1]))
+    want = jax_trainer.evaluate(
+        state,
+        jax_make_eval_pipeline(lambda idx: dataset.take(idx), rows,
+                               global_batch, 0, 1, jax_decode),
+        lambda st, batch: jax_eval(st, jax_transform(batch)))
+    port_eval = trainer.make_eval_step(_port_task(variables))
+    loader = make_eval_pipeline(lambda idx: dataset.take(idx), rows,
+                                global_batch, 0, 1, port_decode, "cpu")
+    got, count = trainer.evaluate(
+        loader, lambda batch: port_eval(port_transform(batch)))
+    assert count == rows
+    assert got == pytest.approx(want, abs=1e-7)
 
 
 def test_get_model_and_loss_and_unported_tasks():
@@ -223,6 +320,50 @@ def test_cli_trains_classification_two_steps_on_cpu(tmp_path, monkeypatch,
     assert "eval_accuracy=" in out
     # decoder arm, two steps, the epoch line and the eval line
     assert (tmp_path / "m.jsonl").read_text().count("\n") == 5
+
+
+def test_cli_trains_with_device_decode_two_steps_on_cpu(tmp_path,
+                                                        monkeypatch, capsys):
+    monkeypatch.setenv("LDT_METRICS_PATH", str(tmp_path / "m.jsonl"))
+    result = cli.main(_cli_args(_image_dataset(tmp_path), "--device", "cpu",
+                                "--device_decode"))
+    assert result["steps"] == 2 and result["decoder_arm"] == "coeff"
+    assert len(result["losses"]) == 2 and all(np.isfinite(result["losses"]))
+    assert result["eval_rows"] == 24
+    assert result["decode_entropy_ms"] > 0 and result["decode_threads"] >= 1
+    assert result["decode_device_ms"] is None  # no card: nothing timed
+    out = capsys.readouterr().out
+    assert "[metrics] decoder_arm=coeff" in out
+    assert "decode_entropy_ms=" in out
+    # The control arm is the pixel decoder; the two flags exclude each other.
+    plain = cli.main(_cli_args(_image_dataset(tmp_path / "b"), "--device",
+                               "cpu", "--no_device_decode",
+                               "--no_eval_at_end"))
+    assert plain["decoder_arm"] in ("native", "pil")
+    with pytest.raises(SystemExit):
+        cli.main(_cli_args("-", "--device_decode", "--no_device_decode"))
+
+
+def test_cli_device_decode_raises_when_the_extractor_cannot_build(
+        tmp_path, monkeypatch):
+    """No silent fallback to the pixel decoder: the build error surfaces."""
+    from lance_distributed_training_tpu_torch.native import coeffs
+
+    def broken_build(src, target, flags, libs=()):
+        raise OSError("g++ failed (exit 1): simulated")
+
+    monkeypatch.setattr(coeffs, "_lib", None)
+    monkeypatch.setattr(coeffs, "library_path",
+                        lambda src, flags, stem: tmp_path / "none.so")
+    monkeypatch.setattr(coeffs, "build_library", broken_build)
+    monkeypatch.setenv("LDT_METRICS_PATH", os.devnull)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        cli.main(_cli_args(_image_dataset(tmp_path), "--device", "cpu",
+                           "--device_decode"))
+    with pytest.raises(ValueError, match="classification"):
+        trainer.train(trainer.TrainConfig(
+            dataset_path="-", task_type="masked_lm", device="cpu",
+            device_decode=True))
 
 
 def test_cli_classification_without_device_cpu_raises_without_a_card(

@@ -147,8 +147,9 @@ def test_pack_mode_and_image_tasks_not_yet_ported():
         TokenDecoder(mode="pack")
     with pytest.raises(NotImplementedError):
         decoder_for_task("contrastive")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        decoder_for_task("classification", device_decode=True)
+    # Device decode is ported for classification and for nothing else.
+    with pytest.raises(ValueError, match="classification"):
+        decoder_for_task("masked_lm", device_decode=True)
 
 
 # ------------------------------------------------------------- image data
