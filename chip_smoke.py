@@ -7,20 +7,24 @@ Phases, each printing one JSON line:
 
 1. probe   — torch/CUDA versions, the card and its power limit; requires
              compute capability 9.0; turns TF32 off for f32 matmuls.
-2. build   — compiles ``ops/csrc/flash_attn.cu``, ``ops/csrc/image.cu``
-             and ``ops/csrc/jpeg_decode.cu`` for sm_90a, the native JPEG
+2. build   — compiles ``ops/csrc/flash_attn.cu``, ``ops/csrc/image.cu``,
+             ``ops/csrc/jpeg_decode.cu`` and ``ops/csrc/token_pack.cu``
+             for sm_90a, the native JPEG
              decoder and the coefficient extractor (``native/ldt_coeffs.cpp``,
              g++ alone), all at once, and prints the build times and, from
              the ``-Xptxas -v`` reports, registers, spills and shared memory
              of all six flash kernel builds (three kernels, head dims 64 and
-             128), of K1 and of K2's two kernels; fails on any spill of any
-             of the three flash kernels at head dim 64, of K1 or of K2, and
-             when the extractor does not build.
+             128), of K1, of K2's two kernels and of K3's two; fails on any
+             spill of any of the three flash kernels at head dim 64, of K1,
+             K2 or K3, and when the extractor does not build.
 3. kernels — runs the fwd, bwd_dq and bwd_dkv kernels at the BERT-base
              shapes [32, 12, 512, 64] bf16, (a) non-causal with padding
              segments and (b) causal, against their plain PyTorch versions
              in f32 on the same inputs, checks that a second launch on the
-             same inputs gives the same bits, and times them beside the
+             same inputs gives the same bits; then (c) causal with packed
+             segments from a real first-fit-decreasing plan of the
+             causal-LM corpus, at [rows, 12, 1024, 64] and at S = 64, the
+             same way; and times them (mode a) beside the
              plain versions and ``scaled_dot_product_attention``; the
              backward's sum (dQ + dK/dV + the plain di op) is printed beside
              SDPA's backward alone (its fwd+bwd less its fwd, one call).
@@ -61,11 +65,35 @@ Phases, each printing one JSON line:
              decoder arm, K2's 40 launches, the falling loss and the eval
              over every row, and prints the step, the rates, the stall and
              the entropy and K2 times.
+9. token_kernels — K3 (``ops/csrc/token_pack.cu``, pack and unpack)
+             against its plain PyTorch version on the card, bit for bit: at
+             the path's shape (a batch of 64 sequences of the causal-LM
+             corpus, pack_len 1024), at ragged cases (empty sequences, one
+             sequence, sequences truncated at pack_len, a values tail past
+             offsets[n], padding rows from rows_multiple, bucket mode), on
+             a repeat launch, and the round trip unpack(pack(x)) == x;
+             times both beside the plain versions: device time, CUDA
+             events around 20 launches queued behind a spin of the card
+             (median of 5; the host takes longer per launch than the
+             card), and back to back as a caller meets them; the bound is
+             their bytes over 3.35 TB/s.
+10. causal_lm — trains GPT-2 124M's shape (``gpt_base``: 768/12/12/3072,
+             vocab 50257, context 1024) for 20 steps through ``cli train
+             --task_type causal_lm --token_pack --flash_attention`` (64
+             sequences a batch, pack_rows_multiple 8, AdamW lr 1e-4, eval
+             at the end) on a seeded corpus of lognormal lengths (mean
+             parameter 256, sigma 0.7, 1-1024) and Zipf(1.2) ids, then the
+             same run with ``--no_token_pack`` (the padded arm); checks K3's
+             20 launches, the flash launches, the falling loss, the eval
+             over every row and finite losses, and prints each arm's step,
+             grid and valid tokens/s and pad_waste_pct (steps 5-20, from
+             each step's own payload), pack_device_ms and peak memory.
 
 Every check that fails raises, so the script exits non-zero. The last three
 lines are the card's ``nvidia-smi`` name and power limit, the kernel table
 as JSON (the three flash kernels, K1 and K2, each with its launches on its
-path), and ``{"ok": true, "device": {...}}``.
+path; K3's pack and unpack with their launches on the causal-LM path),
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -83,7 +111,8 @@ import time
 import numpy as np
 
 PHASES = ("probe", "build", "kernels", "slice", "image_kernels",
-          "jpeg_kernels", "classification", "device_decode")
+          "jpeg_kernels", "classification", "device_decode", "token_kernels",
+          "causal_lm")
 SHAPE = (32, 12, 512, 64)  # B, H, S, D at BERT-base, seq 512
 STEPS = 20
 LAYERS = 12
@@ -100,6 +129,14 @@ IMAGE_BATCH, IMAGE_CLASSES = 512, 101
 JPEG_SOURCE = "lance_distributed_training_tpu_torch/ops/csrc/jpeg_decode.cu"
 JPEG_REPLACES = "lance_distributed_training_tpu/ops/jpeg_device.py:180"
 UNIQUE_IMAGES = 64  # distinct images (and labels) of the classification set
+TOKEN_SOURCE = "lance_distributed_training_tpu_torch/ops/csrc/token_pack.cu"
+TOKEN_REPLACES = {
+    "token_pack": "lance_distributed_training_tpu/ops/token_device.py:67",
+    "token_unpack": "lance_distributed_training_tpu/ops/token_device.py:117",
+}
+GPT_VOCAB, GPT_CONTEXT, GPT_BATCH = 50257, 1024, 64  # GPT-2 small's n_ctx
+GPT_MEAN_LEN, GPT_SIGMA = 256.0, 0.7  # lognormal lengths of the corpus
+PACK_ROWS_MULTIPLE = 8
 UPSTREAM = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 REPLACES = {
     "fwd": f"{UPSTREAM}:758",
@@ -160,6 +197,50 @@ def time_back_to_back_ms(fn, launches: int = 20, reps: int = 5,
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
+
+
+def time_queued_ms(fn, launches: int = 20, reps: int = 5,
+                   warmup: int = 3) -> dict:
+    """Device time per launch of ``fn`` where the host, not the card, would
+    set the pace back to back: the card first spins (``torch.cuda._sleep``)
+    while the host queues ``launches`` calls, then runs them between two
+    CUDA events; the median over ``reps``. A rep whose queueing outlasted
+    the spin (the card waited on the host) is run again with a spin twice
+    as long. Also returns the host's longest queueing time and the
+    shortest spin."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times, host, spin = [], [], []
+    cycles = 40_000_000
+    while len(times) < reps:
+        before = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        queued = 1e3 * (time.perf_counter() - t0)
+        end.record()
+        end.synchronize()
+        spun = before.elapsed_time(start)
+        if queued >= spun:
+            if cycles >= 640_000_000:
+                raise RuntimeError(f"queueing {launches} launches took "
+                                   f"{queued} ms, longer than a {spun} ms "
+                                   "spin of the card")
+            cycles *= 2
+            continue
+        host.append(queued)
+        spin.append(spun)
+        times.append(start.elapsed_time(end) / launches)
+    return {"ms": statistics.median(times), "host_queue_ms": max(host),
+            "spin_ms": min(spin)}
 
 
 def probe() -> dict:
@@ -229,12 +310,14 @@ def build() -> dict:
         flash,
         image,
         jpeg_device,
+        token_device,
     )
 
     t0 = time.monotonic()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         futures = [pool.submit(_build.build_library, stem)
-                   for stem in ("flash_attn", "image", "jpeg_decode")]
+                   for stem in ("flash_attn", "image", "jpeg_decode",
+                                "token_pack")]
         native = pool.submit(jpeg.native_available)
         extractor = pool.submit(coeffs.default_threads)
         for future in futures:
@@ -244,6 +327,7 @@ def build() -> dict:
     lib = flash._library()
     image._library()
     jpeg_device._library()
+    token_device._library()
     report = _build.build_report("flash_attn")
     kernels = _ptxas_kernels(report["ptxas"])
     for row in kernels:
@@ -255,11 +339,15 @@ def build() -> dict:
     jpeg_report = _build.build_report("jpeg_decode")
     jpeg_rows = _ptxas_kernels(jpeg_report["ptxas"],
                                r"(jpeg_idct|jpeg_color_resize)_kernel")
+    token_report = _build.build_report("token_pack")
+    token_rows = _ptxas_kernels(token_report["ptxas"],
+                                r"(token_pack|token_unpack)_kernel")
     emit("build", seconds=time.monotonic() - t0,
          nvcc_seconds=report["seconds"], cached=report["cached"],
          kernels=kernels, image_nvcc_seconds=image_report["seconds"],
          image_kernels=image_rows,
          jpeg_nvcc_seconds=jpeg_report["seconds"], jpeg_kernels=jpeg_rows,
+         token_nvcc_seconds=token_report["seconds"], token_kernels=token_rows,
          native_decoder=native_ok, native_decoder_error=jpeg.build_error(),
          coefficient_extractor_threads=extractor_threads)
     builds = {(r["kernel"], r["head_dim"]) for r in kernels}
@@ -280,7 +368,14 @@ def build() -> dict:
         raise RuntimeError(f"ptxas report of jpeg_decode.cu: {jpeg_rows}")
     if any(_spilled(r) for r in jpeg_rows):
         raise RuntimeError(f"ptxas spills in K2: {jpeg_rows}")
-    return {"image_ptxas": image_rows[0], "jpeg_ptxas": jpeg_rows}
+    if (sorted(r["kernel"] for r in token_rows)
+            != ["token_pack", "token_unpack"]
+            or not all("registers" in r for r in token_rows)):
+        raise RuntimeError(f"ptxas report of token_pack.cu: {token_rows}")
+    if any(_spilled(r) for r in token_rows):
+        raise RuntimeError(f"ptxas spills in K3: {token_rows}")
+    return {"image_ptxas": image_rows[0], "jpeg_ptxas": jpeg_rows,
+            "token_ptxas": token_rows}
 
 
 def _bounds(b: int, h: int, s: int, d: int) -> dict:
@@ -309,6 +404,63 @@ def _bounds(b: int, h: int, s: int, d: int) -> dict:
     return out
 
 
+def _check_flash_case(mode, q, k, v, do, seg, causal, scale, errors) -> None:
+    """fwd, dQ and dK/dV on the card against their plain versions in f32
+    (the tolerances of the kernels phase), then a repeat launch that must
+    give the same bits; ``errors`` keeps each kernel's largest error."""
+    import torch
+    from lance_distributed_training_tpu_torch.ops import flash
+
+    o, lse = flash.flash_attention_fwd(q, k, v, seg, causal, scale)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    o_ref, lse_ref = flash.flash_attention_reference(qf, kf, vf, seg,
+                                                     causal, scale)
+    di = (o_ref * dof).sum(-1)
+    dq = flash.flash_attention_bwd_dq(q, k, v, seg, lse_ref, do, di,
+                                      causal, scale)
+    dk, dv = flash.flash_attention_bwd_dkv(q, k, v, seg, lse_ref, do, di,
+                                           causal, scale)
+    dq_ref = flash.flash_attention_bwd_dq_reference(
+        qf, kf, vf, seg, lse_ref, dof, di, causal, scale)
+    dk_ref, dv_ref = flash.flash_attention_bwd_dkv_reference(
+        qf, kf, vf, seg, lse_ref, dof, di, causal, scale)
+    torch.cuda.synchronize()
+    err = {
+        "o": (o.float() - o_ref).abs().max().item(),
+        "lse": (lse - lse_ref).abs().max().item(),
+    }
+    tol = {"o": TOL_O, "lse": TOL_LSE}
+    for name, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                           ("dv", dv, dv_ref)):
+        err[name] = (got.float() - ref).abs().max().item()
+        tol[name] = TOL_GRAD_REL * ref.abs().max().item()
+    emit("kernels", mode=mode, causal=causal, max_abs_err=err,
+         tolerance=tol)
+    bad = [n for n in err if not err[n] <= tol[n]]
+    if bad:
+        raise RuntimeError(f"kernels {mode}: {bad} above tolerance")
+    # The same inputs again must give the same bits (no atomics).
+    o2, lse2 = flash.flash_attention_fwd(q, k, v, seg, causal, scale)
+    dq2 = flash.flash_attention_bwd_dq(q, k, v, seg, lse_ref, do, di,
+                                       causal, scale)
+    dk2, dv2 = flash.flash_attention_bwd_dkv(q, k, v, seg, lse_ref, do,
+                                             di, causal, scale)
+    same = {
+        "fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
+        "bwd_dq": torch.equal(dq, dq2),
+        "bwd_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2),
+    }
+    emit("kernels", mode=mode, bit_identical_on_repeat=same)
+    if not all(same.values()):
+        raise RuntimeError(f"kernels {mode}: a second launch differs: "
+                           f"{same}")
+    del o2, lse2, dq2, dk2, dv2
+    errors["fwd"] = max(errors["fwd"], err["o"])
+    errors["bwd_dq"] = max(errors["bwd_dq"], err["dq"])
+    errors["bwd_dkv"] = max(errors["bwd_dkv"], err["dk"], err["dv"])
+    del o, lse, dq, dk, dv, o_ref, dq_ref, dk_ref, dv_ref
+
+
 def kernels() -> dict:
     import torch
     import torch.nn.functional as F
@@ -329,54 +481,21 @@ def kernels() -> dict:
     errors: dict = {"fwd": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
     for mode, seg, causal in (("a_padded", seg_a, False),
                               ("b_causal", None, True)):
-        o, lse = flash.flash_attention_fwd(q, k, v, seg, causal, scale)
-        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-        o_ref, lse_ref = flash.flash_attention_reference(qf, kf, vf, seg,
-                                                         causal, scale)
-        di = (o_ref * dof).sum(-1)
-        dq = flash.flash_attention_bwd_dq(q, k, v, seg, lse_ref, do, di,
-                                          causal, scale)
-        dk, dv = flash.flash_attention_bwd_dkv(q, k, v, seg, lse_ref, do, di,
-                                               causal, scale)
-        dq_ref = flash.flash_attention_bwd_dq_reference(
-            qf, kf, vf, seg, lse_ref, dof, di, causal, scale)
-        dk_ref, dv_ref = flash.flash_attention_bwd_dkv_reference(
-            qf, kf, vf, seg, lse_ref, dof, di, causal, scale)
-        torch.cuda.synchronize()
-        err = {
-            "o": (o.float() - o_ref).abs().max().item(),
-            "lse": (lse - lse_ref).abs().max().item(),
-        }
-        tol = {"o": TOL_O, "lse": TOL_LSE}
-        for name, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
-                               ("dv", dv, dv_ref)):
-            err[name] = (got.float() - ref).abs().max().item()
-            tol[name] = TOL_GRAD_REL * ref.abs().max().item()
-        emit("kernels", mode=mode, causal=causal, max_abs_err=err,
-             tolerance=tol)
-        bad = [n for n in err if not err[n] <= tol[n]]
-        if bad:
-            raise RuntimeError(f"kernels {mode}: {bad} above tolerance")
-        # The same inputs again must give the same bits (no atomics).
-        o2, lse2 = flash.flash_attention_fwd(q, k, v, seg, causal, scale)
-        dq2 = flash.flash_attention_bwd_dq(q, k, v, seg, lse_ref, do, di,
-                                           causal, scale)
-        dk2, dv2 = flash.flash_attention_bwd_dkv(q, k, v, seg, lse_ref, do,
-                                                 di, causal, scale)
-        same = {
-            "fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
-            "bwd_dq": torch.equal(dq, dq2),
-            "bwd_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2),
-        }
-        emit("kernels", mode=mode, bit_identical_on_repeat=same)
-        if not all(same.values()):
-            raise RuntimeError(f"kernels {mode}: a second launch differs: "
-                               f"{same}")
-        del o2, lse2, dq2, dk2, dv2
-        errors["fwd"] = max(errors["fwd"], err["o"])
-        errors["bwd_dq"] = max(errors["bwd_dq"], err["dq"])
-        errors["bwd_dkv"] = max(errors["bwd_dkv"], err["dk"], err["dv"])
-        del o, lse, dq, dk, dv, o_ref, dq_ref, dk_ref, dv_ref
+        _check_flash_case(mode, q, k, v, do, seg, causal, scale, errors)
+    # (c): causal with packed segments, ids from real FFD plans of the
+    # causal-LM corpus at pack_len 1024 and at 64.
+    for pack_len in (GPT_CONTEXT, 64):
+        seg_c = _corpus_segment_ids(pack_len).to(dev)
+        shape_c = (seg_c.shape[0], h, seg_c.shape[1], d)
+
+        def randn_c():
+            return torch.randn(shape_c, generator=gen, device=dev).to(
+                torch.bfloat16)
+
+        qc, kc, vc, doc = randn_c(), randn_c(), randn_c(), randn_c()
+        _check_flash_case(f"c_packed_causal_{pack_len}", qc, kc, vc, doc,
+                          seg_c, True, scale, errors)
+        del qc, kc, vc, doc
 
     # Timings at the main path's inputs (mode a: padding segments).
     _, lse = flash.flash_attention_fwd(q, k, v, seg_a, False, scale)
@@ -493,7 +612,7 @@ def slice_run() -> dict:
             "--flash_attention", "--batch_size", str(b),
             "--optimizer", "adamw", "--lr", "1e-4",
             "--max_steps", str(STEPS), "--epochs", "1", "--log_every", "5",
-            "--device", "cuda",
+            "--device", "cuda", "--no_eval_at_end",
         ])
         launches = {k: ops.LAUNCHES[k] for k in flash.LAUNCHES}
         peak = torch.cuda.max_memory_allocated()
@@ -821,6 +940,321 @@ def jpeg_kernels() -> dict:
     return fields
 
 
+# ------------------------------------------------------------ causal LM
+
+
+_CORPUS: dict = {}
+
+
+def _corpus_docs() -> list:
+    """The causal-LM corpus: ``GPT_BATCH * STEPS`` documents with seeded
+    lognormal lengths (log-mean ``log(GPT_MEAN_LEN)``, sigma ``GPT_SIGMA``,
+    clipped to 1-1024, as ``create_variable_length_token_dataset`` draws
+    them) and Zipf(1.2) ids folded onto 2..vocab-1, as the slice phase's
+    BERT corpus is (uniform ids would leave nothing to learn)."""
+    if "docs" not in _CORPUS:
+        rng = np.random.default_rng(6)
+        n = GPT_BATCH * STEPS
+        lengths = np.clip(
+            rng.lognormal(np.log(GPT_MEAN_LEN), GPT_SIGMA, n).astype(np.int64),
+            1, GPT_CONTEXT)
+        _CORPUS["docs"] = [
+            (2 + (rng.zipf(1.2, int(m)) - 1) % (GPT_VOCAB - 2)).astype(
+                np.int32) for m in lengths]
+    return _CORPUS["docs"]
+
+
+def _token_table(docs):
+    import pyarrow as pa
+
+    return pa.table({"input_ids": pa.array(list(docs),
+                                           type=pa.list_(pa.int32()))})
+
+
+def _decode_tokens(docs, pack_len: int,
+                   rows_multiple: int = PACK_ROWS_MULTIPLE,
+                   mode: str = "pack") -> dict:
+    """``docs`` through the port's TokenDecoder (an FFD or bucket plan)."""
+    from lance_distributed_training_tpu_torch.data import (
+        TokenDecoder,
+        TokenPackConfig,
+        TokenPackPlanner,
+    )
+
+    planner = TokenPackPlanner(TokenPackConfig(pack_len=pack_len,
+                                               rows_multiple=rows_multiple))
+    return TokenDecoder(mode=mode, seq_len=pack_len, planner=planner)(
+        _token_table(docs))
+
+
+def _pack_args(batch: dict, device) -> tuple:
+    """``(values, offsets, slot, start)`` tensors and ``(rows, pack_len)``
+    of a decoded ragged batch."""
+    import torch
+
+    args = tuple(torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
+                 for k in ("input_ids__values", "input_ids__offsets",
+                           "_pack_slot", "_pack_start"))
+    rows, pack_len = (int(x) for x in batch["_host_pack_meta"][:2])
+    return args, rows, pack_len
+
+
+def _corpus_segment_ids(pack_len: int):
+    """The segment ids of the corpus's first batch packed at ``pack_len``
+    (by the plain pack, on the CPU)."""
+    from lance_distributed_training_tpu_torch.ops import token_device
+
+    args, rows, pl = _pack_args(
+        _decode_tokens(_corpus_docs()[:GPT_BATCH], pack_len), "cpu")
+    return token_device.pack_token_batch_reference(
+        *args, rows=rows, pack_len=pl)[1]
+
+
+def _token_cases() -> list:
+    """``(label, decoded batch, values tail)`` for K3's checks: the path's
+    batch and ragged ones."""
+    rng = np.random.default_rng(7)
+
+    def docs(lengths):
+        return [rng.integers(2, GPT_VOCAB, int(m), dtype=np.int32)
+                for m in lengths]
+
+    path = _decode_tokens(_corpus_docs()[:GPT_BATCH], GPT_CONTEXT)
+    cases = [("path", path, None)]
+    cases.append(("empty_sequences", _decode_tokens(
+        docs([0, 5, 0, 0, 40, 17, 0, 3, 64, 0]), 64), None))
+    cases.append(("one_sequence", _decode_tokens(docs([37]), GPT_CONTEXT),
+                  None))
+    cases.append(("truncated_at_pack_len", _decode_tokens(
+        docs(rng.integers(1, 300, 23)), 64), None))
+    cases.append(("rows_multiple_padding", _decode_tokens(
+        docs([9, 200, 31]), 256, rows_multiple=8), None))
+    cases.append(("bucket_mode", _decode_tokens(
+        docs(rng.integers(1, 90, 16)), 128, mode="bucket"), None))
+    # A values tail past offsets[n] that holds nonzero tokens: the kernels
+    # must leave it alone.
+    cases.append(("values_tail", path, rng.integers(
+        2, GPT_VOCAB, 4096, dtype=np.int32)))
+    return cases
+
+
+def token_kernels() -> dict:
+    """K3 pack and unpack against their plain versions, bit for bit, then
+    timed at the path's batch."""
+    import torch
+    from lance_distributed_training_tpu_torch.ops import token_device as td
+
+    dev = torch.device("cuda")
+    checked = []
+    for label, batch, tail in _token_cases():
+        (values, offsets, slot, start), rows, pack_len = _pack_args(batch,
+                                                                    dev)
+        if tail is not None:
+            values = torch.cat([values, torch.from_numpy(tail).to(dev)])
+        got = td.pack_token_batch(values, offsets, slot, start, rows=rows,
+                                  pack_len=pack_len)
+        want = td.pack_token_batch_reference(values, offsets, slot, start,
+                                             rows=rows, pack_len=pack_len)
+        again = td.pack_token_batch(values, offsets, slot, start, rows=rows,
+                                    pack_len=pack_len)
+        cap = values.shape[0]
+        back = td.unpack_token_batch(got[0], offsets, slot, start,
+                                     capacity=cap)
+        back_want = td.unpack_token_batch_reference(want[0], offsets, slot,
+                                                    start, capacity=cap)
+        back_again = td.unpack_token_batch(got[0], offsets, slot, start,
+                                           capacity=cap)
+        # The round trip returns every live token (where the unpacked
+        # segment ids are nonzero) and zero elsewhere: the page itself
+        # where nothing was truncated and the tail is zero.
+        live = td.unpack_token_batch_reference(want[1], offsets, slot, start,
+                                               capacity=cap) != 0
+        expected = torch.where(live, values, torch.zeros_like(values))
+        torch.cuda.synchronize()
+        lengths = (offsets[1:] - offsets[:-1]).cpu()
+        exact = bool((lengths <= pack_len).all()) and tail is None
+        row = {
+            "case": label, "n": int(slot.shape[0]), "capacity": cap,
+            "grid": [rows, pack_len],
+            "pack_bit_identical": all(torch.equal(g, w)
+                                      for g, w in zip(got, want)),
+            "pack_bit_identical_on_repeat": all(
+                torch.equal(g, a) for g, a in zip(got, again)),
+            "unpack_bit_identical": torch.equal(back, back_want),
+            "unpack_bit_identical_on_repeat": torch.equal(back, back_again),
+            "round_trip_exact": exact,
+            "round_trip_ok": torch.equal(back, expected) and (
+                not exact or torch.equal(back, values)),
+        }
+        checked.append(row)
+        if not all(v for k, v in row.items() if k.endswith(
+                ("identical", "on_repeat", "_ok"))):
+            emit("token_kernels", failed=row)
+            raise RuntimeError(f"K3 differs from its plain version at "
+                               f"{label}")
+    emit("token_kernels", checks=checked, max_abs_err=0)
+
+    (values, offsets, slot, start), rows, pack_len = _pack_args(
+        _token_cases()[0][1], dev)
+    cap, n = values.shape[0], slot.shape[0]
+    cells = rows * pack_len
+    grid = td.pack_token_batch(values, offsets, slot, start, rows=rows,
+                               pack_len=pack_len)[0]
+
+    def pack():
+        return td.pack_token_batch(values, offsets, slot, start, rows=rows,
+                                   pack_len=pack_len)
+
+    def pack_plain():
+        return td.pack_token_batch_reference(values, offsets, slot, start,
+                                             rows=rows, pack_len=pack_len)
+
+    def unpack():
+        return td.unpack_token_batch(grid, offsets, slot, start,
+                                     capacity=cap)
+
+    def unpack_plain():
+        return td.unpack_token_batch_reference(grid, offsets, slot, start,
+                                               capacity=cap)
+
+    before = dict(td.LAUNCHES)
+    # The card runs each launch in microseconds, the wrapper takes longer
+    # on the host: time the launches queued behind a spin (device time),
+    # and back to back as a caller meets them (host-bound).
+    queued = {"token_pack": time_queued_ms(pack),
+              "token_unpack": time_queued_ms(unpack),
+              "token_pack_plain": time_queued_ms(pack_plain),
+              "token_unpack_plain": time_queued_ms(unpack_plain)}
+    ms = {k: queued[k]["ms"] for k in ("token_pack", "token_unpack")}
+    plain_ms = {k: queued[k + "_plain"]["ms"] for k in ms}
+    back_to_back = {"token_pack": time_back_to_back_ms(pack),
+                    "token_unpack": time_back_to_back_ms(unpack)}
+    # Bytes each must move: pack reads the live tokens it places (the
+    # plain version's mask count; the page's tail past them is not read),
+    # the offsets and the plan, and writes 13 bytes a cell; unpack reads
+    # the grid cells holding those tokens, the offsets and the plan, and
+    # writes the page.
+    plan_bytes = 4 * (n + 1) + 8 * n
+    payload = int(offsets[-1].item())
+    live = int(torch.count_nonzero(pack_plain()[3]).item())
+    moved = {"token_pack": 4 * live + plan_bytes + td.CELL_BYTES * cells,
+             "token_unpack": 4 * live + plan_bytes + 4 * cap}
+    table = {}
+    for name in ms:
+        bound = 1e3 * moved[name] / PEAK_BYTES
+        table[name] = {"ms": ms[name], "plain_ms": plain_ms[name],
+                       "ms_back_to_back": back_to_back[name],
+                       "library_ms": None, "bytes": moved[name],
+                       "bound_ms": bound, "bound_by": "bytes",
+                       "share_of_bound": bound / ms[name]}
+    check_launches = {k: td.LAUNCHES[k] for k in td.LAUNCHES}
+    emit("token_kernels", timing="path_shape", n=n, capacity=cap,
+         grid=[rows, pack_len], payload_tokens=payload, live_tokens=live,
+         table=table,
+         queued=queued, launches_in_this_phase=check_launches,
+         timing_launches={k: td.LAUNCHES[k] - before[k] for k in before})
+    return {"table": table, "check_launches": check_launches}
+
+
+def _write_corpus(path: str) -> None:
+    from lance_distributed_training_tpu_torch.data import write_dataset
+
+    table = _token_table(_corpus_docs())
+    write_dataset(table, path, schema=table.schema, mode="create")
+
+
+def causal_lm_run() -> dict:
+    """GPT-2 124M's shape through ``cli train --task_type causal_lm``,
+    packed (K3) and then padded, STEPS steps each with the eval."""
+    import torch
+    from lance_distributed_training_tpu_torch import cli, ops
+
+    rows = GPT_BATCH * STEPS
+    eval_batches = -(-rows // GPT_BATCH)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens")
+        t0 = time.monotonic()
+        _write_corpus(path)
+        author_s = time.monotonic() - t0
+        os.environ["LDT_METRICS_PATH"] = os.path.join(tmp, "metrics.jsonl")
+        for arm in ("packed", "padded"):
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            result = cli.main([
+                "train", "--dataset_path", path, "--task_type", "causal_lm",
+                "--model_name", "gpt_base", "--seq_len", str(GPT_CONTEXT),
+                "--flash_attention", "--batch_size", str(GPT_BATCH),
+                "--optimizer", "adamw", "--lr", "1e-4",
+                "--max_steps", str(STEPS), "--epochs", "1",
+                "--log_every", "5", "--device", "cuda",
+                "--pack_rows_multiple", str(PACK_ROWS_MULTIPLE),
+                "--token_pack" if arm == "packed" else "--no_token_pack",
+            ])
+            launches = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            losses = result["losses"]
+            steps = result["steps"]
+            # Steps 5-20: their grid and payload tokens over their CUDA-event
+            # time.
+            step_ms = result["step_ms"][4:]
+            grid = sum(result["grid_tokens"][4:])
+            payload = sum(result["payload_tokens"][4:])
+            device_s = sum(step_ms) / 1e3
+            fields = {
+                "arm": arm, "steps": steps, "first_loss": losses[0],
+                "last5_mean_loss": statistics.fmean(losses[-5:]),
+                "losses": losses,
+                "step_ms_median_5_20": statistics.median(step_ms),
+                "grid_tokens_per_step": result["grid_tokens"],
+                "payload_tokens_per_step": result["payload_tokens"],
+                "grid_tokens_per_sec": grid / device_s,
+                "valid_tokens_per_sec": payload / device_s,
+                "pad_waste_pct": 100 * (1 - payload / grid),
+                "grid_tokens_per_sec_wall": result["tokens_per_sec"],
+                "valid_tokens_per_sec_wall": result["valid_tokens_per_sec"],
+                "pad_waste_pct_wall": result["pad_waste_pct"],
+                "pack_device_ms": result.get("pack_device_ms"),
+                "pack_new_shapes_total": result.get("pack_new_shapes_total"),
+                "counters": {k: result[k] for k in (
+                    "pack_payload_tokens_total", "pack_grid_tokens_total",
+                    "pack_sequences_total", "pack_truncated_tokens_total",
+                    "pack_batches_total")},
+                "peak_memory_allocated_bytes": peak,
+                "eval_next_token_accuracy": result.get("eval_accuracy"),
+                "eval_rows": result.get("eval_rows"), "dataset_rows": rows,
+                "launches": launches, "dataset_seconds": author_s,
+                "train_seconds": result["train_time"],
+                "total_seconds": result["total_time"],
+                "model_params": result["model_params"],
+            }
+            emit("causal_lm", **fields)
+            if steps != STEPS or len(losses) != STEPS:
+                raise RuntimeError(f"{arm}: ran {steps} steps, expected "
+                                   f"{STEPS}")
+            if not all(np.isfinite(losses)):
+                raise RuntimeError(f"{arm}: non-finite loss")
+            if not fields["last5_mean_loss"] < losses[0]:
+                raise RuntimeError(f"{arm}: loss did not fall over the run")
+            if fields["eval_rows"] != rows:
+                raise RuntimeError(f"{arm}: eval covered "
+                                   f"{fields['eval_rows']} rows of {rows}")
+            want = {
+                "token_pack": STEPS if arm == "packed" else 0,
+                "token_unpack": 0,
+                "fwd": LAYERS * (STEPS + eval_batches),
+                "bwd_dq": LAYERS * STEPS, "bwd_dkv": LAYERS * STEPS,
+            }
+            wrong = {k: (launches[k], v) for k, v in want.items()
+                     if launches[k] != v}
+            if wrong:
+                raise RuntimeError(f"{arm}: launches (got, expected) {wrong}")
+            out[arm] = fields
+    return {"launches": {"token_pack": out["packed"]["launches"]["token_pack"],
+                         "token_unpack": out["packed"]["launches"][
+                             "token_unpack"]}, "arms": out}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -845,6 +1279,9 @@ def main(argv=None) -> int:
     if "device_decode" in phases:
         launches = {**(launches or {}),
                     **classification_run(device_decode=True)["launches"]}
+    k3 = token_kernels() if "token_kernels" in phases else None
+    if "causal_lm" in phases:
+        launches = {**(launches or {}), **causal_lm_run()["launches"]}
     if set(phases) != set(PHASES):
         return 0  # a partial run prints no result
     print(card["smi"], flush=True)
@@ -871,6 +1308,18 @@ def main(argv=None) -> int:
         "registers": {r["kernel"]: r["registers"]
                       for r in ptxas["jpeg_ptxas"]},
     })
+    for name in ("token_pack", "token_unpack"):
+        row = k3["table"][name]
+        table.append({
+            "name": name, "route": "cuda", "source": TOKEN_SOURCE,
+            "replaces": TOKEN_REPLACES[name], "launches": launches[name],
+            "check_launches": k3["check_launches"][name],
+            "max_abs_err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "share_of_bound": row["share_of_bound"],
+            "registers": {r["kernel"]: r["registers"]
+                          for r in ptxas["token_ptxas"]}[name],
+        })
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["name"],

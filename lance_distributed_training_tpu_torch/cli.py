@@ -2,11 +2,13 @@
 
 Counterpart of ``lance_distributed_training_tpu/cli.py`` for the ported
 paths, image classification (its defaults: ResNet-50, 224 px, 101 classes,
-global batch 512, SGD lr 0.05 momentum 0.9, flips, eval at the end) and
-masked-LM text, ``--device_decode`` (JPEG decode split at the entropy
-boundary, K2 on the device), plus ``--device {cuda,cpu}`` (default
-``cuda``, which raises when no card is present). Any other flag of the JAX CLI raises "not
-yet ported"; so do the other subcommands and task types. Usage::
+global batch 512, SGD lr 0.05 momentum 0.9, flips, eval at the end),
+masked-LM and causal-LM text with ``--token_pack`` (ragged pages, an FFD
+plan and K3 packing on the device), ``--device_decode`` (JPEG decode split
+at the entropy boundary, K2 on the device), plus ``--device {cuda,cpu}``
+(default ``cuda``, which raises when no card is present). Any other flag
+of the JAX CLI raises "not yet ported"; so do the other subcommands and
+task types. Usage::
 
     python -m lance_distributed_training_tpu_torch.cli train \\
         --dataset_path /data/food101 --max_steps 20 [--device_decode]
@@ -14,6 +16,10 @@ yet ported"; so do the other subcommands and task types. Usage::
         --dataset_path /data/c4_tokens --task_type masked_lm \\
         --model_name bert_base --seq_len 512 --flash_attention \\
         --batch_size 32 --optimizer adamw --lr 1e-4 --max_steps 20
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/web_tokens --task_type causal_lm \
+        --model_name gpt_base --seq_len 1024 --token_pack --flash_attention \
+        --batch_size 64 --optimizer adamw --lr 1e-4 --max_steps 20
 
 Data parallel over N processes: run one per process with
 ``--coordinator_address host:port --num_processes N --process_id i``.
@@ -41,13 +47,13 @@ class _Parser(argparse.ArgumentParser):
 
 def build_parser() -> argparse.ArgumentParser:
     p = _Parser(description="PyTorch/CUDA trainer (classification, "
-                            "masked-LM)")
+                            "masked-LM, causal-LM)")
     p.add_argument("--dataset_path", type=str, required=True)
     p.add_argument("--task_type", type=str, default="classification",
                    choices=["classification", "masked_lm", "causal_lm",
                             "contrastive"],
-                   help="classification and masked_lm are ported; the "
-                        "others raise")
+                   help="classification, masked_lm and causal_lm are "
+                        "ported; contrastive raises")
     p.add_argument("--num_classes", type=int, default=101)
     p.add_argument("--sampler_type", type=str, default="batch",
                    choices=["batch", "fragment", "full", "sharded_batch",
@@ -71,8 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="single process even with --coordinator_address")
     p.add_argument("--model_name", type=str, default=None,
                    choices=["resnet18", "resnet34", "resnet50", "resnet101",
-                            "resnet152", "bert_base", "bert_small"],
-                   help="default per task: resnet50 / bert_base")
+                            "resnet152", "bert_base", "bert_small",
+                            "gpt_base", "gpt_small"],
+                   help="default per task: resnet50 / bert_base / gpt_base")
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--seq_len", type=int, default=128)
     p.add_argument("--vocab_size", type=int, default=None)
@@ -96,6 +103,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "cannot be built)")
     dd.add_argument("--no_device_decode", action="store_true",
                     help="the host pixel-decode path (the default)")
+    tp = p.add_mutually_exclusive_group()
+    tp.add_argument("--token_pack", action="store_true",
+                    help="text tasks: variable-length sequences ride the "
+                         "loader as values+offsets pages with a "
+                         "deterministic first-fit-decreasing pack plan; K3 "
+                         "packs them into [rows, pack_len] grids with "
+                         "segment and position ids on the device (the eval "
+                         "streams the padded arm)")
+    tp.add_argument("--no_token_pack", action="store_true",
+                    help="the padded token path (the default)")
+    p.add_argument("--pack_len", type=int, default=0,
+                   help="packed slot-length cap (0 = --seq_len)")
+    p.add_argument("--pack_rows_multiple", type=int, default=8,
+                   help="packed row-count rounding quantum")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="cuda (default) raises without a card; cpu runs the "
@@ -123,6 +144,8 @@ def main(argv=None) -> dict:
     args["eval_at_end"] = not args.pop("no_eval_at_end")
     no_device_decode = args.pop("no_device_decode")
     args["device_decode"] = args["device_decode"] and not no_device_decode
+    no_token_pack = args.pop("no_token_pack")
+    args["token_pack"] = args["token_pack"] and not no_token_pack
     return train(TrainConfig(**args))
 
 

@@ -1,6 +1,7 @@
 """Dataset authoring — tokenised text rows and synthetic image rows.
 
-Counterpart of ``create_text_token_dataset`` and
+Counterpart of ``create_text_token_dataset``,
+``create_variable_length_token_dataset`` and
 ``create_synthetic_classification_dataset`` in
 ``lance_distributed_training_tpu/data/authoring.py``; the rows and the
 schemas are the same (the same seed gives the same JPEG bytes and labels),
@@ -18,7 +19,8 @@ import pyarrow as pa
 from .format import Dataset, write_dataset
 
 __all__ = ["IMAGE_SCHEMA", "create_synthetic_classification_dataset",
-           "create_text_token_dataset"]
+           "create_text_token_dataset",
+           "create_variable_length_token_dataset"]
 
 # The image-classification schema: JPEG bytes and an integer label.
 IMAGE_SCHEMA = pa.schema([("image", pa.binary()), ("label", pa.int64())])
@@ -82,6 +84,55 @@ def create_text_token_dataset(
                 ids_buf, mask_buf = [], []
         if ids_buf:
             yield record_batch(ids_buf, mask_buf)
+
+    return write_dataset(
+        gen(), output_path, schema=schema, mode="overwrite",
+        max_rows_per_file=fragment_size,
+    )
+
+
+def create_variable_length_token_dataset(
+    output_path: str,
+    rows: int,
+    vocab_size: int = 1000,
+    max_len: int = 128,
+    mean_len: float = 24.0,
+    sigma: float = 0.7,
+    fragment_size: int = 50000,
+    seed: int = 0,
+    include_mask: bool = False,
+) -> Dataset:
+    """Variable-length token rows ``{input_ids: list<int32>}`` (plus an
+    all-ones variable ``attention_mask`` with ``include_mask``): lengths
+    drawn from a seeded lognormal (``log(mean_len)``, ``sigma``) clipped to
+    ``[1, max_len]``, ids uniform in ``[2, vocab_size)``. A pure function of
+    its arguments: the same arguments write the same bytes."""
+    rng = np.random.default_rng(seed)
+    schema_fields = [("input_ids", pa.list_(pa.int32()))]
+    if include_mask:
+        schema_fields.append(("attention_mask", pa.list_(pa.int8())))
+    schema = pa.schema(schema_fields)
+
+    def gen() -> Iterator[pa.RecordBatch]:
+        done = 0
+        while done < rows:
+            n = min(_ROWS_PER_BATCH, rows - done)
+            lengths = np.clip(
+                rng.lognormal(np.log(mean_len), sigma, n).astype(np.int64),
+                1, max_len,
+            )
+            ids = [
+                rng.integers(2, vocab_size, int(L), dtype=np.int32)
+                for L in lengths
+            ]
+            arrays = [pa.array(ids, schema.field("input_ids").type)]
+            if include_mask:
+                arrays.append(pa.array(
+                    [np.ones(int(L), np.int8) for L in lengths],
+                    schema.field("attention_mask").type,
+                ))
+            yield pa.record_batch(arrays, schema=schema)
+            done += n
 
     return write_dataset(
         gen(), output_path, schema=schema, mode="overwrite",

@@ -23,6 +23,8 @@ import pyarrow as pa
 
 from .token_pack import (
     TokenDecoder,
+    TokenPackConfig,
+    TokenPackPlanner,
     fill_padded,
     list_column_parts,
     primitive_view,
@@ -124,11 +126,14 @@ class ImageClassificationDecoder:
 
 
 def decoder_for_task(task_type: str, seq_len: Optional[int] = None,
-                     image_size: int = 224, device_decode: bool = False):
+                     image_size: int = 224, device_decode: bool = False,
+                     token_pack: Optional[TokenPackConfig] = None):
     """The task-type → decode-hook dispatch. ``classification`` gets the
     :class:`ImageClassificationDecoder` at ``image_size``; for the text
-    tasks, ``seq_len`` selects the padded :class:`~.token_pack.TokenDecoder`
-    and without it the plain :func:`numeric_decoder` runs. With
+    tasks, ``token_pack`` (a :class:`~.token_pack.TokenPackConfig`) selects
+    the ragged FFD-packing :class:`~.token_pack.TokenDecoder`, ``seq_len``
+    alone the padded one, and with neither the plain
+    :func:`numeric_decoder` runs. With
     ``device_decode`` classification gets the
     :class:`~.device_decode.CoeffImageDecoder` (``arm == "coeff"``), which
     raises when its extractor cannot be built."""
@@ -144,6 +149,11 @@ def decoder_for_task(task_type: str, seq_len: Optional[int] = None,
             f"only (the JPEG entropy split), got {task_type!r}"
         )
     if task_type in ("masked_lm", "causal_lm"):
+        if token_pack is not None:
+            return TokenDecoder(mode="pack",
+                                seq_len=seq_len or token_pack.pack_len,
+                                planner=TokenPackPlanner(token_pack),
+                                pad_id=token_pack.pad_id)
         if seq_len is not None:
             return TokenDecoder(mode="pad", seq_len=seq_len)
         return numeric_decoder

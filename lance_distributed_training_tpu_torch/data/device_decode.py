@@ -10,7 +10,7 @@ not hold the interpreter); K2 does the rest on the card.
 
 Pages are padded to a block grid that grows monotonically to the largest
 image seen, rounded up to ``chunk_blocks``. A row the extractor cannot take
-(4:4:4 or 4:2:2 sampling, CMYK, arithmetic coding, bytes it cannot parse)
+(4:4:4 or 4:2:2 sampling, CMYK, bytes it cannot parse)
 is decoded by PIL and re-encoded as baseline 4:2:0 at quality 95, then
 extracted again; a row that still fails keeps a zeroed page with quant 1
 and geometry 0, which decodes to neutral gray.

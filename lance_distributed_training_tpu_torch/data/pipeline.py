@@ -28,6 +28,7 @@ from .samplers import (
     make_plan,
     padded_eval_index_batches,
 )
+from .token_pack import is_host_meta_key
 
 __all__ = ["EvalLoader", "TrainLoader", "PinnedStager", "make_eval_pipeline",
            "make_train_pipeline"]
@@ -55,7 +56,12 @@ class PinnedStager:
     Each slot holds one pinned tensor per key and the CUDA event of the copy
     that last read it; a slot is refilled only after that event completes, so
     a ``non_blocking`` copy never reads a buffer being overwritten. On the
-    CPU the batch is copied into fresh tensors."""
+    CPU the batch is copied into fresh tensors. Keys with the host-meta
+    prefix (``_host_*``, e.g. the pack plan's header) stay host numpy, so
+    the device-side transforms read them without a sync. A batch's shapes
+    may change from one batch to the next (the ragged pages and the packed
+    plan do): a slot's pinned buffer is replaced when its shape or type
+    changes."""
 
     depth = 2  # one slot being copied from while the next is filled
 
@@ -67,7 +73,9 @@ class PinnedStager:
 
     def __call__(self, batch: dict) -> dict:
         if self.device.type != "cuda":
-            return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+            return {k: np.asarray(v) if is_host_meta_key(k)
+                    else torch.from_numpy(np.array(v))
+                    for k, v in batch.items()}
         i = self._next
         self._next = (i + 1) % self.depth
         if self._events[i] is not None:
@@ -76,6 +84,9 @@ class PinnedStager:
         out = {}
         for name, arr in batch.items():
             arr = np.asarray(arr)
+            if is_host_meta_key(name):
+                out[name] = arr
+                continue
             pinned = slot.get(name)
             if pinned is None or tuple(pinned.shape) != arr.shape or (
                 pinned.numpy().dtype != arr.dtype

@@ -5,7 +5,8 @@ The JAX package's encoder keeps its parameters as a nested dict
 (``layer_<i>/attn/query/kernel`` …) with Flax layouts: dense kernels are
 ``[in, out]`` and the attention projections ``DenseGeneral`` kernels
 ``[hidden, heads, head_dim]``. ``torch_state_dict_from_flax`` maps such a
-tree, as numpy arrays, onto the port's module names and layouts.
+tree, as numpy arrays, onto the port's module names and layouts; the BERT
+and GPT presets share it (causality is not a parameter).
 
 ``resnet_state_dict_from_flax`` maps a Flax ResNet's ``{"params",
 "batch_stats"}`` onto :class:`.resnet.ResNet`, whose names are

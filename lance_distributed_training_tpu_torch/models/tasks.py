@@ -1,11 +1,13 @@
 """Task abstraction: model + forward + loss + metric as one unit.
 
 Counterpart of ``lance_distributed_training_tpu/models/tasks.py``, ported for
-``classification`` and ``masked_lm``. The JAX tasks draw their random masks
-(the MLM mask, the per-image flip) with ``jax.random``; here ``forward``
-takes the draw explicitly (``mlm_mask``, ``flip_mask``) or makes it from a
-``torch.Generator`` (the two generators give different bits, so parity
-tests pass the draw in).
+``classification``, ``masked_lm`` and ``causal_lm``. The text tasks take
+packed batches too: ``segment_ids`` and ``position_ids`` (from K3,
+:mod:`..ops.token_device`) go to the model when the batch carries them.
+The JAX tasks draw their random masks (the MLM mask, the per-image flip)
+with ``jax.random``; here ``forward`` takes the draw explicitly
+(``mlm_mask``, ``flip_mask``) or makes it from a ``torch.Generator`` (the
+two generators give different bits, so parity tests pass the draw in).
 """
 
 from __future__ import annotations
@@ -18,12 +20,12 @@ import torch.nn.functional as F
 
 from ..ops.image import normalize_flip
 from .resnet import RESNETS
-from .transformer import bert_base, bert_small
+from .transformer import bert_base, bert_small, gpt_base, gpt_small
 
 __all__ = ["Task", "get_task", "classification_task", "masked_lm_task",
-           "TASK_REGISTRY"]
+           "causal_lm_task", "TASK_REGISTRY"]
 
-TASK_REGISTRY = ("classification", "masked_lm")
+TASK_REGISTRY = ("classification", "masked_lm", "causal_lm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,8 +92,9 @@ MASK_ID = 1  # the token that replaces a masked position
 
 
 def masked_lm_task(model) -> Task:
-    """BERT masked-LM over ``{input_ids, attention_mask}`` batches. Masked
-    positions are replaced by ``MASK_ID`` and are the loss targets."""
+    """BERT masked-LM over ``{input_ids, attention_mask}`` batches (plus
+    ``segment_ids``/``position_ids`` when packed). Masked positions are
+    replaced by ``MASK_ID`` and are the loss targets."""
 
     def forward(batch, train: bool, generator: Optional[torch.Generator] = None,
                 mlm_mask: Optional[torch.Tensor] = None):
@@ -109,7 +112,9 @@ def masked_lm_task(model) -> Task:
                 mlm_mask = ((positions % stride) == 0)[None, :] & valid
         mlm_mask = mlm_mask.to(device=ids.device, dtype=torch.bool)
         corrupted = torch.where(mlm_mask, torch.full_like(ids, MASK_ID), ids)
-        logits = model(corrupted, batch["attention_mask"])
+        logits = model(corrupted, batch["attention_mask"],
+                       segment_ids=batch.get("segment_ids"),
+                       position_ids=batch.get("position_ids"))
         return logits, mlm_mask
 
     def loss(outputs, batch):
@@ -144,13 +149,72 @@ def _masked_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
     return masked_lm_task(model)
 
 
+def causal_lm_task(model) -> Task:
+    """Next-token prediction (GPT family) over ``{input_ids,
+    attention_mask}`` batches, plus ``segment_ids``/``position_ids`` when
+    packed. Position t predicts token t + 1, weighted by the target's
+    validity; in packed rows a position whose target lies in another
+    sequence (a junction) is weighted out."""
+
+    def forward(batch, train: bool, generator: Optional[torch.Generator] = None):
+        ids = batch["input_ids"].long()
+        return model(ids, batch["attention_mask"],
+                     segment_ids=batch.get("segment_ids"),
+                     position_ids=batch.get("position_ids"))
+
+    def _targets(batch):
+        """Each position's target (the next token) and weight, ``[B, S]``:
+        the last position of a row has no target and weighs 0."""
+        ids = batch["input_ids"].long()
+        targets = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], 1)
+        w = batch["attention_mask"][:, 1:].float()
+        seg = batch.get("segment_ids")
+        if seg is not None:
+            w = w * (seg[:, 1:] == seg[:, :-1]).float()
+        return targets, torch.cat([w, torch.zeros_like(w[:, :1])], 1)
+
+    def loss(logits, batch):
+        # The full [B, S, V] logits stay a view: slicing off the last
+        # position would copy them.
+        targets, w = _targets(batch)
+        raw = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                              targets.reshape(-1), reduction="none")
+        w = w.reshape(-1)
+        return (raw * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+    def metric(logits, batch):
+        targets, w = _targets(batch)
+        hit = (logits.argmax(-1) == targets).float()
+        return (hit * w).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
+
+    return Task("causal_lm", model, forward, loss, metric,
+                metric_name="next_token_accuracy", with_model=causal_lm_task)
+
+
+def _causal_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
+                    attention_fn: Optional[Callable] = None, device=None,
+                    generator: Optional[torch.Generator] = None) -> Task:
+    """A ``gpt_base`` (GPT-2 124M's shape) or ``gpt_small`` causal-LM task,
+    vocabulary 50257 by default; the model is built on ``device`` and
+    initialised from ``generator``. An ``attention_fn`` must bind its own
+    causality (``make_flash_attention(causal=True)``)."""
+    ctor = {"gpt_base": gpt_base, "gpt_small": gpt_small}.get(model_name)
+    if ctor is None:
+        raise ValueError(f"Invalid model name: {model_name} "
+                         "(have ['gpt_base', 'gpt_small'])")
+    model = ctor(vocab_size=vocab_size or 50257, max_len=seq_len,
+                 attention_fn=attention_fn, device=device, generator=generator)
+    return causal_lm_task(model)
+
+
 def get_task(task_type: str, *, num_classes: int = 101,
              model_name: Optional[str] = None, image_size: int = 224,
              seq_len: int = 128, vocab_size: Optional[int] = None,
              augment: bool = True, attention_fn: Optional[Callable] = None,
              device=None, generator: Optional[torch.Generator] = None) -> Task:
     """The task for ``task_type``: ``classification`` (a ResNet, default
-    ``resnet50``) or ``masked_lm`` (default ``bert_base``). ``image_size``
+    ``resnet50``), ``masked_lm`` (default ``bert_base``) or ``causal_lm``
+    (default ``gpt_base``). ``image_size``
     is the JAX signature's; the ResNets take any size."""
     if task_type == "classification":
         return _classification_task(num_classes, model_name or "resnet50",
@@ -158,6 +222,9 @@ def get_task(task_type: str, *, num_classes: int = 101,
     if task_type == "masked_lm":
         return _masked_lm_task(vocab_size, model_name or "bert_base", seq_len,
                                attention_fn, device, generator)
-    if task_type in ("causal_lm", "contrastive"):
+    if task_type == "causal_lm":
+        return _causal_lm_task(vocab_size, model_name or "gpt_base", seq_len,
+                               attention_fn, device, generator)
+    if task_type == "contrastive":
         raise NotImplementedError(f"task_type {task_type!r} is not yet ported")
     raise ValueError(f"Invalid task type: {task_type}")

@@ -153,9 +153,14 @@ class EncoderBlock(nn.Module):
 class TransformerEncoder(nn.Module):
     """Pre-LN BERT-style encoder with a tied MLM head.
 
-    ``forward(input_ids, attention_mask)`` → f32 logits ``[B, S, vocab]``.
-    The model is built on ``device`` and initialised from ``generator``
-    (a fresh ``torch.Generator`` seeded with 0 when none is given)."""
+    ``forward(input_ids, attention_mask, segment_ids=None,
+    position_ids=None)`` → f32 logits ``[B, S, vocab]``. Packed rows carry
+    ``segment_ids`` (1-based, 0 = dead) and ``position_ids`` (restarting
+    per sequence): positions are gathered from ``pos_embed``; an
+    ``attention_fn`` takes the segment ids straight through, the dense path
+    lowers them to a block mask (same live segment). The model is built on
+    ``device`` and initialised from ``generator`` (a fresh
+    ``torch.Generator`` seeded with 0 when none is given)."""
 
     def __init__(self, vocab_size: int, hidden_size: int = 768,
                  num_layers: int = 12, num_heads: int = 12,
@@ -196,10 +201,14 @@ class TransformerEncoder(nn.Module):
                 nn.init.ones_(module.weight)
                 nn.init.zeros_(module.bias)
 
-    def forward(self, input_ids, attention_mask=None, segment_ids=None):
+    def forward(self, input_ids, attention_mask=None, segment_ids=None,
+                position_ids=None):
         b, s = input_ids.shape
         x = self.tok_embed(input_ids).to(self.dtype)
-        x = x + self.pos_embed[:s].to(self.dtype)
+        if position_ids is not None:
+            x = x + self.pos_embed[position_ids.long()].to(self.dtype)
+        else:
+            x = x + self.pos_embed[:s].to(self.dtype)
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].to(torch.bool)

@@ -9,25 +9,32 @@
 //
 //   g++ -O3 -std=c++17 -shared -fPIC -pthread ldt_coeffs.cpp
 //
-// What it reproduces of libjpeg-turbo 2.1 (jdmarker.c, jdinput.c, jdhuff.c,
-// jdphuff.c, jdcoefct.c), so that every page equals libjpeg's integers:
+// What it reproduces of libjpeg-turbo 2.1.5 (jdmarker.c, jdinput.c, jdhuff.c,
+// jdphuff.c, jdarith.c, jaricom.c, jdcoefct.c), so that every page equals
+// libjpeg's integers:
 //   * markers SOI, APPn (JFIF in APP0, Adobe in APP14), DQT (8- and 16-bit),
-//     SOF0/SOF1/SOF2 at 8-bit precision, DHT (the standard tables stand in
-//     for a missing one, numbers 0 and 1), SOS, DRI, RSTn, DNL, COM, EOI;
+//     SOF0/SOF1/SOF2/SOF9/SOF10 at 8-bit precision, DHT (the standard tables
+//     stand in for a missing one, numbers 0 and 1), DAC (the arithmetic
+//     conditioning tables, with SOI's defaults L = 0, U = 1, K = 5 and
+//     get_dac's errors), SOS, DRI, RSTn, DNL, COM, EOI;
 //   * baseline and progressive Huffman scans: DC prediction, AC runs and
 //     EOB, spectral selection, successive approximation with EOBRUN and the
 //     refinement passes, interleaved MCUs (dummy blocks included in the DC
 //     prediction) and single-component scans over the component's own
 //     block grid, restart intervals with libjpeg's resynchronisation, 0xFF00
 //     stuffing, and the out-of-range run lengths of corrupt data;
+//   * sequential and progressive arithmetic-coded scans (jdarith.c): the
+//     Qe state machine of Table D.2, the decoder's byte input that supplies
+//     zero data once it meets a marker, the DC conditioning contexts and
+//     the AC statistics split at K, the statistics and DC context reset at
+//     each restart, and the "do nothing until the next restart" state after
+//     a magnitude or spectral overflow;
 //   * data that ends early: the source repeats a fake EOI, the bit reader
 //     pads with zero bits, and the MCUs after the one that ran out stay zero;
 //   * the colour space of `default_decompress_parms` and the quant table
 //     latched at each component's first scan.
-// Arithmetic-coded frames (SOF9/SOF10) are parsed but reported as not
-// extractable (`coeff_ok = 0`, `failed = 1`); libjpeg decodes them. SOF3,
-// SOF5-7, SOF11, SOF13-15 and precisions other than 8 fail the probe, as in
-// libjpeg.
+// SOF3, SOF5-7, SOF11, SOF13-15 and precisions other than 8 fail the probe,
+// as in libjpeg-turbo 2.1.5.
 //
 // Canonical page layout (identical to the JAX extractor's):
 //   coef_y  : int16 [n, yb_h, yb_w, 64]   natural-order blocks, zero-padded
@@ -55,6 +62,76 @@ constexpr int kNatural[80] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// jaricom.c's jpeg_aritab (Table D.2): Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS. The last entry is the fixed 0.5
+// estimate that the sign and refinement bits use.
+constexpr uint32_t ari(uint32_t qe, uint32_t lps, uint32_t mps,
+                       uint32_t sw) {
+  return (qe << 16) | (mps << 8) | (sw << 7) | lps;
+}
+constexpr uint32_t kAriTab[114] = {
+    ari(0x5a1d, 1, 1, 1),     ari(0x2586, 14, 2, 0),
+    ari(0x1114, 16, 3, 0),    ari(0x080b, 18, 4, 0),
+    ari(0x03d8, 20, 5, 0),    ari(0x01da, 23, 6, 0),
+    ari(0x00e5, 25, 7, 0),    ari(0x006f, 28, 8, 0),
+    ari(0x0036, 30, 9, 0),    ari(0x001a, 33, 10, 0),
+    ari(0x000d, 35, 11, 0),   ari(0x0006, 9, 12, 0),
+    ari(0x0003, 10, 13, 0),   ari(0x0001, 12, 13, 0),
+    ari(0x5a7f, 15, 15, 1),   ari(0x3f25, 36, 16, 0),
+    ari(0x2cf2, 38, 17, 0),   ari(0x207c, 39, 18, 0),
+    ari(0x17b9, 40, 19, 0),   ari(0x1182, 42, 20, 0),
+    ari(0x0cef, 43, 21, 0),   ari(0x09a1, 45, 22, 0),
+    ari(0x072f, 46, 23, 0),   ari(0x055c, 48, 24, 0),
+    ari(0x0406, 49, 25, 0),   ari(0x0303, 51, 26, 0),
+    ari(0x0240, 52, 27, 0),   ari(0x01b1, 54, 28, 0),
+    ari(0x0144, 56, 29, 0),   ari(0x00f5, 57, 30, 0),
+    ari(0x00b7, 59, 31, 0),   ari(0x008a, 60, 32, 0),
+    ari(0x0068, 62, 33, 0),   ari(0x004e, 63, 34, 0),
+    ari(0x003b, 32, 35, 0),   ari(0x002c, 33, 9, 0),
+    ari(0x5ae1, 37, 37, 1),   ari(0x484c, 64, 38, 0),
+    ari(0x3a0d, 65, 39, 0),   ari(0x2ef1, 67, 40, 0),
+    ari(0x261f, 68, 41, 0),   ari(0x1f33, 69, 42, 0),
+    ari(0x19a8, 70, 43, 0),   ari(0x1518, 72, 44, 0),
+    ari(0x1177, 73, 45, 0),   ari(0x0e74, 74, 46, 0),
+    ari(0x0bfb, 75, 47, 0),   ari(0x09f8, 77, 48, 0),
+    ari(0x0861, 78, 49, 0),   ari(0x0706, 79, 50, 0),
+    ari(0x05cd, 48, 51, 0),   ari(0x04de, 50, 52, 0),
+    ari(0x040f, 50, 53, 0),   ari(0x0363, 51, 54, 0),
+    ari(0x02d4, 52, 55, 0),   ari(0x025c, 53, 56, 0),
+    ari(0x01f8, 54, 57, 0),   ari(0x01a4, 55, 58, 0),
+    ari(0x0160, 56, 59, 0),   ari(0x0125, 57, 60, 0),
+    ari(0x00f6, 58, 61, 0),   ari(0x00cb, 59, 62, 0),
+    ari(0x00ab, 61, 63, 0),   ari(0x008f, 61, 32, 0),
+    ari(0x5b12, 65, 65, 1),   ari(0x4d04, 80, 66, 0),
+    ari(0x412c, 81, 67, 0),   ari(0x37d8, 82, 68, 0),
+    ari(0x2fe8, 83, 69, 0),   ari(0x293c, 84, 70, 0),
+    ari(0x2379, 86, 71, 0),   ari(0x1edf, 87, 72, 0),
+    ari(0x1aa9, 87, 73, 0),   ari(0x174e, 72, 74, 0),
+    ari(0x1424, 72, 75, 0),   ari(0x119c, 74, 76, 0),
+    ari(0x0f6b, 74, 77, 0),   ari(0x0d51, 75, 78, 0),
+    ari(0x0bb6, 77, 79, 0),   ari(0x0a40, 77, 48, 0),
+    ari(0x5832, 80, 81, 1),   ari(0x4d1c, 88, 82, 0),
+    ari(0x438e, 89, 83, 0),   ari(0x3bdd, 90, 84, 0),
+    ari(0x34ee, 91, 85, 0),   ari(0x2eae, 92, 86, 0),
+    ari(0x299a, 93, 87, 0),   ari(0x2516, 86, 71, 0),
+    ari(0x5570, 88, 89, 1),   ari(0x4ca9, 95, 90, 0),
+    ari(0x44d9, 96, 91, 0),   ari(0x3e22, 97, 92, 0),
+    ari(0x3824, 99, 93, 0),   ari(0x32b4, 99, 94, 0),
+    ari(0x2e17, 93, 86, 0),   ari(0x56a8, 95, 96, 1),
+    ari(0x4f46, 101, 97, 0),  ari(0x47e5, 102, 98, 0),
+    ari(0x41cf, 103, 99, 0),  ari(0x3c3d, 104, 100, 0),
+    ari(0x375e, 99, 93, 0),   ari(0x5231, 105, 102, 0),
+    ari(0x4c0f, 106, 103, 0), ari(0x4639, 107, 104, 0),
+    ari(0x415e, 103, 99, 0),  ari(0x5627, 105, 106, 1),
+    ari(0x50e7, 108, 107, 0), ari(0x4b85, 109, 103, 0),
+    ari(0x5597, 110, 109, 0), ari(0x504f, 111, 107, 0),
+    ari(0x5a10, 110, 111, 1), ari(0x5522, 112, 109, 0),
+    ari(0x59eb, 112, 111, 1), ari(0x5a1d, 113, 113, 0)};
+
+constexpr int kNumArithTbls = 16;
+constexpr int kDcStatBins = 64;
+constexpr int kAcStatBins = 256;
 
 // The standard tables of Annex K.3 (luminance 0, chrominance 1).
 constexpr uint8_t kStdDcBits[2][17] = {
@@ -292,6 +369,80 @@ inline int decode(Bits& br, const HuffTable& t) {
   return t.vals[(code + t.valoffset[l]) & 0xFF];
 }
 
+// jdarith.c's decoder state and arith_decode: the C and A registers, the
+// bit counter (-16 before the first two bytes; -1 marks a scan in error
+// until the next restart) and, as cinfo->unread_marker in libjpeg, the
+// marker met in the data, after which the decoder reads zero bytes.
+struct Arith {
+  Source* src;
+  int marker = 0;
+  int64_t c = 0, a = 0;  // JLONG
+  int ct = -16;
+
+  void reset() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+
+  int decode(uint8_t* st) {
+    // Renormalization and data input, section D.2.6.
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (marker == 0) {
+          data = src->byte();
+          if (data == 0xFF) {
+            do {
+              data = src->byte();
+            } while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;  // a stuffed zero byte
+            } else {
+              marker = data;  // legal here: zero data from now on
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0) {
+          if (++ct == 0) a = 0x8000;  // the two initial bytes are in
+        }
+      }
+      a <<= 1;
+    }
+    // Decode and estimate, sections D.2.4 and D.2.5.
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 inline int extend(int r, int s) {
   return r < (1 << (s - 1)) ? r - (1 << s) + 1 : r;
 }
@@ -315,6 +466,10 @@ struct Component {
 
 enum { kReachedSos = 1, kReachedEoi = 2 };
 
+// The entropy decoder a scan takes: sequential, or one of the four
+// progressive passes.
+enum ScanMode { kSeq, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
+
 struct Jpeg {
   Source src;
   bool saw_soi = false, saw_sof = false;
@@ -327,6 +482,9 @@ struct Jpeg {
   bool qpresent[4] = {};
   uint16_t qtbl[4][64] = {};
   HuffSpec dc_spec[4], ac_spec[4];
+  // The arithmetic conditioning tables (DAC), by table number.
+  uint8_t arith_dc_L[kNumArithTbls] = {}, arith_dc_U[kNumArithTbls] = {};
+  uint8_t arith_ac_K[kNumArithTbls] = {};
   int restart_interval = 0;
   int unread = 0;
   // The current scan.
@@ -405,6 +563,25 @@ struct Jpeg {
       spec->present = true;
       std::memcpy(spec->bits, bits, 17);
       std::memcpy(spec->vals, vals, 256);
+    }
+    if (length != 0) throw Fail();
+  }
+
+  // jdmarker.c get_dac.
+  void get_dac() {
+    long length = static_cast<long>(src.word()) - 2;
+    while (length > 0) {
+      const int index = src.byte();
+      const int val = src.byte();
+      length -= 2;
+      if (index < 0 || index >= 2 * kNumArithTbls) throw Fail();
+      if (index >= kNumArithTbls) {
+        arith_ac_K[index - kNumArithTbls] = static_cast<uint8_t>(val);
+      } else {
+        arith_dc_L[index] = static_cast<uint8_t>(val & 0x0F);
+        arith_dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if (arith_dc_L[index] > arith_dc_U[index]) throw Fail();
+      }
     }
     if (length != 0) throw Fail();
   }
@@ -488,6 +665,11 @@ struct Jpeg {
         case 0xD8:
           if (saw_soi) throw Fail();
           saw_soi = true;
+          for (int i = 0; i < kNumArithTbls; ++i) {
+            arith_dc_L[i] = 0;
+            arith_dc_U[i] = 1;
+            arith_ac_K[i] = 5;
+          }
           restart_interval = 0;
           saw_jfif = saw_adobe = false;
           adobe_transform = 0;
@@ -521,7 +703,9 @@ struct Jpeg {
         case 0xDD:
           get_dri();
           break;
-        case 0xCC:  // DAC: arithmetic conditioning, not used here
+        case 0xCC:
+          get_dac();
+          break;
         case 0xDC:  // DNL
         case 0xFE:  // COM
           skip_variable();
@@ -600,7 +784,64 @@ struct Jpeg {
     }
   }
 
+  // jdmarker.c read_restart_marker with the memory source's
+  // resync_to_restart; `marker` is the unread marker, if any.
+  void read_restart_marker(int& marker, int& next_restart) {
+    if (marker == 0) marker = next_marker(src);
+    if (marker == 0xD0 + next_restart) {
+      marker = 0;
+    } else {
+      for (;;) {
+        const int m = marker;
+        int action;
+        if (m < 0xC0) {
+          action = 2;
+        } else if (m < 0xD0 || m > 0xD7) {
+          action = 3;
+        } else if (m == 0xD0 + ((next_restart + 1) & 7) ||
+                   m == 0xD0 + ((next_restart + 2) & 7)) {
+          action = 3;
+        } else if (m == 0xD0 + ((next_restart - 1) & 7) ||
+                   m == 0xD0 + ((next_restart - 2) & 7)) {
+          action = 2;
+        } else {
+          action = 1;
+        }
+        if (action == 1) {
+          marker = 0;
+          break;
+        }
+        if (action == 3) break;
+        marker = next_marker(src);
+      }
+    }
+    next_restart = (next_restart + 1) & 7;
+  }
+
+  // The blocks of MCU (row, col) of the current scan, dummy blocks of the
+  // padding included, and the scan component each belongs to.
+  int mcu_blocks(bool interleaved, int row, int col, int16_t** blocks,
+                 int* member) {
+    if (!interleaved) {
+      blocks[0] = comp[scan_comp[0]].block(row, col);
+      member[0] = 0;
+      return 1;
+    }
+    int nblocks = 0;
+    for (int i = 0; i < comps_in_scan; ++i) {
+      Component& c = comp[scan_comp[i]];
+      for (int y = 0; y < c.v; ++y)
+        for (int x = 0; x < c.h; ++x) {
+          blocks[nblocks] = c.block(row * c.v + y, col * c.h + x);
+          member[nblocks++] = i;
+        }
+    }
+    return nblocks;
+  }
+
   void decode_scan();
+  void decode_scan_arith(ScanMode mode, bool interleaved, int mcus_per_row,
+                         int mcu_rows);
   void decode_all();
 };
 
@@ -624,7 +865,7 @@ void Jpeg::decode_scan() {
   latch_quant();
 
   // The entropy decoder's start_pass: check the scan, build its tables.
-  enum { kSeq, kDcFirst, kDcRefine, kAcFirst, kAcRefine } mode = kSeq;
+  ScanMode mode = kSeq;
   HuffTable dc_tab[kMaxCompsInScan], ac_tab[kMaxCompsInScan];
   if (progressive) {
     const bool dc_band = ss == 0;
@@ -640,6 +881,13 @@ void Jpeg::decode_scan() {
     if (bad) throw Fail();
     mode = dc_band ? (ah == 0 ? kDcFirst : kDcRefine)
                    : (ah == 0 ? kAcFirst : kAcRefine);
+  }
+  if (arith) {
+    decode_scan_arith(mode, interleaved, mcus_per_row, mcu_rows);
+    return;
+  }
+  if (progressive) {
+    const bool dc_band = ss == 0;
     for (int i = 0; i < comps_in_scan; ++i) {
       const Component& c = comp[scan_comp[i]];
       if (dc_band) {
@@ -676,57 +924,14 @@ void Jpeg::decode_scan() {
         if (restarts_to_go == 0) {
           // process_restart + read_restart_marker + resync_to_restart
           br.discard();
-          if (br.marker == 0) br.marker = next_marker(src);
-          if (br.marker == 0xD0 + next_restart) {
-            br.marker = 0;
-          } else {
-            for (;;) {
-              const int m = br.marker;
-              int action;
-              if (m < 0xC0) {
-                action = 2;
-              } else if (m < 0xD0 || m > 0xD7) {
-                action = 3;
-              } else if (m == 0xD0 + ((next_restart + 1) & 7) ||
-                         m == 0xD0 + ((next_restart + 2) & 7)) {
-                action = 3;
-              } else if (m == 0xD0 + ((next_restart - 1) & 7) ||
-                         m == 0xD0 + ((next_restart - 2) & 7)) {
-                action = 2;
-              } else {
-                action = 1;
-              }
-              if (action == 1) {
-                br.marker = 0;
-                break;
-              }
-              if (action == 3) break;
-              br.marker = next_marker(src);
-            }
-          }
-          next_restart = (next_restart + 1) & 7;
+          read_restart_marker(br.marker, next_restart);
           for (int& d : last_dc) d = 0;
           eobrun = 0;
           restarts_to_go = restart_interval;
           if (br.marker == 0) br.insufficient = false;
         }
       }
-      // The blocks of this MCU, dummy blocks of the padding included.
-      int nblocks = 0;
-      if (!interleaved) {
-        blocks[0] = comp[scan_comp[0]].block(row, col);
-        member[0] = 0;
-        nblocks = 1;
-      } else {
-        for (int i = 0; i < comps_in_scan; ++i) {
-          Component& c = comp[scan_comp[i]];
-          for (int y = 0; y < c.v; ++y)
-            for (int x = 0; x < c.h; ++x) {
-              blocks[nblocks] = c.block(row * c.v + y, col * c.h + x);
-              member[nblocks++] = i;
-            }
-        }
-      }
+      const int nblocks = mcu_blocks(interleaved, row, col, blocks, member);
       if (!br.insufficient) {
         switch (mode) {
           case kSeq:
@@ -846,6 +1051,196 @@ void Jpeg::decode_scan() {
   unread = br.marker ? br.marker : next_marker(src);
 }
 
+// jdarith.c: start_pass, process_restart and the five decode_mcu
+// routines over the scan's MCUs.
+void Jpeg::decode_scan_arith(ScanMode mode, bool interleaved,
+                             int mcus_per_row, int mcu_rows) {
+  uint8_t dc_stats[kNumArithTbls][kDcStatBins];
+  uint8_t ac_stats[kNumArithTbls][kAcStatBins];
+  uint8_t fixed_bin[4] = {113, 0, 0, 0};  // the fixed 0.5 estimate
+  int last_dc[kMaxCompsInScan] = {};
+  int dc_context[kMaxCompsInScan] = {};
+  const bool dc_stats_used = !progressive || (ss == 0 && ah == 0);
+  const bool ac_stats_used = !progressive || ss != 0;
+
+  // Zero the statistics this scan uses and the DC predictions (start_pass
+  // and process_restart alike); table numbers are 4-bit, below 16.
+  auto reset_stats = [&]() {
+    for (int i = 0; i < comps_in_scan; ++i) {
+      const Component& c = comp[scan_comp[i]];
+      if (dc_stats_used) {
+        std::memset(dc_stats[c.dc_tbl], 0, kDcStatBins);
+        last_dc[i] = 0;
+        dc_context[i] = 0;
+      }
+      if (ac_stats_used) std::memset(ac_stats[c.ac_tbl], 0, kAcStatBins);
+    }
+  };
+  reset_stats();
+  Arith ar{&src};
+  int restarts_to_go = restart_interval;
+  int next_restart = 0;
+  const int p1 = 1 << al;
+  const int m1 = static_cast<int>(~0u << al);
+  int16_t* blocks[kMaxBlocksInMcu];
+  int member[kMaxBlocksInMcu];
+
+  // Figures F.19 and F.21-F.24: one DC difference, added to the
+  // prediction (kept modulo 2^16).
+  auto decode_dc = [&](int ci) {
+    const int tbl = comp[scan_comp[ci]].dc_tbl;
+    uint8_t* st = dc_stats[tbl] + dc_context[ci];
+    if (ar.decode(st) == 0) {
+      dc_context[ci] = 0;
+      return true;
+    }
+    const int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;  // X1
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ar.ct = -1;  // magnitude overflow
+          return false;
+        }
+        st += 1;
+      }
+    }
+    if (m < static_cast<int>((1L << arith_dc_L[tbl]) >> 1))
+      dc_context[ci] = 0;
+    else if (m > static_cast<int>((1L << arith_dc_U[tbl]) >> 1))
+      dc_context[ci] = 12 + sign * 4;
+    else
+      dc_context[ci] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last_dc[ci] = (last_dc[ci] + v) & 0xffff;
+    return true;
+  };
+
+  // Figure F.20: the AC coefficients k in [first, last], stored shifted
+  // left by `shift`.
+  auto decode_ac = [&](int16_t* blk, int tbl, int first, int last,
+                       int shift) {
+    for (int k = first; k <= last; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > last) {
+          ar.ct = -1;  // spectral overflow
+          return;
+        }
+      }
+      const int sign = ar.decode(fixed_bin);
+      st += 2;
+      int m = ar.decode(st);
+      if (m != 0) {
+        if (ar.decode(st)) {
+          m <<= 1;
+          st = ac_stats[tbl] + (k <= arith_ac_K[tbl] ? 189 : 217);
+          while (ar.decode(st)) {
+            if ((m <<= 1) == 0x8000) {
+              ar.ct = -1;  // magnitude overflow
+              return;
+            }
+            st += 1;
+          }
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] =
+          to_coef(static_cast<int>(static_cast<unsigned>(v) << shift));
+    }
+  };
+
+  for (int row = 0; row < mcu_rows; ++row) {
+    for (int col = 0; col < mcus_per_row; ++col) {
+      if (restart_interval) {
+        if (restarts_to_go == 0) {
+          read_restart_marker(ar.marker, next_restart);
+          reset_stats();
+          ar.reset();
+          restarts_to_go = restart_interval;
+        }
+        restarts_to_go--;
+      }
+      const int nblocks = mcu_blocks(interleaved, row, col, blocks, member);
+      // DC refinement alone goes on after an overflow, as in jdarith.c.
+      if (ar.ct == -1 && mode != kDcRefine) continue;
+      switch (mode) {
+        case kSeq:
+          for (int b = 0; b < nblocks; ++b) {
+            const int ci = member[b];
+            if (!decode_dc(ci)) break;
+            blocks[b][0] = to_coef(last_dc[ci]);
+            decode_ac(blocks[b], comp[scan_comp[ci]].ac_tbl, 1, 63, 0);
+            if (ar.ct == -1) break;
+          }
+          break;
+        case kDcFirst:
+          for (int b = 0; b < nblocks; ++b) {
+            const int ci = member[b];
+            if (!decode_dc(ci)) break;
+            blocks[b][0] = to_coef(static_cast<int>(
+                static_cast<unsigned>(last_dc[ci]) << al));
+          }
+          break;
+        case kDcRefine:
+          for (int b = 0; b < nblocks; ++b)
+            if (ar.decode(fixed_bin)) blocks[b][0] = to_coef(blocks[b][0] | p1);
+          break;
+        case kAcFirst:
+          decode_ac(blocks[0], comp[scan_comp[0]].ac_tbl, ss, se, al);
+          break;
+        case kAcRefine: {
+          int16_t* blk = blocks[0];
+          const int tbl = comp[scan_comp[0]].ac_tbl;
+          int kex = se;  // the previous stage's end of block
+          for (; kex > 0; --kex)
+            if (blk[kNatural[kex]]) break;
+          for (int k = ss; k <= se; ++k) {
+            uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+            if (k > kex && ar.decode(st)) break;  // EOB
+            bool overflow = false;
+            for (;;) {
+              int16_t* coef = blk + kNatural[k];
+              if (*coef) {  // previously nonzero
+                if (ar.decode(st + 2))
+                  *coef = to_coef(*coef < 0 ? *coef + m1 : *coef + p1);
+                break;
+              }
+              if (ar.decode(st + 1)) {  // newly nonzero
+                *coef = to_coef(ar.decode(fixed_bin) ? m1 : p1);
+                break;
+              }
+              st += 3;
+              if (++k > se) {
+                ar.ct = -1;  // spectral overflow
+                overflow = true;
+                break;
+              }
+            }
+            if (overflow) break;
+          }
+          break;
+        }
+      }
+    }
+  }
+  unread = ar.marker ? ar.marker : next_marker(src);
+}
+
 // jpeg_read_coefficients: every scan, up to EOI.
 void Jpeg::decode_all() {
   allocate();
@@ -867,7 +1262,7 @@ int probe_one(const uint8_t* data, size_t len, int32_t* geom4) {
     geom4[0] = j.width;
     geom4[1] = j.height;
     geom4[2] = static_cast<int32_t>(j.comp.size());
-    geom4[3] = !j.arith && (space == 1 || (space == 2 && j.ycc420()));
+    geom4[3] = space == 1 || (space == 2 && j.ycc420());
     return 0;
   } catch (const Fail&) {
     geom4[0] = geom4[1] = geom4[2] = geom4[3] = 0;
@@ -889,7 +1284,7 @@ int extract_one(const uint8_t* data, size_t len, int yb_h, int yb_w,
     const int space = j.read_header();
     const bool gray = space == 1;
     const bool ycc = space == 2 && j.ycc420();
-    if (j.arith || (!gray && !ycc)) return 2;
+    if (!gray && !ycc) return 2;
     j.decode_all();
     geom6[0] = j.width;
     geom6[1] = j.height;

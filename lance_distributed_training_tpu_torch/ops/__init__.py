@@ -1,19 +1,22 @@
 """Device kernels: hand-written CUDA for Hopper, each with a plain version.
 
 ``LAUNCHES`` reads every kernel's launch count (the flash kernels', K1's
-``"image_normalize"`` and K2's ``"jpeg_decode"``) in one mapping; each
+``"image_normalize"``, K2's ``"jpeg_decode"`` and K3's ``"token_pack"``
+and ``"token_unpack"``) in one mapping; each
 module keeps and increments its own counts, and :func:`reset_launches` sets
 them all to 0.
 """
 
 from collections import ChainMap
 
-from . import flash, image, jpeg_device
+from . import flash, image, jpeg_device, token_device
 from .flash import flash_attention, make_flash_attention
 from .image import normalize_flip
 from .jpeg_device import decode_coeff_batch
+from .token_device import pack_token_batch, unpack_token_batch
 
-LAUNCHES = ChainMap(flash.LAUNCHES, image.LAUNCHES, jpeg_device.LAUNCHES)
+LAUNCHES = ChainMap(flash.LAUNCHES, image.LAUNCHES, jpeg_device.LAUNCHES,
+                    token_device.LAUNCHES)
 
 
 def reset_launches() -> None:
@@ -22,4 +25,5 @@ def reset_launches() -> None:
 
 
 __all__ = ["LAUNCHES", "decode_coeff_batch", "flash_attention",
-           "make_flash_attention", "normalize_flip", "reset_launches"]
+           "make_flash_attention", "normalize_flip", "pack_token_batch",
+           "reset_launches", "unpack_token_batch"]

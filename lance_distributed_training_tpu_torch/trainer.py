@@ -1,10 +1,10 @@
 """The trainer: one ``train()`` over a pluggable input pipeline and task.
 
 Counterpart of ``lance_distributed_training_tpu/trainer.py`` for image
-classification (ResNet) and masked-LM text: ``TrainConfig`` (the subset of
-the JAX flags these paths use, plus ``device``), the learning-rate
-schedules, the optimizers (SGD with momentum, AdamW, global-norm clipping),
-the train step, the weighted eval (``make_eval_step``, ``evaluate``) and the
+classification (ResNet), masked-LM and causal-LM text: ``TrainConfig``
+(the subset of the JAX flags these paths use, plus ``device``), the
+learning-rate schedules, the optimizers (SGD with momentum, AdamW,
+global-norm clipping), the train step, the weighted eval (``make_eval_step``, ``evaluate``) and the
 loop. The loss stays on the device: per-step losses are fetched only at log
 points and at the end, never with a per-step ``.item()``.
 
@@ -13,6 +13,16 @@ JPEG coefficient pages (``data/device_decode.py``) and K2
 (``ops/jpeg_device.py``) turns them into the uint8 batch on the device,
 after the H2D copy and before the step, for the train and the eval
 batches alike; its device time is read from CUDA events at log points.
+
+Token packing (``token_pack``, text tasks): the loader ships ragged token
+pages and a first-fit-decreasing plan (``data/token_pack.py``), and K3
+(``ops/token_device.py``) packs them into ``[rows, pack_len]`` grids with
+segment and position ids on the device, after the H2D copy and before the
+step; its device time is read as K2's is. The eval at the end always
+streams the padded arm. The ``[metrics]`` lines of a text run give the grid
+tokens/s, the valid tokens/s and ``pad_waste_pct``, each from the window's
+own steps: a packed batch's payload is its plan's (the host header), a
+padded batch's its attention mask's count.
 
 Data parallelism: with ``coordinator_address``/``num_processes``/
 ``process_id`` each process joins a ``torch.distributed`` group, owns one
@@ -39,10 +49,12 @@ from torch.nn.parallel import DistributedDataParallel
 from .data.decode import decoder_for_task
 from .data.format import Dataset
 from .data.pipeline import make_eval_pipeline, make_train_pipeline
+from .data.token_pack import TokenPackConfig, is_ragged_batch, pack_meta
 from .models.resnet import set_sync_group
 from .models.tasks import Task, get_task
 from .ops.flash import make_flash_attention
 from .ops.jpeg_device import make_batch_transform
+from .ops.token_device import make_pack_transform
 from .parallel.mesh import (
     maybe_initialize_distributed,
     process_topology,
@@ -63,7 +75,8 @@ __all__ = [
     "clip_by_global_norm_",
 ]
 
-PORTED_TASKS = ("classification", "masked_lm")
+PORTED_TASKS = ("classification", "masked_lm", "causal_lm")
+_TEXT_TASKS = ("masked_lm", "causal_lm", "contrastive")
 
 
 @dataclasses.dataclass
@@ -86,20 +99,25 @@ class TrainConfig:
     total_steps: Optional[int] = None  # schedule horizon; None = derived
     grad_clip: float = 0.0  # >0: clip gradients by global norm
     no_ddp: bool = False  # single process even when a coordinator is given
-    model_name: Optional[str] = None  # default per task (resnet50 / bert_base)
+    model_name: Optional[str] = None  # default per task (resnet50 /
+    # bert_base / gpt_base)
     image_size: int = 224
     seq_len: int = 128
     vocab_size: Optional[int] = None  # None = the model's own default
     prefetch: int = 2
     shuffle: bool = False  # epoch batch-order reshuffle (batch sampler)
     augment: bool = True  # per-image horizontal flip, p = 0.5 (classification)
-    eval_at_end: bool = True  # classification: process 0 evaluates every
-    # row of the train data once after training (make_eval_pipeline)
+    eval_at_end: bool = True  # process 0 evaluates every row of the train
+    # data once after training (make_eval_pipeline; text: the padded arm)
     seed: int = 0
     log_every: int = 50
     flash_attention: bool = False  # the hand-written CUDA flash kernels
     device_decode: bool = False  # classification: the host stops at the
     # JPEG entropy boundary and K2 decodes the coefficient pages on the device
+    token_pack: bool = False  # text tasks: ragged pages + FFD plan on the
+    # host, K3 packs them into [rows, pack_len] grids on the device
+    pack_len: int = 0  # packed slot-length cap; 0 = seq_len
+    pack_rows_multiple: int = 8  # packed row-count rounding quantum
     device: str = "cuda"  # cuda | cpu: where the model and the step run
     coordinator_address: Optional[str] = None  # host:port of process 0
     num_processes: Optional[int] = None  # world size
@@ -226,6 +244,9 @@ def make_train_step(task: Task, optimizer: torch.optim.Optimizer,
                  if value is not None}
         outputs = task.forward(batch, True, generator, **draws)
         loss = task.loss(outputs, batch)
+        # The outputs (a text model's [B, S, vocab] f32 logits) are not
+        # needed by the backward: dropping them here lowers its peak.
+        del outputs
         loss.backward()
         if grad_clip > 0:
             clip_by_global_norm_(params, grad_clip)
@@ -358,11 +379,19 @@ def train(config: TrainConfig) -> dict:
     the first log point over their wall time, loader waits included, closed
     by a device sync; the whole loop when there is no later step),
     ``images_per_sec_whole_run`` (every image over the whole loop, warm-up
-    included), ``decoder_arm`` and, with ``eval_at_end``,
+    included) and ``decoder_arm``; with ``eval_at_end`` every task adds
     ``eval_accuracy`` and ``eval_rows``; with ``device_decode`` also
     ``decode_entropy_ms`` (median host time of a batch's entropy decode,
     over the train loop), ``decode_threads`` and, on the card,
-    ``decode_device_ms`` (median K2 time of a train batch). ``model`` is the
+    ``decode_device_ms`` (median K2 time of a train batch). Text tasks add
+    ``tokens_per_sec`` (grid tokens of the steps after the first log point
+    over their wall time), ``valid_tokens_per_sec`` (their payload tokens
+    over the same time), ``pad_waste_pct`` (100·(1 − payload/grid) over the
+    same steps), ``grid_tokens`` and ``payload_tokens`` (each step's), the
+    decoder's ``pack_*`` counters (every batch it decoded) and,
+    with ``token_pack``, ``pack_device_ms`` (median K3 time, on the card)
+    and ``pack_new_shapes_total``. ``eval_accuracy`` is the task's metric
+    (next-token or masked-token accuracy for text). ``model`` is the
     trained module."""
     if config.task_type not in PORTED_TASKS:
         raise NotImplementedError(
@@ -375,6 +404,19 @@ def train(config: TrainConfig) -> dict:
             f"supports task_type='classification' only, got "
             f"{config.task_type!r}"
         )
+    if config.token_pack:
+        if config.task_type not in _TEXT_TASKS:
+            raise ValueError(
+                "token_pack packs token columns and needs a text task "
+                f"({'/'.join(_TEXT_TASKS)}), got {config.task_type!r}"
+            )
+        if (config.num_processes or 1) > 1:
+            raise ValueError(
+                "token_pack currently supports single-process training "
+                "only: each process's packed row count is data-dependent, "
+                "and multi-host global-batch assembly needs identical "
+                "per-process shapes"
+            )
     if (config.device_decode and (config.num_processes or 1) > 1
             and not config.no_ddp):
         import warnings
@@ -403,6 +445,76 @@ def train(config: TrainConfig) -> dict:
         shutdown_distributed()
 
 
+def _token_pack_config(config: TrainConfig):
+    """The run's :class:`~.data.token_pack.TokenPackConfig`, or ``None``
+    when packing is off."""
+    if not config.token_pack:
+        return None
+    return TokenPackConfig(pack_len=config.pack_len or config.seq_len,
+                           rows_multiple=config.pack_rows_multiple)
+
+
+def _decoder_for(config: TrainConfig, for_eval: bool = False):
+    """The decode hook of the run's train (or eval) loader. The eval always
+    streams the padded arm: per-row metrics and the eval loader's
+    ``_weight`` pads need one sequence a row."""
+    if config.task_type == "classification":
+        return decoder_for_task("classification",
+                                image_size=config.image_size,
+                                device_decode=config.device_decode)
+    return decoder_for_task(
+        config.task_type, seq_len=config.seq_len,
+        token_pack=None if for_eval else _token_pack_config(config))
+
+
+class _TokenCounts:
+    """Each text step's grid cells and payload tokens. A packed batch gives
+    both in its host header (``rows × pack_len`` and the plan's payload); a
+    padded batch its ``input_ids`` grid and its attention mask's count,
+    taken on the device and read at the next log point's sync."""
+
+    def __init__(self):
+        self.grid: list[int] = []
+        self.payload: list[int] = []
+        self._pending: list = []  # (step index, device count)
+
+    def add(self, batch) -> None:
+        if is_ragged_batch(batch):
+            rows, pack_len, payload, _mode = pack_meta(batch)
+            self.grid.append(rows * pack_len)
+            self.payload.append(payload)
+            return
+        ids = batch["input_ids"]
+        mask = batch.get("attention_mask")
+        self.grid.append(int(ids.numel()))
+        if mask is None:
+            self.payload.append(int(ids.numel()))
+            return
+        self._pending.append((len(self.payload), torch.count_nonzero(mask)))
+        self.payload.append(0)
+
+    def read(self) -> None:
+        """Fill in the device counts taken since the last read."""
+        if not self._pending:
+            return
+        index, counts = zip(*self._pending)
+        for i, count in zip(index, torch.stack(counts).tolist()):
+            self.payload[i] = int(count)
+        self._pending.clear()
+
+    def rates(self, steps: int, seconds: float) -> dict:
+        """Grid and valid tokens/s of the last ``steps`` steps over
+        ``seconds``, and their ``pad_waste_pct`` = 100·(1 − payload/grid)."""
+        self.read()
+        first = len(self.grid) - steps
+        grid, payload = sum(self.grid[first:]), sum(self.payload[first:])
+        per_s = 1.0 / seconds if seconds > 0 else 0.0
+        return {"tokens_per_sec": grid * per_s,
+                "valid_tokens_per_sec": payload * per_s,
+                "pad_waste_pct": 100.0 * (1.0 - payload / grid)
+                if grid else 0.0}
+
+
 def _train(config: TrainConfig, device: torch.device) -> dict:
     rank, world = process_topology()
     if config.no_ddp:
@@ -427,17 +539,16 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                         model_name=config.model_name,
                         image_size=config.image_size, augment=config.augment,
                         device=device, generator=init_gen)
-        decode = decoder_for_task("classification",
-                                  image_size=config.image_size,
-                                  device_decode=config.device_decode)
     else:
-        attention_fn = (make_flash_attention() if config.flash_attention
-                        else None)
+        # causal_lm binds the kernels' causal mask.
+        attention_fn = (
+            make_flash_attention(causal=config.task_type == "causal_lm")
+            if config.flash_attention else None)
         task = get_task(config.task_type, model_name=config.model_name,
                         seq_len=config.seq_len, vocab_size=config.vocab_size,
                         attention_fn=attention_fn, device=device,
                         generator=init_gen)
-        decode = decoder_for_task(config.task_type, seq_len=config.seq_len)
+    decode = _decoder_for(config)
     train_task = task
     if world > 1:
         set_sync_group(task.model, dist.group.WORLD)
@@ -459,8 +570,18 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     timer = StepTimer()
     log = _StepLog(device.type == "cuda", world)
     coeff = config.device_decode
-    transform = make_batch_transform(config.image_size) if coeff else None
-    k2_times = _DeviceTimes(device.type == "cuda")
+    # The device stage between the H2D copy and the step: K2 on coefficient
+    # pages, or K3 on ragged token pages; its CUDA-event times are read at
+    # log points under ``device_ms_key``.
+    transform, device_ms_key = None, None
+    if coeff:
+        transform = make_batch_transform(config.image_size)
+        device_ms_key = "decode_device_ms"
+    elif config.token_pack:
+        transform = make_pack_transform()
+        device_ms_key = "pack_device_ms"
+    transform_times = _DeviceTimes(device.type == "cuda")
+    tokens = _TokenCounts()  # text: grid and payload tokens of each step
     entropy_seen = 0  # decode.entropy_ms entries already logged
     if image:
         logger.log({"decoder_arm": decode.arm})
@@ -488,8 +609,10 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                         break
                     timer.step_start()
                     start = log.start()
+                    if not image:
+                        tokens.add(batch)
                     if transform is not None:
-                        batch = k2_times.run(transform, batch)
+                        batch = transform_times.run(transform, batch)
                     if image and config.augment:
                         # One draw over the global batch, sliced per
                         # process: the flips do not depend on the world size.
@@ -508,29 +631,30 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                         log.drain()  # the one host sync of this window
                         if warm is None:
                             warm = (global_step, time.perf_counter())
-                        w = timer.window(config.batch_size,
-                                         None if image else config.seq_len,
-                                         images=image)
-                        rate = "images_per_sec" if image else "tokens_per_sec"
+                        w = timer.window(config.batch_size, images=image)
+                        if image:
+                            rates = {"images_per_sec": w["images_per_sec"]}
+                        else:
+                            rates = tokens.rates(w["steps"], w["wall_s"])
                         extra = {}
+                        if transform is not None:
+                            extra[device_ms_key] = _mean(
+                                transform_times.drain())
                         if coeff:
                             # The decoder's batches since the last log (its
                             # producer thread may run ahead of the steps).
                             seen = len(decode.entropy_ms)
-                            extra = {
-                                "decode_entropy_ms": _mean(
-                                    decode.entropy_ms[entropy_seen:seen]),
-                                "decode_device_ms": _mean(k2_times.drain()),
-                            }
-                            extra = {k: v for k, v in extra.items()
-                                     if v is not None}
+                            extra["decode_entropy_ms"] = _mean(
+                                decode.entropy_ms[entropy_seen:seen])
                             entropy_seen = seen
+                        extra = {k: v for k, v in extra.items()
+                                 if v is not None}
                         logger.log({
                             "step": global_step,
                             "epoch": epoch,
                             "loss": round(log.losses[-1], 4),
                             "step_ms": w["step_ms"],
-                            rate: w[rate],
+                            **rates,
                             "loader_stall_pct": (
                                 100.0 * w["loader_s"]
                                 / (w["loader_s"] + w["step_s"])
@@ -552,24 +676,28 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         t_end = time.perf_counter()
         train_time = t_end - t_start
         results = {}
+        if transform is not None:
+            transform_times.drain()
+            results[device_ms_key] = (statistics.median(transform_times.ms)
+                                      if transform_times.ms else None)
         if coeff:
-            k2_times.drain()
-            results = {
-                "decode_entropy_ms": statistics.median(decode.entropy_ms)
+            results.update(
+                decode_entropy_ms=statistics.median(decode.entropy_ms)
                 if decode.entropy_ms else None,
-                "decode_device_ms": statistics.median(k2_times.ms)
-                if k2_times.ms else None,
-                "decode_threads": decode.threads,
-            }
-        if image and config.eval_at_end:
+                decode_threads=decode.threads)
+        if config.token_pack:
+            results["pack_new_shapes_total"] = transform.pack_new_shapes_total
+        if config.eval_at_end:
             if rank == 0:
-                columns = decode.required_columns
+                eval_decode = decode if image else _decoder_for(
+                    config, for_eval=True)
+                columns = decode.required_columns if image else None
                 loader = make_eval_pipeline(
                     lambda idx: dataset.take(idx, columns=columns),
-                    dataset.count_rows(), config.batch_size, 0, 1, decode,
-                    device, prefetch=config.prefetch)
+                    dataset.count_rows(), config.batch_size, 0, 1,
+                    eval_decode, device, prefetch=config.prefetch)
                 eval_step = make_eval_step(task)
-                if transform is not None:
+                if coeff:
                     eval_step = (lambda b, _step=eval_step:
                                  _step(transform(b)))
                 acc, rows = evaluate(loader, eval_step)
@@ -579,10 +707,14 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             sync_global_devices()
     finally:
         logger.close()
+    timed_steps, timed_s = global_step, train_time
+    if warm is not None and global_step > warm[0]:
+        timed_steps, timed_s = global_step - warm[0], t_end - warm[1]
+    if not image:
+        results.update(
+            tokens.rates(timed_steps, timed_s), grid_tokens=tokens.grid,
+            payload_tokens=tokens.payload, **decode.counters())
     if image:
-        timed_steps, timed_s = global_step, train_time
-        if warm is not None and global_step > warm[0]:
-            timed_steps, timed_s = global_step - warm[0], t_end - warm[1]
         results.update(
             images_per_sec=config.batch_size * timed_steps / timed_s,
             images_per_sec_whole_run=config.batch_size * global_step

@@ -2,8 +2,9 @@
 
 Counterpart of ``MetricLogger`` and ``StepTimer`` in
 ``lance_distributed_training_tpu/utils/metrics.py``, without the wandb sink
-and the metrics registry. The progress window adds ``step_ms`` and, by the
-kind of batch, ``tokens_per_sec`` or ``images_per_sec``.
+and the metrics registry. The progress window adds ``step_ms`` and, for
+image batches, ``images_per_sec`` (the trainer counts token rates from
+each step's grid).
 """
 
 from __future__ import annotations
@@ -100,12 +101,11 @@ class StepTimer:
         return 100.0 * self.loader_s / total if total > 0 else 0.0
 
     def window(self, batch_size: Optional[int] = None,
-               seq_len: Optional[int] = None, images: bool = False) -> dict:
+               images: bool = False) -> dict:
         """Deltas since the previous call: ``steps``, ``loader_s``,
         ``step_s``, ``wall_s``, ``step_ms`` (wall time per step), and with
         ``batch_size`` ``examples_per_sec`` against the wall width, named
-        again as ``tokens_per_sec`` (times ``seq_len``, padded grid tokens)
-        or as ``images_per_sec`` (``images``: a batch of images)."""
+        again as ``images_per_sec`` (``images``: a batch of images)."""
         now = time.perf_counter()
         out = {
             "steps": self.steps - self._w_steps,
@@ -117,8 +117,6 @@ class StepTimer:
         out["step_ms"] = 1e3 * wall / steps if steps else 0.0
         if batch_size:
             out["examples_per_sec"] = steps * batch_size / wall if wall > 0 else 0.0
-            if seq_len:
-                out["tokens_per_sec"] = out["examples_per_sec"] * seq_len
             if images:
                 out["images_per_sec"] = out["examples_per_sec"]
         self._w_loader = self.loader_s

@@ -15,7 +15,13 @@ loader is not in this measurement):
   ``--loader stage`` runs the same pipeline with the decode replaced by
   one batch decoded ahead (reads, staging and H2D only); ``--loader
   coeff`` is the ``--device_decode`` arm (host entropy decode into
-  coefficient pages, pinned H2D, K2 on the card before each step).
+  coefficient pages, pinned H2D, K2 on the card before each step);
+* ``--task causal_lm``: GPT-2 124M's shape (``gpt_base``), context 1024,
+  64 sequences a batch, AdamW, causal flash attention, fed by the
+  trainer's pipeline over a seeded corpus of lognormal lengths (log-mean
+  log 256, sigma 0.7, 1-1024) and Zipf(1.2) ids: ``--loader packed``
+  (default; FFD plan on the host, K3 on the card before each step) or
+  ``--loader padded`` (every row padded to 1024).
 
 It warms up and traces a few steps with ``torch.profiler``. Prints one JSON
 line: the step time between CUDA events (no profiler), then, from a
@@ -25,7 +31,8 @@ the device's idle share over the traced window, and the top kernels. Run
 from the root of a checkout on a machine with a card:
 
     python3 scripts/torch_slice_profile.py [--task classification
-        [--loader decode|stage|coeff]]
+        [--loader decode|stage|coeff]] [--task causal_lm
+        [--loader packed|padded]]
         [--steps 5] [--batch N] [--out DIR]
 
 ``--out`` also writes the profiler's table and a Chrome trace there.
@@ -47,9 +54,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from lance_distributed_training_tpu_torch.data import (  # noqa: E402
     Dataset,
+    TokenPackConfig,
     create_synthetic_classification_dataset,
     decoder_for_task,
     make_train_pipeline,
+    write_dataset,
 )
 from lance_distributed_training_tpu_torch.models.tasks import get_task  # noqa: E402
 from lance_distributed_training_tpu_torch.ops.jpeg_device import (  # noqa: E402
@@ -57,6 +66,9 @@ from lance_distributed_training_tpu_torch.ops.jpeg_device import (  # noqa: E402
 )
 from lance_distributed_training_tpu_torch.ops.flash import (  # noqa: E402
     make_flash_attention,
+)
+from lance_distributed_training_tpu_torch.ops.token_device import (  # noqa: E402
+    make_pack_transform,
 )
 from lance_distributed_training_tpu_torch.trainer import (  # noqa: E402
     TrainConfig,
@@ -66,11 +78,26 @@ from lance_distributed_training_tpu_torch.trainer import (  # noqa: E402
 
 BATCH, SEQ, VOCAB = 32, 512, 30522
 IMAGE_BATCH, IMAGE_SIZE, CLASSES = 512, 224, 101
+GPT_BATCH, GPT_CONTEXT, GPT_VOCAB = 64, 1024, 50257
+
+
+def _causal_corpus(path: str, rows: int) -> None:
+    """Seeded lognormal lengths and Zipf(1.2) ids, one document a row."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(6)
+    lengths = np.clip(rng.lognormal(np.log(256.0), 0.7, rows).astype(np.int64),
+                      1, GPT_CONTEXT)
+    docs = [(2 + (rng.zipf(1.2, int(m)) - 1) % (GPT_VOCAB - 2)).astype(
+        np.int32) for m in lengths]
+    table = pa.table({"input_ids": pa.array(docs, pa.list_(pa.int32()))})
+    write_dataset(table, path, schema=table.schema, mode="create")
 
 
 def _kind(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                   "image_normalize", "jpeg_idct", "jpeg_color_resize"):
+                   "image_normalize", "jpeg_idct", "jpeg_color_resize",
+                   "token_pack", "token_unpack"):
         if kernel + "_kernel" in name:
             return kernel
     low = name.lower()
@@ -88,16 +115,20 @@ def _kind(name: str) -> str:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--task", default="masked_lm",
-                        choices=["masked_lm", "classification"])
+                        choices=["masked_lm", "classification",
+                                 "causal_lm"])
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--batch", type=int, default=None,
                         help="batch size (default: the path's own)")
-    parser.add_argument("--loader", choices=["decode", "stage", "coeff"],
+    parser.add_argument("--loader",
+                        choices=["decode", "stage", "coeff", "packed",
+                                 "padded"],
                         default=None,
                         help="classification: feed the steps from the "
                              "trainer's JPEG pipeline, decoding each batch "
                              "on the host, re-staging one decoded ahead, or "
-                             "extracting coefficient pages for K2")
+                             "extracting coefficient pages for K2; "
+                             "causal_lm: packed (default) or padded rows")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -122,6 +153,16 @@ def main(argv=None) -> int:
             "label": torch.from_numpy(
                 rng.integers(0, CLASSES, batch_size).astype(np.int32)).to(dev),
         }
+    elif args.task == "causal_lm":
+        batch_size = args.batch or GPT_BATCH
+        config = TrainConfig(dataset_path="-", task_type="causal_lm",
+                             optimizer="adamw", lr=1e-4, seq_len=GPT_CONTEXT,
+                             batch_size=batch_size, flash_attention=True)
+        task = get_task("causal_lm", model_name="gpt_base",
+                        seq_len=GPT_CONTEXT,
+                        attention_fn=make_flash_attention(causal=True),
+                        device=dev, generator=init)
+        batch = None
     else:
         batch_size = args.batch or BATCH
         config = TrainConfig(dataset_path="-", task_type="masked_lm",
@@ -158,6 +199,19 @@ def main(argv=None) -> int:
             decode = lambda table: ahead  # noqa: E731
         batches = iter(make_train_pipeline(dataset, "batch", batch_size, 0,
                                            1, decode, dev))
+    if args.task == "causal_lm":
+        loader = args.loader or "packed"
+        tmp = tempfile.TemporaryDirectory()
+        path = os.path.join(tmp.name, "tokens")
+        _causal_corpus(path, batch_size * (3 + 2 * args.steps))
+        packing = TokenPackConfig(pack_len=GPT_CONTEXT) \
+            if loader == "packed" else None
+        decode = decoder_for_task("causal_lm", seq_len=GPT_CONTEXT,
+                                  token_pack=packing)
+        decoder_arm = loader
+        transform = make_pack_transform() if packing else None
+        batches = iter(make_train_pipeline(Dataset(path), "batch",
+                                           batch_size, 0, 1, decode, dev))
 
     def step():
         # Each task draws its mask (MLM positions, flips) from gen.

@@ -143,8 +143,12 @@ def test_decoders_match_on_variable_length_rows(tmp_path):
 
 
 def test_pack_mode_and_image_tasks_not_yet_ported():
-    with pytest.raises(NotImplementedError):
-        TokenDecoder(mode="pack")
+    # Pack mode is ported (tests/test_torch_token_pack.py); an unknown mode
+    # raises as in the JAX package, and the contrastive decoder is not yet
+    # ported.
+    assert TokenDecoder(mode="pack").mode == "pack"
+    with pytest.raises(ValueError, match="invalid TokenDecoder mode"):
+        TokenDecoder(mode="ffd")
     with pytest.raises(NotImplementedError):
         decoder_for_task("contrastive")
     # Device decode is ported for classification and for nothing else.

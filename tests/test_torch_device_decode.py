@@ -7,7 +7,9 @@
   Huffman tables, progressive,
   restart markers, grayscale, odd sizes, 4:4:4 and 4:2:2, 16-bit quant
   tables, payloads cut short, garbage, a noise image of the classification
-  set) and on seeded mutations of it.
+  set) and on seeded mutations of it; and on arithmetic-coded files (SOF9
+  and SOF10) that libjpeg writes here from that corpus through a small
+  transcoder compiled with ``g++ -ljpeg``, and on their mutations.
 * ``decode_coeff_batch_reference`` against the JAX ``decode_coeff_batch``.
 * ``CoeffImageDecoder`` against the JAX one on one Arrow table, with a
   re-encoded and a corrupt row.
@@ -19,6 +21,7 @@ every process into one shared temp file, which concurrent workers break).
 """
 
 import io
+import subprocess
 import types
 
 import numpy as np
@@ -233,25 +236,149 @@ def test_extractor_matches_libjpeg_on_mutated_payloads(jx, corpus):
 
 
 def test_arithmetic_coding_is_a_known_divergence(jx, corpus):
-    """libjpeg decodes arithmetic-coded frames (SOF9); the port's extractor
-    flags them (coeff_ok 0, failed 1), so the decoder re-encodes such rows
-    through PIL. Here a baseline frame relabelled SOF9."""
+    """Arithmetic-coded frames extract as libjpeg extracts them. Here a
+    baseline Huffman frame relabelled SOF9: libjpeg decodes its bytes as
+    arithmetic-coded data (garbage), and the port gives the same garbage.
+    (The name is the one this test had while the port flagged such
+    frames.)"""
     data = bytearray(corpus["baseline_q85"])
     at = data.index(b"\xff\xc0")
     data[at + 1] = 0xC9
-    payload = [bytes(data)]
-    want_geom, _ = jx.native.batch_probe_jpeg(jx.native.payload_pointers(
-        payload))
-    got_geom, got_failed = coeffs.batch_probe_jpeg(coeffs.payload_pointers(
-        payload))
-    np.testing.assert_array_equal(got_geom[:, :3], want_geom[:, :3])
-    assert want_geom[0, 3] == 1 and got_geom[0, 3] == 0
-    assert not got_failed[0]
-    grid = _grid(got_geom)
-    want_bad, _ = _extract(jx.native, payload, grid)
-    got_bad, got = _extract(coeffs, payload, grid)
-    assert not want_bad[0] and got_bad[0]
-    assert not any(page.any() for page in got)
+    geom, failed = _assert_extractors_agree(jx, [bytes(data)])
+    assert geom[0, 3] == 1 and not failed[0]
+
+
+# A transcoder to arithmetic coding through the machine's libjpeg:
+# jpeg_read_coefficients, arith_code = TRUE (and jpeg_simple_progression
+# for SOF10), jpeg_write_coefficients. The coefficients do not change.
+_TO_ARITH = r"""
+#include <cstdio>
+#include <cstdlib>
+extern "C" {
+#include <jpeglib.h>
+}
+int main(int argc, char** argv) {
+  if (argc != 5) return 2;
+  FILE* in = std::fopen(argv[1], "rb");
+  FILE* out = std::fopen(argv[2], "wb");
+  if (!in || !out) return 3;
+  jpeg_decompress_struct src;
+  jpeg_compress_struct dst;
+  jpeg_error_mgr e1, e2;
+  src.err = jpeg_std_error(&e1);
+  jpeg_create_decompress(&src);
+  jpeg_stdio_src(&src, in);
+  jpeg_read_header(&src, TRUE);
+  jvirt_barray_ptr* coefs = jpeg_read_coefficients(&src);
+  dst.err = jpeg_std_error(&e2);
+  jpeg_create_compress(&dst);
+  jpeg_stdio_dest(&dst, out);
+  jpeg_copy_critical_parameters(&src, &dst);
+  dst.arith_code = TRUE;
+  if (std::atoi(argv[3])) jpeg_simple_progression(&dst);
+  dst.restart_interval = static_cast<unsigned>(std::atoi(argv[4]));
+  jpeg_write_coefficients(&dst, coefs);
+  jpeg_finish_compress(&dst);
+  jpeg_destroy_compress(&dst);
+  jpeg_finish_decompress(&src);
+  jpeg_destroy_decompress(&src);
+  std::fclose(in);
+  std::fclose(out);
+  return 0;
+}
+"""
+
+# (corpus case, progressive, restart interval in MCUs)
+ARITH_CASES = [
+    ("baseline_q85", 0, 0), ("baseline_q85", 1, 0), ("baseline_q10", 0, 0),
+    ("baseline_q95", 1, 0), ("progressive_noise", 0, 0),
+    ("progressive_noise", 1, 0), ("restart_blocks", 0, 3),
+    ("restart_blocks", 1, 2), ("gray", 0, 0), ("gray_progressive", 1, 0),
+    ("odd_225x97", 1, 5), ("odd_17x33", 0, 1), ("quant_16bit", 0, 0),
+    ("quant_16bit", 1, 0), ("classification_noise_38kb", 1, 0),
+    ("subsampling_444", 0, 0),
+]
+
+
+def _arith_id(case) -> str:
+    name, progressive, restart = case
+    return f"{name}_sof{10 if progressive else 9}_r{restart}"
+
+
+@pytest.fixture(scope="module")
+def arith_corpus(tmp_path_factory, corpus):
+    """The ARITH_CASES transcoded by libjpeg, by id."""
+    root = tmp_path_factory.mktemp("arith")
+    (root / "to_arith.cpp").write_text(_TO_ARITH)
+    tool = root / "to_arith"
+    subprocess.run(["g++", "-O1", "-o", str(tool), str(root / "to_arith.cpp"),
+                    "-ljpeg"], check=True, capture_output=True, timeout=120)
+    out = {}
+    for case in ARITH_CASES:
+        name, progressive, restart = case
+        src, dst = root / f"{name}.jpg", root / f"{_arith_id(case)}.jpg"
+        src.write_bytes(corpus[name])
+        subprocess.run([str(tool), str(src), str(dst), str(progressive),
+                        str(restart)], check=True, capture_output=True,
+                       timeout=60)
+        data = dst.read_bytes()
+        sof = 0xCA if progressive else 0xC9
+        assert bytes([0xFF, sof]) in data and b"\xff\xcc" in data  # DAC
+        out[_arith_id(case)] = data
+    return out
+
+
+@pytest.mark.parametrize("case", [_arith_id(c) for c in ARITH_CASES])
+def test_arithmetic_coded_files_match_libjpeg(jx, arith_corpus, case):
+    geom, failed = _assert_extractors_agree(jx, [arith_corpus[case]])
+    assert not failed[0] or case.startswith("subsampling")
+    assert geom[0, 3] == (not case.startswith("subsampling"))
+
+
+def test_arithmetic_coded_mutations_match_libjpeg(jx, arith_corpus):
+    """Seeded truncations, bit flips, overwritten and inserted bytes of the
+    arithmetic-coded files, the DAC segments included."""
+    rng = np.random.default_rng(2)
+    base = list(arith_corpus.values())
+    mutated = []
+    for _ in range(240):
+        d = bytearray(base[rng.integers(len(base))])
+        kind = rng.integers(5)
+        if kind == 0:
+            d = d[:rng.integers(2, len(d))]
+        elif kind == 1:
+            for _ in range(rng.integers(1, 6)):
+                d[rng.integers(len(d) // 3, len(d))] ^= 1 << rng.integers(8)
+        elif kind == 2:
+            for _ in range(rng.integers(1, 4)):
+                d[rng.integers(2, len(d))] = rng.integers(256)
+        elif kind == 3:
+            at = rng.integers(len(d) // 2, len(d))
+            d[at:at] = rng.integers(0, 256, rng.integers(1, 40),
+                                    dtype=np.uint8).tobytes()
+        else:
+            at = bytes(d).find(b"\xff\xcc")  # a DAC byte
+            d[at + 2 + rng.integers(0, 4)] = rng.integers(256)
+        mutated.append(bytes(d))
+    _, failed = _assert_extractors_agree(jx, mutated)
+    assert 0 < failed.sum() < len(mutated)
+
+
+def test_coeff_decoder_takes_arithmetic_rows_without_reencoding(
+        jx, arith_corpus):
+    """CoeffImageDecoder extracts arithmetic-coded rows itself, as the JAX
+    decoder (through libjpeg) does."""
+    payloads = [arith_corpus[_arith_id(c)] for c in ARITH_CASES
+                if not c[0].startswith("subsampling")]
+    table = pa.table({"image": pa.array(payloads, pa.binary()),
+                      "label": pa.array(np.arange(len(payloads)),
+                                        pa.int64())})
+    want = jx.device_decode.CoeffImageDecoder(image_size=32)(table)
+    got_dec = CoeffImageDecoder(image_size=32)
+    got = got_dec(table)
+    assert got_dec.reencoded == 0 and got_dec.undecodable == 0
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 def test_extractor_checks_its_pages(corpus):

@@ -31,6 +31,7 @@ CASES = [
     ("causal", None, True),
     ("padded_causal", VALID, True),
     ("packed", PACKED, False),
+    ("packed_causal", PACKED, True),
 ]
 
 

@@ -45,6 +45,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "lance_distributed_training_tpu_torch.data.device_decode",
         "lance_distributed_training_tpu_torch.native.coeffs",
         "lance_distributed_training_tpu_torch.ops.jpeg_device",
+        "lance_distributed_training_tpu_torch.ops.token_device",
+        "lance_distributed_training_tpu_torch.data.token_pack",
         "lance_distributed_training_tpu_torch.trainer",
         "lance_distributed_training_tpu_torch.cli",
     }

@@ -156,7 +156,9 @@ def test_cli_trains_two_steps_on_cpu(tmp_path, monkeypatch, capsys):
     assert all(np.isfinite(result["losses"]))
     out = capsys.readouterr().out
     assert "[metrics] step=1" in out and "tokens_per_sec=" in out
-    assert (tmp_path / "m.jsonl").read_text().count("\n") == 3
+    # Two step lines, the epoch line and the eval over every row.
+    assert (tmp_path / "m.jsonl").read_text().count("\n") == 4
+    assert result["eval_rows"] == 16 and 0 <= result["eval_accuracy"] <= 1
 
 
 def test_cli_without_device_cpu_raises_without_a_card(tmp_path, monkeypatch):
