@@ -8,15 +8,16 @@ Phases, each printing one JSON line:
 1. probe   — torch/CUDA versions, the card and its power limit; requires
              compute capability 9.0; turns TF32 off for f32 matmuls.
 2. build   — compiles ``ops/csrc/flash_attn.cu``, ``ops/csrc/image.cu``,
-             ``ops/csrc/jpeg_decode.cu`` and ``ops/csrc/token_pack.cu``
-             for sm_90a, the native JPEG
+             ``ops/csrc/jpeg_decode.cu``, ``ops/csrc/token_pack.cu`` and
+             ``ops/csrc/ring_attn.cu`` for sm_90a, the native JPEG
              decoder and the coefficient extractor (``native/ldt_coeffs.cpp``,
              g++ alone), all at once, and prints the build times and, from
              the ``-Xptxas -v`` reports, registers, spills and shared memory
              of all six flash kernel builds (three kernels, head dims 64 and
-             128), of K1, of K2's two kernels and of K3's two; fails on any
-             spill of any of the three flash kernels at head dim 64, of K1,
-             K2 or K3, and when the extractor does not build.
+             128), of K1, of K2's two kernels, of K3's two and of K5's
+             three; fails on any spill of any of the three flash kernels at
+             head dim 64, of K1, K2, K3 or K5, and when the extractor does
+             not build.
 3. kernels — runs the fwd, bwd_dq and bwd_dkv kernels at the BERT-base
              shapes [32, 12, 512, 64] bf16, (a) non-causal with padding
              segments and (b) causal, against their plain PyTorch versions
@@ -88,12 +89,33 @@ Phases, each printing one JSON line:
              over every row and finite losses, and prints each arm's step,
              grid and valid tokens/s and pad_waste_pct (steps 5-20, from
              each step's own payload), pack_device_ms and peak memory.
+11. ring_kernels — K5 (``ops/csrc/ring_attn.cu``: the fold, dQ and dK/dV)
+             over a whole in-process ring against the plain versions on the
+             card (flash's tolerances: out 0.02, lse 1e-3, gradients 2% of
+             the largest; rows with no valid key 0, with 0 gradients): at
+             [32, 12, 512, 64] bf16 in four positions with key masks from
+             the slice corpus's lengths (fully masked blocks among them),
+             and at ragged cases (empty rows, blocks of 50, one position);
+             then a repeat that must give the same bits. Times one ring
+             step of each kernel (CUDA events) beside its plain version,
+             the whole ring forward and forward + backward beside SDPA with
+             the same key mask (a yardstick, never called by the port); the
+             bound is the larger of each step's bytes over 3.35 TB/s and
+             its products over the bf16 peak.
+12. ring_lm — trains BERT-base masked-LM through ``cli train
+             --seq_parallelism 4`` (every ring position on the card) for 20
+             steps on the slice phase's corpus, with the eval at the end;
+             checks 48 launches of each K5 kernel a step (and 48 forward
+             folds an eval batch), no flash launch, the falling loss and
+             the eval over every row, and prints the step beside the slice
+             phase's flash step, tokens/s and peak memory.
 
 Every check that fails raises, so the script exits non-zero. The last three
 lines are the card's ``nvidia-smi`` name and power limit, the kernel table
 as JSON (the three flash kernels, K1 and K2, each with its launches on its
-path; K3's pack and unpack with their launches on the causal-LM path),
-and ``{"ok": true, "device": {...}}``.
+path; K3's pack and unpack with their launches on the causal-LM path; K5's
+three kernels with theirs on the seq-parallel path), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -112,7 +134,7 @@ import numpy as np
 
 PHASES = ("probe", "build", "kernels", "slice", "image_kernels",
           "jpeg_kernels", "classification", "device_decode", "token_kernels",
-          "causal_lm")
+          "causal_lm", "ring_kernels", "ring_lm")
 SHAPE = (32, 12, 512, 64)  # B, H, S, D at BERT-base, seq 512
 STEPS = 20
 LAYERS = 12
@@ -135,6 +157,13 @@ TOKEN_REPLACES = {
     "token_unpack": "lance_distributed_training_tpu/ops/token_device.py:117",
 }
 GPT_VOCAB, GPT_CONTEXT, GPT_BATCH = 50257, 1024, 64  # GPT-2 small's n_ctx
+RING_SOURCE = "lance_distributed_training_tpu_torch/ops/csrc/ring_attn.cu"
+RING_REPLACES = "lance_distributed_training_tpu/parallel/ring_attention.py:37,62"
+RING_SP = 4  # ring positions of the seq-parallel path (one card)
+# K5 rounds where the plain fold does, so their outputs agree to a bf16 ulp
+# or two (flash's 0.02 alone would pass a kernel that rounds elsewhere).
+RING_TOL_O_CLOSE = 4e-3
+RING_KERNELS = ("ring_fwd", "ring_bwd_dq", "ring_bwd_dkv")
 GPT_MEAN_LEN, GPT_SIGMA = 256.0, 0.7  # lognormal lengths of the corpus
 PACK_ROWS_MULTIPLE = 8
 UPSTREAM = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -310,14 +339,15 @@ def build() -> dict:
         flash,
         image,
         jpeg_device,
+        ring_attention,
         token_device,
     )
 
     t0 = time.monotonic()
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         futures = [pool.submit(_build.build_library, stem)
                    for stem in ("flash_attn", "image", "jpeg_decode",
-                                "token_pack")]
+                                "token_pack", "ring_attn")]
         native = pool.submit(jpeg.native_available)
         extractor = pool.submit(coeffs.default_threads)
         for future in futures:
@@ -328,6 +358,7 @@ def build() -> dict:
     image._library()
     jpeg_device._library()
     token_device._library()
+    ring_attention._library()
     report = _build.build_report("flash_attn")
     kernels = _ptxas_kernels(report["ptxas"])
     for row in kernels:
@@ -342,12 +373,17 @@ def build() -> dict:
     token_report = _build.build_report("token_pack")
     token_rows = _ptxas_kernels(token_report["ptxas"],
                                 r"(token_pack|token_unpack)_kernel")
+    ring_report = _build.build_report("ring_attn")
+    ring_rows = _ptxas_kernels(
+        ring_report["ptxas"],
+        r"(ring_fold_fwd|ring_fold_bwd_dq|ring_fold_bwd_dkv)_kernel")
     emit("build", seconds=time.monotonic() - t0,
          nvcc_seconds=report["seconds"], cached=report["cached"],
          kernels=kernels, image_nvcc_seconds=image_report["seconds"],
          image_kernels=image_rows,
          jpeg_nvcc_seconds=jpeg_report["seconds"], jpeg_kernels=jpeg_rows,
          token_nvcc_seconds=token_report["seconds"], token_kernels=token_rows,
+         ring_nvcc_seconds=ring_report["seconds"], ring_kernels=ring_rows,
          native_decoder=native_ok, native_decoder_error=jpeg.build_error(),
          coefficient_extractor_threads=extractor_threads)
     builds = {(r["kernel"], r["head_dim"]) for r in kernels}
@@ -374,8 +410,14 @@ def build() -> dict:
         raise RuntimeError(f"ptxas report of token_pack.cu: {token_rows}")
     if any(_spilled(r) for r in token_rows):
         raise RuntimeError(f"ptxas spills in K3: {token_rows}")
+    if (sorted(r["kernel"] for r in ring_rows)
+            != ["ring_fold_bwd_dkv", "ring_fold_bwd_dq", "ring_fold_fwd"]
+            or not all("registers" in r for r in ring_rows)):
+        raise RuntimeError(f"ptxas report of ring_attn.cu: {ring_rows}")
+    if any(_spilled(r) for r in ring_rows):
+        raise RuntimeError(f"ptxas spills in K5: {ring_rows}")
     return {"image_ptxas": image_rows[0], "jpeg_ptxas": jpeg_rows,
-            "token_ptxas": token_rows}
+            "token_ptxas": token_rows, "ring_ptxas": ring_rows}
 
 
 def _bounds(b: int, h: int, s: int, d: int) -> dict:
@@ -582,6 +624,18 @@ def _dense_vs_flash_check() -> None:
         raise RuntimeError("flash attention disagrees with dense attention")
 
 
+def _slice_docs():
+    """The BERT corpus: ``batch * STEPS`` seeded documents of 128-512
+    tokens, Zipf(1.2) ranks folded onto ids 2..vocab-1 (0 is padding, 1
+    the mask); returns ``(lengths, docs)``."""
+    b, _, s, _ = SHAPE
+    vocab = 30522
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(128, s + 1, b * STEPS)
+    docs = [2 + (rng.zipf(1.2, int(n)) - 1) % (vocab - 2) for n in lengths]
+    return lengths, docs
+
+
 def slice_run() -> dict:
     import torch
     from lance_distributed_training_tpu_torch import cli, ops
@@ -592,12 +646,7 @@ def slice_run() -> dict:
 
     _dense_vs_flash_check()
     b, _, s, _ = SHAPE
-    vocab = 30522
-    rng = np.random.default_rng(0)
-    n_docs = b * STEPS
-    lengths = rng.integers(128, s + 1, n_docs)
-    # Zipf(1.2) ranks folded onto ids 2..vocab-1 (0 is padding, 1 the mask).
-    docs = [2 + (rng.zipf(1.2, int(n)) - 1) % (vocab - 2) for n in lengths]
+    lengths, docs = _slice_docs()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "tokens")
         t0 = time.monotonic()
@@ -640,7 +689,7 @@ def slice_run() -> dict:
     want = LAYERS * steps
     if any(launches[k] != want for k in launches):
         raise RuntimeError(f"launch counts {launches}, expected {want} each")
-    return {"launches": launches}
+    return {"launches": launches, "step_ms": step_ms}
 
 
 def _bits_equal(a, b) -> bool:
@@ -1254,6 +1303,311 @@ def causal_lm_run() -> dict:
                          "token_unpack": out["packed"]["launches"][
                              "token_unpack"]}, "arms": out}
 
+# ------------------------------------------------------------ ring attention
+
+
+def _ring_forward(fold, q, k, v, mask, sp: int):
+    """``sp`` in-process ring steps of ``fold`` (K5's forward or its plain
+    version) from fresh carries; returns ``(out, m, l, acc)``."""
+    import torch
+
+    b, h, s, d = q.shape
+    m = torch.full((b, h, s), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, s), device=q.device)
+    acc = torch.zeros((b, h, s, d), device=q.device)
+    out = torch.empty_like(q)
+    for t in range(sp):
+        fold(q, k, v, mask, m, l, acc, sp, t,
+             out=out if t == sp - 1 else None)
+    return out, m, l, acc
+
+
+def _ring_backward(fold_dq, fold_dkv, q, k, v, mask, lse, delta, do,
+                   sp: int):
+    """``sp`` in-process ring steps of the dQ and dK/dV folds; returns the
+    f32 ``(dq, dk, dv)``."""
+    import torch
+
+    dq = torch.zeros(q.shape, device=q.device)
+    dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
+    for t in range(sp):
+        fold_dq(q, k, v, mask, lse, delta, do, dq, sp, t)
+        fold_dkv(q, k, v, mask, lse, delta, do, dk, dv, sp, t)
+    return dq, dk, dv
+
+
+def _ring_case(label, q, k, v, do, mask, sp, errors) -> dict:
+    """K5's three kernels over a whole in-process ring against their plain
+    versions on the same inputs (flash's tolerances: out 0.02, lse 1e-3,
+    gradients 2% of the largest; and out within ``RING_TOL_O_CLOSE``),
+    then a repeat that must give the same bits; rows with no valid key must
+    come out 0 with 0 gradients."""
+    import torch
+    from lance_distributed_training_tpu_torch.ops import ring_attention as ra
+
+    out, m, l, _ = _ring_forward(ra.ring_fold_fwd, q, k, v, mask, sp)
+    out_ref, m_ref, l_ref, _ = _ring_forward(ra.ring_fold_fwd_reference, q,
+                                             k, v, mask, sp)
+    lse = ra.row_lse(m_ref, l_ref)
+    delta = (do.float() * out_ref.float()).sum(-1)
+    grads = _ring_backward(ra.ring_fold_bwd_dq, ra.ring_fold_bwd_dkv, q, k,
+                           v, mask, lse, delta, do, sp)
+    grads_ref = _ring_backward(ra.ring_fold_bwd_dq_reference,
+                               ra.ring_fold_bwd_dkv_reference, q, k, v, mask,
+                               lse, delta, do, sp)
+    torch.cuda.synchronize()
+    err = {"out": (out.float() - out_ref.float()).abs().max().item(),
+           "lse": (ra.row_lse(m, l) - lse).abs().max().item()}
+    tol = {"out": TOL_O, "lse": TOL_LSE}
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, grads_ref):
+        err[name] = (got - ref).abs().max().item()
+        tol[name] = TOL_GRAD_REL * ref.abs().max().item()
+    empty = ~mask.bool().any(dim=1)  # rows with no valid key
+    zero_rows = bool((out[empty] == 0).all().item()
+                     and (grads[0][empty] == 0).all().item())
+    emit("ring_kernels", case=label, shape=list(q.shape), sp=sp,
+         empty_rows=int(empty.sum().item()), max_abs_err=err, tolerance=tol,
+         out_close_tolerance=RING_TOL_O_CLOSE, empty_rows_zero=zero_rows)
+    bad = [n for n in err if not err[n] <= tol[n]]
+    if not err["out"] <= RING_TOL_O_CLOSE:
+        bad.append("out (close)")
+    if bad or not zero_rows:
+        raise RuntimeError(f"K5 {label}: {bad} above tolerance or nonzero "
+                           f"empty rows ({zero_rows})")
+    out2, m2, l2, acc2 = _ring_forward(ra.ring_fold_fwd, q, k, v, mask, sp)
+    grads2 = _ring_backward(ra.ring_fold_bwd_dq, ra.ring_fold_bwd_dkv, q, k,
+                            v, mask, lse, delta, do, sp)
+    same = {"ring_fwd": torch.equal(out, out2) and torch.equal(m, m2)
+            and torch.equal(l, l2),
+            "ring_bwd_dq": torch.equal(grads[0], grads2[0]),
+            "ring_bwd_dkv": torch.equal(grads[1], grads2[1])
+            and torch.equal(grads[2], grads2[2])}
+    emit("ring_kernels", case=label, bit_identical_on_repeat=same)
+    if not all(same.values()):
+        raise RuntimeError(f"K5 {label}: a second launch differs: {same}")
+    errors["ring_fwd"] = max(errors["ring_fwd"], err["out"])
+    errors["ring_bwd_dq"] = max(errors["ring_bwd_dq"], err["dq"])
+    errors["ring_bwd_dkv"] = max(errors["ring_bwd_dkv"], err["dk"],
+                                 err["dv"])
+    return {"lse": lse, "delta": delta}
+
+
+def _ring_bounds(b: int, h: int, s: int, sb: int, d: int) -> dict:
+    """Least time of one ring step over all positions: each input read
+    once, each output written once (the f32 carries and gradients both),
+    against the products' operations at the bf16 peak."""
+    bf16_in = b * h * s * d * 2  # one of q, k, v, dO
+    rows = b * h * s * 4  # one f32 per row: m, l, lse or delta
+    full = b * h * s * d * 4  # one f32 [B, H, S, D]: acc, dq, dk or dv
+    mask = b * s
+    macs = b * h * s * sb * d  # one product over every (query, key) pair
+    work = {
+        "ring_fwd": (4 * macs, 3 * bf16_in + mask + 4 * rows + 2 * full),
+        "ring_bwd_dq": (6 * macs, 4 * bf16_in + mask + 2 * rows + 2 * full),
+        "ring_bwd_dkv": (8 * macs, 4 * bf16_in + mask + 2 * rows + 4 * full),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        out[name] = {"flops": flops, "bytes": nbytes,
+                     "bound_ms": 1e3 * max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return out
+
+
+def ring_kernels(ptxas: dict) -> dict:
+    """K5 at the seq-parallel path's shape ([32, 12, 512, 64] bf16, four
+    positions, key masks from the corpus lengths) and at ragged ones
+    against the plain versions, then timed: one ring step of each kernel
+    between CUDA events, the whole ring through ``ring_attention``, and
+    SDPA with the same key mask (yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+    from lance_distributed_training_tpu_torch.ops import ring_attention as ra
+    from lance_distributed_training_tpu_torch.parallel.ring_attention import (
+        InProcessRing,
+        ring_attention,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(3)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    errors = dict.fromkeys(RING_KERNELS, 0.0)
+    b, h, s, d = SHAPE
+    lengths = _slice_docs()[0][:b]
+    mask = torch.from_numpy(
+        (np.arange(s)[None] < np.minimum(lengths, s)[:, None]).astype(
+            np.uint8)).to(dev)
+    sb = s // RING_SP
+    blocks = mask.bool().reshape(b, RING_SP, sb).any(-1).cpu().numpy()
+    q, k, v, do = (randn(SHAPE) for _ in range(4))
+    path = _ring_case("path", q, k, v, do, mask, RING_SP, errors)
+    emit("ring_kernels", case="path", fully_masked_last_blocks=[
+        int((~blocks[:, -n:]).all(-1).sum()) for n in (1, 2)])
+    # Ragged: rows with no valid key, a block length that is no multiple of
+    # the tiles, and one position a launch (the process ring's layout).
+    for label, shape, sp in (("empty_rows", (4, 2, 512, 64), 4),
+                             ("ragged_block_50", (3, 2, 200, 64), 4),
+                             ("one_position", (2, 3, 96, 64), 1)):
+        keep = rng.random((shape[0], shape[2])) < 0.6
+        keep[0] = False
+        if label == "empty_rows":
+            keep[2] = False
+        elif sp > 1:
+            keep[1, :shape[2] // sp] = False  # a fully masked first block
+        m_case = torch.from_numpy(keep.astype(np.uint8)).to(dev)
+        _ring_case(label, *(randn(shape) for _ in range(4)), m_case, sp,
+                   errors)
+
+    # Timing at the path's inputs: one ring step (shift 1) of each kernel.
+    out, m, l, acc = _ring_forward(ra.ring_fold_fwd, q, k, v, mask, RING_SP)
+    lse, delta = path["lse"], path["delta"]
+    dq, dk, dv = (torch.zeros(SHAPE, device=dev) for _ in range(3))
+    ms = {
+        "ring_fwd": time_ms(lambda: ra.ring_fold_fwd(
+            q, k, v, mask, m, l, acc, RING_SP, 1)),
+        "ring_bwd_dq": time_ms(lambda: ra.ring_fold_bwd_dq(
+            q, k, v, mask, lse, delta, do, dq, RING_SP, 1)),
+        "ring_bwd_dkv": time_ms(lambda: ra.ring_fold_bwd_dkv(
+            q, k, v, mask, lse, delta, do, dk, dv, RING_SP, 1)),
+    }
+    plain_ms = {
+        "ring_fwd": time_ms(lambda: ra.ring_fold_fwd_reference(
+            q, k, v, mask, m, l, acc, RING_SP, 1), warmup=1, iters=5),
+        "ring_bwd_dq": time_ms(lambda: ra.ring_fold_bwd_dq_reference(
+            q, k, v, mask, lse, delta, do, dq, RING_SP, 1), warmup=1,
+            iters=5),
+        "ring_bwd_dkv": time_ms(lambda: ra.ring_fold_bwd_dkv_reference(
+            q, k, v, mask, lse, delta, do, dk, dv, RING_SP, 1), warmup=1,
+            iters=5),
+    }
+    # The library's fused attention over one step's work: each query block
+    # against the key block it folds at shift 1, the blocks laid side by
+    # side as a batch of b * sp (laid out before the timing).
+    def step_layout(x, shift):
+        blocks = x.view(b, h, RING_SP, sb, d).roll(shift, dims=2)
+        return blocks.transpose(1, 2).reshape(b * RING_SP, h, sb, d)
+
+    step_q = step_layout(q, 0)
+    step_k, step_v = step_layout(k, 1), step_layout(v, 1)
+    step_mask = mask.bool().view(b, RING_SP, sb).roll(1, dims=1).reshape(
+        b * RING_SP, 1, 1, sb)
+    with torch.no_grad():
+        sdpa_step_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            step_q, step_k, step_v, attn_mask=step_mask,
+            scale=1.0 / d ** 0.5))
+    # The whole ring (four steps of each kernel and the plain ops around
+    # them) beside the library's fused attention with the same key mask.
+    key_mask = mask.bool()[:, None, None, :]
+    ring = InProcessRing(RING_SP)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def ring_fwd_bwd():
+        ring_attention(qg, kg, vg, key_mask, ring).backward(do)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg, attn_mask=key_mask,
+                                       scale=1.0 / d ** 0.5).backward(do)
+
+    with torch.no_grad():
+        ring_ms = time_ms(lambda: ring_attention(q, k, v, key_mask, ring))
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=key_mask, scale=1.0 / d ** 0.5))
+    ring_fwd_bwd_ms = time_ms(ring_fwd_bwd)
+    sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd)
+    bounds = _ring_bounds(b, h, s, sb, d)
+    registers = {r["kernel"].replace("_fold", ""): r["registers"]
+                 for r in ptxas["ring_ptxas"]}
+    library = {"ring_fwd": sdpa_step_ms, "ring_bwd_dq": None,
+               "ring_bwd_dkv": None}
+    table = {n: {
+        "ms": ms[n], "plain_ms": plain_ms[n], "library_ms": library[n],
+        "bound_ms": bounds[n]["bound_ms"], "bound_by": bounds[n]["bound_by"],
+        "bytes": bounds[n]["bytes"], "flops": bounds[n]["flops"],
+        "share_of_bound": bounds[n]["bound_ms"] / ms[n],
+        "registers": registers[n],
+    } for n in RING_KERNELS}
+    # The forward row also carries the whole ring beside SDPA over the
+    # whole sequence, the same work on both sides.
+    table["ring_fwd"].update(whole_ring_ms=ring_ms,
+                             library_whole_ring_ms=sdpa_ms)
+    emit("ring_kernels", timing="path_shape", sp=RING_SP, table=table,
+         whole_ring={"ring_fwd_ms": ring_ms, "sdpa_fwd_ms": sdpa_ms,
+                     "ring_fwd_bwd_ms": ring_fwd_bwd_ms,
+                     "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms})
+    return {"errors": errors, "table": table}
+
+
+def ring_lm_run(slice_step_ms) -> dict:
+    """BERT-base masked-LM through ``cli train --seq_parallelism 4`` (the
+    in-process ring on one card, K5 in every attention) for STEPS steps on
+    the slice phase's corpus, with the eval at the end."""
+    import torch
+    from lance_distributed_training_tpu_torch import cli, ops
+    from lance_distributed_training_tpu_torch.data import (
+        create_text_token_dataset,
+    )
+
+    b, _, s, _ = SHAPE
+    lengths, docs = _slice_docs()
+    rows = len(docs)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens")
+        create_text_token_dataset(path, docs, seq_len=s, pack=False)
+        os.environ["LDT_METRICS_PATH"] = os.path.join(tmp, "metrics.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        result = cli.main([
+            "train", "--dataset_path", path, "--task_type", "masked_lm",
+            "--model_name", "bert_base", "--seq_len", str(s),
+            "--seq_parallelism", str(RING_SP), "--batch_size", str(b),
+            "--optimizer", "adamw", "--lr", "1e-4",
+            "--max_steps", str(STEPS), "--epochs", "1", "--log_every", "5",
+            "--device", "cuda",
+        ])
+        launches = {k: ops.LAUNCHES[k] for k in ops.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+    losses = result["losses"]
+    steps = result["steps"]
+    step_ms = statistics.median(result["step_ms"][4:])
+    valid_tokens = int(sum(min(int(n), s) for n in lengths))
+    eval_batches = -(-rows // b)
+    fields = {
+        "sp": RING_SP, "steps": steps, "first_loss": losses[0],
+        "last5_mean_loss": statistics.fmean(losses[-5:]), "losses": losses,
+        "step_ms_median_5_20": step_ms,
+        "flash_slice_step_ms_median_5_20": slice_step_ms,
+        "tokens_per_sec": b * s / (step_ms / 1e3),
+        "valid_tokens_per_sec": valid_tokens / steps / (step_ms / 1e3),
+        "peak_memory_allocated_bytes": peak,
+        "eval_masked_token_accuracy": result.get("eval_accuracy"),
+        "eval_rows": result.get("eval_rows"), "dataset_rows": rows,
+        "launches": launches, "train_seconds": result["train_time"],
+        "model_params": result["model_params"],
+    }
+    emit("ring_lm", **fields)
+    if steps != STEPS or len(losses) != STEPS:
+        raise RuntimeError(f"ran {steps} steps, expected {STEPS}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError("non-finite loss")
+    if not fields["last5_mean_loss"] < losses[0]:
+        raise RuntimeError("loss did not fall over the run")
+    if fields["eval_rows"] != rows:
+        raise RuntimeError(f"eval covered {fields['eval_rows']} rows of "
+                           f"{rows}")
+    per_step = LAYERS * RING_SP
+    want = {"ring_fwd": per_step * (STEPS + eval_batches),
+            "ring_bwd_dq": per_step * STEPS, "ring_bwd_dkv": per_step * STEPS,
+            "fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if wrong:
+        raise RuntimeError(f"launches (got, expected) {wrong}")
+    return {"launches": {k: launches[k] for k in RING_KERNELS}}
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1271,7 +1625,8 @@ def main(argv=None) -> int:
     card = probe()
     ptxas = build() if set(phases) - {"probe"} else None
     timing = kernels() if "kernels" in phases else None
-    launches = slice_run()["launches"] if "slice" in phases else None
+    sliced = slice_run() if "slice" in phases else None
+    launches = sliced["launches"] if sliced else None
     k1 = image_kernels() if "image_kernels" in phases else None
     k2 = jpeg_kernels() if "jpeg_kernels" in phases else None
     if "classification" in phases:
@@ -1282,6 +1637,10 @@ def main(argv=None) -> int:
     k3 = token_kernels() if "token_kernels" in phases else None
     if "causal_lm" in phases:
         launches = {**(launches or {}), **causal_lm_run()["launches"]}
+    k5 = ring_kernels(ptxas) if "ring_kernels" in phases else None
+    if "ring_lm" in phases:
+        ring = ring_lm_run(sliced["step_ms"] if sliced else None)
+        launches = {**(launches or {}), **ring["launches"]}
     if set(phases) != set(PHASES):
         return 0  # a partial run prints no result
     print(card["smi"], flush=True)
@@ -1319,6 +1678,12 @@ def main(argv=None) -> int:
             "library_ms": None, "share_of_bound": row["share_of_bound"],
             "registers": {r["kernel"]: r["registers"]
                           for r in ptxas["token_ptxas"]}[name],
+        })
+    for name in RING_KERNELS:
+        table.append({
+            "name": name, "route": "cuda", "source": RING_SOURCE,
+            "replaces": RING_REPLACES, "launches": launches[name],
+            "max_abs_err": k5["errors"][name], **k5["table"][name],
         })
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ Counterpart of ``lance_distributed_training_tpu/cli.py`` for the ported
 paths, image classification (its defaults: ResNet-50, 224 px, 101 classes,
 global batch 512, SGD lr 0.05 momentum 0.9, flips, eval at the end),
 masked-LM and causal-LM text with ``--token_pack`` (ragged pages, an FFD
-plan and K3 packing on the device), ``--device_decode`` (JPEG decode split
+plan and K3 packing on the device), ``--seq_parallelism`` (masked-LM
+through ring attention), ``--device_decode`` (JPEG decode split
 at the entropy boundary, K2 on the device), plus ``--device {cuda,cpu}``
 (default ``cuda``, which raises when no card is present). Any other flag
 of the JAX CLI raises "not yet ported"; so do the other subcommands and
@@ -23,6 +24,14 @@ task types. Usage::
 
 Data parallel over N processes: run one per process with
 ``--coordinator_address host:port --num_processes N --process_id i``.
+``--seq_parallelism K`` (masked-LM) runs attention as a ring over K
+sequence blocks (K5): in the one process, or over K processes a ring when
+N > 1 (N divisible by K)::
+
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/c4_tokens --task_type masked_lm \
+        --model_name bert_base --seq_len 512 --batch_size 32 \
+        --seq_parallelism 4 --optimizer adamw --lr 1e-4 --max_steps 20
 """
 
 from __future__ import annotations
@@ -93,6 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flash_attention", action="store_true",
                    help="attention through the hand-written CUDA flash "
                         "kernels (the plain version on the CPU)")
+    p.add_argument("--seq_parallelism", type=int, default=1,
+                   help="sequence/context-parallel degree (ring attention)")
     dd = p.add_mutually_exclusive_group()
     dd.add_argument("--device_decode", action="store_true",
                     help="split JPEG decode at the entropy boundary: the "

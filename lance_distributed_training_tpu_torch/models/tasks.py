@@ -8,6 +8,13 @@ The JAX tasks draw their random masks (the MLM mask, the per-image flip)
 with ``jax.random``; here ``forward`` takes the draw explicitly
 (``mlm_mask``, ``flip_mask``) or makes it from a ``torch.Generator`` (the
 two generators give different bits, so parity tests pass the draw in).
+
+Across processes the text losses are the JAX package's weighted mean over
+the GLOBAL batch: with ``loss_group`` each process divides its weighted
+sum by the group's total weight (all-reduced, no gradient) and scales by
+the group's size, so that DDP's mean of the per-process gradients is the
+gradient of the global loss, and the mean of the per-process losses is
+that loss.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops.image import normalize_flip
@@ -23,7 +31,7 @@ from .resnet import RESNETS
 from .transformer import bert_base, bert_small, gpt_base, gpt_small
 
 __all__ = ["Task", "get_task", "classification_task", "masked_lm_task",
-           "causal_lm_task", "TASK_REGISTRY"]
+           "causal_lm_task", "draw_mlm_mask", "TASK_REGISTRY"]
 
 TASK_REGISTRY = ("classification", "masked_lm", "causal_lm")
 
@@ -91,10 +99,31 @@ MASK_PROB = 0.15  # share of valid positions masked per training step
 MASK_ID = 1  # the token that replaces a masked position
 
 
-def masked_lm_task(model) -> Task:
+def _weighted_mean(raw, w, group) -> torch.Tensor:
+    """``(raw·w).sum() / max(Σw, 1)`` over the global batch: without a
+    group, this process's; with one, the sums of all its processes (see the
+    module's docstring)."""
+    total, scale = w.sum(), 1
+    if group is not None:
+        total = total.detach().clone()
+        dist.all_reduce(total, group=group)
+        scale = dist.get_world_size(group)
+    return (raw * w).sum() / torch.clamp(total, min=1.0) * scale
+
+
+def draw_mlm_mask(batch, generator: torch.Generator) -> torch.Tensor:
+    """The training MLM mask of a batch: each valid position with
+    probability ``MASK_PROB``, from ``generator``."""
+    ids = batch["input_ids"]
+    draw = torch.rand(ids.shape, generator=generator, device=ids.device)
+    return (draw < MASK_PROB) & (batch["attention_mask"] > 0)
+
+
+def masked_lm_task(model, loss_group=None) -> Task:
     """BERT masked-LM over ``{input_ids, attention_mask}`` batches (plus
     ``segment_ids``/``position_ids`` when packed). Masked positions are
-    replaced by ``MASK_ID`` and are the loss targets."""
+    replaced by ``MASK_ID`` and are the loss targets. ``loss_group`` makes
+    the loss the global batch's."""
 
     def forward(batch, train: bool, generator: Optional[torch.Generator] = None,
                 mlm_mask: Optional[torch.Tensor] = None):
@@ -102,9 +131,7 @@ def masked_lm_task(model) -> Task:
         valid = batch["attention_mask"] > 0
         if mlm_mask is None:
             if train and generator is not None:
-                draw = torch.rand(ids.shape, generator=generator,
-                                  device=ids.device)
-                mlm_mask = (draw < MASK_PROB) & valid
+                mlm_mask = draw_mlm_mask(batch, generator)
             else:
                 # Eval: every ~1/MASK_PROB-th position, deterministically.
                 stride = max(int(round(1.0 / MASK_PROB)), 1)
@@ -122,8 +149,7 @@ def masked_lm_task(model) -> Task:
         targets = batch["input_ids"].long()
         raw = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
                               targets.reshape(-1), reduction="none")
-        w = mlm_mask.reshape(-1).float()
-        return (raw * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return _weighted_mean(raw, mlm_mask.reshape(-1).float(), loss_group)
 
     def metric(outputs, batch):
         logits, mlm_mask = outputs
@@ -132,12 +158,14 @@ def masked_lm_task(model) -> Task:
         return (hit * w).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
 
     return Task("masked_lm", model, forward, loss, metric,
-                metric_name="masked_token_accuracy", with_model=masked_lm_task)
+                metric_name="masked_token_accuracy",
+                with_model=lambda module: masked_lm_task(module, loss_group))
 
 
 def _masked_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
                     attention_fn: Optional[Callable] = None, device=None,
-                    generator: Optional[torch.Generator] = None) -> Task:
+                    generator: Optional[torch.Generator] = None,
+                    loss_group=None) -> Task:
     """A ``bert_base`` or ``bert_small`` masked-LM task; the model is built
     on ``device`` and initialised from ``generator``."""
     ctor = {"bert_base": bert_base, "bert_small": bert_small}.get(model_name)
@@ -146,15 +174,16 @@ def _masked_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
                          "(have ['bert_base', 'bert_small'])")
     model = ctor(vocab_size=vocab_size or 30522, max_len=seq_len,
                  attention_fn=attention_fn, device=device, generator=generator)
-    return masked_lm_task(model)
+    return masked_lm_task(model, loss_group)
 
 
-def causal_lm_task(model) -> Task:
+def causal_lm_task(model, loss_group=None) -> Task:
     """Next-token prediction (GPT family) over ``{input_ids,
     attention_mask}`` batches, plus ``segment_ids``/``position_ids`` when
     packed. Position t predicts token t + 1, weighted by the target's
     validity; in packed rows a position whose target lies in another
-    sequence (a junction) is weighted out."""
+    sequence (a junction) is weighted out. ``loss_group`` makes the loss
+    the global batch's."""
 
     def forward(batch, train: bool, generator: Optional[torch.Generator] = None):
         ids = batch["input_ids"].long()
@@ -179,8 +208,7 @@ def causal_lm_task(model) -> Task:
         targets, w = _targets(batch)
         raw = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
                               targets.reshape(-1), reduction="none")
-        w = w.reshape(-1)
-        return (raw * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return _weighted_mean(raw, w.reshape(-1), loss_group)
 
     def metric(logits, batch):
         targets, w = _targets(batch)
@@ -188,12 +216,14 @@ def causal_lm_task(model) -> Task:
         return (hit * w).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
 
     return Task("causal_lm", model, forward, loss, metric,
-                metric_name="next_token_accuracy", with_model=causal_lm_task)
+                metric_name="next_token_accuracy",
+                with_model=lambda module: causal_lm_task(module, loss_group))
 
 
 def _causal_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
                     attention_fn: Optional[Callable] = None, device=None,
-                    generator: Optional[torch.Generator] = None) -> Task:
+                    generator: Optional[torch.Generator] = None,
+                    loss_group=None) -> Task:
     """A ``gpt_base`` (GPT-2 124M's shape) or ``gpt_small`` causal-LM task,
     vocabulary 50257 by default; the model is built on ``device`` and
     initialised from ``generator``. An ``attention_fn`` must bind its own
@@ -204,27 +234,29 @@ def _causal_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
                          "(have ['gpt_base', 'gpt_small'])")
     model = ctor(vocab_size=vocab_size or 50257, max_len=seq_len,
                  attention_fn=attention_fn, device=device, generator=generator)
-    return causal_lm_task(model)
+    return causal_lm_task(model, loss_group)
 
 
 def get_task(task_type: str, *, num_classes: int = 101,
              model_name: Optional[str] = None, image_size: int = 224,
              seq_len: int = 128, vocab_size: Optional[int] = None,
              augment: bool = True, attention_fn: Optional[Callable] = None,
-             device=None, generator: Optional[torch.Generator] = None) -> Task:
+             device=None, generator: Optional[torch.Generator] = None,
+             loss_group=None) -> Task:
     """The task for ``task_type``: ``classification`` (a ResNet, default
     ``resnet50``), ``masked_lm`` (default ``bert_base``) or ``causal_lm``
     (default ``gpt_base``). ``image_size``
-    is the JAX signature's; the ResNets take any size."""
+    is the JAX signature's; the ResNets take any size. ``loss_group``
+    (text tasks) makes the loss the global batch's across its processes."""
     if task_type == "classification":
         return _classification_task(num_classes, model_name or "resnet50",
                                     augment, device, generator)
     if task_type == "masked_lm":
         return _masked_lm_task(vocab_size, model_name or "bert_base", seq_len,
-                               attention_fn, device, generator)
+                               attention_fn, device, generator, loss_group)
     if task_type == "causal_lm":
         return _causal_lm_task(vocab_size, model_name or "gpt_base", seq_len,
-                               attention_fn, device, generator)
+                               attention_fn, device, generator, loss_group)
     if task_type == "contrastive":
         raise NotImplementedError(f"task_type {task_type!r} is not yet ported")
     raise ValueError(f"Invalid task type: {task_type}")

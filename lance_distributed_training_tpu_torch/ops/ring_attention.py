@@ -1,0 +1,333 @@
+"""K5 — ring attention's block fold: the hand-written kernels and their
+plain versions.
+
+Counterpart of ``_block_attn`` in
+``lance_distributed_training_tpu/parallel/ring_attention.py`` (:37), the
+fold that ``ring_attention``'s loop (:62) runs once per ring step, and of
+the backward JAX takes through that loop by autodiff.
+:func:`block_attn_reference` repeats ``_block_attn`` operation for
+operation, in the same order and with the same rounding points (the
+``einsum`` of two bf16 arrays yields bf16; the scale ``1/sqrt(D)`` divides
+in f32 after that rounding; masked scores take ``finfo(f32).min`` and ``p``
+is then multiplied by the mask).
+
+Three kernels in ``csrc/ring_attn.cu`` (sm_90a, ``mma.sync``), each with
+its plain version here, take every query position a process holds in one
+launch: ``P`` positions of one in-process ring, or ``P = 1`` for a process
+ring. At ring step ``shift``, query block ``i`` folds key block
+``(i - shift) mod P``.
+
+* ``ring_fwd``: updates the f32 carries ``(m, l, acc)`` in place; with
+  ``out`` it also writes ``bf16(acc / max(l, 1e-30))``, the ring's output
+  after its last step.
+* ``ring_bwd_dq``: adds the block's f32 dQ to the resident queries'.
+* ``ring_bwd_dkv``: adds the block's f32 dK/dV to the travelling block's
+  partials.
+
+The backward takes ``lse = m + log(l)`` (0 where ``l = 0``) and
+``delta = rowsum(dO * O)``; :func:`block_attn_bwd_reference` writes out the
+derivative that autodiff takes through the fold: ``P = exp(s - lse)`` at
+valid keys, ``dS = P (dP - delta)``, the ``1/sqrt(D)`` and the casts passed
+through.
+
+The wrappers route by the device of their inputs: CPU tensors take the
+plain versions, CUDA tensors launch the kernels or raise (head dim 64,
+bf16). ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+__all__ = [
+    "HEAD_DIM",
+    "LAUNCHES",
+    "MASK_FILL",
+    "block_attn_reference",
+    "block_attn_bwd_reference",
+    "finalize",
+    "row_lse",
+    "ring_fold_fwd",
+    "ring_fold_fwd_reference",
+    "ring_fold_bwd_dq",
+    "ring_fold_bwd_dq_reference",
+    "ring_fold_bwd_dkv",
+    "ring_fold_bwd_dkv_reference",
+]
+
+HEAD_DIM = 64
+MASK_FILL = float(torch.finfo(torch.float32).min)
+LAUNCHES = {"ring_fwd": 0, "ring_bwd_dq": 0, "ring_bwd_dkv": 0}
+
+_SOURCE = "ring_attn"
+_lib: Optional[ctypes.CDLL] = None
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def _scores(q, k, mask_block):
+    """``q k^T`` in the inputs' type, then f32 over ``sqrt(D)``; masked keys
+    take ``finfo(f32).min``."""
+    scores = torch.matmul(q, k.transpose(-1, -2)).float()
+    scores = scores / math.sqrt(q.shape[-1])
+    if mask_block is not None:
+        scores = torch.where(mask_block, scores, MASK_FILL)
+    return scores
+
+
+def block_attn_reference(q, k, v, m_prev, l_prev, acc, mask_block=None):
+    """Fold one K/V block into the running statistics, as ``_block_attn``.
+
+    q ``[B,H,Sq,D]``; k, v ``[B,H,Sk,D]``; m_prev, l_prev ``[B,H,Sq]`` f32;
+    acc ``[B,H,Sq,D]`` f32; mask_block ``[B,1,1,Sk]`` bool. Returns
+    ``(m_new, l_new, acc)``."""
+    scores = _scores(q, k, mask_block)
+    m_new = torch.maximum(m_prev, scores.amax(dim=-1))
+    scale = torch.exp(m_prev - m_new)
+    p = torch.exp(scores - m_new[..., None])
+    if mask_block is not None:
+        # When a whole block is masked, m_new equals the fill value and
+        # exp(scores - m_new) would be 1, not 0.
+        p = p * mask_block.to(p.dtype)
+    l_new = l_prev * scale + p.sum(dim=-1)
+    acc = acc * scale[..., None] + torch.matmul(p.to(v.dtype), v).float()
+    return m_new, l_new, acc
+
+
+def finalize(acc, l, dtype):
+    """The ring's output: ``acc / max(l, 1e-30)`` in ``dtype``."""
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
+
+
+def row_lse(m, l):
+    """``m + log(l)`` per row, 0 where ``l = 0`` (no valid key)."""
+    return torch.where(l > 0, m + torch.log(l), torch.zeros_like(m))
+
+
+def block_attn_bwd_reference(q, k, v, mask_block, lse, delta, do):
+    """One block's ``(dq, dk, dv)``, f32: the derivative of the fold's
+    share of the output, ``P = exp(s - lse)`` at the block's valid keys,
+    with ``lse`` and ``delta = rowsum(dO * O)`` of the whole ring."""
+    scores = _scores(q, k, mask_block)
+    p = torch.exp(scores - lse[..., None])
+    if mask_block is not None:
+        p = torch.where(mask_block, p, 0.0)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta[..., None]) / math.sqrt(q.shape[-1])).to(q.dtype)
+    ds = ds.float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do.float())
+    return dq, dk, dv
+
+
+def _rows(t: torch.Tensor, index: int, block: int) -> torch.Tensor:
+    """Rows ``[index*block, (index+1)*block)`` of dim 2 (``[B,H,S,...]``)."""
+    return t[:, :, index * block:(index + 1) * block]
+
+
+def _block(t: torch.Tensor, index: int, block: int) -> torch.Tensor:
+    return _rows(t, index, block).contiguous()
+
+
+def _mask_block(mask: torch.Tensor, index: int, block: int) -> torch.Tensor:
+    """Key-validity block ``[B,1,1,block]`` of a ``[B, S]`` mask."""
+    return mask[:, index * block:(index + 1) * block].bool()[:, None, None, :]
+
+
+def _positions(q, positions: int) -> int:
+    if positions < 1 or q.shape[2] % positions:
+        raise ValueError(f"sequence {q.shape[2]} does not split into "
+                         f"{positions} ring positions")
+    return q.shape[2] // positions
+
+
+def ring_fold_fwd_reference(q, k, v, mask, m, l, acc, positions: int,
+                            shift: int, out=None) -> None:
+    """Plain ring step: each query block ``i`` folds key block
+    ``(i - shift) mod positions`` (:func:`block_attn_reference`), in place
+    on ``m``, ``l``, ``acc``; ``out`` takes :func:`finalize` of the new
+    carries."""
+    sb = _positions(q, positions)
+    for i in range(positions):
+        j = (i - shift) % positions
+        m_i, l_i, acc_i = block_attn_reference(
+            _block(q, i, sb), _block(k, j, sb), _block(v, j, sb),
+            _rows(m, i, sb), _rows(l, i, sb), _rows(acc, i, sb),
+            _mask_block(mask, j, sb))
+        _rows(m, i, sb).copy_(m_i)
+        _rows(l, i, sb).copy_(l_i)
+        _rows(acc, i, sb).copy_(acc_i)
+        if out is not None:
+            _rows(out, i, sb).copy_(finalize(acc_i, l_i, out.dtype))
+
+
+def ring_fold_bwd_dq_reference(q, k, v, mask, lse, delta, do, dq,
+                               positions: int, shift: int) -> None:
+    """Plain dQ step: query block ``i`` adds the dQ of key block
+    ``(i - shift) mod positions`` to ``dq`` (f32, in place)."""
+    sb = _positions(q, positions)
+    for i in range(positions):
+        j = (i - shift) % positions
+        dq_i, _, _ = block_attn_bwd_reference(
+            _block(q, i, sb), _block(k, j, sb), _block(v, j, sb),
+            _mask_block(mask, j, sb), _rows(lse, i, sb), _rows(delta, i, sb),
+            _block(do, i, sb))
+        _rows(dq, i, sb).add_(dq_i)
+
+
+def ring_fold_bwd_dkv_reference(q, k, v, mask, lse, delta, do, dk, dv,
+                                positions: int, shift: int) -> None:
+    """Plain dK/dV step: key block ``j`` adds what query block
+    ``(j + shift) mod positions`` gives it to ``dk``/``dv`` (f32, in
+    place)."""
+    sb = _positions(q, positions)
+    for j in range(positions):
+        i = (j + shift) % positions
+        _, dk_j, dv_j = block_attn_bwd_reference(
+            _block(q, i, sb), _block(k, j, sb), _block(v, j, sb),
+            _mask_block(mask, j, sb), _rows(lse, i, sb), _rows(delta, i, sb),
+            _block(do, i, sb))
+        _rows(dk, j, sb).add_(dk_j)
+        _rows(dv, j, sb).add_(dv_j)
+
+
+# ------------------------------------------------------------ kernels
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``ring_attn.cu``."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ldt_ring_fold_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.ldt_ring_fold_bwd_dq.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.ldt_ring_fold_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+    for fn in (lib.ldt_ring_fold_fwd, lib.ldt_ring_fold_bwd_dq,
+               lib.ldt_ring_fold_bwd_dkv):
+        fn.restype = ctypes.c_int
+    lib.ldt_ring_error_string.argtypes = [ctypes.c_int]
+    lib.ldt_ring_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        _lib = bind_library(_build.load_library(_SOURCE))
+    return _lib
+
+
+def _on_cpu(q: torch.Tensor) -> bool:
+    if q.device.type == "cpu":
+        return True
+    if q.device.type == "cuda":
+        return False
+    raise RuntimeError(f"ring attention has no kernel for device {q.device}")
+
+
+def _check(name: str, q, k, v, mask, positions: int, shift: int,
+           bf16=(), f32_rows=(), f32_full=()) -> tuple:
+    """Validate a CUDA launch's inputs; returns ``(B, H, Sb)``."""
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be [B, H, S, D], got "
+                         f"{tuple(q.shape)}")
+    b, h, s, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} not supported (the kernels "
+                         f"are built for {HEAD_DIM})")
+    sb = _positions(q, positions)
+    if not 0 <= shift < positions:
+        raise ValueError(f"{name}: shift {shift} outside [0, {positions})")
+    tensors = [("q", q, torch.bfloat16, q.shape), ("k", k, torch.bfloat16,
+                                                   q.shape),
+               ("v", v, torch.bfloat16, q.shape),
+               ("mask", mask, torch.uint8, (b, s))]
+    tensors += [(n, t, torch.bfloat16, q.shape) for n, t in bf16]
+    tensors += [(n, t, torch.float32, (b, h, s)) for n, t in f32_rows]
+    tensors += [(n, t, torch.float32, q.shape) for n, t in f32_full]
+    for t_name, t, dtype, shape in tensors:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {t_name} must be {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: {t_name} on {t.device}, q on "
+                             f"{q.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {t_name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {t_name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {t_name} must be 16-byte aligned")
+    return b, h, sb
+
+
+def _launch(name: str, fn, *args) -> None:
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream(args[0].device).cuda_stream
+        pointers = [None if a is None else
+                    (a.data_ptr() if isinstance(a, torch.Tensor) else a)
+                    for a in args]
+        code = fn(*pointers, stream)
+    if code != 0:
+        msg = _library().ldt_ring_error_string(code).decode()
+        raise RuntimeError(f"ring attention {name} launch failed: {msg} "
+                           f"(code {code})")
+    LAUNCHES[name] += 1
+
+
+def ring_fold_fwd(q, k, v, mask, m, l, acc, positions: int = 1,
+                  shift: int = 0, out=None) -> None:
+    """One ring step of the forward over every position ``q`` holds, in
+    place on the f32 carries ``m``, ``l`` (``[B,H,S]``) and ``acc``
+    (``[B,H,S,D]``); ``out`` (``q``'s type), when given, takes the output.
+    ``mask`` is the uint8 key validity ``[B, S]``. CUDA: the ``ring_fwd``
+    kernel. CPU: :func:`ring_fold_fwd_reference`."""
+    if _on_cpu(q):
+        ring_fold_fwd_reference(q, k, v, mask, m, l, acc, positions, shift,
+                                out)
+        return
+    f32_full = [("acc", acc)]
+    bf16 = [("out", out)] if out is not None else []
+    b, h, sb = _check("ring_fwd", q, k, v, mask, positions, shift, bf16=bf16,
+                      f32_rows=[("m", m), ("l", l)], f32_full=f32_full)
+    _launch("ring_fwd", _library().ldt_ring_fold_fwd, q, k, v, mask, m, l,
+            acc, out, b, h, positions, sb, q.shape[-1], shift)
+
+
+def ring_fold_bwd_dq(q, k, v, mask, lse, delta, do, dq, positions: int = 1,
+                     shift: int = 0) -> None:
+    """One ring step of dQ, added in place to the f32 ``dq``. CUDA: the
+    ``ring_bwd_dq`` kernel. CPU: :func:`ring_fold_bwd_dq_reference`."""
+    if _on_cpu(q):
+        ring_fold_bwd_dq_reference(q, k, v, mask, lse, delta, do, dq,
+                                   positions, shift)
+        return
+    b, h, sb = _check("ring_bwd_dq", q, k, v, mask, positions, shift,
+                      bf16=[("do", do)],
+                      f32_rows=[("lse", lse), ("delta", delta)],
+                      f32_full=[("dq", dq)])
+    _launch("ring_bwd_dq", _library().ldt_ring_fold_bwd_dq, q, k, v, mask,
+            lse, delta, do, dq, b, h, positions, sb, q.shape[-1], shift)
+
+
+def ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, dk, dv,
+                      positions: int = 1, shift: int = 0) -> None:
+    """One ring step of dK/dV, added in place to the f32 ``dk``/``dv``.
+    CUDA: the ``ring_bwd_dkv`` kernel. CPU:
+    :func:`ring_fold_bwd_dkv_reference`."""
+    if _on_cpu(q):
+        ring_fold_bwd_dkv_reference(q, k, v, mask, lse, delta, do, dk, dv,
+                                    positions, shift)
+        return
+    b, h, sb = _check("ring_bwd_dkv", q, k, v, mask, positions, shift,
+                      bf16=[("do", do)],
+                      f32_rows=[("lse", lse), ("delta", delta)],
+                      f32_full=[("dk", dk), ("dv", dv)])
+    _launch("ring_bwd_dkv", _library().ldt_ring_fold_bwd_dkv, q, k, v, mask,
+            lse, delta, do, dk, dv, b, h, positions, sb, q.shape[-1], shift)

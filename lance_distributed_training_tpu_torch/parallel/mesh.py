@@ -9,6 +9,11 @@ model is wrapped in DDP and BatchNorm all-reduces its statistics
 the world size and this process's rank, as the JAX CLI's
 ``--coordinator_address/--num_processes/--process_id`` give them. The
 backend is NCCL on CUDA and gloo on the CPU.
+
+Sequence parallelism lays the ranks out as JAX's ``('data', 'seq')`` mesh
+does its devices, data outermost: rank ``data_index * seq + seq_index``
+(:func:`seq_topology`); :func:`new_seq_groups` creates one process group
+per data index for its ring.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["maybe_initialize_distributed", "process_topology",
-           "sync_global_devices", "shutdown_distributed"]
+           "sync_global_devices", "shutdown_distributed", "seq_topology",
+           "new_seq_groups"]
 
 _initialized_here = False
 
@@ -69,3 +75,33 @@ def shutdown_distributed() -> None:
     if _initialized_here and dist.is_initialized():
         dist.destroy_process_group()
     _initialized_here = False
+
+
+def seq_topology(rank: int, world: int,
+                 seq_parallelism: int) -> tuple[int, int, int]:
+    """``(data_index, data_world, seq_index)`` of ``rank`` in a world of
+    ``world`` processes laid out as ``(data, seq)``, data outermost. Raises
+    as the JAX package's ``get_mesh`` does when the world does not divide."""
+    if seq_parallelism < 1:
+        raise ValueError(f"parallelism degrees must be >=1, got "
+                         f"sp={seq_parallelism}")
+    if world % seq_parallelism:
+        raise ValueError(f"{world} devices not divisible by "
+                         f"model*seq*pipe parallelism={seq_parallelism}")
+    return (rank // seq_parallelism, world // seq_parallelism,
+            rank % seq_parallelism)
+
+
+def new_seq_groups(seq_parallelism: int):
+    """``(group, ranks)`` of this rank's sequence ring. Every rank creates
+    every ring's group, in data-index order, as ``new_group`` requires."""
+    rank, world = process_topology()
+    data_index = seq_topology(rank, world, seq_parallelism)[0]
+    mine = None
+    for index in range(world // seq_parallelism):
+        ranks = list(range(index * seq_parallelism,
+                           (index + 1) * seq_parallelism))
+        group = dist.new_group(ranks)
+        if index == data_index:
+            mine = (group, ranks)
+    return mine

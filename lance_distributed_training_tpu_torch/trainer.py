@@ -29,6 +29,17 @@ Data parallelism: with ``coordinator_address``/``num_processes``/
 device, reads ``batch_size / world`` rows of each global batch through the
 samplers' rank arguments, and trains a DDP replica whose BatchNorm takes
 the global batch's statistics, as the JAX step does over its sharded batch.
+A text loss is the global batch's weighted mean (``models/tasks.py``).
+
+Sequence parallelism (``seq_parallelism``, masked-LM): attention runs as a
+ring over ``seq_parallelism`` sequence blocks (``parallel/
+ring_attention.py``, K5). One process holds every ring position on its
+device. Across processes the ranks form JAX's ``('data', 'seq')`` mesh,
+data outermost: the members of one ring read the same rows (sampler rank =
+data index), share one MLM mask draw (seeded by the data index), and each
+trains on its sequence block with its global ``position_ids``, the key and
+value blocks passing between them; DDP spans the world. Rank 0 evaluates
+alone, folding whole sequences in its process.
 
 The device is the caller's choice: ``device="cuda"`` (the default) raises
 when no card is present rather than falling back to the CPU.
@@ -36,6 +47,7 @@ when no card is present rather than falling back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import statistics
@@ -51,16 +63,19 @@ from .data.format import Dataset
 from .data.pipeline import make_eval_pipeline, make_train_pipeline
 from .data.token_pack import TokenPackConfig, is_ragged_batch, pack_meta
 from .models.resnet import set_sync_group
-from .models.tasks import Task, get_task
+from .models.tasks import Task, draw_mlm_mask, get_task
 from .ops.flash import make_flash_attention
 from .ops.jpeg_device import make_batch_transform
 from .ops.token_device import make_pack_transform
 from .parallel.mesh import (
     maybe_initialize_distributed,
+    new_seq_groups,
     process_topology,
+    seq_topology,
     shutdown_distributed,
     sync_global_devices,
 )
+from .parallel.ring_attention import ProcessRing, make_ring_attention
 from .utils.metrics import MetricLogger, StepTimer
 
 __all__ = [
@@ -112,6 +127,8 @@ class TrainConfig:
     seed: int = 0
     log_every: int = 50
     flash_attention: bool = False  # the hand-written CUDA flash kernels
+    seq_parallelism: int = 1  # masked_lm: ring attention over N sequence
+    # blocks (K5), in this process or across N processes a ring
     device_decode: bool = False  # classification: the host stops at the
     # JPEG entropy boundary and K2 decodes the coefficient pages on the device
     token_pack: bool = False  # text tasks: ragged pages + FFD plan on the
@@ -410,6 +427,13 @@ def train(config: TrainConfig) -> dict:
                 "token_pack packs token columns and needs a text task "
                 f"({'/'.join(_TEXT_TASKS)}), got {config.task_type!r}"
             )
+        if config.seq_parallelism > 1:
+            raise ValueError(
+                "token_pack is incompatible with seq_parallelism/"
+                "pipeline_parallelism: packed batches re-enter the data "
+                "layout inside the pack transform and carry no static "
+                "sequence split"
+            )
         if (config.num_processes or 1) > 1:
             raise ValueError(
                 "token_pack currently supports single-process training "
@@ -417,6 +441,7 @@ def train(config: TrainConfig) -> dict:
                 "and multi-host global-batch assembly needs identical "
                 "per-process shapes"
             )
+    _check_seq_parallelism(config)
     if (config.device_decode and (config.num_processes or 1) > 1
             and not config.no_ddp):
         import warnings
@@ -443,6 +468,48 @@ def train(config: TrainConfig) -> dict:
         return _train(config, device)
     finally:
         shutdown_distributed()
+
+
+def _check_seq_parallelism(config: TrainConfig) -> None:
+    """The JAX trainer's refusals of an attention path it cannot take
+    (``_task_from_config``), with its messages."""
+    if config.flash_attention and config.seq_parallelism > 1:
+        raise ValueError(
+            "flash_attention cannot combine with seq_parallelism or "
+            "pipeline_parallelism (they select their own attention path)"
+        )
+    if config.seq_parallelism > 1:
+        if config.task_type != "masked_lm":
+            raise ValueError(
+                "seq_parallelism>1 requires a sequence model (masked_lm)"
+            )
+        if config.seq_len % config.seq_parallelism:
+            raise ValueError(
+                f"seq_len {config.seq_len} not divisible by "
+                f"seq_parallelism {config.seq_parallelism}"
+            )
+
+
+def _share_seed(seed: int, data_index: int) -> int:
+    """The MLM mask generator's seed for data share ``data_index``: share 0
+    keeps ``seed + 1``, the others draw apart (an odd stride modulo 2^32:
+    the CPU generator reads only a seed's low 32 bits)."""
+    return (seed + 1 + data_index * 0x9E3779B1) % 2 ** 32
+
+
+def _sequence_block(batch: dict, mlm_mask: torch.Tensor, index: int,
+                    parts: int):
+    """Block ``index`` of ``parts`` along the sequence of a padded text
+    batch and of its MLM mask, with the block's global ``position_ids``."""
+    rows, length = batch["input_ids"].shape
+    size = length // parts
+    lo, hi = index * size, (index + 1) * size
+    block = {key: value[:, lo:hi]
+             if value.dim() == 2 and value.shape[1] == length else value
+             for key, value in batch.items()}
+    block["position_ids"] = torch.arange(
+        lo, hi, device=batch["input_ids"].device).expand(rows, size)
+    return block, mlm_mask[:, lo:hi]
 
 
 def _token_pack_config(config: TrainConfig):
@@ -525,10 +592,18 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                      else torch.cuda.current_device())
             device = torch.device("cuda", index)
         torch.cuda.set_device(device)
-    per_process, rem = divmod(config.batch_size, world)
+    sp = config.seq_parallelism
+    # The data share this process reads: its rank's, or with a process ring
+    # its data index's, which the ring's members share.
+    data_index, data_world, seq_index = rank, world, 0
+    ring = None
+    if sp > 1 and world > 1:
+        data_index, data_world, seq_index = seq_topology(rank, world, sp)
+        ring = ProcessRing(*new_seq_groups(sp))
+    per_process, rem = divmod(config.batch_size, data_world)
     if rem:
         raise ValueError(f"global batch {config.batch_size} not divisible by "
-                         f"{world} processes")
+                         f"{data_world} processes")
     image = config.task_type == "classification"
     dataset = Dataset(config.dataset_path)
     init_gen = torch.Generator().manual_seed(config.seed)
@@ -540,14 +615,18 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                         image_size=config.image_size, augment=config.augment,
                         device=device, generator=init_gen)
     else:
-        # causal_lm binds the kernels' causal mask.
-        attention_fn = (
-            make_flash_attention(causal=config.task_type == "causal_lm")
-            if config.flash_attention else None)
+        attention_fn = None
+        if sp > 1:
+            attention_fn = make_ring_attention(sp, ring)
+        elif config.flash_attention:
+            # causal_lm binds the kernels' causal mask.
+            attention_fn = make_flash_attention(
+                causal=config.task_type == "causal_lm")
         task = get_task(config.task_type, model_name=config.model_name,
                         seq_len=config.seq_len, vocab_size=config.vocab_size,
                         attention_fn=attention_fn, device=device,
-                        generator=init_gen)
+                        generator=init_gen,
+                        loss_group=dist.group.WORLD if world > 1 else None)
     decode = _decoder_for(config)
     train_task = task
     if world > 1:
@@ -556,7 +635,10 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             task.model, device_ids=[device.index] if device.type == "cuda"
             else None, broadcast_buffers=False)
         train_task = task.with_model(ddp)
-    mask_gen = torch.Generator(device=device).manual_seed(config.seed + 1)
+    # Classification draws one flip per image of the global batch and each
+    # process slices it; masked-LM draws per data share.
+    mask_gen = torch.Generator(device=device).manual_seed(
+        config.seed + 1 if image else _share_seed(config.seed, data_index))
 
     total_steps = config.total_steps
     if total_steps is None and config.lr_schedule != "constant":
@@ -594,7 +676,8 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     try:
         for epoch in range(config.epochs):
             loader = make_train_pipeline(
-                dataset, config.sampler_type, per_process, rank, world,
+                dataset, config.sampler_type, per_process, data_index,
+                data_world,
                 decode, device, prefetch=config.prefetch,
                 shuffle=config.shuffle, seed=config.seed, epoch=epoch,
             )
@@ -619,6 +702,13 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                         draw = torch.rand(config.batch_size, generator=mask_gen,
                                           device=device) < 0.5
                         loss = step(batch, flip_mask=draw[lo:hi])
+                    elif ring is not None:
+                        # The ring's members draw alike over the whole rows
+                        # and each trains on its sequence block.
+                        block, drawn = _sequence_block(
+                            batch, draw_mlm_mask(batch, mask_gen), seq_index,
+                            sp)
+                        loss = step(block, mlm_mask=drawn)
                     else:
                         loss = step(batch, mask_gen)
                     log.stop(start, loss)
@@ -700,7 +790,11 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                 if coeff:
                     eval_step = (lambda b, _step=eval_step:
                                  _step(transform(b)))
-                acc, rows = evaluate(loader, eval_step)
+                # Rank 0 folds whole sequences in its process: the other
+                # ranks do not join a ring during the eval.
+                with (attention_fn.whole_sequence() if ring is not None
+                      else contextlib.nullcontext()):
+                    acc, rows = evaluate(loader, eval_step)
                 evaluated = {"eval_accuracy": acc, "eval_rows": rows}
                 results.update(evaluated)
                 logger.log(evaluated)

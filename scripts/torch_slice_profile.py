@@ -6,7 +6,8 @@ weights from seed 0, and feeds it random batches already on the device (the
 loader is not in this measurement):
 
 * ``--task masked_lm`` (default): BERT-base, seq 512, batch 32, AdamW,
-  flash attention;
+  flash attention, or with ``--seq_parallelism N`` ring attention over N
+  sequence blocks held on the one card (K5);
 * ``--task classification``: ResNet-50, 224 px, 101 classes, batch 512, SGD
   lr 0.05 momentum 0.9, flips drawn per step (K1 normalises and flips).
   With ``--loader decode`` the batches come instead from the trainer's
@@ -30,9 +31,9 @@ profiled run of the same steps, the kernel time per step split by kind
 the device's idle share over the traced window, and the top kernels. Run
 from the root of a checkout on a machine with a card:
 
-    python3 scripts/torch_slice_profile.py [--task classification
-        [--loader decode|stage|coeff]] [--task causal_lm
-        [--loader packed|padded]]
+    python3 scripts/torch_slice_profile.py [--seq_parallelism 4]
+        [--task classification [--loader decode|stage|coeff]]
+        [--task causal_lm [--loader packed|padded]]
         [--steps 5] [--batch N] [--out DIR]
 
 ``--out`` also writes the profiler's table and a Chrome trace there.
@@ -70,6 +71,9 @@ from lance_distributed_training_tpu_torch.ops.flash import (  # noqa: E402
 from lance_distributed_training_tpu_torch.ops.token_device import (  # noqa: E402
     make_pack_transform,
 )
+from lance_distributed_training_tpu_torch.parallel.ring_attention import (  # noqa: E402
+    make_ring_attention,
+)
 from lance_distributed_training_tpu_torch.trainer import (  # noqa: E402
     TrainConfig,
     make_optimizer,
@@ -97,7 +101,8 @@ def _causal_corpus(path: str, rows: int) -> None:
 def _kind(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                    "image_normalize", "jpeg_idct", "jpeg_color_resize",
-                   "token_pack", "token_unpack"):
+                   "token_pack", "token_unpack", "ring_fold_fwd",
+                   "ring_fold_bwd_dq", "ring_fold_bwd_dkv"):
         if kernel + "_kernel" in name:
             return kernel
     low = name.lower()
@@ -129,8 +134,13 @@ def main(argv=None) -> int:
                              "on the host, re-staging one decoded ahead, or "
                              "extracting coefficient pages for K2; "
                              "causal_lm: packed (default) or padded rows")
+    parser.add_argument("--seq_parallelism", type=int, default=1,
+                        help="masked_lm: ring attention over N sequence "
+                             "blocks instead of flash attention")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
+    if args.seq_parallelism > 1 and args.task != "masked_lm":
+        parser.error("--seq_parallelism needs --task masked_lm")
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
@@ -165,11 +175,15 @@ def main(argv=None) -> int:
         batch = None
     else:
         batch_size = args.batch or BATCH
+        ring = args.seq_parallelism > 1
         config = TrainConfig(dataset_path="-", task_type="masked_lm",
                              optimizer="adamw", lr=1e-4, seq_len=SEQ,
-                             batch_size=batch_size, flash_attention=True)
+                             batch_size=batch_size, flash_attention=not ring,
+                             seq_parallelism=args.seq_parallelism)
+        attention_fn = (make_ring_attention(args.seq_parallelism) if ring
+                        else make_flash_attention())
         task = get_task("masked_lm", model_name="bert_base", seq_len=SEQ,
-                        attention_fn=make_flash_attention(), device=dev,
+                        attention_fn=attention_fn, device=dev,
                         generator=init)
         lengths = rng.integers(128, SEQ + 1, batch_size)
         mask = (np.arange(SEQ)[None] < lengths[:, None]).astype(np.int8)
@@ -265,6 +279,7 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     result = {
         "task": args.task,
+        "seq_parallelism": args.seq_parallelism,
         "loader": decoder_arm,
         "batch": batch_size,
         "steps": args.steps,

@@ -47,6 +47,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "lance_distributed_training_tpu_torch.ops.jpeg_device",
         "lance_distributed_training_tpu_torch.ops.token_device",
         "lance_distributed_training_tpu_torch.data.token_pack",
+        "lance_distributed_training_tpu_torch.ops.ring_attention",
+        "lance_distributed_training_tpu_torch.parallel.ring_attention",
         "lance_distributed_training_tpu_torch.trainer",
         "lance_distributed_training_tpu_torch.cli",
     }
