@@ -28,7 +28,10 @@ Phases, each printing one JSON line:
              same way; and times them (mode a) beside the
              plain versions and ``scaled_dot_product_attention``; the
              backward's sum (dQ + dK/dV + the plain di op) is printed beside
-             SDPA's backward alone (its fwd+bwd less its fwd, one call).
+             SDPA's backward alone (its fwd+bwd less its fwd, one call),
+             which the dQ and dK/dV rows also carry as ``library_bwd_ms``
+             beside ``pair_ms``, the two kernels' sum: the one call
+             computes both rows' work.
 4. slice   — trains BERT-base masked-LM (768/12/12/3072, S = 512, batch 32)
              for 20 steps through ``cli train --flash_attention`` on a seeded
              token dataset, after checking flash attention against the dense
@@ -90,25 +93,34 @@ Phases, each printing one JSON line:
              grid and valid tokens/s and pad_waste_pct (steps 5-20, from
              each step's own payload), pack_device_ms and peak memory.
 11. ring_kernels — K5 (``ops/csrc/ring_attn.cu``: the fold, dQ and dK/dV)
-             over a whole in-process ring against the plain versions on the
-             card (flash's tolerances: out 0.02, lse 1e-3, gradients 2% of
-             the largest; rows with no valid key 0, with 0 gradients): at
-             [32, 12, 512, 64] bf16 in four positions with key masks from
-             the slice corpus's lengths (fully masked blocks among them),
-             and at ragged cases (empty rows, blocks of 50, one position);
-             then a repeat that must give the same bits. Times one ring
-             step of each kernel (CUDA events) beside its plain version,
-             the whole ring forward and forward + backward beside SDPA with
-             the same key mask (a yardstick, never called by the port); the
-             bound is the larger of each step's bytes over 3.35 TB/s and
-             its products over the bf16 peak.
+             over a whole in-process ring as the path launches it (the
+             forward and dK/dV once over all four ring steps, dQ once a
+             step) against the plain versions on the card (flash's
+             tolerances: out 0.02 and 4e-3, lse 1e-3, gradients 2% of the
+             largest; rows with no valid key 0, with 0 gradients) and
+             against four one-step launches of the same kernels, bit for
+             bit: at [32, 12, 512, 64] bf16 in four positions with key
+             masks from the slice corpus's lengths (fully masked blocks
+             among them), and at ragged cases (empty rows, blocks of 50 and
+             of 256, one position); then a repeat that must give the same
+             bits. Times each kernel as the path launches it (one launch
+             between CUDA events, and 20 back to back) and the one ring
+             step of the forward and dK/dV that a process ring launches
+             beside the plain versions, the whole
+             ring forward and forward + backward beside SDPA over the whole
+             sequence with the same key mask (a yardstick, never called by
+             the port, also timed back to back; its backward beside the
+             dQ + dK/dV pair); the bound
+             is the larger of each launch's bytes over 3.35 TB/s and its
+             products over the bf16 peak.
 12. ring_lm — trains BERT-base masked-LM through ``cli train
              --seq_parallelism 4`` (every ring position on the card) for 20
              steps on the slice phase's corpus, with the eval at the end;
-             checks 48 launches of each K5 kernel a step (and 48 forward
-             folds an eval batch), no flash launch, the falling loss and
-             the eval over every row, and prints the step beside the slice
-             phase's flash step, tokens/s and peak memory.
+             checks 12 forward and 12 dK/dV launches a step (one a layer),
+             48 dQ launches a step and 12 forward launches an eval batch,
+             no flash launch, the falling loss and the eval over every row,
+             and prints the step beside the slice phase's flash step,
+             tokens/s and peak memory.
 
 Every check that fails raises, so the script exits non-zero. The last three
 lines are the card's ``nvidia-smi`` name and power limit, the kernel table
@@ -580,9 +592,14 @@ def kernels() -> dict:
         "tflops": bounds[n]["flops"] / (ms[n] * 1e-3) / 1e12,
         "share_of_bound": bounds[n]["bound_ms"] / ms[n],
     } for n in ms}
-    # Yardstick only: no single library call computes dQ or dK/dV alone.
+    # No library call computes dQ or dK/dV alone; SDPA's backward (its
+    # forward + backward less its forward, one call) computes both rows'
+    # work, and stands beside the pair's kernel time on both rows.
     backward = {"dq_dkv_di_plain_op_ms": ms["bwd_dq"] + ms["bwd_dkv"] + di_ms,
                 "sdpa_bwd_ms": sdpa_fwd_bwd_ms - sdpa_fwd}
+    for n in ("bwd_dq", "bwd_dkv"):
+        table[n].update(library_bwd_ms=backward["sdpa_bwd_ms"],
+                        pair_ms=ms["bwd_dq"] + ms["bwd_dkv"])
     emit("kernels", timing="a_padded", table=table,
          library_ms={"sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd_ms},
          di_plain_op_ms=di_ms, backward=backward)
@@ -1306,65 +1323,81 @@ def causal_lm_run() -> dict:
 # ------------------------------------------------------------ ring attention
 
 
-def _ring_forward(fold, q, k, v, mask, sp: int):
-    """``sp`` in-process ring steps of ``fold`` (K5's forward or its plain
-    version) from fresh carries; returns ``(out, m, l, acc)``."""
+def _ring_forward(fold, q, k, v, mask, sp: int, fused: bool):
+    """The forward over an in-process ring of ``sp`` positions with
+    ``fold`` (K5's forward or its plain version): one call over all ``sp``
+    steps from fresh carries (``fused``, the path's launch), or ``sp``
+    one-step calls on carries in memory; returns ``(out, m, l)``."""
     import torch
 
     b, h, s, d = q.shape
+    out = torch.empty_like(q)
+    if fused:
+        m = torch.empty((b, h, s), device=q.device)
+        l = torch.empty_like(m)
+        fold(q, k, v, mask, m, l, None, sp, 0, out=out, steps=sp)
+        return out, m, l
     m = torch.full((b, h, s), float("-inf"), device=q.device)
     l = torch.zeros((b, h, s), device=q.device)
     acc = torch.zeros((b, h, s, d), device=q.device)
-    out = torch.empty_like(q)
     for t in range(sp):
         fold(q, k, v, mask, m, l, acc, sp, t,
              out=out if t == sp - 1 else None)
-    return out, m, l, acc
+    return out, m, l
 
 
 def _ring_backward(fold_dq, fold_dkv, q, k, v, mask, lse, delta, do,
-                   sp: int):
-    """``sp`` in-process ring steps of the dQ and dK/dV folds; returns the
-    f32 ``(dq, dk, dv)``."""
+                   sp: int, fused: bool):
+    """``sp`` one-step dQ folds, and the dK/dV fold: one call over all
+    ``sp`` steps into q's type (``fused``, the path's launch), or ``sp``
+    one-step calls on f32 totals; returns ``(dq, dk, dv)``."""
     import torch
 
     dq = torch.zeros(q.shape, device=q.device)
-    dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
     for t in range(sp):
         fold_dq(q, k, v, mask, lse, delta, do, dq, sp, t)
+    if fused:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        fold_dkv(q, k, v, mask, lse, delta, do, None, None, sp, 0, steps=sp,
+                 out=(dk, dv))
+        return dq, dk, dv
+    dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
+    for t in range(sp):
         fold_dkv(q, k, v, mask, lse, delta, do, dk, dv, sp, t)
     return dq, dk, dv
 
 
 def _ring_case(label, q, k, v, do, mask, sp, errors) -> dict:
-    """K5's three kernels over a whole in-process ring against their plain
-    versions on the same inputs (flash's tolerances: out 0.02, lse 1e-3,
-    gradients 2% of the largest; and out within ``RING_TOL_O_CLOSE``),
-    then a repeat that must give the same bits; rows with no valid key must
-    come out 0 with 0 gradients."""
+    """K5 over a whole in-process ring as the path launches it (the forward
+    and dK/dV once over all ``sp`` steps, dQ once a step) against the plain
+    folds on the same inputs (flash's tolerances: out 0.02, lse 1e-3,
+    gradients 2% of the largest; and out within ``RING_TOL_O_CLOSE``) and
+    against ``sp`` one-step launches of the same kernels, bit for bit; then
+    a repeat that must give the same bits; rows with no valid key must come
+    out 0 with 0 gradients."""
     import torch
     from lance_distributed_training_tpu_torch.ops import ring_attention as ra
 
-    out, m, l, _ = _ring_forward(ra.ring_fold_fwd, q, k, v, mask, sp)
-    out_ref, m_ref, l_ref, _ = _ring_forward(ra.ring_fold_fwd_reference, q,
-                                             k, v, mask, sp)
+    out, m, l = _ring_forward(ra.ring_fold_fwd, q, k, v, mask, sp, True)
+    out_ref, m_ref, l_ref = _ring_forward(ra.ring_fold_fwd_reference, q, k,
+                                          v, mask, sp, False)
     lse = ra.row_lse(m_ref, l_ref)
     delta = (do.float() * out_ref.float()).sum(-1)
     grads = _ring_backward(ra.ring_fold_bwd_dq, ra.ring_fold_bwd_dkv, q, k,
-                           v, mask, lse, delta, do, sp)
+                           v, mask, lse, delta, do, sp, True)
     grads_ref = _ring_backward(ra.ring_fold_bwd_dq_reference,
                                ra.ring_fold_bwd_dkv_reference, q, k, v, mask,
-                               lse, delta, do, sp)
+                               lse, delta, do, sp, False)
     torch.cuda.synchronize()
     err = {"out": (out.float() - out_ref.float()).abs().max().item(),
            "lse": (ra.row_lse(m, l) - lse).abs().max().item()}
     tol = {"out": TOL_O, "lse": TOL_LSE}
     for name, got, ref in zip(("dq", "dk", "dv"), grads, grads_ref):
-        err[name] = (got - ref).abs().max().item()
+        err[name] = (got.float() - ref).abs().max().item()
         tol[name] = TOL_GRAD_REL * ref.abs().max().item()
     empty = ~mask.bool().any(dim=1)  # rows with no valid key
     zero_rows = bool((out[empty] == 0).all().item()
-                     and (grads[0][empty] == 0).all().item())
+                     and all((g[empty] == 0).all().item() for g in grads))
     emit("ring_kernels", case=label, shape=list(q.shape), sp=sp,
          empty_rows=int(empty.sum().item()), max_abs_err=err, tolerance=tol,
          out_close_tolerance=RING_TOL_O_CLOSE, empty_rows_zero=zero_rows)
@@ -1374,15 +1407,29 @@ def _ring_case(label, q, k, v, do, mask, sp, errors) -> dict:
     if bad or not zero_rows:
         raise RuntimeError(f"K5 {label}: {bad} above tolerance or nonzero "
                            f"empty rows ({zero_rows})")
-    out2, m2, l2, acc2 = _ring_forward(ra.ring_fold_fwd, q, k, v, mask, sp)
+    # The fused launches against sp one-step launches of the same kernels.
+    out1, m1, l1 = _ring_forward(ra.ring_fold_fwd, q, k, v, mask, sp, False)
+    _, dk1, dv1 = _ring_backward(ra.ring_fold_bwd_dq, ra.ring_fold_bwd_dkv,
+                                 q, k, v, mask, lse, delta, do, sp, False)
+    same_steps = {
+        "ring_fwd": torch.equal(out, out1) and torch.equal(m, m1)
+        and torch.equal(l, l1),
+        "ring_bwd_dkv": torch.equal(grads[1], dk1.to(k.dtype))
+        and torch.equal(grads[2], dv1.to(v.dtype)),
+    }
+    out2, m2, l2 = _ring_forward(ra.ring_fold_fwd, q, k, v, mask, sp, True)
     grads2 = _ring_backward(ra.ring_fold_bwd_dq, ra.ring_fold_bwd_dkv, q, k,
-                            v, mask, lse, delta, do, sp)
+                            v, mask, lse, delta, do, sp, True)
     same = {"ring_fwd": torch.equal(out, out2) and torch.equal(m, m2)
             and torch.equal(l, l2),
             "ring_bwd_dq": torch.equal(grads[0], grads2[0]),
             "ring_bwd_dkv": torch.equal(grads[1], grads2[1])
             and torch.equal(grads[2], grads2[2])}
-    emit("ring_kernels", case=label, bit_identical_on_repeat=same)
+    emit("ring_kernels", case=label, fused_equals_one_step=same_steps,
+         bit_identical_on_repeat=same)
+    if not all(same_steps.values()):
+        raise RuntimeError(f"K5 {label}: the fused launch differs from "
+                           f"{sp} one-step launches: {same_steps}")
     if not all(same.values()):
         raise RuntimeError(f"K5 {label}: a second launch differs: {same}")
     errors["ring_fwd"] = max(errors["ring_fwd"], err["out"])
@@ -1393,32 +1440,51 @@ def _ring_case(label, q, k, v, do, mask, sp, errors) -> dict:
 
 
 def _ring_bounds(b: int, h: int, s: int, sb: int, d: int) -> dict:
-    """Least time of one ring step over all positions: each input read
-    once, each output written once (the f32 carries and gradients both),
-    against the products' operations at the bf16 peak."""
+    """Least time of K5's launches over all positions: the larger of each
+    launch's products at the bf16 peak and its bytes over the HBM rate,
+    each input read once and each output written once. ``fused``: the
+    forward and dK/dV over the whole ring from fresh carries (q, k, v (and
+    dO, lse, delta) in; out, m and l, or bf16 dk and dv out). ``step``: one
+    ring step of each kernel, which also reads and writes its f32 carries
+    or gradients."""
     bf16_in = b * h * s * d * 2  # one of q, k, v, dO
     rows = b * h * s * 4  # one f32 per row: m, l, lse or delta
     full = b * h * s * d * 4  # one f32 [B, H, S, D]: acc, dq, dk or dv
     mask = b * s
-    macs = b * h * s * sb * d  # one product over every (query, key) pair
+    macs = b * h * s * sb * d  # one product over one step's pairs
+    ring = s // sb
     work = {
-        "ring_fwd": (4 * macs, 3 * bf16_in + mask + 4 * rows + 2 * full),
-        "ring_bwd_dq": (6 * macs, 4 * bf16_in + mask + 2 * rows + 2 * full),
-        "ring_bwd_dkv": (8 * macs, 4 * bf16_in + mask + 2 * rows + 4 * full),
+        "fused": {
+            "ring_fwd": (4 * macs * ring, 4 * bf16_in + mask + 2 * rows),
+            "ring_bwd_dkv": (8 * macs * ring,
+                             6 * bf16_in + mask + 2 * rows),
+        },
+        "step": {
+            "ring_fwd": (4 * macs, 3 * bf16_in + mask + 4 * rows + 2 * full),
+            "ring_bwd_dq": (6 * macs,
+                            4 * bf16_in + mask + 2 * rows + 2 * full),
+            "ring_bwd_dkv": (8 * macs,
+                             4 * bf16_in + mask + 2 * rows + 4 * full),
+        },
     }
     out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-        out[name] = {"flops": flops, "bytes": nbytes,
-                     "bound_ms": 1e3 * max(t_ops, t_bytes),
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    for mode, kernels in work.items():
+        out[mode] = {}
+        for name, (flops, nbytes) in kernels.items():
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+            out[mode][name] = {
+                "flops": flops, "bytes": nbytes,
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     return out
 
 
 def ring_kernels(ptxas: dict) -> dict:
     """K5 at the seq-parallel path's shape ([32, 12, 512, 64] bf16, four
     positions, key masks from the corpus lengths) and at ragged ones
-    against the plain versions, then timed: one ring step of each kernel
+    against the plain versions and against one-step launches, then timed:
+    each kernel as the path launches it (the forward and dK/dV once over
+    the ring, dQ one step) and one ring step of the forward and dK/dV
     between CUDA events, the whole ring through ``ring_attention``, and
     SDPA with the same key mask (yardstick only)."""
     import torch
@@ -1448,10 +1514,12 @@ def ring_kernels(ptxas: dict) -> dict:
     path = _ring_case("path", q, k, v, do, mask, RING_SP, errors)
     emit("ring_kernels", case="path", fully_masked_last_blocks=[
         int((~blocks[:, -n:]).all(-1).sum()) for n in (1, 2)])
-    # Ragged: rows with no valid key, a block length that is no multiple of
-    # the tiles, and one position a launch (the process ring's layout).
+    # Ragged: rows with no valid key, block lengths that are no multiple of
+    # the tiles (50, 96) or longer than one (256), and one position a
+    # launch (the process ring's layout).
     for label, shape, sp in (("empty_rows", (4, 2, 512, 64), 4),
                              ("ragged_block_50", (3, 2, 200, 64), 4),
+                             ("block_256", (2, 3, 512, 64), 2),
                              ("one_position", (2, 3, 96, 64), 1)):
         keep = rng.random((shape[0], shape[2])) < 0.6
         keep[0] = False
@@ -1463,45 +1531,55 @@ def ring_kernels(ptxas: dict) -> dict:
         _ring_case(label, *(randn(shape) for _ in range(4)), m_case, sp,
                    errors)
 
-    # Timing at the path's inputs: one ring step (shift 1) of each kernel.
-    out, m, l, acc = _ring_forward(ra.ring_fold_fwd, q, k, v, mask, RING_SP)
+    # Timing at the path's inputs: each kernel as the path launches it, and
+    # one ring step (shift 1, carries in memory) of the forward and dK/dV.
     lse, delta = path["lse"], path["delta"]
-    dq, dk, dv = (torch.zeros(SHAPE, device=dev) for _ in range(3))
+    f32 = dict(device=dev)
+    m, l = torch.zeros((b, h, s), **f32), torch.zeros((b, h, s), **f32)
+    acc, dq, dk, dv = (torch.zeros(SHAPE, **f32) for _ in range(4))
+    out, dk_b, dv_b = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
     ms = {
         "ring_fwd": time_ms(lambda: ra.ring_fold_fwd(
-            q, k, v, mask, m, l, acc, RING_SP, 1)),
+            q, k, v, mask, m, l, None, RING_SP, 0, out=out, steps=RING_SP)),
         "ring_bwd_dq": time_ms(lambda: ra.ring_fold_bwd_dq(
             q, k, v, mask, lse, delta, do, dq, RING_SP, 1)),
+        "ring_bwd_dkv": time_ms(lambda: ra.ring_fold_bwd_dkv(
+            q, k, v, mask, lse, delta, do, None, None, RING_SP, 0,
+            steps=RING_SP, out=(dk_b, dv_b))),
+    }
+    # The same launches 20 back to back (median of 5): the card's queue
+    # stays full, so the wrapper's host work before each launch, which a
+    # single launch between events includes, does not count.
+    back_to_back_ms = {
+        "ring_fwd": time_back_to_back_ms(lambda: ra.ring_fold_fwd(
+            q, k, v, mask, m, l, None, RING_SP, 0, out=out, steps=RING_SP)),
+        "ring_bwd_dq": time_back_to_back_ms(lambda: ra.ring_fold_bwd_dq(
+            q, k, v, mask, lse, delta, do, dq, RING_SP, 1)),
+        "ring_bwd_dkv": time_back_to_back_ms(lambda: ra.ring_fold_bwd_dkv(
+            q, k, v, mask, lse, delta, do, None, None, RING_SP, 0,
+            steps=RING_SP, out=(dk_b, dv_b))),
+    }
+    one_step_ms = {
+        "ring_fwd": time_ms(lambda: ra.ring_fold_fwd(
+            q, k, v, mask, m, l, acc, RING_SP, 1)),
         "ring_bwd_dkv": time_ms(lambda: ra.ring_fold_bwd_dkv(
             q, k, v, mask, lse, delta, do, dk, dv, RING_SP, 1)),
     }
     plain_ms = {
         "ring_fwd": time_ms(lambda: ra.ring_fold_fwd_reference(
-            q, k, v, mask, m, l, acc, RING_SP, 1), warmup=1, iters=5),
+            q, k, v, mask, m, l, None, RING_SP, 0, out=out, steps=RING_SP),
+            warmup=1, iters=5),
         "ring_bwd_dq": time_ms(lambda: ra.ring_fold_bwd_dq_reference(
             q, k, v, mask, lse, delta, do, dq, RING_SP, 1), warmup=1,
             iters=5),
         "ring_bwd_dkv": time_ms(lambda: ra.ring_fold_bwd_dkv_reference(
-            q, k, v, mask, lse, delta, do, dk, dv, RING_SP, 1), warmup=1,
-            iters=5),
+            q, k, v, mask, lse, delta, do, None, None, RING_SP, 0,
+            steps=RING_SP, out=(dk_b, dv_b)), warmup=1, iters=5),
     }
-    # The library's fused attention over one step's work: each query block
-    # against the key block it folds at shift 1, the blocks laid side by
-    # side as a batch of b * sp (laid out before the timing).
-    def step_layout(x, shift):
-        blocks = x.view(b, h, RING_SP, sb, d).roll(shift, dims=2)
-        return blocks.transpose(1, 2).reshape(b * RING_SP, h, sb, d)
-
-    step_q = step_layout(q, 0)
-    step_k, step_v = step_layout(k, 1), step_layout(v, 1)
-    step_mask = mask.bool().view(b, RING_SP, sb).roll(1, dims=1).reshape(
-        b * RING_SP, 1, 1, sb)
-    with torch.no_grad():
-        sdpa_step_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            step_q, step_k, step_v, attn_mask=step_mask,
-            scale=1.0 / d ** 0.5))
-    # The whole ring (four steps of each kernel and the plain ops around
-    # them) beside the library's fused attention with the same key mask.
+    # The whole ring (the launches and the plain ops around them) beside
+    # the library's fused attention over the whole sequence with the same
+    # key mask: the same work on both sides.
     key_mask = mask.bool()[:, None, None, :]
     ring = InProcessRing(RING_SP)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -1517,28 +1595,51 @@ def ring_kernels(ptxas: dict) -> dict:
         ring_ms = time_ms(lambda: ring_attention(q, k, v, key_mask, ring))
         sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=key_mask, scale=1.0 / d ** 0.5))
+        sdpa_back_to_back_ms = time_back_to_back_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=key_mask, scale=1.0 / d ** 0.5))
     ring_fwd_bwd_ms = time_ms(ring_fwd_bwd)
     sdpa_fwd_bwd_ms = time_ms(sdpa_fwd_bwd)
     bounds = _ring_bounds(b, h, s, sb, d)
     registers = {r["kernel"].replace("_fold", ""): r["registers"]
                  for r in ptxas["ring_ptxas"]}
-    library = {"ring_fwd": sdpa_step_ms, "ring_bwd_dq": None,
-               "ring_bwd_dkv": None}
-    table = {n: {
-        "ms": ms[n], "plain_ms": plain_ms[n], "library_ms": library[n],
-        "bound_ms": bounds[n]["bound_ms"], "bound_by": bounds[n]["bound_by"],
-        "bytes": bounds[n]["bytes"], "flops": bounds[n]["flops"],
-        "share_of_bound": bounds[n]["bound_ms"] / ms[n],
-        "registers": registers[n],
-    } for n in RING_KERNELS}
-    # The forward row also carries the whole ring beside SDPA over the
-    # whole sequence, the same work on both sides.
-    table["ring_fwd"].update(whole_ring_ms=ring_ms,
-                             library_whole_ring_ms=sdpa_ms)
+    # One library call computes dQ, dK and dV together: SDPA's backward
+    # over the whole ring's work (its forward + backward less its forward),
+    # beside the pair's kernel time over the ring (RING_SP dQ launches and
+    # one dK/dV launch).
+    library_bwd_ms = sdpa_fwd_bwd_ms - sdpa_ms
+    pair_ms = RING_SP * ms["ring_bwd_dq"] + ms["ring_bwd_dkv"]
+    table = {}
+    for n in RING_KERNELS:
+        fused = n in bounds["fused"]
+        bound = bounds["fused" if fused else "step"][n]
+        table[n] = {
+            "ms": ms[n], "back_to_back_ms": back_to_back_ms[n],
+            "plain_ms": plain_ms[n],
+            "library_ms": sdpa_ms if n == "ring_fwd" else None,
+            "library_back_to_back_ms": (sdpa_back_to_back_ms
+                                        if n == "ring_fwd" else None),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "bytes": bound["bytes"], "flops": bound["flops"],
+            "share_of_bound": bound["bound_ms"] / ms[n],
+            "ring_steps_a_launch": RING_SP if fused else 1,
+            "registers": registers[n],
+        }
+        if n in one_step_ms:
+            step = bounds["step"][n]
+            table[n].update(one_step_ms=one_step_ms[n],
+                            one_step_bound_ms=step["bound_ms"],
+                            one_step_share_of_bound=step["bound_ms"]
+                            / one_step_ms[n])
+        if n != "ring_fwd":
+            table[n].update(library_bwd_ms=library_bwd_ms,
+                            pair_ms=pair_ms)
     emit("ring_kernels", timing="path_shape", sp=RING_SP, table=table,
          whole_ring={"ring_fwd_ms": ring_ms, "sdpa_fwd_ms": sdpa_ms,
                      "ring_fwd_bwd_ms": ring_fwd_bwd_ms,
-                     "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms})
+                     "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
+                     "sdpa_bwd_ms": library_bwd_ms,
+                     "dq_dkv_pair_ms": pair_ms})
     return {"errors": errors, "table": table}
 
 
@@ -1599,9 +1700,11 @@ def ring_lm_run(slice_step_ms) -> dict:
     if fields["eval_rows"] != rows:
         raise RuntimeError(f"eval covered {fields['eval_rows']} rows of "
                            f"{rows}")
-    per_step = LAYERS * RING_SP
-    want = {"ring_fwd": per_step * (STEPS + eval_batches),
-            "ring_bwd_dq": per_step * STEPS, "ring_bwd_dkv": per_step * STEPS,
+    # The forward and dK/dV fold the whole ring in one launch a layer; dQ
+    # launches once a ring step.
+    want = {"ring_fwd": LAYERS * (STEPS + eval_batches),
+            "ring_bwd_dq": LAYERS * RING_SP * STEPS,
+            "ring_bwd_dkv": LAYERS * STEPS,
             "fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
     wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
     if wrong:

@@ -11,18 +11,24 @@ operation, in the same order and with the same rounding points (the
 in f32 after that rounding; masked scores take ``finfo(f32).min`` and ``p``
 is then multiplied by the mask).
 
-Three kernels in ``csrc/ring_attn.cu`` (sm_90a, ``mma.sync``), each with
-its plain version here, take every query position a process holds in one
-launch: ``P`` positions of one in-process ring, or ``P = 1`` for a process
-ring. At ring step ``shift``, query block ``i`` folds key block
-``(i - shift) mod P``.
+Three kernels in ``csrc/ring_attn.cu`` (sm_90a), each with its plain
+version here, take every query position a process holds in one launch:
+``P`` positions of one in-process ring, or ``P = 1`` for a process ring.
+At ring step ``shift``, query block ``i`` folds key block
+``(i - shift) mod P``. The forward and dK/dV fold ``steps`` ring steps
+from ``shift`` in one launch, exactly as ``steps`` one-step launches
+would; dQ folds one.
 
-* ``ring_fwd``: updates the f32 carries ``(m, l, acc)`` in place; with
-  ``out`` it also writes ``bf16(acc / max(l, 1e-30))``, the ring's output
-  after its last step.
-* ``ring_bwd_dq``: adds the block's f32 dQ to the resident queries'.
-* ``ring_bwd_dkv``: adds the block's f32 dK/dV to the travelling block's
-  partials.
+* ``ring_fwd`` (``wgmma``, TMA): with ``acc`` the f32 carries
+  ``(m, l, acc)`` are read and updated in place; with ``acc=None`` the
+  launch starts from fresh carries, held on chip, and writes only the final
+  ``m`` and ``l``. With ``out`` it also writes ``bf16(acc / max(l,
+  1e-30))``, the ring's output after its last step.
+* ``ring_bwd_dq`` (``mma.sync``): adds the block's f32 dQ to the resident
+  queries'.
+* ``ring_bwd_dkv`` (``wgmma``, TMA): adds each step's f32 dK/dV onto the
+  travelling block's totals, in ring-step order; with ``dk=dv=None`` the
+  totals start at zero, and ``out=(dk, dv)`` takes them in q's type.
 
 The backward takes ``lse = m + log(l)`` (0 where ``l = 0``) and
 ``delta = rowsum(dO * O)``; :func:`block_attn_bwd_reference` writes out the
@@ -149,12 +155,7 @@ def _positions(q, positions: int) -> int:
     return q.shape[2] // positions
 
 
-def ring_fold_fwd_reference(q, k, v, mask, m, l, acc, positions: int,
-                            shift: int, out=None) -> None:
-    """Plain ring step: each query block ``i`` folds key block
-    ``(i - shift) mod positions`` (:func:`block_attn_reference`), in place
-    on ``m``, ``l``, ``acc``; ``out`` takes :func:`finalize` of the new
-    carries."""
+def _fold_fwd_step(q, k, v, mask, m, l, acc, positions, shift, out):
     sb = _positions(q, positions)
     for i in range(positions):
         j = (i - shift) % positions
@@ -167,6 +168,23 @@ def ring_fold_fwd_reference(q, k, v, mask, m, l, acc, positions: int,
         _rows(acc, i, sb).copy_(acc_i)
         if out is not None:
             _rows(out, i, sb).copy_(finalize(acc_i, l_i, out.dtype))
+
+
+def ring_fold_fwd_reference(q, k, v, mask, m, l, acc, positions: int,
+                            shift: int, out=None, steps: int = 1) -> None:
+    """Plain ring steps ``shift, ..., shift + steps - 1``, in order: at
+    step ``t`` each query block ``i`` folds key block
+    ``(i - t) mod positions`` (:func:`block_attn_reference`), in place on
+    ``m``, ``l``, ``acc``; with ``acc=None`` the carries start fresh (``m``
+    and ``l`` are written, not read). ``out`` takes :func:`finalize` of the
+    carries after the last step."""
+    if acc is None:
+        m.fill_(float("-inf"))
+        l.zero_()
+        acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for t in range(shift, shift + steps):
+        _fold_fwd_step(q, k, v, mask, m, l, acc, positions, t,
+                       out if t == shift + steps - 1 else None)
 
 
 def ring_fold_bwd_dq_reference(q, k, v, mask, lse, delta, do, dq,
@@ -184,19 +202,29 @@ def ring_fold_bwd_dq_reference(q, k, v, mask, lse, delta, do, dq,
 
 
 def ring_fold_bwd_dkv_reference(q, k, v, mask, lse, delta, do, dk, dv,
-                                positions: int, shift: int) -> None:
-    """Plain dK/dV step: key block ``j`` adds what query block
-    ``(j + shift) mod positions`` gives it to ``dk``/``dv`` (f32, in
-    place)."""
+                                positions: int, shift: int, steps: int = 1,
+                                out=None) -> None:
+    """Plain dK/dV steps ``shift, ..., shift + steps - 1``, in order: at
+    step ``t`` key block ``j`` adds what query block
+    ``(j + t) mod positions`` gives it to the f32 totals ``dk``/``dv`` (in
+    place), or to zeros when they are None; ``out = (dk_out, dv_out)``
+    takes the totals in its own type."""
     sb = _positions(q, positions)
-    for j in range(positions):
-        i = (j + shift) % positions
-        _, dk_j, dv_j = block_attn_bwd_reference(
-            _block(q, i, sb), _block(k, j, sb), _block(v, j, sb),
-            _mask_block(mask, j, sb), _rows(lse, i, sb), _rows(delta, i, sb),
-            _block(do, i, sb))
-        _rows(dk, j, sb).add_(dk_j)
-        _rows(dv, j, sb).add_(dv_j)
+    if dk is None:
+        dk = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros_like(dk)
+    for t in range(shift, shift + steps):
+        for j in range(positions):
+            i = (j + t) % positions
+            _, dk_j, dv_j = block_attn_bwd_reference(
+                _block(q, i, sb), _block(k, j, sb), _block(v, j, sb),
+                _mask_block(mask, j, sb), _rows(lse, i, sb),
+                _rows(delta, i, sb), _block(do, i, sb))
+            _rows(dk, j, sb).add_(dk_j)
+            _rows(dv, j, sb).add_(dv_j)
+    if out is not None:
+        out[0].copy_(dk)
+        out[1].copy_(dv)
 
 
 # ------------------------------------------------------------ kernels
@@ -205,9 +233,9 @@ def ring_fold_bwd_dkv_reference(q, k, v, mask, lse, delta, do, dk, dv,
 def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from ``ring_attn.cu``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ldt_ring_fold_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.ldt_ring_fold_fwd.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
     lib.ldt_ring_fold_bwd_dq.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
-    lib.ldt_ring_fold_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+    lib.ldt_ring_fold_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
     for fn in (lib.ldt_ring_fold_fwd, lib.ldt_ring_fold_bwd_dq,
                lib.ldt_ring_fold_bwd_dkv):
         fn.restype = ctypes.c_int
@@ -231,9 +259,18 @@ def _on_cpu(q: torch.Tensor) -> bool:
     raise RuntimeError(f"ring attention has no kernel for device {q.device}")
 
 
+def _check_steps(name: str, positions: int, shift: int, steps: int) -> None:
+    if not 0 <= shift < positions:
+        raise ValueError(f"{name}: shift {shift} outside [0, {positions})")
+    if steps < 1 or shift + steps > positions:
+        raise ValueError(f"{name}: steps {steps} from shift {shift} outside "
+                         f"[1, {positions - shift}]")
+
+
 def _check(name: str, q, k, v, mask, positions: int, shift: int,
-           bf16=(), f32_rows=(), f32_full=()) -> tuple:
-    """Validate a CUDA launch's inputs; returns ``(B, H, Sb)``."""
+           steps: int = 1, bf16=(), f32_rows=(), f32_full=()) -> tuple:
+    """Validate a CUDA launch's inputs (entries that are None are not
+    passed); returns ``(B, H, Sb)``."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be [B, H, S, D], got "
                          f"{tuple(q.shape)}")
@@ -242,8 +279,7 @@ def _check(name: str, q, k, v, mask, positions: int, shift: int,
         raise ValueError(f"{name}: head dim {d} not supported (the kernels "
                          f"are built for {HEAD_DIM})")
     sb = _positions(q, positions)
-    if not 0 <= shift < positions:
-        raise ValueError(f"{name}: shift {shift} outside [0, {positions})")
+    _check_steps(name, positions, shift, steps)
     tensors = [("q", q, torch.bfloat16, q.shape), ("k", k, torch.bfloat16,
                                                    q.shape),
                ("v", v, torch.bfloat16, q.shape),
@@ -252,6 +288,8 @@ def _check(name: str, q, k, v, mask, positions: int, shift: int,
     tensors += [(n, t, torch.float32, (b, h, s)) for n, t in f32_rows]
     tensors += [(n, t, torch.float32, q.shape) for n, t in f32_full]
     for t_name, t, dtype, shape in tensors:
+        if t is None:
+            continue
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {t_name} must be {tuple(shape)}, got "
                              f"{tuple(t.shape)}")
@@ -282,22 +320,24 @@ def _launch(name: str, fn, *args) -> None:
 
 
 def ring_fold_fwd(q, k, v, mask, m, l, acc, positions: int = 1,
-                  shift: int = 0, out=None) -> None:
-    """One ring step of the forward over every position ``q`` holds, in
-    place on the f32 carries ``m``, ``l`` (``[B,H,S]``) and ``acc``
-    (``[B,H,S,D]``); ``out`` (``q``'s type), when given, takes the output.
-    ``mask`` is the uint8 key validity ``[B, S]``. CUDA: the ``ring_fwd``
-    kernel. CPU: :func:`ring_fold_fwd_reference`."""
+                  shift: int = 0, out=None, *, steps: int = 1) -> None:
+    """Ring steps ``shift, ..., shift + steps - 1`` of the forward over
+    every position ``q`` holds, on the f32 carries ``m``, ``l``
+    (``[B,H,S]``) and ``acc`` (``[B,H,S,D]``), updated in place; with
+    ``acc=None`` the carries start fresh and only ``m`` and ``l`` are
+    written. ``out`` (``q``'s type), when given, takes the output after the
+    last step. ``mask`` is the uint8 key validity ``[B, S]``. CUDA: one
+    launch of the ``ring_fwd`` kernel. CPU: :func:`ring_fold_fwd_reference`."""
     if _on_cpu(q):
+        _check_steps("ring_fwd", positions, shift, steps)
         ring_fold_fwd_reference(q, k, v, mask, m, l, acc, positions, shift,
-                                out)
+                                out, steps)
         return
-    f32_full = [("acc", acc)]
-    bf16 = [("out", out)] if out is not None else []
-    b, h, sb = _check("ring_fwd", q, k, v, mask, positions, shift, bf16=bf16,
-                      f32_rows=[("m", m), ("l", l)], f32_full=f32_full)
+    b, h, sb = _check("ring_fwd", q, k, v, mask, positions, shift, steps,
+                      bf16=[("out", out)], f32_rows=[("m", m), ("l", l)],
+                      f32_full=[("acc", acc)])
     _launch("ring_fwd", _library().ldt_ring_fold_fwd, q, k, v, mask, m, l,
-            acc, out, b, h, positions, sb, q.shape[-1], shift)
+            acc, out, b, h, positions, sb, q.shape[-1], shift, steps)
 
 
 def ring_fold_bwd_dq(q, k, v, mask, lse, delta, do, dq, positions: int = 1,
@@ -317,17 +357,26 @@ def ring_fold_bwd_dq(q, k, v, mask, lse, delta, do, dq, positions: int = 1,
 
 
 def ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, dk, dv,
-                      positions: int = 1, shift: int = 0) -> None:
-    """One ring step of dK/dV, added in place to the f32 ``dk``/``dv``.
-    CUDA: the ``ring_bwd_dkv`` kernel. CPU:
-    :func:`ring_fold_bwd_dkv_reference`."""
+                      positions: int = 1, shift: int = 0, *, steps: int = 1,
+                      out=None) -> None:
+    """Ring steps ``shift, ..., shift + steps - 1`` of dK/dV, each step's
+    contribution added in turn to the f32 totals ``dk``/``dv`` (in place),
+    or to zeros when both are None; ``out = (dk_out, dv_out)`` (``q``'s
+    type) takes the final totals. CUDA: one launch of the ``ring_bwd_dkv``
+    kernel. CPU: :func:`ring_fold_bwd_dkv_reference`."""
+    if (dk is None) != (dv is None) or (dk is None and out is None):
+        raise ValueError("ring_bwd_dkv: give dk and dv, or out, or both")
     if _on_cpu(q):
+        _check_steps("ring_bwd_dkv", positions, shift, steps)
         ring_fold_bwd_dkv_reference(q, k, v, mask, lse, delta, do, dk, dv,
-                                    positions, shift)
+                                    positions, shift, steps, out)
         return
-    b, h, sb = _check("ring_bwd_dkv", q, k, v, mask, positions, shift,
-                      bf16=[("do", do)],
+    dk_out, dv_out = out if out is not None else (None, None)
+    b, h, sb = _check("ring_bwd_dkv", q, k, v, mask, positions, shift, steps,
+                      bf16=[("do", do), ("dk_out", dk_out),
+                            ("dv_out", dv_out)],
                       f32_rows=[("lse", lse), ("delta", delta)],
                       f32_full=[("dk", dk), ("dv", dv)])
     _launch("ring_bwd_dkv", _library().ldt_ring_fold_bwd_dkv, q, k, v, mask,
-            lse, delta, do, dk, dv, b, h, positions, sb, q.shape[-1], shift)
+            lse, delta, do, dk, dv, dk_out, dv_out, b, h, positions, sb,
+            q.shape[-1], shift, steps)

@@ -13,15 +13,18 @@ Two transports carry the blocks:
   one device, as the JAX package holds a mesh of ``size`` virtual devices in
   one process. At ring step ``t`` query block ``i`` folds key block
   ``(i - t) mod size``, the order that ``ppermute`` with
-  ``perm (i -> i+1)`` gives; the rotation is an index shift, not a copy.
+  ``perm (i -> i+1)`` gives; the rotation is an index shift, not a copy,
+  and one launch of the forward (and of dK/dV) folds all ``size`` steps
+  with its running statistics on chip.
 * :class:`ProcessRing` — one position per process, over a
   ``torch.distributed`` group: each step posts the next block's transfer
   (``batch_isend_irecv``, one hop) before the step's fold and waits after
-  it.
+  it; the statistics stay in device memory between the hops.
 
 The backward (:class:`_RingAttention`) turns the ring again: dQ accumulates
 at home, and each block's dK/dV partials travel with it and arrive home
-after ``size`` hops (the transpose of ``ppermute`` is the reverse hop).
+after ``size`` hops (the transpose of ``ppermute`` is the reverse hop); in
+one process the dK/dV launch adds them up in the same ring-step order.
 Both transports sum every gradient in the same order, so on the CPU they
 agree bit for bit.
 """
@@ -55,6 +58,7 @@ class InProcessRing:
             raise ValueError(f"ring size must be >= 1, got {size}")
         self.size = size
         self.positions = size
+        self.fold_steps = size  # ring steps one forward or dK/dV launch folds
 
     def shift(self, step: int) -> int:
         return step
@@ -79,6 +83,7 @@ class ProcessRing:
         self.next = self.ranks[(self.index + 1) % self.size]
         self.prev = self.ranks[(self.index - 1) % self.size]
         self.positions = 1
+        self.fold_steps = 1
 
     def shift(self, step: int) -> int:
         return 0
@@ -110,26 +115,33 @@ def _key_mask(mask, b: int, s: int, device) -> torch.Tensor:
 
 
 class _RingAttention(torch.autograd.Function):
-    """Forward: ``size`` folds (K5 ``ring_fwd``), the last writing the
-    output; keeps q, k, v, the mask, the output and the per-row LSE.
-    Backward: ``delta = rowsum(dO * O)`` as a plain op, then ``size`` steps
-    of ``ring_bwd_dq`` and ``ring_bwd_dkv``."""
+    """Forward: K5 ``ring_fwd`` over the ring, ``ring.fold_steps`` steps a
+    launch, the last launch writing the output; keeps q, k, v, the mask,
+    the output and the per-row LSE. Backward: ``delta = rowsum(dO * O)`` as
+    a plain op, then ``ring_bwd_dq`` each step and ``ring_bwd_dkv``
+    ``ring.fold_steps`` steps a launch. When one launch folds the whole
+    ring, the running statistics and the dK/dV totals never leave the
+    kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, ring):
-        b, h, s, d = q.shape
-        m = torch.full((b, h, s), float("-inf"), dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+        b, h, s, _ = q.shape
+        m = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        acc = None  # fresh carries, on chip, when one launch folds the ring
+        if ring.fold_steps < ring.size:
+            m.fill_(float("-inf"))
+            l.zero_()
+            acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         out = torch.empty_like(q)
         blocks = (k, v, mask)
-        for step in range(ring.size):
-            last = step == ring.size - 1
+        for step in range(0, ring.size, ring.fold_steps):
+            last = step + ring.fold_steps == ring.size
             # The next block's transfer is in flight during this fold.
             pending = None if last else ring.pass_on(blocks)
             ring_fold_fwd(q, *blocks, m, l, acc, ring.positions,
-                          ring.shift(step), out=out if last else None)
+                          ring.shift(step), out=out if last else None,
+                          steps=ring.fold_steps)
             if pending is not None:
                 blocks = ring.receive(blocks, pending)
         lse = row_lse(m, l)
@@ -144,24 +156,33 @@ class _RingAttention(torch.autograd.Function):
         do = do.contiguous()
         delta = (do.float() * out.float()).sum(-1)
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-        dv = torch.zeros_like(dk)
+        if ring.fold_steps == ring.size:
+            dk = dv = None
+            grads = (torch.empty_like(k), torch.empty_like(v))
+        else:
+            dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+            dv = torch.zeros_like(dk)
+            grads = None
         blocks = (k, v, mask)
-        for step in range(ring.size):
-            last = step == ring.size - 1
+        for step in range(0, ring.size, ring.fold_steps):
+            last = step + ring.fold_steps == ring.size
             pending = None if last else ring.pass_on(blocks)
-            shift = ring.shift(step)
-            ring_fold_bwd_dq(q, *blocks, lse, delta, do, dq, ring.positions,
-                             shift)
+            for t in range(step, step + ring.fold_steps):
+                ring_fold_bwd_dq(q, *blocks, lse, delta, do, dq,
+                                 ring.positions, ring.shift(t))
             ring_fold_bwd_dkv(q, *blocks, lse, delta, do, dk, dv,
-                              ring.positions, shift)
-            # The block's partials travel on with it; after `size` hops
-            # each block's arrive home.
-            partials = ring.pass_on((dk, dv))
-            dk, dv = ring.receive((dk, dv), partials)
+                              ring.positions, ring.shift(step),
+                              steps=ring.fold_steps, out=grads)
+            if grads is None:
+                # The block's partials travel on with it; after `size` hops
+                # each block's arrive home.
+                partials = ring.pass_on((dk, dv))
+                dk, dv = ring.receive((dk, dv), partials)
             if pending is not None:
                 blocks = ring.receive(blocks, pending)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+        if grads is None:
+            grads = (dk.to(k.dtype), dv.to(v.dtype))
+        return dq.to(q.dtype), *grads, None, None
 
 
 def ring_attention(q, k, v, mask=None, ring=None) -> torch.Tensor:

@@ -6,8 +6,10 @@ position) against JAX's ``make_ring_attention`` on a ``('data', 'seq')``
 mesh of the 8 virtual CPU devices and its ``jax.grad``; both rings against
 dense attention; the port's backward against autograd through its plain
 folds; and the process ring (2 and 4 gloo processes) against the
-in-process ring, bit for bit. Tests marked ``cuda`` hold the kernels
-against the plain versions and skip without a card. The JAX side is
+in-process ring, bit for bit; a fold over several ring steps against
+one-step folds, bit for bit, and the launches each transport makes. Tests
+marked ``cuda`` hold the kernels against the plain versions, and a fused
+launch against one-step launches, and skip without a card. The JAX side is
 imported by a fixture, so that on a machine with a card and no JAX the
 ``cuda`` tests still run (``-m cuda --noconftest``).
 """
@@ -31,11 +33,14 @@ from lance_distributed_training_tpu_torch.models.transformer import (
 from lance_distributed_training_tpu_torch.ops import ring_attention as ra
 from lance_distributed_training_tpu_torch.parallel.ring_attention import (
     InProcessRing,
+    ProcessRing,
     make_ring_attention,
     ring_attention,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
+ring_module = importlib.import_module(
+    "lance_distributed_training_tpu_torch.parallel.ring_attention")
 B, H, S, D = 4, 2, 32, 64
 # Row 0 has no valid key; row 1 a fully masked last quarter and more.
 LENGTHS = np.array([0, 19, 32, 27])
@@ -262,6 +267,136 @@ def test_kernel_wrappers_check_their_inputs(bad, error, match):
         ra._check("ring_fwd", q, k, v, mask, 4, shift)
 
 
+def _bf16_case(seed, sp, sb=8):
+    """bf16 q, k, v, dO of ``sp`` blocks of ``sb`` and a key mask with a
+    row that has no valid key and a fully masked first block."""
+    shape = (2, 3, sp * sb, D)
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _qkv(seed, shape))
+    keep = np.random.default_rng(seed).random((shape[0], shape[2])) < 0.6
+    keep[0] = False
+    keep[1, :sb] = False
+    return q, k, v, do, torch.from_numpy(keep.astype(np.uint8))
+
+
+@pytest.mark.parametrize("sp", [1, 2, 4])
+def test_plain_fold_over_steps_equals_one_step_folds(sp):
+    """A fold of ``steps = sp`` ring steps gives the bits of ``sp``
+    one-step folds, from fresh carries (forward with ``out``; dK/dV into
+    ``out`` from zero totals) and from carries in memory."""
+    q, k, v, do, mask = _bf16_case(40 + sp, sp)
+    b, h, s, d = q.shape
+
+    def carries():
+        return (torch.full((b, h, s), float("-inf")), torch.zeros((b, h, s)),
+                torch.zeros((b, h, s, d)))
+
+    m1, l1, acc1 = carries()
+    out1 = torch.empty_like(q)
+    for t in range(sp):
+        ra.ring_fold_fwd(q, k, v, mask, m1, l1, acc1, sp, t,
+                         out=out1 if t == sp - 1 else None)
+    m2, l2 = torch.empty((b, h, s)), torch.empty((b, h, s))
+    out2 = torch.empty_like(q)
+    ra.ring_fold_fwd(q, k, v, mask, m2, l2, None, sp, 0, out=out2, steps=sp)
+    assert torch.equal(out1, out2) and torch.equal(m1, m2)
+    assert torch.equal(l1, l2)
+    m3, l3, acc3 = carries()
+    ra.ring_fold_fwd(q, k, v, mask, m3, l3, acc3, sp, 0, steps=sp)
+    for one, fused in ((m1, m3), (l1, l3), (acc1, acc3)):
+        assert torch.equal(one, fused)
+
+    lse = ra.row_lse(m1, l1)
+    delta = (do.float() * out1.float()).sum(-1)
+    dk1, dv1 = torch.zeros((b, h, s, d)), torch.zeros((b, h, s, d))
+    for t in range(sp):
+        ra.ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, dk1, dv1, sp, t)
+    grads = (torch.empty_like(k), torch.empty_like(v))
+    ra.ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, None, None, sp, 0,
+                         steps=sp, out=grads)
+    assert torch.equal(grads[0], dk1.to(k.dtype))
+    assert torch.equal(grads[1], dv1.to(v.dtype))
+    dk3, dv3 = torch.zeros((b, h, s, d)), torch.zeros((b, h, s, d))
+    ra.ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, dk3, dv3, sp, 0,
+                         steps=sp)
+    assert torch.equal(dk1, dk3) and torch.equal(dv1, dv3)
+
+
+class _LoopbackRing(ProcessRing):
+    """A process ring of ``size`` hops that never leave this process (the
+    block a step folds is the one it holds): the transport's calls without
+    a process group."""
+
+    def __init__(self, size):
+        self.size = size
+        self.positions = 1
+        self.fold_steps = 1
+
+    def pass_on(self, tensors):
+        return None
+
+    def receive(self, tensors, pending):
+        return tensors
+
+
+def _count_folds(monkeypatch):
+    calls = {"ring_fwd": [], "ring_bwd_dq": [], "ring_bwd_dkv": []}
+    for name, fn in (("ring_fwd", "ring_fold_fwd"),
+                     ("ring_bwd_dq", "ring_fold_bwd_dq"),
+                     ("ring_bwd_dkv", "ring_fold_bwd_dkv")):
+        wrapped = getattr(ring_module, fn)
+
+        def counted(*args, _name=name, _fn=wrapped, **kwargs):
+            calls[_name].append(kwargs.get("steps", 1))
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(ring_module, fn, counted)
+    return calls
+
+
+@pytest.mark.parametrize("transport", ["in_process", "process"])
+@pytest.mark.parametrize("sp", [1, 2, 4])
+def test_each_transport_launches_its_folds(
+        monkeypatch, transport, sp):
+    """The in-process ring calls the forward and dK/dV wrappers once an
+    attention call with ``steps = sp`` and dQ ``sp`` times; a process ring
+    calls each ``sp`` times with ``steps = 1``."""
+    calls = _count_folds(monkeypatch)
+    ring = InProcessRing(sp) if transport == "in_process" else \
+        _LoopbackRing(sp)
+    q, k, v, do, mask = _bf16_case(50 + sp, sp)
+    s = q.shape[2] if transport == "in_process" else q.shape[2] // sp
+    ts = [t[:, :, :s].float().clone().requires_grad_() for t in (q, k, v)]
+    key_mask = mask[:, :s].bool()[:, None, None, :]
+    ring_attention(*ts, key_mask, ring).backward(do[:, :, :s].float())
+    fused = transport == "in_process"
+    assert calls["ring_fwd"] == ([sp] if fused else [1] * sp)
+    assert calls["ring_bwd_dkv"] == ([sp] if fused else [1] * sp)
+    assert calls["ring_bwd_dq"] == [1] * sp
+    assert all(torch.isfinite(t.grad).all() for t in ts)
+
+
+@pytest.mark.parametrize("steps,shift,match", [
+    (0, 0, "steps 0 from shift 0 outside"),
+    (-1, 1, "steps -1 from shift 1 outside"),
+    (4, 1, "steps 4 from shift 1 outside"),
+    (2, 3, "steps 2 from shift 3 outside"),
+])
+def test_kernel_wrappers_reject_steps_outside_the_ring(steps, shift, match):
+    q, k, v, do, mask = _bf16_case(60, 4)
+    b, h, s, d = q.shape
+    m, l = torch.zeros((b, h, s)), torch.zeros((b, h, s))
+    with pytest.raises(ValueError, match=match):
+        ra._check("ring_fwd", q, k, v, mask, 4, shift, steps)
+    with pytest.raises(ValueError, match=match):
+        ra.ring_fold_fwd(q, k, v, mask, m, l, None, 4, shift,
+                         out=torch.empty_like(q), steps=steps)
+    with pytest.raises(ValueError, match=match):
+        ra.ring_fold_bwd_dkv(q, k, v, mask, m, l, do, None, None, 4, shift,
+                             steps=steps,
+                             out=(torch.empty_like(k), torch.empty_like(v)))
+
+
 # ------------------------------------------------ the process ring over gloo
 
 _CHILD = textwrap.dedent(r'''
@@ -475,3 +610,56 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     mask = torch.ones((1, 64), device=cuda_device, dtype=torch.uint8)
     with pytest.raises(ValueError, match="head dim"):
         ra.ring_fold_fwd(q, q, q, mask, m, m.clone(), acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,sp", [((2, 3, 256, 64), 4),
+                                      ((3, 2, 200, 64), 4),
+                                      ((2, 2, 96, 64), 1),
+                                      ((4, 12, 512, 64), 2)])
+def test_fused_launch_equals_one_step_launches_on_card(cuda_device, shape,
+                                                       sp):
+    """One launch over ``sp`` ring steps gives the bits of ``sp`` one-step
+    launches of the same kernel: the forward from fresh carries and from
+    carries in memory, dK/dV into bf16 from zero totals and into f32
+    totals; rows with no valid key come out 0 with zero dK and dV."""
+    q, k, v, do, mask = _card_case(cuda_device, shape, sum(shape) + sp)
+    b, h, s, d = q.shape
+    kw = dict(device=cuda_device)
+
+    def carries():
+        return (torch.full((b, h, s), float("-inf"), **kw),
+                torch.zeros((b, h, s), **kw), torch.zeros((b, h, s, d), **kw))
+
+    m1, l1, acc1 = carries()
+    out1 = torch.empty_like(q)
+    for t in range(sp):
+        ra.ring_fold_fwd(q, k, v, mask, m1, l1, acc1, sp, t,
+                         out=out1 if t == sp - 1 else None)
+    m2, l2 = torch.empty((b, h, s), **kw), torch.empty((b, h, s), **kw)
+    out2 = torch.empty_like(q)
+    ra.ring_fold_fwd(q, k, v, mask, m2, l2, None, sp, 0, out=out2, steps=sp)
+    m3, l3, acc3 = carries()
+    ra.ring_fold_fwd(q, k, v, mask, m3, l3, acc3, sp, 0, steps=sp)
+    lse = ra.row_lse(m1, l1)
+    delta = (do.float() * out1.float()).sum(-1)
+    dk1, dv1 = torch.zeros((b, h, s, d), **kw), torch.zeros((b, h, s, d), **kw)
+    for t in range(sp):
+        ra.ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, dk1, dv1, sp, t)
+    grads = (torch.empty_like(k), torch.empty_like(v))
+    ra.ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, None, None, sp, 0,
+                         steps=sp, out=grads)
+    dk3, dv3 = torch.zeros((b, h, s, d), **kw), torch.zeros((b, h, s, d), **kw)
+    ra.ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, dk3, dv3, sp, 0,
+                         steps=sp)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2) and torch.equal(m1, m2)
+    assert torch.equal(l1, l2)
+    for one, fused in ((m1, m3), (l1, l3), (acc1, acc3), (dk1, dk3),
+                       (dv1, dv3)):
+        assert torch.equal(one, fused)
+    assert torch.equal(grads[0], dk1.to(k.dtype))
+    assert torch.equal(grads[1], dv1.to(v.dtype))
+    empty = ~mask.bool().any(1)
+    assert (out2[empty] == 0).all()
+    assert (grads[0][empty] == 0).all() and (grads[1][empty] == 0).all()
