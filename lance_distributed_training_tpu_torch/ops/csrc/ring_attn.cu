@@ -7,11 +7,12 @@
 // running statistics (max m, sum l, accumulator acc). One launch covers
 // every position the process holds: P positions of one in-process ring (the
 // "rotation" is this index shift), or P = 1 for a process ring whose
-// current block arrived over the network. The forward and dK/dV fold a run
-// of `steps` ring steps, shift, shift + 1, ..., shift + steps - 1, in one
+// current block arrived over the network. Each kernel folds a run of
+// `steps` ring steps, shift, shift + 1, ..., shift + steps - 1, in one
 // launch, exactly as `steps` launches of one step each would: the
-// in-process ring folds all P steps in one launch with its carries on chip,
-// the process ring one step a launch with them in device memory.
+// in-process ring folds all P steps in one launch with its carries and
+// gradient totals on chip, the process ring one step a launch with them in
+// device memory.
 //
 // The fold keeps the JAX function's rounding points:
 //   s   = bf16(q . k) as f32, / sqrt(D)            (einsum of bf16 -> bf16)
@@ -36,24 +37,27 @@
 // Bound, at BERT-base, sequence 512, batch 32 in four blocks of 128, one
 // launch over the whole in-process ring: the forward reads q, k, v and
 // writes out, m and l (102.3 MB, 0.031 ms at 3.35 TB/s; its 25.8 GFLOP take
-// 0.026 ms), so it is bound by bytes; dK/dV's 51.5 GFLOP take 0.052 ms at
-// the bf16 peak against 151 MB of bytes, so it is bound by operations. A
-// one-step launch also reads and writes the f32 carries or gradient
-// partials, which is what the process ring's hops cost.
+// 0.026 ms), so it is bound by bytes; dQ's 38.65 GFLOP take 0.039 ms at the
+// bf16 peak against 127.4 MB (q, k, v, dO, mask, lse and delta in, a bf16
+// dq out: 0.038 ms), and dK/dV's 51.5 GFLOP take 0.052 ms against 151 MB,
+// so both are bound by operations. A one-step launch also reads and writes
+// the f32 carries or gradient totals, which is what the process ring's
+// hops cost.
 //
-// Design of the forward and dK/dV (Hopper, after ops/csrc/flash_attn.cu):
+// Design (Hopper, after ops/csrc/flash_attn.cu):
 //  * A CTA has two consumer warpgroups and one producer warpgroup. It owns
-//    128 rows of one (b, h, position): queries in the forward, keys in
-//    dK/dV, 64 a consumer warpgroup. Every product is a warpgroup product
-//    (wgmma, 64 rows) with f32 accumulators in registers; P and dS go to
-//    the next product as register A operands, packed to bf16, and the
-//    other side's tiles are B operands read from shared memory, V, dO and
-//    Q MN-major through the transpose bit. No tile is copied transposed.
-//  * The owned tile loads once by TMA. One producer warp streams the other
-//    side through a ring of three shared-memory stages with mbarriers: K
-//    and V tiles of 128 keys with their validity bits (forward), or Q and
-//    dO tiles of 64 queries with their lse and delta (dK/dV), for each
-//    ring step of the launch in order.
+//    128 rows of one (b, h, position): queries in the forward and dQ, keys
+//    in dK/dV, 64 a consumer warpgroup. Every product is a warpgroup
+//    product (wgmma, 64 rows) with f32 accumulators in registers; P and dS
+//    go to the next product as register A operands, packed to bf16, and the
+//    other side's tiles are B operands read from shared memory, V, K, dO
+//    and Q MN-major through the transpose bit. No tile is copied
+//    transposed.
+//  * The owned tiles load once by TMA (Q; Q and dO; K and V). One producer
+//    warp streams the other side through a ring of three shared-memory
+//    stages with mbarriers: K and V tiles of 128 keys with their validity
+//    bits (forward and dQ), or Q and dO tiles of 64 queries with their lse
+//    and delta (dK/dV), for each ring step of the launch in order.
 //  * The forward takes the block's max before any exponent. When a block
 //    fits one tile (Sb <= 128, the path's 512 / 4) its 64 x 128 scores stay
 //    in registers: max, p, then PV. A longer block streams its key tiles
@@ -62,12 +66,14 @@
 //    carries m, l and acc stay in registers across the launch's steps. A
 //    tile whose keys are all valid skips the per-score mask, and every
 //    exponent is one FMA and one ex2 in log2 units.
-//  * dK/dV accumulates its products straight onto the f32 totals in the
-//    wgmma accumulators, query tile after query tile in ring-step order. A
-//    one-step launch loads the totals it is given (the process ring's
-//    travelling partials) into the accumulators and carries on, so a
-//    launch of `steps` steps gives the bits of `steps` one-step launches
-//    and the process ring sums in the in-process ring's order.
+//  * dQ and dK/dV accumulate their products straight onto the f32 totals
+//    in the wgmma accumulators, tile after tile in ring-step order: dQ over
+//    the key tiles of blocks (i - t) mod P, dK/dV over the query tiles of
+//    blocks (j + t) mod P. A one-step launch loads the totals it is given
+//    (the process ring's dQ at home, or its travelling dK/dV partials) into
+//    the accumulators and carries on, so a launch of `steps` steps gives
+//    the bits of `steps` one-step launches and the process ring sums in the
+//    in-process ring's order.
 //  * The two consumer warpgroups take turns to issue their score products
 //    (named barriers), so that one's softmax or dS runs while the
 //    other's products do.
@@ -80,9 +86,6 @@
 //  * Each output element is owned by one CTA and summed in a fixed order:
 //    no atomics, a repeat launch gives the same bits, and a launch of
 //    `steps` steps gives the bits of `steps` one-step launches.
-// dQ keeps the first design: mma.sync m16n8k16 bf16 -> f32, a CTA of four
-// warps owning 64 query rows and looping over the key tiles in shared
-// memory, one launch a ring step.
 //
 // C interface (bound with ctypes by ops/ring_attention.py); q, k, v and dout
 // are bf16 [B, H, P*Sb, 64], mask uint8 [B, P*Sb] (key validity), the
@@ -94,16 +97,17 @@
 //     acc given: m, l, acc are the carries, read and written; null: the
 //     launch starts from fresh carries and writes m and l only.
 //   int ldt_ring_fold_bwd_dq(q, k, v, mask, const float* lse,
-//                            const float* delta, dout, float* dq, int B,
-//                            int H, int P, int Sb, int D, int shift,
+//                            const float* delta, dout, float* dq_or_null,
+//                            bf16* dq_out_or_null, int B, int H, int P,
+//                            int Sb, int D, int shift, int steps,
 //                            cudaStream_t);
 //   int ldt_ring_fold_bwd_dkv(q, k, v, mask, lse, delta, dout,
 //                             float* dk_or_null, float* dv_or_null,
 //                             bf16* dk_out_or_null, bf16* dv_out_or_null,
 //                             int B, int H, int P, int Sb, int D, int shift,
 //                             int steps, cudaStream_t);
-//     dk/dv given: f32 totals the launch adds to; null: the totals start at
-//     zero. dk_out/dv_out given: the final totals in bf16.
+//     dq (dk/dv) given: f32 totals the launch adds to; null: the totals
+//     start at zero. dq_out (dk_out/dv_out) given: the final totals in bf16.
 // Each returns 0, -1 for a head dim other than 64, -2 when
 // cuTensorMapEncodeTiled cannot be reached, -3 when it refuses a map, or
 // the cudaError_t of the launch. The tensor maps are encoded on the host
@@ -122,26 +126,11 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kD = 64;            // head dim
-constexpr int kRows = 64;         // rows a dQ CTA owns (4 warps x 16)
-constexpr int kTile = 64;         // rows of the other side per smem tile
-constexpr int kLd = kD + 8;       // smem row stride of a row-major tile
-constexpr int kLdT = kTile + 8;   // smem row stride of a transposed tile
-constexpr int kThreads = 128;
 constexpr int kErrHeadDim = -1;
 constexpr int kErrNoEncoder = -2;
 constexpr int kErrBadMap = -3;
 
-// ================================================================ dQ
-// mma.sync building blocks.
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ================================================================ helpers
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -150,82 +139,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* base, int offset) {
-  return *reinterpret_cast<const uint32_t*>(base + offset);
-}
-
-// Two bf16 of row r, columns c and c+1, of a row-major [rows, kD] block;
-// zero for a row past the block.
-__device__ __forceinline__ uint32_t ldg32(const bf16* block, int r, int c,
-                                          int rows) {
-  if (r >= rows) return 0u;
-  return *reinterpret_cast<const uint32_t*>(block +
-                                            static_cast<size_t>(r) * kD + c);
-}
-
-// A fragments (16 rows x 64 columns, four k-steps) of rows r0 and r0 + 8.
-__device__ __forceinline__ void load_a_frags(uint32_t a[4][4],
-                                             const bf16* block, int r0,
-                                             int tig, int rows) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    a[kk][0] = ldg32(block, r0, c, rows);
-    a[kk][1] = ldg32(block, r0 + 8, c, rows);
-    a[kk][2] = ldg32(block, r0, c + 8, rows);
-    a[kk][3] = ldg32(block, r0 + 8, c + 8, rows);
-  }
-}
-
-// Rows [first, first + kTile) of a row-major [rows, kD] block into smem,
-// row-major (stride kLd) and/or transposed (stride kLdT); rows past the
-// block are zero.
-__device__ __forceinline__ void load_tile(bf16* dst, bf16* dst_t,
-                                          const bf16* block, int first,
-                                          int rows) {
-  for (int idx = threadIdx.x; idx < kTile * (kD / 8); idx += kThreads) {
-    const int r = idx / (kD / 8);
-    const int c = (idx % (kD / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (first + r < rows)
-      val = *reinterpret_cast<const uint4*>(
-          block + static_cast<size_t>(first + r) * kD + c);
-    if (dst != nullptr)
-      *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
-    if (dst_t != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) dst_t[(c + u) * kLdT + r] = e[u];
-    }
-  }
-}
-
-// S-tile (16 rows x 8 columns) = A (four k-steps) . B, B's column n being
-// row n of a row-major smem tile.
-__device__ __forceinline__ void product_nt(float c[4], const uint32_t a[4][4],
-                                           const bf16* tile, int nt, int g,
-                                           int tig) {
-  c[0] = c[1] = c[2] = c[3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int off = (nt * 8 + g) * kLd + kk * 16 + tig * 2;
-    mma16816(c, a[kk], lds32(tile, off), lds32(tile, off + 8));
-  }
-}
-
-// acc[dn] += A (16 rows x 16 of the tile's rows, k-step kp) . tile rows,
-// the tile given transposed ([kD][kLdT]).
-__device__ __forceinline__ void accumulate_pv(float acc[8][4],
-                                              const uint32_t a[4],
-                                              const bf16* tile_t, int kp,
-                                              int g, int tig) {
-#pragma unroll
-  for (int dn = 0; dn < 8; ++dn) {
-    const int off = (dn * 8 + g) * kLdT + kp * 16 + tig * 2;
-    mma16816(acc[dn], a, lds32(tile_t, off), lds32(tile_t, off + 8));
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -238,116 +151,8 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-struct Geometry {
-  int b, bh, i, j, first;  // batch, batch*H + head, query pos, key pos, row
-  size_t q_row, k_row;     // row index of block i / block j's first row
-};
-
-// dQ: the CTA owns query rows of position blockIdx.y, which folds key block
-// (i - shift) mod P.
-__device__ __forceinline__ Geometry geometry(int H, int P, int Sb,
-                                             int shift) {
-  Geometry geo;
-  geo.bh = blockIdx.x;
-  geo.b = geo.bh / H;
-  geo.i = blockIdx.y;
-  geo.j = ((geo.i - shift) % P + P) % P;
-  geo.first = blockIdx.z * kRows;
-  const size_t base = static_cast<size_t>(geo.bh) * P * Sb;
-  geo.q_row = base + static_cast<size_t>(geo.i) * Sb;
-  geo.k_row = base + static_cast<size_t>(geo.j) * Sb;
-  return geo;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    ring_fold_bwd_dq_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const uint8_t* __restrict__ mask,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            const bf16* __restrict__ dout,
-                            float* __restrict__ dq, int H, int P, int Sb,
-                            int shift) {
-  __shared__ __align__(16) bf16 ks[kTile * kLd];
-  __shared__ __align__(16) bf16 kt_s[kD * kLdT];
-  __shared__ __align__(16) bf16 vs[kTile * kLd];
-  __shared__ uint8_t ms[kTile];
-
-  const Geometry geo = geometry(H, P, Sb, shift);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const bf16* kb = k + geo.k_row * kD;
-  const bf16* vb = v + geo.k_row * kD;
-  const uint8_t* mb = mask + static_cast<size_t>(geo.b) * P * Sb +
-                      static_cast<size_t>(geo.j) * Sb;
-  const int r0 = geo.first + warp * 16 + g;
-  const float root_d = sqrtf(static_cast<float>(kD));
-
-  uint32_t qa[4][4], da[4][4];
-  load_a_frags(qa, q + geo.q_row * kD, r0, tig, Sb);
-  load_a_frags(da, dout + geo.q_row * kD, r0, tig, Sb);
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + 8 * h;
-    row_lse[h] = r < Sb ? lse[geo.q_row + r] : 0.f;
-    row_delta[h] = r < Sb ? delta[geo.q_row + r] : 0.f;
-  }
-  float dqa[8][4];
-#pragma unroll
-  for (int dn = 0; dn < 8; ++dn)
-    dqa[dn][0] = dqa[dn][1] = dqa[dn][2] = dqa[dn][3] = 0.f;
-
-  for (int kt = 0; kt < Sb; kt += kTile) {
-    __syncthreads();
-    load_tile(ks, kt_s, kb, kt, Sb);
-    load_tile(vs, nullptr, vb, kt, Sb);
-    if (threadIdx.x < kTile)
-      ms[threadIdx.x] = kt + threadIdx.x < Sb ? mb[kt + threadIdx.x] : 0;
-    __syncthreads();
-#pragma unroll
-    for (int kp = 0; kp < kTile / 16; ++kp) {
-      float ds[2][4];
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        float s[4], dp[4];
-        product_nt(s, qa, ks, 2 * kp + h2, g, tig);
-        product_nt(dp, da, vs, 2 * kp + h2, g, tig);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = (2 * kp + h2) * 8 + tig * 2 + (e & 1);
-          const bool valid = kt + key < Sb && ms[key];
-          const float pr =
-              valid ? expf(round_bf16(s[e]) / root_d - row_lse[e / 2]) : 0.f;
-          ds[h2][e] = pr * (dp[e] - row_delta[e / 2]) / root_d;
-        }
-      }
-      const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]),
-                               pack_bf16(ds[0][2], ds[0][3]),
-                               pack_bf16(ds[1][0], ds[1][1]),
-                               pack_bf16(ds[1][2], ds[1][3])};
-      accumulate_pv(dqa, dsa, kt_s, kp, g, tig);
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + 8 * h;
-    if (r >= Sb) continue;
-    float* row = dq + (geo.q_row + r) * kD;
-#pragma unroll
-    for (int dn = 0; dn < 8; ++dn) {
-      const int col = dn * 8 + tig * 2;
-      float2 a = *reinterpret_cast<float2*>(row + col);
-      a.x += dqa[dn][2 * h];
-      a.y += dqa[dn][2 * h + 1];
-      *reinterpret_cast<float2*>(row + col) = a;
-    }
-  }
-}
-
 // ================================================================ Hopper
-// Building blocks of the forward and dK/dV (PTX for sm_90a), as in
+// Building blocks of the three kernels (PTX for sm_90a), as in
 // ops/csrc/flash_attn.cu.
 
 constexpr int kConsumerWarps = 8;                     // two warpgroups
@@ -623,13 +428,40 @@ __device__ __forceinline__ Place place(int H, int P, int Sb, int tiles) {
   return pl;
 }
 
+// ----------------------------------------------------------------- K/V ring
+
+constexpr int kKeyTile = 128;                       // keys a K/V stage
+constexpr uint32_t kKeyTileBytes = kKeyTile * 128;  // one of K, V
+
+// One producer warp fills a K/V stage: the validity bits of keys
+// [k0, k0 + kKeyTile) of key block j (a key at or past Sb, or masked, is
+// invalid; `mb` is the block's mask row), then K, and V unless tm_v is null,
+// by TMA at the block's rows, completing `full`.
+__device__ __forceinline__ void load_kv_stage(uint32_t* bits, unsigned char* sK,
+                                              uint64_t* full, const CUtensorMap* tm_k,
+                                              const CUtensorMap* tm_v, const uint8_t* mb,
+                                              int Sb, int j, int k0, int bh, int lane) {
+#pragma unroll
+  for (int c = 0; c < kKeyTile / 32; ++c) {
+    const int key = k0 + 32 * c + lane;
+    const uint32_t word = __ballot_sync(0xffffffffu, key < Sb && mb[key] != 0);
+    if (lane == 0) bits[c] = word;
+  }
+  __syncwarp();
+  if (lane == 0) {
+    mbar_arrive_expect_tx(full, tm_v != nullptr ? 2 * kKeyTileBytes : kKeyTileBytes);
+    tma_load(sK, tm_k, full, j * Sb + k0, bh);
+    if (tm_v != nullptr) tma_load(sK + kKeyTileBytes, tm_v, full, j * Sb + k0, bh);
+  }
+}
+
 // ----------------------------------------------------------------- forward
 
 struct FwdCfg {
   static constexpr int BM = 128;  // query rows a CTA
-  static constexpr int BN = 128;  // keys a stage
+  static constexpr int BN = kKeyTile;  // keys a stage
   static constexpr uint32_t Q_BYTES = BM * 128;
-  static constexpr uint32_t KV_BYTES = BN * 128;  // one of K, V
+  static constexpr uint32_t KV_BYTES = kKeyTileBytes;  // one of K, V
   // Byte offsets from the 1024-aligned base. Stage s holds K at
   // kv + 2 s KV_BYTES and V right after it; bits[s] its keys' validity.
   static constexpr uint32_t q = 0;
@@ -766,19 +598,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         for (int kt = 0; kt < n_kt; ++kt, ++it) {
           const int s = it % kStages, k0 = kt * C::BN;
           if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int key = k0 + 32 * c + lane;
-            const uint32_t word = __ballot_sync(0xffffffffu, key < Sb && mb[key] != 0);
-            if (lane == 0) sBits[4 * s + c] = word;
-          }
-          __syncwarp();
-          if (lane == 0) {
-            unsigned char* sK = smem + C::kv + s * 2 * C::KV_BYTES;
-            mbar_arrive_expect_tx(&full[s], pass ? 2 * C::KV_BYTES : C::KV_BYTES);
-            tma_load(sK, &tm_k, &full[s], j * Sb + k0, pl.bh);
-            if (pass) tma_load(sK + C::KV_BYTES, &tm_v, &full[s], j * Sb + k0, pl.bh);
-          }
+          load_kv_stage(sBits + 4 * s, smem + C::kv + s * 2 * C::KV_BYTES, &full[s], &tm_k,
+                        pass ? &tm_v : nullptr, mb, Sb, j, k0, pl.bh, lane);
         }
       }
     }
@@ -1139,6 +960,194 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   }
 }
 
+// ----------------------------------------------------------------- dQ
+
+struct DqCfg {
+  static constexpr int BM = 128;                      // query rows a CTA
+  static constexpr int BN = kKeyTile;                 // keys a stage
+  static constexpr uint32_t Q_BYTES = BM * 128;       // one of Q, dO
+  static constexpr uint32_t KV_BYTES = kKeyTileBytes;  // one of K, V
+  // Byte offsets from the 1024-aligned base: Q, dO, then the K/V ring as in
+  // FwdCfg (stage s holds K at kv + 2 s KV_BYTES, V right after it, and its
+  // keys' validity at bits[s]).
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t dout = q + Q_BYTES;
+  static constexpr uint32_t kv = dout + Q_BYTES;
+  static constexpr uint32_t bits = kv + kStages * 2 * KV_BYTES;  // [kStages][4] u32
+  static constexpr uint32_t bars = bits + kStages * 16;  // q_full, full[], empty[]
+  static constexpr size_t smem = bars + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// dS = P (dP - delta) / sqrt(D) in place of dP, from the raw scores sc:
+// P = exp(bf16(q . k) / sqrt(D) - lse), one FMA and one ex2 in log2 units,
+// at valid keys and 0 at the others (kMasked: the tile has some). A row at
+// or past Sb has lse2 = +inf, so its P is 0.
+template <bool kMasked>
+__device__ __forceinline__ void ds_from_scores(const float (&sc)[64], float (&dp)[64],
+                                               const uint32_t (&w)[4], const float (&lse2)[2],
+                                               const float (&dlt)[2]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2_approx(fmaf(round_bf16(sc[4 * j + e]), kScoreLog2, -lse2[e / 2]));
+      if (kMasked && !key_valid(w, j, e & 1)) p = 0.f;
+      dp[4 * j + e] = p * (dp[4 * j + e] - dlt[e / 2]) * kInvRootD;
+    }
+}
+
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    ring_fold_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const uint8_t* __restrict__ mask,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq, bf16* __restrict__ dq_out,
+                            int H, int P, int Sb, int shift, int steps,
+                            int tiles) {
+  typedef DqCfg C;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint32_t* sBits = reinterpret_cast<uint32_t*>(smem + C::bits);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::bars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const Place pl = place(H, P, Sb, tiles);  // pl.pos is the query block i
+  const int n_kt = (Sb + C::BN - 1) / C::BN;
+
+  init_barriers(q_full);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= kConsumerWarps) {
+    // Producer warpgroup: its first warp loads Q and dO once, then per stage
+    // the keys' validity bits and K and V, as the forward's second pass
+    // does; the other three only give up registers.
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != kConsumerWarps) return;
+    if (lane == 0) {
+      const int row = pl.pos * Sb + pl.tile * C::BM;
+      mbar_arrive_expect_tx(q_full, 2 * C::Q_BYTES);
+      tma_load(smem + C::q, &tm_q, q_full, row, pl.bh);
+      tma_load(smem + C::dout, &tm_do, q_full, row, pl.bh);
+    }
+    int it = 0;
+    for (int t = 0; t < steps; ++t) {
+      const int j = ((pl.pos - shift - t) % P + P) % P;
+      const uint8_t* mb = mask + (static_cast<size_t>(pl.b) * P + j) * Sb;
+      for (int kt = 0; kt < n_kt; ++kt, ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        load_kv_stage(sBits + 4 * s, smem + C::kv + s * 2 * C::KV_BYTES, &full[s], &tm_k,
+                      &tm_v, mb, Sb, j, kt * C::BN, pl.bh, lane);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  // Consumers: warpgroup wg owns query rows [64 wg, 64 wg + 64) of the tile;
+  // this thread holds rows ra and ra + 8 of them, key columns 8j + 2t + {0, 1}.
+  const int wg = warp / 4, t4 = lane % 4;
+  const int ra = 16 * (warp % 4) + lane / 4;
+  const int first = pl.tile * C::BM + 64 * wg;  // the warpgroup's first row
+  const int rows[2] = {first + ra, first + ra + 8};
+  unsigned char* sQ = smem + C::q + 64 * wg * 128;
+  const unsigned char* sdO = smem + C::dout + 64 * wg * 128;
+
+  // The rows' lse in log2 units (+inf at or past Sb) and delta; the totals:
+  // the f32 dq in device memory, or zeros. The products accumulate straight
+  // onto them, step after step.
+  float lse2[2], dlt[2], dqa[32];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = rows[h] < Sb;
+    lse2[h] = ok ? lse[pl.base + rows[h]] * kLog2e : INFINITY;
+    dlt[h] = ok ? delta[pl.base + rows[h]] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float2 a = make_float2(0.f, 0.f);
+      if (dq != nullptr && ok)
+        a = *reinterpret_cast<const float2*>(dq + (pl.base + rows[h]) * kD + 8 * j + 2 * t4);
+      dqa[4 * j + 2 * h] = a.x;
+      dqa[4 * j + 2 * h + 1] = a.y;
+    }
+  }
+
+  // The score products take turns between the warpgroups, as in the
+  // forward; warpgroup 0 takes the first.
+  const int n_products = steps * n_kt;
+  if (wg == 1) named_arrive(kTurn);
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n_products; ++it) {
+    const int s = it % kStages;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    const unsigned char* sK = smem + C::kv + s * 2 * C::KV_BYTES;
+    const unsigned char* sV = sK + C::KV_BYTES;
+    uint32_t w[4];
+    load_bits(w, sBits + 4 * s, t4);
+    const bool full_tile = all_valid(sBits + 4 * s);
+
+    // S = Q K^T and dP = dO V^T for this warpgroup's 64 queries x the
+    // stage's 128 keys, issued in its turn.
+    float sc[64], dp[64];
+    named_sync(kTurn + wg);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss(sc, sw128_desc(sQ + kk * 32, 16), sw128_desc(sK + kk * 32, 16), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss(dp, sw128_desc(sdO + kk * 32, 16), sw128_desc(sV + kk * 32, 16), kk > 0);
+    wgmma_commit();
+    if (!(wg == 1 && it == n_products - 1)) named_arrive(kTurn + 1 - wg);
+    wgmma_wait();
+    reg_fence(sc);
+    reg_fence(dp);
+
+    if (full_tile)
+      ds_from_scores<false>(sc, dp, w, lse2, dlt);
+    else
+      ds_from_scores<true>(sc, dp, w, lse2, dlt);
+
+    // dQ += bf16(dS) K: dS from registers, K MN-major from the stage, 16
+    // keys a product.
+    uint32_t dsa[8][4];
+    acc_to_a<128>(dp, dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs(dqa, dsa[kk], sw128_desc(sK + kk * 16 * 128, C::BN * 128));
+    wgmma_commit_and_wait();
+    reg_fence(dqa);
+    mbar_arrive(&empty[s]);
+  }
+
+  // Epilogue: the f32 totals back to dq, and/or bf16 through this
+  // warpgroup's (no longer read) rows of the Q tile.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (dq == nullptr || rows[h] >= Sb) continue;
+    float* row = dq + (pl.base + rows[h]) * kD;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j + 2 * t4) =
+          make_float2(dqa[4 * j + 2 * h], dqa[4 * j + 2 * h + 1]);
+  }
+  if (dq_out != nullptr) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(sQ + swizzled(ra + 8 * h, j, t4)) =
+            pack_bf16(dqa[4 * j + 2 * h], dqa[4 * j + 2 * h + 1]);
+    warpgroup_sync(wg);
+    store_rows(dq_out + pl.base * kD, sQ, first, Sb, threadIdx.x % 128);
+  }
+}
+
 // ----------------------------------------------------------------- host
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1198,18 +1207,6 @@ int fused_grid(int B, int H, int P, int Sb, int D, int shift, int steps, int row
   return 0;
 }
 
-int check_launch(int B, int H, int P, int Sb, int D, int shift, dim3* grid) {
-  if (D != kD) return kErrHeadDim;
-  if (B <= 0 || H <= 0 || P <= 0 || Sb <= 0 || shift < 0 || shift >= P)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long bh = static_cast<long long>(B) * H;
-  const int tiles = (Sb + kRows - 1) / kRows;
-  if (bh > 0x7fffffffLL || P > 65535 || tiles > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  *grid = dim3(static_cast<unsigned>(bh), P, tiles);
-  return 0;
-}
-
 }  // namespace
 
 extern "C" int ldt_ring_fold_fwd(const void* q, const void* k, const void* v,
@@ -1238,16 +1235,28 @@ extern "C" int ldt_ring_fold_fwd(const void* q, const void* k, const void* v,
 extern "C" int ldt_ring_fold_bwd_dq(const void* q, const void* k,
                                     const void* v, const uint8_t* mask,
                                     const float* lse, const float* delta,
-                                    const void* dout, float* dq, int B, int H,
-                                    int P, int Sb, int D, int shift,
+                                    const void* dout, float* dq, void* dq_out,
+                                    int B, int H, int P, int Sb, int D,
+                                    int shift, int steps,
                                     cudaStream_t stream) {
+  int tiles;
   dim3 grid;
-  const int bad = check_launch(B, H, P, Sb, D, shift, &grid);
-  if (bad != 0) return bad;
-  ring_fold_bwd_dq_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, lse, delta,
-      static_cast<const bf16*>(dout), dq, H, P, Sb, shift);
+  int e = fused_grid(B, H, P, Sb, D, shift, steps, DqCfg::BM, &tiles, &grid);
+  if (e != 0) return e;
+  if (dq == nullptr && dq_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long bh = static_cast<long long>(B) * H, rows = static_cast<long long>(P) * Sb;
+  CUtensorMap tq, tk, tv, tdo;
+  if ((e = make_map(&tq, q, bh, rows, DqCfg::BM)) != 0) return e;
+  if ((e = make_map(&tk, k, bh, rows, DqCfg::BN)) != 0) return e;
+  if ((e = make_map(&tv, v, bh, rows, DqCfg::BN)) != 0) return e;
+  if ((e = make_map(&tdo, dout, bh, rows, DqCfg::BM)) != 0) return e;
+  cudaError_t ce = cudaFuncSetAttribute(ring_fold_bwd_dq_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(DqCfg::smem));
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  ring_fold_bwd_dq_kernel<<<grid, kHopperThreads, DqCfg::smem, stream>>>(
+      tq, tk, tv, tdo, mask, lse, delta, dq, static_cast<bf16*>(dq_out), H, P, Sb, shift,
+      steps, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

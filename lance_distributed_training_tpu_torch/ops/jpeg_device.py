@@ -30,7 +30,9 @@ matmul), so the plain version also runs on the card, where
 :func:`decode_coeff_batch` routes by the device of its inputs: CPU tensors
 take the plain version, CUDA tensors launch the kernel
 (``csrc/jpeg_decode.cu``) or raise. ``LAUNCHES["jpeg_decode"]`` counts its
-launches (one per batch: the IDCT and the colour-and-resize kernels).
+launches: one a batch, each CTA decoding a tile of output rows and columns
+from the pages through the IDCT, colour conversion and resize in shared
+memory (the kernel's host code sizes the tile).
 """
 
 from __future__ import annotations
@@ -83,7 +85,10 @@ LAUNCHES = {"jpeg_decode": 0}
 
 _SOURCE = "jpeg_decode"
 _lib: Optional[ctypes.CDLL] = None
-_basis_on: dict = {}  # device -> IDCT_BASIS_FIX as an int32 tensor there
+
+# What ``ldt_jpeg_decode`` returns when the grid is too wide for even a
+# one-pixel tile's shared memory (``ldt_jpeg_widest_grid`` says how wide).
+_GRID_TOO_WIDE = -1
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -197,9 +202,10 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load_library(_SOURCE)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ldt_jpeg_decode.argtypes = ([ptr] * 6 + [i32] * 6 + [ptr] * 4
-                                        + [ptr])
+        lib.ldt_jpeg_decode.argtypes = [ptr] * 5 + [i32] * 6 + [ptr] * 2
         lib.ldt_jpeg_decode.restype = ctypes.c_int
+        lib.ldt_jpeg_widest_grid.argtypes = [i32]
+        lib.ldt_jpeg_widest_grid.restype = ctypes.c_int
         lib.ldt_jpeg_error_string.argtypes = [ctypes.c_int]
         lib.ldt_jpeg_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -245,14 +251,6 @@ def _check(coef_y, coef_cb, coef_cr, quant, geom, out_size: int) -> None:
                              f"loads it in 16-byte vectors)")
 
 
-def _basis(device: torch.device) -> torch.Tensor:
-    t = _basis_on.get(device)
-    if t is None:
-        t = torch.from_numpy(IDCT_BASIS_FIX.copy()).to(device)
-        _basis_on[device] = t
-    return t
-
-
 def decode_coeff_batch(coef_y: torch.Tensor, coef_cb: torch.Tensor,
                        coef_cr: torch.Tensor, quant: torch.Tensor,
                        geom: torch.Tensor, out_size: int = 224
@@ -273,16 +271,19 @@ def decode_coeff_batch(coef_y: torch.Tensor, coef_cb: torch.Tensor,
                       device=dev)
     if n == 0:
         return out
-    planes = [torch.empty((n, h * 8, w * 8), dtype=torch.uint8, device=dev)
-              for h, w in ((ybh, ybw), (cbh, cbw), (cbh, cbw))]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib = _library()
         code = lib.ldt_jpeg_decode(
             coef_y.data_ptr(), coef_cb.data_ptr(), coef_cr.data_ptr(),
-            quant.data_ptr(), geom.data_ptr(), _basis(dev).data_ptr(),
-            n, ybh, ybw, cbh, cbw, out_size,
-            *(p.data_ptr() for p in planes), out.data_ptr(), stream)
+            quant.data_ptr(), geom.data_ptr(), n, ybh, ybw, cbh, cbw,
+            out_size, out.data_ptr(), stream)
+    if code == _GRID_TOO_WIDE:
+        raise ValueError(
+            f"jpeg_decode: a luma grid {ybw} blocks wide (chroma {cbw}) "
+            f"does not fit the kernel's shared memory at out_size "
+            f"{out_size}: the widest 4:2:0 grid that does is "
+            f"{lib.ldt_jpeg_widest_grid(out_size)} blocks")
     if code != 0:
         msg = lib.ldt_jpeg_error_string(code).decode()
         raise RuntimeError(f"jpeg_decode launch failed: {msg} (code {code})")

@@ -15,17 +15,17 @@ Three kernels in ``csrc/ring_attn.cu`` (sm_90a), each with its plain
 version here, take every query position a process holds in one launch:
 ``P`` positions of one in-process ring, or ``P = 1`` for a process ring.
 At ring step ``shift``, query block ``i`` folds key block
-``(i - shift) mod P``. The forward and dK/dV fold ``steps`` ring steps
-from ``shift`` in one launch, exactly as ``steps`` one-step launches
-would; dQ folds one.
+``(i - shift) mod P``. Each kernel folds ``steps`` ring steps from
+``shift`` in one launch, exactly as ``steps`` one-step launches would.
 
 * ``ring_fwd`` (``wgmma``, TMA): with ``acc`` the f32 carries
   ``(m, l, acc)`` are read and updated in place; with ``acc=None`` the
   launch starts from fresh carries, held on chip, and writes only the final
   ``m`` and ``l``. With ``out`` it also writes ``bf16(acc / max(l,
   1e-30))``, the ring's output after its last step.
-* ``ring_bwd_dq`` (``mma.sync``): adds the block's f32 dQ to the resident
-  queries'.
+* ``ring_bwd_dq`` (``wgmma``, TMA): adds each step's f32 dQ onto the
+  resident queries' totals, in ring-step order; with ``dq=None`` the
+  totals start at zero, and ``out`` takes them in q's type.
 * ``ring_bwd_dkv`` (``wgmma``, TMA): adds each step's f32 dK/dV onto the
   travelling block's totals, in ring-step order; with ``dk=dv=None`` the
   totals start at zero, and ``out=(dk, dv)`` takes them in q's type.
@@ -188,17 +188,25 @@ def ring_fold_fwd_reference(q, k, v, mask, m, l, acc, positions: int,
 
 
 def ring_fold_bwd_dq_reference(q, k, v, mask, lse, delta, do, dq,
-                               positions: int, shift: int) -> None:
-    """Plain dQ step: query block ``i`` adds the dQ of key block
-    ``(i - shift) mod positions`` to ``dq`` (f32, in place)."""
+                               positions: int, shift: int, steps: int = 1,
+                               out=None) -> None:
+    """Plain dQ steps ``shift, ..., shift + steps - 1``, in order: at step
+    ``t`` query block ``i`` adds the dQ of key block
+    ``(i - t) mod positions`` to the f32 totals ``dq`` (in place), or to
+    zeros when it is None; ``out`` takes the totals in its own type."""
     sb = _positions(q, positions)
-    for i in range(positions):
-        j = (i - shift) % positions
-        dq_i, _, _ = block_attn_bwd_reference(
-            _block(q, i, sb), _block(k, j, sb), _block(v, j, sb),
-            _mask_block(mask, j, sb), _rows(lse, i, sb), _rows(delta, i, sb),
-            _block(do, i, sb))
-        _rows(dq, i, sb).add_(dq_i)
+    if dq is None:
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for t in range(shift, shift + steps):
+        for i in range(positions):
+            j = (i - t) % positions
+            dq_i, _, _ = block_attn_bwd_reference(
+                _block(q, i, sb), _block(k, j, sb), _block(v, j, sb),
+                _mask_block(mask, j, sb), _rows(lse, i, sb),
+                _rows(delta, i, sb), _block(do, i, sb))
+            _rows(dq, i, sb).add_(dq_i)
+    if out is not None:
+        out.copy_(dq)
 
 
 def ring_fold_bwd_dkv_reference(q, k, v, mask, lse, delta, do, dk, dv,
@@ -234,7 +242,7 @@ def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from ``ring_attn.cu``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ldt_ring_fold_fwd.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
-    lib.ldt_ring_fold_bwd_dq.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.ldt_ring_fold_bwd_dq.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
     lib.ldt_ring_fold_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
     for fn in (lib.ldt_ring_fold_fwd, lib.ldt_ring_fold_bwd_dq,
                lib.ldt_ring_fold_bwd_dkv):
@@ -341,19 +349,26 @@ def ring_fold_fwd(q, k, v, mask, m, l, acc, positions: int = 1,
 
 
 def ring_fold_bwd_dq(q, k, v, mask, lse, delta, do, dq, positions: int = 1,
-                     shift: int = 0) -> None:
-    """One ring step of dQ, added in place to the f32 ``dq``. CUDA: the
-    ``ring_bwd_dq`` kernel. CPU: :func:`ring_fold_bwd_dq_reference`."""
+                     shift: int = 0, *, steps: int = 1, out=None) -> None:
+    """Ring steps ``shift, ..., shift + steps - 1`` of dQ, each step's
+    contribution added in turn to the f32 totals ``dq`` (in place), or to
+    zeros when it is None; ``out`` (``q``'s type) takes the final totals.
+    CUDA: one launch of the ``ring_bwd_dq`` kernel. CPU:
+    :func:`ring_fold_bwd_dq_reference`."""
+    if dq is None and out is None:
+        raise ValueError("ring_bwd_dq: give dq, or out, or both")
     if _on_cpu(q):
+        _check_steps("ring_bwd_dq", positions, shift, steps)
         ring_fold_bwd_dq_reference(q, k, v, mask, lse, delta, do, dq,
-                                   positions, shift)
+                                   positions, shift, steps, out)
         return
-    b, h, sb = _check("ring_bwd_dq", q, k, v, mask, positions, shift,
-                      bf16=[("do", do)],
+    b, h, sb = _check("ring_bwd_dq", q, k, v, mask, positions, shift, steps,
+                      bf16=[("do", do), ("out", out)],
                       f32_rows=[("lse", lse), ("delta", delta)],
                       f32_full=[("dq", dq)])
     _launch("ring_bwd_dq", _library().ldt_ring_fold_bwd_dq, q, k, v, mask,
-            lse, delta, do, dq, b, h, positions, sb, q.shape[-1], shift)
+            lse, delta, do, dq, out, b, h, positions, sb, q.shape[-1], shift,
+            steps)
 
 
 def ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, dk, dv,

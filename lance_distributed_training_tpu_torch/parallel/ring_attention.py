@@ -14,8 +14,9 @@ Two transports carry the blocks:
   one process. At ring step ``t`` query block ``i`` folds key block
   ``(i - t) mod size``, the order that ``ppermute`` with
   ``perm (i -> i+1)`` gives; the rotation is an index shift, not a copy,
-  and one launch of the forward (and of dK/dV) folds all ``size`` steps
-  with its running statistics on chip.
+  and one launch of the forward (and of dQ, and of dK/dV) folds all
+  ``size`` steps with its running statistics (or gradient totals) on
+  chip.
 * :class:`ProcessRing` — one position per process, over a
   ``torch.distributed`` group: each step posts the next block's transfer
   (``batch_isend_irecv``, one hop) before the step's fold and waits after
@@ -24,7 +25,8 @@ Two transports carry the blocks:
 The backward (:class:`_RingAttention`) turns the ring again: dQ accumulates
 at home, and each block's dK/dV partials travel with it and arrive home
 after ``size`` hops (the transpose of ``ppermute`` is the reverse hop); in
-one process the dK/dV launch adds them up in the same ring-step order.
+one process the dQ and dK/dV launches add them up in the same ring-step
+order.
 Both transports sum every gradient in the same order, so on the CPU they
 agree bit for bit.
 """
@@ -58,7 +60,7 @@ class InProcessRing:
             raise ValueError(f"ring size must be >= 1, got {size}")
         self.size = size
         self.positions = size
-        self.fold_steps = size  # ring steps one forward or dK/dV launch folds
+        self.fold_steps = size  # ring steps one launch of a kernel folds
 
     def shift(self, step: int) -> int:
         return step
@@ -118,9 +120,9 @@ class _RingAttention(torch.autograd.Function):
     """Forward: K5 ``ring_fwd`` over the ring, ``ring.fold_steps`` steps a
     launch, the last launch writing the output; keeps q, k, v, the mask,
     the output and the per-row LSE. Backward: ``delta = rowsum(dO * O)`` as
-    a plain op, then ``ring_bwd_dq`` each step and ``ring_bwd_dkv``
+    a plain op, then ``ring_bwd_dq`` and ``ring_bwd_dkv``
     ``ring.fold_steps`` steps a launch. When one launch folds the whole
-    ring, the running statistics and the dK/dV totals never leave the
+    ring, the running statistics and the gradient totals never leave the
     kernels."""
 
     @staticmethod
@@ -155,21 +157,22 @@ class _RingAttention(torch.autograd.Function):
         ring = ctx.ring
         do = do.contiguous()
         delta = (do.float() * out.float()).sum(-1)
-        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         if ring.fold_steps == ring.size:
-            dk = dv = None
+            dq = dk = dv = None
+            dq_out = torch.empty_like(q)
             grads = (torch.empty_like(k), torch.empty_like(v))
         else:
+            dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
             dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
             dv = torch.zeros_like(dk)
-            grads = None
+            dq_out = grads = None
         blocks = (k, v, mask)
         for step in range(0, ring.size, ring.fold_steps):
             last = step + ring.fold_steps == ring.size
             pending = None if last else ring.pass_on(blocks)
-            for t in range(step, step + ring.fold_steps):
-                ring_fold_bwd_dq(q, *blocks, lse, delta, do, dq,
-                                 ring.positions, ring.shift(t))
+            ring_fold_bwd_dq(q, *blocks, lse, delta, do, dq, ring.positions,
+                             ring.shift(step), steps=ring.fold_steps,
+                             out=dq_out)
             ring_fold_bwd_dkv(q, *blocks, lse, delta, do, dk, dv,
                               ring.positions, ring.shift(step),
                               steps=ring.fold_steps, out=grads)
@@ -181,8 +184,9 @@ class _RingAttention(torch.autograd.Function):
             if pending is not None:
                 blocks = ring.receive(blocks, pending)
         if grads is None:
+            dq_out = dq.to(q.dtype)
             grads = (dk.to(k.dtype), dv.to(v.dtype))
-        return dq.to(q.dtype), *grads, None, None
+        return dq_out, *grads, None, None
 
 
 def ring_attention(q, k, v, mask=None, ring=None) -> torch.Tensor:

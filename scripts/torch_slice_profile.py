@@ -28,7 +28,9 @@ It warms up and traces a few steps with ``torch.profiler``. Prints one JSON
 line: the step time between CUDA events (no profiler), then, from a
 profiled run of the same steps, the kernel time per step split by kind
 (the port's kernels, convolutions, BatchNorm, matrix products, the rest),
-the device's idle share over the traced window, and the top kernels. Run
+the device's idle share over the traced window, and the top kernels; with
+``--seq_parallelism``, also the milliseconds a step of the ring backward's
+plain ``delta = rowsum(dO * O)``, timed alone between CUDA events. Run
 from the root of a checkout on a machine with a card:
 
     python3 scripts/torch_slice_profile.py [--seq_parallelism 4]
@@ -100,7 +102,7 @@ def _causal_corpus(path: str, rows: int) -> None:
 
 def _kind(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                   "image_normalize", "jpeg_idct", "jpeg_color_resize",
+                   "image_normalize", "jpeg_decode",
                    "token_pack", "token_unpack", "ring_fold_fwd",
                    "ring_fold_bwd_dq", "ring_fold_bwd_dkv"):
         if kernel + "_kernel" in name:
@@ -115,6 +117,26 @@ def _kind(name: str) -> str:
         # vocab head, which runs in f32 without TF32.
         return "matmul_f32" if "f32f32" in low or "sgemm" in low else "matmul"
     return "other"
+
+
+def _ring_delta_ms(batch_size: int, dev) -> float:
+    """The ring backward's plain ``delta = rowsum(dO * O)``
+    (``parallel/ring_attention.py``), as it runs once a layer on bf16
+    ``[B, 12, 512, 64]``: the median between CUDA events over 20 calls,
+    times BERT-base's 12 layers."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    do, out = (torch.randn((batch_size, 12, SEQ, 64), generator=gen,
+                           device=dev).to(torch.bfloat16) for _ in range(2))
+    times = []
+    for i in range(23):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        (do.float() * out.float()).sum(-1)
+        end.record()
+        end.synchronize()
+        if i >= 3:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times)) * 12
 
 
 def main(argv=None) -> int:
@@ -296,6 +318,8 @@ def main(argv=None) -> int:
         "device": torch.cuda.get_device_name(0),
         "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
+    if args.seq_parallelism > 1:
+        result["ring_delta_ms_per_step"] = _ring_delta_ms(batch_size, dev)
     print(json.dumps(result), flush=True)
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -21,8 +21,10 @@ every process into one shared temp file, which concurrent workers break).
 """
 
 import io
+import re
 import subprocess
 import types
+from pathlib import Path
 
 import numpy as np
 import pyarrow as pa
@@ -471,6 +473,80 @@ def test_plain_k2_matches_jax_on_extracted_pages(jx, corpus):
                                       _jax_decode(jx, pages, size))
 
 
+def test_kernel_basis_table_is_the_idct_basis():
+    """The CUDA source holds the IDCT basis as a constant table (the
+    kernel cannot be compiled here): it must be IDCT_BASIS_FIX, row for
+    row."""
+    source = (Path(jpeg_device.__file__).parent / "csrc" /
+              "jpeg_decode.cu").read_text()
+    table = re.search(r"kBasis\[64\] = \{([^}]*)\}", source).group(1)
+    values = [int(x) for x in table.replace("\n", " ").split(",") if x.strip()]
+    np.testing.assert_array_equal(np.array(values).reshape(8, 8),
+                                  jpeg_device.IDCT_BASIS_FIX)
+
+
+def test_even_odd_idct_sums_give_the_plain_bits():
+    """The kernel's IDCT sums the basis's even and odd terms apart in each
+    pass (B[7 - x][u] = (-1)^u B[x][u]), half the products of the matrix
+    form. In wrapping 32-bit arithmetic those are the same sums, so the
+    bits match the plain version, int32 wrap-around included; written out
+    here in numpy as the kernel orders it."""
+    rng = np.random.default_rng(7)
+    n, mask = 256, 0xFFFFFFFF
+    coef = rng.integers(-32768, 32768, (n, 1, 1, 64)).astype(np.int16)
+    quant = rng.integers(1, 65536, (n, 64)).astype(np.int32)
+    want = jpeg_device._idct_plane(torch.from_numpy(coef),
+                                   torch.from_numpy(quant)).numpy()
+    basis = jpeg_device.IDCT_BASIS_FIX.astype(np.int64)
+    assert (basis[::-1] == basis * (-1) ** np.arange(8)).all()
+
+    def descale(x):  # (x + 1024) >> 11 on int32, from uint32 bits
+        x = (x + 1024) & mask
+        return np.where(x >= 2 ** 31, x - 2 ** 32, x) >> 11
+
+    c = (coef.reshape(n, 8, 8).astype(np.int64)
+         * quant.reshape(n, 8, 8).astype(np.int64)) & mask  # [n, u, v]
+    s1 = np.zeros((n, 8, 8), np.int64)  # [n, u, y]
+    for y in range(4):
+        even = (c[:, :, 0::2] * basis[y, 0::2]).sum(-1) & mask
+        odd = (c[:, :, 1::2] * basis[y, 1::2]).sum(-1) & mask
+        s1[:, :, y], s1[:, :, 7 - y] = descale(even + odd), descale(even - odd)
+    s1 &= mask
+    got = np.zeros((n, 8, 8), np.int64)  # [n, x, y]
+    for x in range(4):
+        even = (basis[x, 0::2, None] * s1[:, 0::2, :]).sum(1) & mask
+        odd = (basis[x, 1::2, None] * s1[:, 1::2, :]).sum(1) & mask
+        for row, total in ((x, even + odd), (7 - x, even - odd)):
+            got[:, row] = np.clip(descale(total) + 128, 0, 255)
+    np.testing.assert_array_equal(got, want.reshape(n, 8, 8))
+
+
+def _wide_pages(seed, ybh, ybw):
+    """Four images' random pages on a grid wide enough for the kernel to
+    hold only the block columns a tile samples (and, at large sizes, to
+    split the output into column tiles): real widths of the whole grid,
+    of all but 5 pixels, of 33 pixels, and past 2^15, whose wrapped ratio
+    samples backwards."""
+    pages = _random_pages(seed, 4, ybh, ybw)
+    pages["jpeg_geom"][:, 0] = [ybw * 8, ybw * 8 - 5, 33, 40000]
+    return pages
+
+
+@pytest.mark.parametrize("grid,size", [
+    ((1, 900), 16),   # wider than a whole block row of shared memory
+    ((2, 300), 24),
+    ((1, 130), 40),
+    ((3, 64), 8),
+    ((1, 1100), 1),
+    ((1, 600), 32),
+    ((2, 257), 33),
+])
+def test_plain_k2_matches_jax_on_wide_grids(jx, grid, size):
+    pages = _wide_pages(grid[1], *grid)
+    np.testing.assert_array_equal(_port_decode(pages, size),
+                                  _jax_decode(jx, pages, size))
+
+
 def test_k2_rejects_other_devices_and_counts_no_cpu_launch():
     pages = _random_pages(3, 2, 2, 2)
     args = [torch.from_numpy(pages[k]) for k in PAGE_KEYS]
@@ -589,16 +665,35 @@ def _on(pages, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["path", "ragged", "wrap"])
-@pytest.mark.parametrize("size", [224, 32])
-def test_kernel_matches_plain_on_card(cuda_device, case, size):
+@pytest.mark.parametrize("case", ["path", "ragged", "wrap", "grid_64",
+                                  "extracted", "wide"])
+@pytest.mark.parametrize("size", [224, 32, 40])
+def test_kernel_matches_plain_on_card(cuda_device, corpus, case, size):
+    """The fused kernel against the plain version, bit for bit, at the
+    path's grid, ragged grids, int32 wrap-around, a 64 x 64 block grid
+    (512-pixel images, the size of real photographs, scaled down), a grid
+    1000 blocks wide (8000-pixel panoramas) and the
+    extractor's pages of the corpus's odd, grayscale, progressive and
+    re-encoded files."""
     if case == "path":
         pages = _random_pages(0, 64, 28, 28)
     elif case == "ragged":
         pages = _random_pages(1, 7, 5, 3)
+    elif case == "grid_64":
+        pages = _random_pages(4, 6, 64, 64)
+        pages["jpeg_geom"][2:, :2] = [[512, 512], [500, 317], [33, 511],
+                                      [512, 1]]
+    elif case == "wide":
+        pages = _wide_pages(6, 2, 1000)
+    elif case == "extracted":
+        payloads = [corpus[c] for c in CASES]
+        pages = dict(zip(PAGE_KEYS, _extract(
+            coeffs, payloads, _grid(coeffs.batch_probe_jpeg(
+                coeffs.payload_pointers(payloads))[0]))[1]))
     else:
         pages = _random_pages(2, 5, 4, 4, big=True)
         pages["jpeg_geom"][2, :2] = [4 * 8 + 37, 40000]
+        pages["jpeg_geom"][3, :2] = [65535, 1]
     args = _on(pages, cuda_device)
     before = ops.LAUNCHES["jpeg_decode"]
     got = jpeg_device.decode_coeff_batch(*args, out_size=size)
@@ -612,6 +707,21 @@ def test_kernel_matches_plain_on_card(cuda_device, case, size):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ybw,size", [(1024, 512), (2000, 300)])
+def test_kernel_matches_plain_on_card_in_column_tiles(cuda_device, ybw,
+                                                      size):
+    """Grids so wide at these sizes that a tile of the whole output row
+    does not fit shared memory: the kernel splits each band into column
+    tiles (at 300 pixels, tiles whose rows are not 16-byte multiples)."""
+    pages = _wide_pages(ybw, 2, ybw)
+    args = _on(pages, cuda_device)
+    got = jpeg_device.decode_coeff_batch(*args, out_size=size)
+    want = jpeg_device.decode_coeff_batch_reference(*args, out_size=size)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     args = _on(_random_pages(3, 2, 2, 2), cuda_device)
     with pytest.raises(TypeError):
@@ -621,3 +731,13 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
                                        *args[3:])
     with pytest.raises(ValueError, match="quant"):
         jpeg_device.decode_coeff_batch(*args[:3], args[3][:, :2], args[4])
+    widest = jpeg_device._library().ldt_jpeg_widest_grid(224)
+    assert widest > 8192  # JPEG's own limit: 65535 pixels
+    wide = [t[:1] for t in _on(_random_pages(3, 2, 1, 1), cuda_device)]
+    wide[0] = torch.zeros((1, 1, widest + 1, 64), dtype=torch.int16,
+                          device=cuda_device)
+    wide[1] = wide[2] = torch.zeros((1, 1, (widest + 2) // 2, 64),
+                                    dtype=torch.int16, device=cuda_device)
+    with pytest.raises(ValueError, match=f"the widest 4:2:0 grid that does "
+                                         f"is {widest} blocks"):
+        jpeg_device.decode_coeff_batch(*wide)

@@ -282,8 +282,8 @@ def _bf16_case(seed, sp, sb=8):
 @pytest.mark.parametrize("sp", [1, 2, 4])
 def test_plain_fold_over_steps_equals_one_step_folds(sp):
     """A fold of ``steps = sp`` ring steps gives the bits of ``sp``
-    one-step folds, from fresh carries (forward with ``out``; dK/dV into
-    ``out`` from zero totals) and from carries in memory."""
+    one-step folds, from fresh carries (forward with ``out``; dQ and dK/dV
+    into ``out`` from zero totals) and from carries in memory."""
     q, k, v, do, mask = _bf16_case(40 + sp, sp)
     b, h, s, d = q.shape
 
@@ -320,6 +320,17 @@ def test_plain_fold_over_steps_equals_one_step_folds(sp):
     ra.ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, dk3, dv3, sp, 0,
                          steps=sp)
     assert torch.equal(dk1, dk3) and torch.equal(dv1, dv3)
+
+    dq1 = torch.zeros((b, h, s, d))
+    for t in range(sp):
+        ra.ring_fold_bwd_dq(q, k, v, mask, lse, delta, do, dq1, sp, t)
+    dq_out = torch.empty_like(q)
+    ra.ring_fold_bwd_dq(q, k, v, mask, lse, delta, do, None, sp, 0,
+                        steps=sp, out=dq_out)
+    assert torch.equal(dq_out, dq1.to(q.dtype))
+    dq3 = torch.zeros((b, h, s, d))
+    ra.ring_fold_bwd_dq(q, k, v, mask, lse, delta, do, dq3, sp, 0, steps=sp)
+    assert torch.equal(dq1, dq3)
 
 
 class _LoopbackRing(ProcessRing):
@@ -358,9 +369,9 @@ def _count_folds(monkeypatch):
 @pytest.mark.parametrize("sp", [1, 2, 4])
 def test_each_transport_launches_its_folds(
         monkeypatch, transport, sp):
-    """The in-process ring calls the forward and dK/dV wrappers once an
-    attention call with ``steps = sp`` and dQ ``sp`` times; a process ring
-    calls each ``sp`` times with ``steps = 1``."""
+    """The in-process ring calls each of the forward, dQ and dK/dV wrappers
+    once an attention call with ``steps = sp``; a process ring calls each
+    ``sp`` times with ``steps = 1``."""
     calls = _count_folds(monkeypatch)
     ring = InProcessRing(sp) if transport == "in_process" else \
         _LoopbackRing(sp)
@@ -372,7 +383,7 @@ def test_each_transport_launches_its_folds(
     fused = transport == "in_process"
     assert calls["ring_fwd"] == ([sp] if fused else [1] * sp)
     assert calls["ring_bwd_dkv"] == ([sp] if fused else [1] * sp)
-    assert calls["ring_bwd_dq"] == [1] * sp
+    assert calls["ring_bwd_dq"] == ([sp] if fused else [1] * sp)
     assert all(torch.isfinite(t.grad).all() for t in ts)
 
 
@@ -395,6 +406,24 @@ def test_kernel_wrappers_reject_steps_outside_the_ring(steps, shift, match):
         ra.ring_fold_bwd_dkv(q, k, v, mask, m, l, do, None, None, 4, shift,
                              steps=steps,
                              out=(torch.empty_like(k), torch.empty_like(v)))
+    with pytest.raises(ValueError, match=match):
+        ra.ring_fold_bwd_dq(q, k, v, mask, m, l, do, None, 4, shift,
+                            steps=steps, out=torch.empty_like(q))
+
+
+@pytest.mark.parametrize("kernel", ["ring_bwd_dq", "ring_bwd_dkv"])
+def test_kernel_wrappers_reject_no_totals_and_no_out(kernel):
+    """A backward launch writes its totals somewhere: f32 totals in memory,
+    ``out``, or both; given neither, the wrapper raises."""
+    q, k, v, do, mask = _bf16_case(61, 2)
+    b, h, s, d = q.shape
+    lse, delta = torch.zeros((b, h, s)), torch.zeros((b, h, s))
+    with pytest.raises(ValueError, match=f"{kernel}: give"):
+        if kernel == "ring_bwd_dq":
+            ra.ring_fold_bwd_dq(q, k, v, mask, lse, delta, do, None, 2, 0)
+        else:
+            ra.ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, None, None,
+                                 2, 0)
 
 
 # ------------------------------------------------ the process ring over gloo
@@ -621,8 +650,8 @@ def test_fused_launch_equals_one_step_launches_on_card(cuda_device, shape,
                                                        sp):
     """One launch over ``sp`` ring steps gives the bits of ``sp`` one-step
     launches of the same kernel: the forward from fresh carries and from
-    carries in memory, dK/dV into bf16 from zero totals and into f32
-    totals; rows with no valid key come out 0 with zero dK and dV."""
+    carries in memory, dQ and dK/dV into bf16 from zero totals and into f32
+    totals; rows with no valid key come out 0 with zero dQ, dK and dV."""
     q, k, v, do, mask = _card_case(cuda_device, shape, sum(shape) + sp)
     b, h, s, d = q.shape
     kw = dict(device=cuda_device)
@@ -652,14 +681,23 @@ def test_fused_launch_equals_one_step_launches_on_card(cuda_device, shape,
     dk3, dv3 = torch.zeros((b, h, s, d), **kw), torch.zeros((b, h, s, d), **kw)
     ra.ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, dk3, dv3, sp, 0,
                          steps=sp)
+    dq1 = torch.zeros((b, h, s, d), **kw)
+    for t in range(sp):
+        ra.ring_fold_bwd_dq(q, k, v, mask, lse, delta, do, dq1, sp, t)
+    dq_out = torch.empty_like(q)
+    ra.ring_fold_bwd_dq(q, k, v, mask, lse, delta, do, None, sp, 0,
+                        steps=sp, out=dq_out)
+    dq3 = torch.zeros((b, h, s, d), **kw)
+    ra.ring_fold_bwd_dq(q, k, v, mask, lse, delta, do, dq3, sp, 0, steps=sp)
     torch.cuda.synchronize()
     assert torch.equal(out1, out2) and torch.equal(m1, m2)
     assert torch.equal(l1, l2)
     for one, fused in ((m1, m3), (l1, l3), (acc1, acc3), (dk1, dk3),
-                       (dv1, dv3)):
+                       (dv1, dv3), (dq1, dq3)):
         assert torch.equal(one, fused)
     assert torch.equal(grads[0], dk1.to(k.dtype))
     assert torch.equal(grads[1], dv1.to(v.dtype))
+    assert torch.equal(dq_out, dq1.to(q.dtype))
     empty = ~mask.bool().any(1)
-    assert (out2[empty] == 0).all()
+    assert (out2[empty] == 0).all() and (dq_out[empty] == 0).all()
     assert (grads[0][empty] == 0).all() and (grads[1][empty] == 0).all()
