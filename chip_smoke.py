@@ -14,7 +14,7 @@ Phases, each printing one JSON line:
              g++ alone), all at once, and prints the build times and, from
              the ``-Xptxas -v`` reports, registers, spills and shared memory
              of all six flash kernel builds (three kernels, head dims 64 and
-             128), of K1, of K2, of K3's two kernels and of K5's
+             128), of K1's two routes, of K2, of K3's two kernels and of K5's
              three; fails on any spill of any of the three flash kernels at
              head dim 64, of K1, K2, K3 or K5, and when the extractor does
              not build.
@@ -37,11 +37,13 @@ Phases, each printing one JSON line:
              token dataset, after checking flash attention against the dense
              attention path on a small model.
 5. image_kernels — K1 (``ops/csrc/image.cu``) against its plain PyTorch
-             version on the card, bit for bit, at [512, 224, 224, 3] and at
-             ragged shapes, with and without a flip mask; times it (CUDA
-             events around 20 launches back to back, median of 5) beside the
-             plain version and a device-to-device copy of the same bytes;
-             the bound takes the card's published memory rate.
+             version on the card, bit for bit, on every uint8 value, at
+             [512, 224, 224, 3] and at other shapes of both routes (W = 16,
+             17, 48, 224, 2048, 4096 and 8192, batches 1 byte off 16-byte
+             alignment), with no, a random and an all-set flip mask; times
+             it (CUDA events around 20 launches back to back, median of 5)
+             beside the plain version and a device-to-device copy of the
+             same bytes; the bound takes the card's published memory rate.
 6. jpeg_kernels — K2 (``ops/csrc/jpeg_decode.cu``) against its plain
              PyTorch version on the card, bit for bit: at the path's shape
              (pages ``int16 [512, 28, 28, 64]`` and ``[512, 14, 14, 64]``
@@ -78,12 +80,16 @@ Phases, each printing one JSON line:
              corpus, pack_len 1024), at ragged cases (empty sequences, one
              sequence, sequences truncated at pack_len, a values tail past
              offsets[n], padding rows from rows_multiple, bucket mode), on
-             a repeat launch, and the round trip unpack(pack(x)) == x;
-             times both beside the plain versions: device time, CUDA
-             events around 20 launches queued behind a spin of the card
-             (median of 5; the host takes longer per launch than the
-             card), and back to back as a caller meets them; the bound is
-             their bytes over 3.35 TB/s.
+             a repeat launch, and the round trip unpack(pack(x)) == x; and
+             plans made by hand (600 sequences, runs across a row's end,
+             destinations below, past and partly past the grid, a nonzero
+             offsets[0]); times both beside the plain versions: device
+             time, CUDA events around 20 launches queued behind a spin of
+             the card (median of 5; the host takes longer per launch than
+             the card), with the host's queueing time a call, and back to
+             back as a caller meets them, beside the launch floor (an
+             empty launch timed the same way); the bound is their bytes
+             over 3.35 TB/s.
 10. causal_lm — trains GPT-2 124M's shape (``gpt_base``: 768/12/12/3072,
              vocab 50257, context 1024) for 20 steps through ``cli train
              --task_type causal_lm --token_pack --flash_attention`` (64
@@ -125,8 +131,9 @@ Phases, each printing one JSON line:
              and prints the step beside the slice phase's flash step,
              tokens/s and peak memory.
 
-Every check that fails raises, so the script exits non-zero. The last three
-lines are the card's ``nvidia-smi`` name and power limit, the kernel table
+Every check that fails raises, so the script exits non-zero. After the
+phases a ``done`` line gives the seconds since the script's ``main`` began
+(the phases run, the kernels built). The last three lines are the card's ``nvidia-smi`` name and power limit, the kernel table
 as JSON (the three flash kernels, K1 and K2, each with its launches on its
 path; K3's pack and unpack with their launches on the causal-LM path; K5's
 three kernels with theirs on the seq-parallel path), and
@@ -161,6 +168,10 @@ IMAGE_SOURCE = "lance_distributed_training_tpu_torch/ops/csrc/image.cu"
 IMAGE_REPLACES = "lance_distributed_training_tpu/ops/image.py:24,37"
 IMAGE_SHAPE = (512, 224, 224, 3)  # B, H, W, C of the classification path
 IMAGE_OPS = 3  # f32 operations a K1 element takes: divide, subtract, divide
+IMAGE_CASES = (IMAGE_SHAPE, (1, 224, 224, 3), (3, 5, 16, 3), (1, 33, 17, 3),
+               (3, 33, 17, 3), (2, 7, 48, 3), (2, 3, 2048, 3),
+               (1, 3, 4096, 3), (1, 2, 8192, 3))
+IMAGE_UNALIGNED_CASES = ((4, 224, 224, 3), (2, 9, 16, 3))
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 # 32-bit integer operations (a multiply-add counts 2): 132 SMs x 64 INT32
 # lanes x 2 at the 1.98 GHz boost clock, half the f32 rate's 128 lanes (the
@@ -255,7 +266,8 @@ def time_queued_ms(fn, launches: int = 20, reps: int = 5,
     CUDA events; the median over ``reps``. A rep whose queueing outlasted
     the spin (the card waited on the host) is run again with a spin twice
     as long. Also returns the host's longest queueing time and the
-    shortest spin."""
+    shortest spin; ``host_queue_ms_per_call`` is that longest queueing
+    time over ``launches``."""
     import torch
 
     for _ in range(warmup):
@@ -288,6 +300,7 @@ def time_queued_ms(fn, launches: int = 20, reps: int = 5,
         spin.append(spun)
         times.append(start.elapsed_time(end) / launches)
     return {"ms": statistics.median(times), "host_queue_ms": max(host),
+            "host_queue_ms_per_call": max(host) / launches,
             "spin_ms": min(spin)}
 
 
@@ -385,7 +398,7 @@ def build() -> dict:
             KERNEL_IDS[row["kernel"]], row["head_dim"])
     image_report = _build.build_report("image")
     image_rows = _ptxas_kernels(image_report["ptxas"],
-                                r"(image_normalize)_kernel")
+                                r"image_normalize_(rows|groups)_kernel")
     jpeg_report = _build.build_report("jpeg_decode")
     jpeg_rows = _ptxas_kernels(jpeg_report["ptxas"],
                                r"(jpeg_decode)_kernel")
@@ -413,9 +426,10 @@ def build() -> dict:
     spills = [r for r in kernels if r["head_dim"] == 64 and _spilled(r)]
     if spills:
         raise RuntimeError(f"ptxas spills at head dim 64: {spills}")
-    if len(image_rows) != 1 or "registers" not in image_rows[0]:
+    if (sorted(r["kernel"] for r in image_rows) != ["groups", "rows"]
+            or not all("registers" in r for r in image_rows)):
         raise RuntimeError(f"ptxas report of image.cu: {image_rows}")
-    if _spilled(image_rows[0]):
+    if any(_spilled(r) for r in image_rows):
         raise RuntimeError(f"ptxas spills in K1: {image_rows}")
     if ([r["kernel"] for r in jpeg_rows] != ["jpeg_decode"]
             or not all("registers" in r for r in jpeg_rows)):
@@ -434,7 +448,7 @@ def build() -> dict:
         raise RuntimeError(f"ptxas report of ring_attn.cu: {ring_rows}")
     if any(_spilled(r) for r in ring_rows):
         raise RuntimeError(f"ptxas spills in K5: {ring_rows}")
-    return {"image_ptxas": image_rows[0], "jpeg_ptxas": jpeg_rows,
+    return {"image_ptxas": image_rows, "jpeg_ptxas": jpeg_rows,
             "token_ptxas": token_rows, "ring_ptxas": ring_rows}
 
 
@@ -734,16 +748,26 @@ def image_kernels() -> dict:
         out = image.normalize_images_reference(x)
         return out if mask is None else image.random_flip_reference(out, mask)
 
-    # Every uint8 value in every channel, then the path's shape and ragged
-    # ones, each with no mask, a random mask and an all-set mask.
+    # Every uint8 value in every channel, then the path's shape and others:
+    # W = 16, 48 and 224 (rows route), W = 17 (groups route, bytes), rows
+    # that do not fill the last chunk (H = 7), rows too wide for a full
+    # chunk (W = 2048: one row a chunk) or for any (W = 4096 and 8192:
+    # groups route, 16-byte vectors), and batches sliced off a larger
+    # buffer 1 byte in, so not 16-byte aligned (groups route, bytes); each
+    # with no mask, a random mask and an all-set mask.
     every = torch.arange(256, dtype=torch.uint8, device=dev)
     every = every.repeat_interleave(3).reshape(1, 16, 16, 3)
     cases = [("every_value", every)]
-    for shape in (IMAGE_SHAPE, (1, 224, 224, 3), (1, 33, 17, 3),
-                  (3, 33, 17, 3), (2, 7, 48, 3)):
+    for shape in IMAGE_CASES:
         x = torch.randint(0, 256, shape, generator=gen, device=dev,
                           dtype=torch.uint8)
         cases.append(("x".join(map(str, shape)), x))
+    for shape in IMAGE_UNALIGNED_CASES:
+        flat = torch.randint(0, 256, (1 + int(np.prod(shape)),), generator=gen,
+                             device=dev, dtype=torch.uint8)
+        x = flat[1:].view(shape)
+        assert x.data_ptr() % 16 != 0
+        cases.append(("unaligned_" + "x".join(map(str, shape)), x))
     checked = []
     for label, x in cases:
         b = x.shape[0]
@@ -1113,8 +1137,8 @@ def _corpus_segment_ids(pack_len: int):
 
 
 def _token_cases() -> list:
-    """``(label, decoded batch, values tail)`` for K3's checks: the path's
-    batch and ragged ones."""
+    """``(label, decoded batch, values tail, made by hand)`` for K3's
+    checks: the path's batch, ragged ones and ``_hand_plans``."""
     rng = np.random.default_rng(7)
 
     def docs(lengths):
@@ -1137,7 +1161,41 @@ def _token_cases() -> list:
     # must leave it alone.
     cases.append(("values_tail", path, rng.integers(
         2, GPT_VOCAB, 4096, dtype=np.int32)))
-    return cases
+    # More sequences than the pack's plan chunk (256) takes at once.
+    cases.append(("many_sequences", _decode_tokens(
+        docs(rng.integers(0, 6, 600)), 64, rows_multiple=1), None))
+    return [case + (False,) for case in cases] + [
+        (label, plan, None, True) for label, plan in _hand_plans(rng).items()]
+
+
+def _hand_plans(rng) -> dict:
+    """Plans no planner makes, as ragged batches: runs that cross a row's
+    end, and destinations below 0 (counted from the grid's end), partly
+    below the grid, past it and partly past it, and sequences before a
+    nonzero offsets[0]."""
+
+    def batch(lengths, slot, start, rows, pack_len, first=0):
+        offsets = np.concatenate([[first], first + np.cumsum(lengths)])
+        return {"input_ids__values": rng.integers(
+                    2, GPT_VOCAB, int(offsets[-1]) + 5, dtype=np.int32),
+                "input_ids__offsets": offsets.astype(np.int32),
+                "_pack_slot": np.asarray(slot, np.int32),
+                "_pack_start": np.asarray(start, np.int32),
+                "_host_pack_meta": np.asarray([rows, pack_len])}
+
+    return {
+        # 4 x 64 cells: [50, 80), [138, 202), [210, 250), truncated at 64.
+        "row_crossing": batch([30, 100, 40], [0, 2, 3], [50, 10, 18], 4, 64),
+        # 4 x 32 = 128 cells: slot -1 wraps to cells [99, 119); slot -5
+        # start 8 starts 24 cells below the grid's -128, so only its last 8
+        # tokens wrap in, to [0, 8); slot 4 is past the grid; slot 3 start
+        # 24 runs 12 cells past it.
+        "negative_and_past_grid": batch(
+            [20, 40, 10, 20, 12], [-1, -5, 4, 3, 1], [3, 8, 0, 24, 0], 4, 32),
+        # offsets[0] = 6: positions 0-5 fall to sequence 0 with k < 0.
+        "nonzero_first_offset": batch([10, 0, 7], [1, 0, 2], [7, 0, 30], 3,
+                                      64, first=6),
+    }
 
 
 def token_kernels() -> dict:
@@ -1148,7 +1206,7 @@ def token_kernels() -> dict:
 
     dev = torch.device("cuda")
     checked = []
-    for label, batch, tail in _token_cases():
+    for label, batch, tail, hand in _token_cases():
         (values, offsets, slot, start), rows, pack_len = _pack_args(batch,
                                                                     dev)
         if tail is not None:
@@ -1168,7 +1226,9 @@ def token_kernels() -> dict:
                                            capacity=cap)
         # The round trip returns every live token (where the unpacked
         # segment ids are nonzero) and zero elsewhere: the page itself
-        # where nothing was truncated and the tail is zero.
+        # where nothing was truncated and the tail is zero. Hand-made plans
+        # drop tokens past the grid, which the unpack cannot tell: for them
+        # only the bits of each direction are checked.
         live = td.unpack_token_batch_reference(want[1], offsets, slot, start,
                                                capacity=cap) != 0
         expected = torch.where(live, values, torch.zeros_like(values))
@@ -1184,8 +1244,8 @@ def token_kernels() -> dict:
                 torch.equal(g, a) for g, a in zip(got, again)),
             "unpack_bit_identical": torch.equal(back, back_want),
             "unpack_bit_identical_on_repeat": torch.equal(back, back_again),
-            "round_trip_exact": exact,
-            "round_trip_ok": torch.equal(back, expected) and (
+            "round_trip_exact": exact and not hand,
+            "round_trip_ok": hand or torch.equal(back, expected) and (
                 not exact or torch.equal(back, values)),
         }
         checked.append(row)
@@ -1226,7 +1286,9 @@ def token_kernels() -> dict:
     queued = {"token_pack": time_queued_ms(pack),
               "token_unpack": time_queued_ms(unpack),
               "token_pack_plain": time_queued_ms(pack_plain),
-              "token_unpack_plain": time_queued_ms(unpack_plain)}
+              "token_unpack_plain": time_queued_ms(unpack_plain),
+              # The least time any launch takes: an empty one, the same way.
+              "launch_floor": time_queued_ms(lambda: torch.cuda._sleep(1))}
     ms = {k: queued[k]["ms"] for k in ("token_pack", "token_unpack")}
     plain_ms = {k: queued[k + "_plain"]["ms"] for k in ms}
     back_to_back = {"token_pack": time_back_to_back_ms(pack),
@@ -1246,6 +1308,9 @@ def token_kernels() -> dict:
         bound = 1e3 * moved[name] / PEAK_BYTES
         table[name] = {"ms": ms[name], "plain_ms": plain_ms[name],
                        "ms_back_to_back": back_to_back[name],
+                       "launch_floor_ms": queued["launch_floor"]["ms"],
+                       "host_queue_ms_per_call":
+                           queued[name]["host_queue_ms_per_call"],
                        "library_ms": None, "bytes": moved[name],
                        "bound_ms": bound, "bound_by": "bytes",
                        "share_of_bound": bound / ms[name]}
@@ -1760,6 +1825,7 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of " + ",".join(PHASES))
     phases = parser.parse_args(argv).phases.split(",")
+    t0 = time.monotonic()
     import torch
 
     if not torch.cuda.is_available():
@@ -1787,6 +1853,7 @@ def main(argv=None) -> int:
     if "ring_lm" in phases:
         ring = ring_lm_run(sliced["step_ms"] if sliced else None)
         launches = {**(launches or {}), **ring["launches"]}
+    emit("done", phases=phases, seconds=time.monotonic() - t0)
     if set(phases) != set(PHASES):
         return 0  # a partial run prints no result
     print(card["smi"], flush=True)
@@ -1802,7 +1869,9 @@ def main(argv=None) -> int:
         "max_abs_err": 0.0, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None, "share_of_bound": k1["share_of_bound"],
-        "registers": ptxas["image_ptxas"]["registers"],
+        "copy_ms": k1["copy_ms"],
+        "registers": {r["kernel"]: r["registers"]
+                      for r in ptxas["image_ptxas"]},
     })
     table.append({
         "name": "jpeg_decode", "route": "cuda", "source": JPEG_SOURCE,
@@ -1823,6 +1892,7 @@ def main(argv=None) -> int:
             "max_abs_err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "share_of_bound": row["share_of_bound"],
+            "launch_floor_ms": row["launch_floor_ms"],
             "registers": {r["kernel"]: r["registers"]
                           for r in ptxas["token_ptxas"]}[name],
         })

@@ -17,29 +17,43 @@
 // 0 and never fall (what the decoder emits) that is: sequence i owns
 // p in [offsets[i], offsets[i] + min(len_i, L)), clipped to the page, and an
 // empty sequence owns nothing; positions before a nonzero offsets[0] fall to
-// sequence 0 with k < 0. So the pack needs no search: one block per
-// sequence, its threads striding over the positions it owns. A negative
-// destination counts from the end of the grid and one past it is dropped,
-// as JAX's scatter with mode="drop" treats them. Offsets that fall are not
-// taken (the search JAX makes over them has no meaning either). The
-// planner's runs are disjoint, so no cell is written twice and the result
-// does not depend on the order of the blocks. The unpack is one thread per
-// flat position with the same search as JAX (an upper bound over the
-// offsets).
+// sequence 0 with k < 0. So each sequence's positions are one range, and
+// their destinations slot_i * L + start_i + k one flat run, which may cross
+// a row's end. A negative destination counts from the end of the grid and
+// one still outside [0, rows * L) is dropped, as JAX's scatter with
+// mode="drop" treats them, so a run is at most two pieces of the grid: the
+// part below 0 (moved up by rows * L) and the part inside. Offsets that
+// fall are not taken (the search JAX makes over them has no meaning
+// either).
+//
+// Pack design: one launch, no memset. Each CTA owns a tile of kPackTile
+// cells, kPackCells consecutive cells a thread. It walks the plan in chunks
+// of kPackThreads sequences: each thread turns one sequence into its pieces,
+// keeps those that meet the tile, and a block scan packs them, in sequence
+// order, into a list in shared memory; every thread then tests its cells
+// against the list. Once the plan is done, each thread writes each of its
+// cells exactly once, in all four outputs: the token, the 1-based segment
+// id, k and 1 where a piece covers the cell, 0 everywhere else, as 16-byte
+// (mask: 4-byte) stores where the grid's cell count is a multiple of 4. The
+// planner's runs are disjoint; where runs overlap (no planner emits that,
+// and JAX's scatter leaves the order open), the last piece in the list
+// wins: the higher sequence, and within one sequence the part inside the
+// grid over the part moved up. The unpack is one thread per flat position
+// with the same search as JAX (an upper bound over the offsets).
 //
 // Bound: bytes. Integer copies only: the pack reads the tokens it places
 // (not the page's tail past them), the offsets and the plan once and writes
 // 13 bytes a grid cell (three int32 and one int8); the unpack reads the grid
-// cells holding those tokens and writes the page. At
-// the causal-LM path's sizes (64 sequences, about 24 x 1024 cells) the
-// launch, not the bytes, sets the time.
+// cells holding those tokens and writes the page. At the causal-LM path's
+// sizes (64 sequences, 24 x 1024 cells: 24 CTAs) the launch, not the bytes,
+// sets the time.
 //
 // C interface (bound with ctypes by ops/token_device.py):
 //   int ldt_token_pack(const int32_t* values, int cap, const int32_t* offsets,
 //                      const int32_t* slot, const int32_t* start, int n,
 //                      int rows, int L, uint8_t* out, cudaStream_t);
 //     out holds grid, segment ids and positions (int32 [rows*L] each) and
-//     the mask (int8 [rows*L]), in that order; the call zeroes it first.
+//     the mask (int8 [rows*L]), in that order; the kernel writes all of it.
 //   int ldt_token_unpack(const int32_t* grid, int rows, int L,
 //                        const int32_t* offsets, const int32_t* slot,
 //                        const int32_t* start, int n, int32_t* out,
@@ -51,36 +65,131 @@
 
 namespace {
 
-constexpr int kPackThreads = 256;
+constexpr int kPackThreads = 256;  // also the plan's chunk, in sequences
+constexpr int kPackCells = 4;      // consecutive cells a thread
+constexpr int kPackTile = kPackThreads * kPackCells;
 constexpr int kUnpackThreads = 256;
+
+// A piece of a sequence's run inside a tile: cells [a, b), and the flat
+// position of cell c is c + pofs.
+struct Piece {
+  int a, b, pofs, lo, seq;
+};
+
+// Exclusive prefix sum of v over the block, and the block's total.
+__device__ __forceinline__ int block_scan(int v, int* warp_sums, int& total) {
+  constexpr int kWarps = kPackThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kWarps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += y;
+    }
+    if (lane < kWarps) warp_sums[lane] = w;
+  }
+  __syncthreads();
+  total = warp_sums[kWarps - 1];
+  return (warp ? warp_sums[warp - 1] : 0) + x - v;
+}
 
 __global__ void __launch_bounds__(kPackThreads)
     token_pack_kernel(const int32_t* __restrict__ values, int cap,
                       const int32_t* __restrict__ offsets,
                       const int32_t* __restrict__ slot,
                       const int32_t* __restrict__ start, int n, int L,
-                      long long cells, int32_t* __restrict__ grid,
+                      int cells, int vec, int32_t* __restrict__ grid,
                       int32_t* __restrict__ seg, int32_t* __restrict__ pos,
                       int8_t* __restrict__ mask) {
-  const int i = blockIdx.x;
-  const int lo = offsets[i];
-  const int len = min(offsets[i + 1] - lo, L);  // live tokens of sequence i
-  const int end = min(offsets[n], cap);         // positions JAX considers
-  const long long base =
-      static_cast<long long>(slot[i]) * L + static_cast<long long>(start[i]);
-  // Positions before offsets[0] fall to sequence 0 with k < 0, as the
-  // clipped search gives them.
-  const int first = i == 0 ? 0 : max(lo, 0);
-  for (int p = first + threadIdx.x; p < end; p += kPackThreads) {
-    const int k = p - lo;
-    if (k >= len) break;
-    long long dest = base + k;
-    if (dest < 0) dest += cells;  // JAX counts a negative index from the end
-    if (dest < 0 || dest >= cells) continue;
-    grid[dest] = values[p];
-    seg[dest] = i + 1;
-    pos[dest] = k;
-    mask[dest] = 1;
+  __shared__ Piece pieces[2 * kPackThreads];
+  __shared__ int warp_sums[kPackThreads / 32];
+  const int t0 = blockIdx.x * kPackTile;
+  const int t1 = min(t0 + kPackTile, cells);
+  const int c0 = t0 + threadIdx.x * kPackCells;
+  const int end = n > 0 ? min(offsets[n], cap) : 0;  // positions JAX keeps
+  int p[kPackCells], k[kPackCells], id[kPackCells];
+#pragma unroll
+  for (int q = 0; q < kPackCells; ++q) p[q] = k[q] = id[q] = 0;
+
+  for (int base_i = 0; base_i < n; base_i += kPackThreads) {
+    // This thread's sequence as at most two pieces that meet the tile: the
+    // part of its run below 0, moved up by `cells`, then the part inside.
+    Piece low{}, in{};
+    bool has_low = false, has_in = false;
+    const int i = base_i + threadIdx.x;
+    if (i < n) {
+      const int lo = offsets[i];
+      const int len = min(offsets[i + 1] - lo, L);
+      // Positions before offsets[0] fall to sequence 0 with k < 0.
+      const int pa = i == 0 ? 0 : max(lo, 0);
+      const int pb = min(end, lo + len);
+      if (pa < pb) {
+        // Position p goes to flat cell shift + p, before the wrap.
+        const long long shift =
+            static_cast<long long>(slot[i]) * L + start[i] - lo;
+        const long long da = shift + pa, db = shift + pb;
+        long long a = max(max(da, -1LL * cells) + cells,
+                          static_cast<long long>(t0));
+        long long b = min(min(db, 0LL) + cells, static_cast<long long>(t1));
+        has_low = a < b;
+        low = {static_cast<int>(a), static_cast<int>(b),
+               static_cast<int>(-(shift + cells)), lo, i + 1};
+        a = max(da, static_cast<long long>(t0));
+        b = min(db, static_cast<long long>(t1));
+        has_in = a < b;
+        in = {static_cast<int>(a), static_cast<int>(b),
+              static_cast<int>(-shift), lo, i + 1};
+      }
+    }
+    int total;
+    const int at = block_scan(has_low + has_in, warp_sums, total);
+    if (has_low) pieces[at] = low;
+    if (has_in) pieces[at + has_low] = in;
+    __syncthreads();
+    for (int j = 0; j < total; ++j) {
+      const Piece r = pieces[j];
+#pragma unroll
+      for (int q = 0; q < kPackCells; ++q) {
+        const int c = c0 + q;
+        if (c >= r.a && c < r.b) {
+          p[q] = c + r.pofs;
+          k[q] = p[q] - r.lo;
+          id[q] = r.seq;
+        }
+      }
+    }
+    __syncthreads();  // the list is read before the next chunk writes it
+  }
+
+  int v[kPackCells];
+#pragma unroll
+  for (int q = 0; q < kPackCells; ++q) v[q] = id[q] ? values[p[q]] : 0;
+  if (vec && c0 + kPackCells <= t1) {
+    *reinterpret_cast<int4*>(grid + c0) = make_int4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<int4*>(seg + c0) =
+        make_int4(id[0], id[1], id[2], id[3]);
+    *reinterpret_cast<int4*>(pos + c0) = make_int4(k[0], k[1], k[2], k[3]);
+    *reinterpret_cast<char4*>(mask + c0) =
+        make_char4(id[0] != 0, id[1] != 0, id[2] != 0, id[3] != 0);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < kPackCells; ++q) {
+    const int c = c0 + q;
+    if (c >= t1) break;
+    grid[c] = v[q];
+    seg[c] = id[q];
+    pos[c] = k[q];
+    mask[c] = id[q] != 0;
   }
 }
 
@@ -124,17 +233,17 @@ extern "C" int ldt_token_pack(const int32_t* values, int cap,
                               const int32_t* offsets, const int32_t* slot,
                               const int32_t* start, int n, int rows, int L,
                               uint8_t* out, cudaStream_t stream) {
-  if (rows <= 0 || L <= 0 || cap < 0 || n < 0)
+  if (rows <= 0 || L <= 0 || cap < 0 || n < 0 ||
+      static_cast<long long>(rows) * L > (1 << 29))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long cells = static_cast<long long>(rows) * L;
-  const cudaError_t err = cudaMemsetAsync(
-      out, 0, static_cast<size_t>(cells) * 13, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n == 0) return 0;
+  const int cells = rows * L;
   int32_t* grid = reinterpret_cast<int32_t*>(out);
-  token_pack_kernel<<<n, kPackThreads, 0, stream>>>(
-      values, cap, offsets, slot, start, n, L, cells, grid, grid + cells,
-      grid + 2 * cells, reinterpret_cast<int8_t*>(grid + 3 * cells));
+  const int vec = cells % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  token_pack_kernel<<<(cells + kPackTile - 1) / kPackTile, kPackThreads, 0,
+                      stream>>>(
+      values, cap, offsets, slot, start, n, L, cells, vec, grid, grid + cells,
+      grid + 2 * static_cast<size_t>(cells),
+      reinterpret_cast<int8_t*>(grid + 3 * static_cast<size_t>(cells)));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,7 +5,10 @@ Counterpart of ``lance_distributed_training_tpu/ops/image.py``
 (``normalize_images`` and ``random_flip``), which run inside the jitted step
 on the TPU. Here one CUDA kernel for sm_90a (``csrc/image.cu``) reads the
 uint8 NHWC batch and writes the bf16 NHWC batch in one pass, mirroring image
-``b`` along W where ``flip_mask[b]`` is set. The result is handed to the
+``b`` along W where ``flip_mask[b]`` is set: each element is one load from
+a 3 x 256 table of the function's values that every CTA builds in shared
+memory, and where W is a multiple of 16 (the path's 224) whole rows reach
+shared memory by TMA bulk copies. The result is handed to the
 model as ``.permute(0, 3, 1, 2)``: a channels_last NCHW view, no copy.
 
 The arithmetic is the JAX function's: ``x / 255``, ``- mean`` and ``/ std``
@@ -77,18 +80,21 @@ def random_flip_reference(images: torch.Tensor,
     return torch.where(keep[:, None, None, None], images.flip(2), images)
 
 
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``image.cu``."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ldt_image_normalize.argtypes = [ptr] * 3 + [i32] * 3 + [f32] * 6 + [ptr]
+    lib.ldt_image_normalize.restype = ctypes.c_int
+    lib.ldt_image_error_string.argtypes = [ctypes.c_int]
+    lib.ldt_image_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     """Build (once), load and declare the C interface of ``image.cu``."""
     global _lib
     if _lib is None:
-        lib = _build.load_library(_SOURCE)
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ldt_image_normalize.argtypes = ([ptr] * 3 + [i32] * 3 + [f32] * 6
-                                            + [ptr])
-        lib.ldt_image_normalize.restype = ctypes.c_int
-        lib.ldt_image_error_string.argtypes = [ctypes.c_int]
-        lib.ldt_image_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind_library(_build.load_library(_SOURCE))
     return _lib
 
 

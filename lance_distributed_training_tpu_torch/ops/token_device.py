@@ -5,10 +5,11 @@ Counterpart of ``lance_distributed_training_tpu/ops/token_device.py``. The
 host half (:mod:`..data.token_pack`) ships a variable-length column as a
 flat int32 values page, its ``[n+1]`` offsets and a first-fit-decreasing
 plan (``slot``/``start`` per sequence, a ``rows × pack_len`` grid). Here
-``csrc/token_pack.cu`` (sm_90a) finishes the job in one launch: it
-scatters each sequence's run into ``grid[slot, start:start + len]`` and
-writes, over the same grid, 1-based ``segment_ids`` (0 = dead padding),
-0-based ``position_ids`` and the int8 ``attention_mask``.
+``csrc/token_pack.cu`` (sm_90a) finishes the job in one launch: each CTA
+owns a tile of the grid, intersects every sequence's run
+``grid[slot, start:start + len]`` with it and writes each of its cells once,
+in the grid and in 1-based ``segment_ids`` (0 = dead padding), 0-based
+``position_ids`` and the int8 ``attention_mask``.
 :func:`unpack_token_batch` is the exact inverse gather.
 
 Both are integer paths: the kernels equal their plain versions, and the
@@ -193,17 +194,24 @@ def _launch(name: str, fn, *args) -> None:
 def pack_token_batch(values, offsets, slot, start, *, rows: int,
                      pack_len: int):
     """Ragged runs → ``(grid, segment_ids, position_ids, attention_mask)``,
-    each ``[rows, pack_len]``. CUDA: the ``token_pack`` kernel (int32 in;
-    the four outputs are views of one buffer). CPU:
-    :func:`pack_token_batch_reference`."""
-    if values.device.type == "cpu":
+    each ``[rows, pack_len]``. CUDA: the ``token_pack`` kernel, one launch
+    that writes every cell (int32 in; the four outputs are views of one
+    buffer). CPU: :func:`pack_token_batch_reference`."""
+    device = values.device
+    if device.type == "cpu":
         return pack_token_batch_reference(values, offsets, slot, start,
                                           rows=rows, pack_len=pack_len)
-    if values.device.type != "cuda":
+    if device.type != "cuda":
         raise RuntimeError(f"pack_token_batch has no kernel for device "
-                           f"{values.device}")
-    _check("token_pack", values.device, [("values", values)], offsets, slot,
-           start)
+                           f"{device}")
+    # On the current card (the trainer's case) no device context is
+    # entered: the host time of a call is most of this launch's cost.
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        with torch.cuda.device(device):
+            return pack_token_batch(values, offsets, slot, start, rows=rows,
+                                    pack_len=pack_len)
+    _check("token_pack", device, [("values", values)], offsets, slot, start)
     if values.dim() != 1:
         raise ValueError(f"token_pack: values must be 1-D, got "
                          f"{tuple(values.shape)}")
@@ -213,17 +221,19 @@ def pack_token_batch(values, offsets, slot, start, *, rows: int,
         raise ValueError(f"token_pack: grid [{rows}, {pack_len}] out of range")
     if values.shape[0] > _INT32_MAX:
         raise ValueError("token_pack: values page longer than 2^31 - 1")
-    out = torch.empty(CELL_BYTES * cells, dtype=torch.uint8,
-                      device=values.device)
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        _launch("token_pack", _library().ldt_token_pack, values.data_ptr(),
-                values.shape[0], offsets.data_ptr(), slot.data_ptr(),
-                start.data_ptr(), slot.shape[0], rows, pack_len,
-                out.data_ptr(), stream)
-    ints = out[:12 * cells].view(torch.int32).view(3, rows, pack_len)
-    return ints[0], ints[1], ints[2], out[12 * cells:].view(torch.int8).view(
-        rows, pack_len)
+    # Three int32 planes, then the int8 mask in the words after them; the
+    # four views take two strided views, not a slice and reshape each.
+    out = torch.empty(3 * cells + (cells + 3) // 4, dtype=torch.int32,
+                      device=device)
+    _launch("token_pack", _library().ldt_token_pack, values.data_ptr(),
+            values.shape[0], offsets.data_ptr(), slot.data_ptr(),
+            start.data_ptr(), slot.shape[0], rows, pack_len, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    grid, seg, pos = out.as_strided((3, rows, pack_len),
+                                    (cells, pack_len, 1)).unbind(0)
+    mask = out.view(torch.int8).as_strided((rows, pack_len), (pack_len, 1),
+                                           12 * cells)
+    return grid, seg, pos, mask
 
 
 def unpack_token_batch(grid, offsets, slot, start, *, capacity: int):

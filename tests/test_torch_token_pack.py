@@ -14,6 +14,9 @@
   the card and skip without one.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pyarrow as pa
 import pytest
@@ -292,10 +295,36 @@ def _k3_cases():
     cases.append(([values, np.array([0, 20], np.int32), *solo], 4, 32))
     cases.append(([values, np.array([5, 25], np.int32),
                    np.array([1], np.int32), np.array([7], np.int32)], 3, 32))
+    # Plans no planner makes (cases 9-11), then more sequences than the
+    # pack kernel's plan chunk takes at once (case 12).
+    rng = np.random.default_rng(11)
+
+    def hand(lengths, slot, start, rows, pack_len, first=0):
+        offsets = np.concatenate([[first], first + np.cumsum(lengths)])
+        page = rng.integers(2, 500, int(offsets[-1]) + 5, dtype=np.int32)
+        return ([page, offsets.astype(np.int32), np.asarray(slot, np.int32),
+                 np.asarray(start, np.int32)], rows, pack_len)
+
+    # Runs across a row's end: cells [50, 80), [138, 202), [210, 250).
+    cases.append(hand([30, 100, 40], [0, 2, 3], [50, 10, 18], 4, 64))
+    # 128 cells: slot -1 wraps to [99, 119); slot -5 start 8 lies 24 cells
+    # below -128, so its last 8 tokens wrap to [0, 8); slot 4 is past the
+    # grid; slot 3 start 24 runs 12 cells past it; empty sequences between.
+    cases.append(hand([20, 0, 40, 10, 0, 20, 12], [-1, 0, -5, 4, 0, 3, 1],
+                      [3, 0, 8, 0, 0, 24, 0], 4, 32))
+    # offsets[0] = 6: positions 0-5 fall to sequence 0 with k < 0.
+    cases.append(hand([10, 0, 7], [1, 0, 2], [7, 0, 30], 3, 64, first=6))
+    many = pa.table({"input_ids": pa.array(
+        [np.arange(2, 2 + m, dtype=np.int32) for m in rng.integers(0, 6, 600)],
+        pa.list_(pa.int32()))})
+    cases.append(_k3_inputs(many, 64, 1))
     return cases
 
 
-@pytest.mark.parametrize("case", range(9))
+K3_CASES = 13
+
+
+@pytest.mark.parametrize("case", range(K3_CASES))
 def test_plain_k3_matches_jax_bit_for_bit(jx, case):
     (values, offsets, slot, start), rows, pack_len = _k3_cases()[case]
     jnp = jx.jnp
@@ -317,6 +346,87 @@ def test_plain_k3_matches_jax_bit_for_bit(jx, case):
         got_page = token_device.unpack_token_batch(
             got[0], *t[1:], capacity=capacity)
         np.testing.assert_array_equal(got_page.numpy(), np.asarray(want_page))
+
+
+def _pack_constants() -> dict:
+    """The pack kernel's tile and plan chunk, read from its source."""
+    source = (Path(token_device.__file__).parent / "csrc" /
+              "token_pack.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                source).group(1))
+            for name in ("kPackThreads", "kPackCells")}
+
+
+def _pack_kernel_model(values, offsets, slot, start, rows, pack_len):
+    """The pack kernel's loop in numpy: a CTA a tile of kPackThreads x
+    kPackCells cells, the plan in chunks of kPackThreads sequences, each
+    sequence's run cut into the part below 0 (moved up by the cell count)
+    and the part inside, the pieces that meet the tile listed in sequence
+    order, the last one listed over a cell owning it; then each cell
+    written once in all four outputs."""
+    const = _pack_constants()
+    threads, per = const["kPackThreads"], const["kPackCells"]
+    tile = threads * per
+    n, cap, cells = len(slot), len(values), rows * pack_len
+    end = min(int(offsets[n]), cap) if n else 0
+    outs = [np.zeros(cells, np.int64) for _ in range(4)]
+    written = np.zeros(cells, np.int64)
+    for t0 in range(0, cells, tile):
+        t1 = min(t0 + tile, cells)
+        pos_of = np.zeros(t1 - t0, np.int64)
+        k_of = np.zeros(t1 - t0, np.int64)
+        seq_of = np.zeros(t1 - t0, np.int64)
+        for base_i in range(0, n, threads):
+            pieces = []
+            for i in range(base_i, min(base_i + threads, n)):
+                lo = int(offsets[i])
+                length = min(int(offsets[i + 1]) - lo, pack_len)
+                pa_, pb_ = (0 if i == 0 else max(lo, 0)), min(end, lo + length)
+                if pa_ >= pb_:
+                    continue
+                shift = int(slot[i]) * pack_len + int(start[i]) - lo
+                da, db = shift + pa_, shift + pb_
+                for a, b, pofs in (
+                        (max(da, -cells) + cells, min(db, 0) + cells,
+                         -(shift + cells)),
+                        (da, min(db, cells), -shift)):
+                    a, b = max(a, t0), min(b, t1)
+                    if a < b:
+                        pieces.append((a, b, pofs, lo, i + 1))
+            for c in range(t0, t1):  # each thread's cells, every piece
+                for a, b, pofs, lo, seq in pieces:
+                    if a <= c < b:
+                        pos_of[c - t0] = c + pofs
+                        k_of[c - t0] = c + pofs - lo
+                        seq_of[c - t0] = seq
+        owned = seq_of > 0
+        cell = slice(t0, t1)
+        written[cell] += 1
+        outs[0][cell] = np.where(owned, values[np.where(owned, pos_of, 0)], 0)
+        outs[1][cell] = seq_of
+        outs[2][cell] = np.where(owned, k_of, 0)
+        outs[3][cell] = owned
+    assert (written == 1).all()
+    shape = (rows, pack_len)
+    return tuple(o.reshape(shape).astype(t) for o, t in zip(
+        outs, (np.int32, np.int32, np.int32, np.int8)))
+
+
+@pytest.mark.parametrize("case", range(K3_CASES))
+def test_pack_kernel_model_matches_jax_bit_for_bit(jx, case):
+    """The tile-owner loop of ``token_pack.cu`` gives JAX's outputs."""
+    (values, offsets, slot, start), rows, pack_len = _k3_cases()[case]
+    jnp = jx.jnp
+    want = jx.td.pack_token_batch(
+        jnp.asarray(values), jnp.asarray(offsets), jnp.asarray(slot),
+        jnp.asarray(start), rows=rows, pack_len=pack_len)
+    got = _pack_kernel_model(values, offsets, slot, start, rows, pack_len)
+    for g, w in zip(got[:3], want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    np.testing.assert_array_equal(got[3],
+                                  (np.asarray(want[1]) > 0).astype(np.int8))
+    if case == K3_CASES - 1:
+        assert len(slot) > _pack_constants()["kPackThreads"]
 
 
 def test_k3_round_trip_returns_the_page():
@@ -442,10 +552,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("case", range(K3_CASES))
 def test_k3_kernels_match_plain_on_card(cuda_device, case):
-    """Planner-made cases and a values tail (cases 0-6): the kernels equal
-    the plain versions bit for bit, on a repeat launch too."""
+    """Planner-made cases, a values tail and plans made by hand: the
+    kernels equal the plain versions bit for bit, on a repeat launch
+    too."""
     (values, offsets, slot, start), rows, pack_len = _k3_cases()[case]
     t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
          for a in (values, offsets, slot, start)]
