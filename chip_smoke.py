@@ -36,7 +36,33 @@ Phases, each printing one JSON line:
              for 20 steps through ``cli train --flash_attention`` on a seeded
              token dataset, after checking flash attention against the dense
              attention path on a small model.
-5. image_kernels — K1 (``ops/csrc/image.cu``) against its plain PyTorch
+5. trainer — the trainer beyond the main path on the slice phase's corpus
+             (its first 12 batches): BERT-base masked-LM through ``cli train
+             --flash_attention --grad_accum 4`` (micro-batch 32, 128 rows an
+             update, AdamW lr 1e-4 on a cosine schedule over 3 updates,
+             ``--log_grad_norm``): first 12 micro-steps untraced with one
+             progress line (the timed run); then, with ``--log_every 1`` and
+             the step trace on, three runs in one checkpoint directory on
+             the machine's disk: a control of 12 micro-steps with
+             ``--profile_dir``; a run with
+             ``--checkpoint_every_steps 4`` drained at micro-step 6
+             (``LDT_CHAOS=drain@6``, mid-window: the emergency checkpoint
+             holds a half-full accumulator); and the same flags again, which
+             resumes. Checks that the resumed run starts at absolute step 7
+             and ends at 12, that its losses and batch digests equal the
+             control's for steps 7-12 and its final parameters the
+             control's, bit for bit (and the timed run's losses too), that
+             each run applied its updates
+             (AdamW's step 3 at the end of both), that flash launched 12
+             fwd, 12 dQ and 12 dK/dV a micro-step and K5 never, that every
+             progress line has a finite ``grad_norm`` and the schedule's
+             ``lr`` in updates, and that the profiler's trace names the
+             three flash kernels; prints the timed run's micro-step median
+             (steps 2-12) beside the slice phase's step, each run's
+             micro-steps, the accumulator fold's time, each save's
+             time on the training thread and its write, the checkpoint's
+             bytes, the restore time and the peak memory.
+6. image_kernels — K1 (``ops/csrc/image.cu``) against its plain PyTorch
              version on the card, bit for bit, on every uint8 value, at
              [512, 224, 224, 3] and at other shapes of both routes (W = 16,
              17, 48, 224, 2048, 4096 and 8192, batches 1 byte off 16-byte
@@ -44,7 +70,7 @@ Phases, each printing one JSON line:
              it (CUDA events around 20 launches back to back, median of 5)
              beside the plain version and a device-to-device copy of the
              same bytes; the bound takes the card's published memory rate.
-6. jpeg_kernels — K2 (``ops/csrc/jpeg_decode.cu``) against its plain
+7. jpeg_kernels — K2 (``ops/csrc/jpeg_decode.cu``) against its plain
              PyTorch version on the card, bit for bit: at the path's shape
              (pages ``int16 [512, 28, 28, 64]`` and ``[512, 14, 14, 64]``
              extracted here from the seeded classification set →
@@ -61,20 +87,20 @@ Phases, each printing one JSON line:
              an SM to the f32 rate's 128, at the 1.98 GHz boost clock that
              the published 67 TFLOP/s of f32 implies). Prints
              the extractor's time for the 512 images and its threads.
-7. classification — trains ResNet-50 (224 px, 101 classes, global batch
+8. classification — trains ResNet-50 (224 px, 101 classes, global batch
              512, SGD lr 0.05 momentum 0.9, flips, eval at the end) for 20
              steps through ``cli train`` on a seeded FOOD-101-shaped JPEG
              dataset (``create_synthetic_classification_dataset``, 20
              batches of rows; each row labelled by its image, so that
              there is something to learn), host-decoded by the native
              decoder or PIL; the eval pass covers every row once.
-8. device_decode — the same run through ``cli train --device_decode``:
+9. device_decode — the same run through ``cli train --device_decode``:
              the host extracts coefficient pages, K2 decodes them on the
              card for each of the 20 train and 20 eval batches; checks the
              decoder arm, K2's 40 launches, the falling loss and the eval
              over every row, and prints the step, the rates, the stall and
              the entropy and K2 times.
-9. token_kernels — K3 (``ops/csrc/token_pack.cu``, pack and unpack)
+10. token_kernels — K3 (``ops/csrc/token_pack.cu``, pack and unpack)
              against its plain PyTorch version on the card, bit for bit: at
              the path's shape (a batch of 64 sequences of the causal-LM
              corpus, pack_len 1024), at ragged cases (empty sequences, one
@@ -90,7 +116,7 @@ Phases, each printing one JSON line:
              back as a caller meets them, beside the launch floor (an
              empty launch timed the same way); the bound is their bytes
              over 3.35 TB/s.
-10. causal_lm — trains GPT-2 124M's shape (``gpt_base``: 768/12/12/3072,
+11. causal_lm — trains GPT-2 124M's shape (``gpt_base``: 768/12/12/3072,
              vocab 50257, context 1024) for 20 steps through ``cli train
              --task_type causal_lm --token_pack --flash_attention`` (64
              sequences a batch, pack_rows_multiple 8, AdamW lr 1e-4, eval
@@ -101,7 +127,7 @@ Phases, each printing one JSON line:
              over every row and finite losses, and prints each arm's step,
              grid and valid tokens/s and pad_waste_pct (steps 5-20, from
              each step's own payload), pack_device_ms and peak memory.
-11. ring_kernels — K5 (``ops/csrc/ring_attn.cu``: the fold, dQ and dK/dV)
+12. ring_kernels — K5 (``ops/csrc/ring_attn.cu``: the fold, dQ and dK/dV)
              over a whole in-process ring as the path launches it (each
              kernel once over all four ring steps) against the plain
              versions on the card (flash's
@@ -122,7 +148,7 @@ Phases, each printing one JSON line:
              dQ + dK/dV pair); the bound
              is the larger of each launch's bytes over 3.35 TB/s and its
              products over the bf16 peak.
-12. ring_lm — trains BERT-base masked-LM through ``cli train
+13. ring_lm — trains BERT-base masked-LM through ``cli train
              --seq_parallelism 4`` (every ring position on the card) for 20
              steps on the slice phase's corpus, with the eval at the end;
              checks 12 forward, 12 dQ and 12 dK/dV launches a step (one a
@@ -154,7 +180,7 @@ import time
 
 import numpy as np
 
-PHASES = ("probe", "build", "kernels", "slice", "image_kernels",
+PHASES = ("probe", "build", "kernels", "slice", "trainer", "image_kernels",
           "jpeg_kernels", "classification", "device_decode", "token_kernels",
           "causal_lm", "ring_kernels", "ring_lm")
 SHAPE = (32, 12, 512, 64)  # B, H, S, D at BERT-base, seq 512
@@ -196,6 +222,7 @@ RING_TOL_O_CLOSE = 4e-3
 RING_KERNELS = ("ring_fwd", "ring_bwd_dq", "ring_bwd_dkv")
 GPT_MEAN_LEN, GPT_SIGMA = 256.0, 0.7  # lognormal lengths of the corpus
 PACK_ROWS_MULTIPLE = 8
+TRAINER_STEPS, TRAINER_ACCUM, TRAINER_DRAIN = 12, 4, 6  # micro-steps
 UPSTREAM = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 REPLACES = {
     "fwd": f"{UPSTREAM}:758",
@@ -727,6 +754,231 @@ def slice_run() -> dict:
     if any(launches[k] != want for k in launches):
         raise RuntimeError(f"launch counts {launches}, expected {want} each")
     return {"launches": launches, "step_ms": step_ms}
+
+
+def _trainer_runs(path: str, tmp: str) -> dict:
+    """The trainer phase's three ``cli train`` runs; for each, ``(result,
+    step trace, progress records, launches, peak bytes)``."""
+    import torch
+    from lance_distributed_training_tpu_torch import cli, ops
+    from lance_distributed_training_tpu_torch.utils import chaos
+
+    b, _, s, _ = SHAPE
+    base = [
+        "train", "--dataset_path", path, "--task_type", "masked_lm",
+        "--model_name", "bert_base", "--seq_len", str(s),
+        "--flash_attention", "--batch_size", str(b),
+        "--grad_accum", str(TRAINER_ACCUM), "--optimizer", "adamw",
+        "--lr", "1e-4", "--lr_schedule", "cosine",
+        "--total_steps", str(TRAINER_STEPS), "--epochs", "1",
+        "--log_every", "1", "--log_grad_norm", "--no_eval_at_end",
+        "--device", "cuda",
+    ]
+    ckpt = ["--checkpoint_dir", os.path.join(tmp, "ckpt"),
+            "--checkpoint_every_steps", str(TRAINER_ACCUM)]
+    runs = {}
+    for name, extra, spec in (
+            # Untraced, one progress line: the host runs ahead of the card
+            # as in the slice phase, so its micro-steps time like its steps.
+            ("timed", ["--log_every", str(TRAINER_STEPS)], None),
+            ("control", ["--profile_dir", os.path.join(tmp, "profile")],
+             None),
+            ("preempted", ckpt, f"drain@{TRAINER_DRAIN}"),
+            ("resumed", ckpt, None)):
+        trace = os.path.join(tmp, f"{name}.trace.jsonl")
+        metrics = os.path.join(tmp, f"{name}.metrics.jsonl")
+        os.environ["LDT_METRICS_PATH"] = metrics
+        if name != "timed":
+            os.environ[chaos.TRACE_ENV] = trace
+        if spec:
+            os.environ[chaos.CHAOS_ENV] = spec
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        try:
+            result = cli.main(base + extra)
+        finally:
+            os.environ.pop(chaos.TRACE_ENV, None)
+            os.environ.pop(chaos.CHAOS_ENV, None)
+        launches = {k: ops.LAUNCHES[k] for k in ops.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated()
+        with open(metrics, encoding="utf-8") as f:
+            records = [r for r in map(json.loads, f) if "loss" in r]
+        runs[name] = (result, chaos.read_trace(trace), records, launches,
+                      peak)
+        if name == "timed":
+            del result["model"], result["optimizer"]  # free the card
+    return runs
+
+
+def _profile_kernels(events: list, top: int = 12) -> dict:
+    """Device time in a profiler window's Chrome trace: the kernels' summed
+    time, the window from the first kernel's start to the last one's end,
+    the idle share between, and the ``top`` kernels by summed time (name
+    cut to 120 characters, ms, launches)."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise RuntimeError("the profiler's trace holds no device kernel")
+    busy = sum(e["dur"] for e in kernels) / 1e3
+    span = (max(e["ts"] + e["dur"] for e in kernels)
+            - min(e["ts"] for e in kernels)) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"kernel_ms": busy, "window_ms": span,
+            "idle_pct": 100.0 * (1.0 - busy / span),
+            "top": [[name[:120], ms, n] for name, (ms, n) in ranked]}
+
+
+def trainer_run(card: dict, slice_step_ms) -> dict:
+    """BERT-base through the trainer beyond the main path: gradient
+    accumulation, a drain mid-window, an emergency checkpoint and a resume
+    that must equal the uninterrupted control bit for bit (module
+    docstring, phase 5)."""
+    import torch
+    from lance_distributed_training_tpu_torch.data import (
+        create_text_token_dataset,
+    )
+    from lance_distributed_training_tpu_torch.trainer import (
+        TrainConfig,
+        lr_schedule_fn,
+    )
+    from lance_distributed_training_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+
+    b, _, s, _ = SHAPE
+    _, docs = _slice_docs()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens")
+        create_text_token_dataset(path, docs[:b * TRAINER_STEPS], seq_len=s,
+                                  pack=False)
+        runs = _trainer_runs(path, tmp)
+        timed, _, _, tlaunch, tpeak = runs["timed"]
+        control, ctrace, crecords, claunch, cpeak = runs["control"]
+        pre, ptrace, precords, plaunch, ppeak = runs["preempted"]
+        res, rtrace, rrecords, rlaunch, rpeak = runs["resumed"]
+        manager = CheckpointManager(os.path.join(tmp, "ckpt"))
+        # The emergency checkpoint's accumulator count, read without
+        # loading its tensors.
+        emergency = torch.load(manager.state_path(TRAINER_DRAIN),
+                               mmap=True, weights_only=True)
+        emergency_micro = emergency["train_step"]["micro_step"]
+        del emergency
+        ckpt_bytes = os.path.getsize(manager.state_path(TRAINER_DRAIN))
+        profile = control["profile_trace"]
+        with open(profile, encoding="utf-8") as f:
+            text = f.read()
+        profile_names = {k: text.count(f"flash_{k}_kernel")
+                         for k in ("fwd", "bwd_dq", "bwd_dkv")}
+        profile_bytes = len(text)
+        window = _profile_kernels(json.loads(text)["traceEvents"])
+        del text
+    params = control["model_params"]
+    fold_bytes = 3 * 4 * params  # read acc and g, write acc (f32)
+    schedule = lr_schedule_fn(
+        TrainConfig(dataset_path="-", lr=1e-4, lr_schedule="cosine",
+                    grad_accum=TRAINER_ACCUM), TRAINER_STEPS)
+    fields = {
+        "nvidia_smi": card["smi"], "micro_steps": TRAINER_STEPS,
+        "grad_accum": TRAINER_ACCUM, "rows_per_update": b * TRAINER_ACCUM,
+        "micro_step_ms_median_2_12": statistics.median(
+            timed["step_ms"][1:]),
+        "micro_step_ms": timed["step_ms"],
+        "slice_step_ms_median_5_20": slice_step_ms,
+        # With the step trace and a progress line each micro-step, the host
+        # syncs every step; the control's steps 2-12 are also profiled.
+        "traced_micro_step_ms": {"control": control["step_ms"],
+                                 "preempted": pre["step_ms"],
+                                 "resumed": res["step_ms"]},
+        "accum_fold_ms": {k: r["accum_fold_ms"] for k, r in
+                          (("timed", timed), ("control", control),
+                           ("preempted", pre), ("resumed", res))},
+        "accum_fold_bytes": fold_bytes,
+        "accum_fold_bound_ms": fold_bytes / PEAK_BYTES * 1e3,
+        "ckpt_save_ms": {"preempted": pre["ckpt_save_ms"],
+                         "resumed": res["ckpt_save_ms"]},
+        "ckpt_write_ms": {"preempted": pre["ckpt_write_ms"],
+                          "resumed": res["ckpt_write_ms"]},
+        "ckpt_bytes": ckpt_bytes, "ckpt_restore_ms": res["ckpt_restore_ms"],
+        "emergency_micro_step": emergency_micro,
+        "peak_memory_allocated_bytes": {"timed": tpeak, "control": cpeak,
+                                        "preempted": ppeak,
+                                        "resumed": rpeak},
+        "launches": {"timed": tlaunch, "control": claunch,
+                     "preempted": plaunch, "resumed": rlaunch},
+        "losses": {"timed": timed["losses"], "control": control["losses"],
+                   "preempted": pre["losses"], "resumed": res["losses"]},
+        "resumed_steps": [t["step"] for t in rtrace],
+        "profile_kernel_mentions": profile_names,
+        "profile_window": window,
+        "profile_trace_bytes": profile_bytes, "model_params": params,
+    }
+    emit("trainer", **fields)
+    runs_steps = {"timed": (timed, TRAINER_STEPS, 0),
+                  "control": (control, TRAINER_STEPS, 0),
+                  "preempted": (pre, TRAINER_DRAIN, 0),
+                  "resumed": (res, TRAINER_STEPS - TRAINER_DRAIN,
+                              TRAINER_DRAIN)}
+    for name, (result, steps, start) in runs_steps.items():
+        if result["steps"] != steps or result["global_step"] != start + steps:
+            raise RuntimeError(f"{name}: ran {result['steps']} steps to "
+                               f"{result['global_step']}, expected {steps} "
+                               f"to {start + steps}")
+        if not all(np.isfinite(result["losses"])):
+            raise RuntimeError(f"{name}: non-finite loss")
+        want = {k: LAYERS * steps for k in ("fwd", "bwd_dq", "bwd_dkv")}
+        want.update(dict.fromkeys(RING_KERNELS, 0))
+        got = runs[name][3]
+        wrong = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        if wrong:
+            raise RuntimeError(f"{name}: launches (got, expected) {wrong}")
+        records = runs[name][2]
+        logged = list(range(1, steps + 1)) if name != "timed" else [steps]
+        if [r["step"] for r in records] != logged:
+            raise RuntimeError(f"{name}: progress lines at "
+                               f"{[r['step'] for r in records]}")
+        for r in records:
+            norm = r.get("grad_norm")
+            if norm is None or not np.isfinite(norm) or norm <= 0:
+                raise RuntimeError(f"{name}: grad_norm {norm} at {r['step']}")
+            want_lr = schedule((start + r["step"]) // TRAINER_ACCUM)
+            if abs(r["lr"] - want_lr) > 1e-12:
+                raise RuntimeError(f"{name}: lr {r['lr']} at micro-step "
+                                   f"{start + r['step']}, schedule {want_lr}")
+        if name in ("control", "resumed"):
+            adam = {float(v["step"]) for v in
+                    result["optimizer"].state_dict()["state"].values()}
+            if adam != {TRAINER_STEPS // TRAINER_ACCUM}:
+                raise RuntimeError(f"{name}: AdamW steps {adam}")
+    if not pre.get("preempted") or emergency_micro != (
+            TRAINER_DRAIN % TRAINER_ACCUM):
+        raise RuntimeError(f"the drained run's emergency checkpoint holds "
+                           f"micro-step {emergency_micro}")
+    if res["start_epoch"] != 0 or [t["step"] for t in rtrace] != list(
+            range(TRAINER_DRAIN + 1, TRAINER_STEPS + 1)):
+        raise RuntimeError(f"resumed at {[t['step'] for t in rtrace]}")
+    by_step = {t["step"]: t for t in ctrace}
+    for t in rtrace:
+        ref = by_step[t["step"]]
+        if (t["batch_sha256"], t["loss"]) != (ref["batch_sha256"],
+                                              ref["loss"]):
+            raise RuntimeError(f"step {t['step']}: resumed {t} != control "
+                               f"{ref}")
+    if res["losses"] != control["losses"][TRAINER_DRAIN:] or \
+            pre["losses"] != control["losses"][:TRAINER_DRAIN] or \
+            timed["losses"] != control["losses"]:
+        raise RuntimeError("the losses differ from the control's")
+    for (key, got), want in zip(res["model"].state_dict().items(),
+                                control["model"].state_dict().values()):
+        if not torch.equal(got, want):
+            raise RuntimeError(f"final parameter {key} differs from the "
+                               "control's")
+    if min(profile_names.values()) < 1:
+        raise RuntimeError(f"the profiler's trace names the flash kernels "
+                           f"{profile_names} times")
+    return {"micro_step_ms": fields["micro_step_ms_median_2_12"]}
 
 
 def _bits_equal(a, b) -> bool:
@@ -1838,6 +2090,8 @@ def main(argv=None) -> int:
     ptxas = build() if set(phases) - {"probe"} else None
     timing = kernels() if "kernels" in phases else None
     sliced = slice_run() if "slice" in phases else None
+    if "trainer" in phases:
+        trainer_run(card, sliced["step_ms"] if sliced else None)
     launches = sliced["launches"] if sliced else None
     k1 = image_kernels() if "image_kernels" in phases else None
     k2 = jpeg_kernels() if "jpeg_kernels" in phases else None

@@ -7,9 +7,17 @@ masked-LM and causal-LM text with ``--token_pack`` (ragged pages, an FFD
 plan and K3 packing on the device), ``--seq_parallelism`` (masked-LM
 through ring attention), ``--device_decode`` (JPEG decode split
 at the entropy boundary, K2 on the device), plus ``--device {cuda,cpu}``
-(default ``cuda``, which raises when no card is present). Any other flag
-of the JAX CLI raises "not yet ported"; so do the other subcommands and
-task types. Usage::
+(default ``cuda``, which raises when no card is present). The trainer's
+surface beyond the main path comes with the JAX defaults:
+``--grad_accum``, ``--checkpoint_dir`` (resume from the newest intact
+checkpoint; ``--checkpoint_every``, ``--checkpoint_every_steps``,
+``--no_resume``), ``--eval_every`` with ``--val_dataset_path``,
+``--log_grad_norm``, ``--profile_dir``, ``--run_name`` and ``--no_wandb``.
+The JAX runtime's flags (``--backend``, ``--num_cpu_devices``,
+``--no_compile_cache``, ``--compile_cache_dir``) raise: the port picks its
+device with ``--device`` and has no XLA compile cache. Any other flag of
+the JAX CLI raises "not yet ported"; so do the other subcommands and task
+types. Usage::
 
     python -m lance_distributed_training_tpu_torch.cli train \\
         --dataset_path /data/food101 --max_steps 20 [--device_decode]
@@ -21,6 +29,16 @@ task types. Usage::
         --dataset_path /data/web_tokens --task_type causal_lm \
         --model_name gpt_base --seq_len 1024 --token_pack --flash_attention \
         --batch_size 64 --optimizer adamw --lr 1e-4 --max_steps 20
+
+Resume after a preemption: rerun the same command; with
+``--checkpoint_dir`` it continues from the newest intact checkpoint (SIGTERM
+takes an emergency checkpoint of the last completed step)::
+
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/c4_tokens --task_type masked_lm \
+        --model_name bert_base --seq_len 512 --flash_attention \
+        --batch_size 32 --grad_accum 4 --optimizer adamw --lr 1e-4 \
+        --checkpoint_dir /ckpt/bert --checkpoint_every_steps 500
 
 Data parallel over N processes: run one per process with
 ``--coordinator_address host:port --num_processes N --process_id i``.
@@ -43,6 +61,11 @@ from .trainer import TrainConfig, train
 
 __all__ = ["build_parser", "main"]
 
+# Flags of the JAX CLI that configure XLA's runtime: accepted by the parser
+# so that they raise with the reason rather than as unrecognised.
+_XLA_FLAGS = ("backend", "num_cpu_devices", "no_compile_cache",
+              "compile_cache_dir")
+
 
 class _Parser(argparse.ArgumentParser):
     def error(self, message):
@@ -58,6 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = _Parser(description="PyTorch/CUDA trainer (classification, "
                             "masked-LM, causal-LM)")
     p.add_argument("--dataset_path", type=str, required=True)
+    p.add_argument("--val_dataset_path", type=str, default=None,
+                   help="held-out dataset for --eval_every and the eval at "
+                        "the end (default: the train data)")
     p.add_argument("--task_type", type=str, default="classification",
                    choices=["classification", "masked_lm", "causal_lm",
                             "contrastive"],
@@ -82,6 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup_steps", type=int, default=0)
     p.add_argument("--total_steps", type=int, default=None)
     p.add_argument("--grad_clip", type=float, default=0.0)
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="accumulate N micro-batches per optimizer update "
+                        "(optax.MultiSteps semantics); --total_steps and "
+                        "--warmup_steps count micro-steps")
     p.add_argument("--no_ddp", action="store_true",
                    help="single process even with --coordinator_address")
     p.add_argument("--model_name", type=str, default=None,
@@ -97,8 +127,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_augment", action="store_true")
     p.add_argument("--no_eval_at_end", action="store_true",
                    help="skip the final eval pass over the train data")
+    p.add_argument("--eval_every", type=int, default=0,
+                   help=">0: eval every N epochs (val_acc in the epoch's "
+                        "history)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_every", type=int, default=50)
+    p.add_argument("--log_grad_norm", action="store_true",
+                   help="log the micro-batch gradient's global norm in the "
+                        "progress lines (with --grad_accum the update clips "
+                        "the accumulated mean, not this)")
+    p.add_argument("--run_name", type=str, default=None,
+                   help="recorded with the run's config in the first JSONL "
+                        "record (default DP-iterable-<sampler>-<model>)")
+    p.add_argument("--no_wandb", action="store_true",
+                   help="accepted for the JAX CLI's sake: the port logs to "
+                        "JSONL and stdout only")
+    p.add_argument("--checkpoint_dir", type=str, default=None,
+                   help="checkpoint root; resumes from the newest intact "
+                        "checkpoint when one exists")
+    p.add_argument("--checkpoint_every", type=int, default=1,
+                   help="save every N epochs")
+    p.add_argument("--checkpoint_every_steps", type=int, default=0,
+                   help=">0: also save every N micro-steps, with the "
+                        "data-plane cursor, so a preempted run resumes "
+                        "mid-epoch at the exact next batch (absolute steps "
+                        "across restarts)")
+    p.add_argument("--no_resume", action="store_true",
+                   help="ignore existing checkpoints, start fresh")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of epoch steps "
+                        "2-12 of the first epoch there")
     p.add_argument("--flash_attention", action="store_true",
                    help="attention through the hand-written CUDA flash "
                         "kernels (the plain version on the CPU)")
@@ -139,6 +197,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="world size")
     p.add_argument("--process_id", type=int, default=None,
                    help="this process's rank")
+    xla = p.add_argument_group("JAX runtime flags (raise in the port)")
+    xla.add_argument("--backend", type=str, default=None)
+    xla.add_argument("--num_cpu_devices", type=int, default=None)
+    xla.add_argument("--no_compile_cache", action="store_true")
+    xla.add_argument("--compile_cache_dir", type=str, default=None)
     return p
 
 
@@ -151,6 +214,13 @@ def main(argv=None) -> dict:
             f"subcommand {argv[0]!r} is not yet ported (train only)"
         )
     args = vars(build_parser().parse_args(argv))
+    for name in _XLA_FLAGS:
+        if args.pop(name) not in (None, False):
+            raise NotImplementedError(
+                f"--{name} configures the JAX package's XLA runtime; the "
+                "PyTorch port picks its device with --device {cuda,cpu} and "
+                "has no XLA compile cache")
+    args["resume"] = not args.pop("no_resume")
     args["augment"] = not args.pop("no_augment")
     args["eval_at_end"] = not args.pop("no_eval_at_end")
     no_device_decode = args.pop("no_device_decode")

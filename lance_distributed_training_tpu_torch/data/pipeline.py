@@ -9,6 +9,12 @@ queue; the consumer copies each batch into pinned staging buffers and on to
 the device with ``non_blocking`` copies on the current stream. No worker
 pool, cache or autotuner yet. :func:`make_eval_pipeline` is the
 full-coverage eval loader on the same thread and staging.
+
+Resume cursor (the JAX loaders' contract): ``TrainLoader.state_dict()`` is
+``{"epoch", "step"}``, ``step`` counting the batches handed to the consumer
+(not those prefetched), so read between steps it names the next batch.
+``load_state_dict`` positions the next iteration there: the plan is sliced,
+and the skipped batches are never read or decoded.
 """
 
 from __future__ import annotations
@@ -103,23 +109,42 @@ class PinnedStager:
 
 
 class TrainLoader:
-    """Iterate device batches for this process's plan, in plan order."""
+    """Iterate device batches for this process's plan, in plan order, from
+    the resume cursor on (the module's docstring)."""
 
     def __init__(self, dataset: Dataset, plan: Sequence,
                  decode_fn: Callable[[pa.Table], dict],
-                 device: torch.device, prefetch: int = 2):
+                 device: torch.device, prefetch: int = 2, epoch: int = 0):
         self.dataset = dataset
         self.plan = list(plan)
         self.decode_fn = decode_fn
         self.device = torch.device(device)
         self.prefetch = max(1, int(prefetch))
+        self.epoch = epoch
+        self._start_step = 0  # where the next iteration starts in the plan
+        self._yielded = 0  # batches handed out, absolute within the plan
 
     def __len__(self) -> int:
         return len(self.plan)
 
+    def state_dict(self) -> dict:
+        return {"epoch": self.epoch, "step": self._yielded}
+
+    def load_state_dict(self, state: dict) -> None:
+        step = int(state.get("step", 0))
+        if step < 0:
+            raise ValueError(f"negative resume cursor: {step}")
+        epoch = int(state.get("epoch", self.epoch))
+        if epoch != self.epoch:
+            raise ValueError(f"cursor of epoch {epoch} loaded into the "
+                             f"loader of epoch {self.epoch}")
+        self._start_step = step
+        self._yielded = step
+
     def host_batches(self) -> Iterator[dict]:
-        """Decoded host numpy batches, read and decoded on this thread."""
-        for ranges in self.plan:
+        """Decoded host numpy batches from the cursor on, read and decoded
+        on this thread."""
+        for ranges in self.plan[self._start_step:]:
             yield self.decode_fn(_range_read(self.dataset, ranges))
 
     def _produce(self, q: queue.Queue, stop: threading.Event) -> None:
@@ -147,6 +172,7 @@ class TrainLoader:
         producer = threading.Thread(target=self._produce, args=(q, stop),
                                     name="ldt-torch-prefetch", daemon=True)
         stage = PinnedStager(self.device)
+        self._yielded = self._start_step
         producer.start()
         try:
             while True:
@@ -155,7 +181,11 @@ class TrainLoader:
                     return
                 if isinstance(item, _Failure):
                     raise item.exc
-                yield stage(item)
+                batch = stage(item)
+                # Counted as handed out: between steps the cursor names the
+                # next batch.
+                self._yielded += 1
+                yield batch
         finally:
             stop.set()
             while producer.is_alive():
@@ -243,4 +273,5 @@ def make_train_pipeline(
             f"empty plan: {dataset.count_rows()} rows cannot fill one batch "
             f"of {batch_size} on each of {process_count} processes"
         )
-    return TrainLoader(dataset, plan, decode_fn, device, prefetch=prefetch)
+    return TrainLoader(dataset, plan, decode_fn, device, prefetch=prefetch,
+                       epoch=epoch)

@@ -41,6 +41,16 @@ trains on its sequence block with its global ``position_ids``, the key and
 value blocks passing between them; DDP spans the world. Rank 0 evaluates
 alone, folding whole sequences in its process.
 
+Beyond the main path, as the JAX trainer: gradient accumulation
+(``grad_accum``, ``optax.MultiSteps``' semantics in :class:`TrainStep`),
+crash-consistent step checkpoints with the data-plane cursor and resume
+(``checkpoint_dir``, ``utils/checkpoint.py``; SIGTERM and the ``LDT_CHAOS``
+hook drain through ``utils/signals.py`` and ``utils/chaos.py``), the eval
+every N epochs over a held-out dataset (``eval_every``,
+``val_dataset_path``), the micro-batch gradient norm and the lr in the
+progress lines (``log_grad_norm``), and a ``torch.profiler`` window
+(``profile_dir``, ``utils/profiling.py``).
+
 The device is the caller's choice: ``device="cuda"`` (the default) raises
 when no card is present rather than falling back to the CPU.
 """
@@ -50,6 +60,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import os
 import statistics
 import time
 from typing import Callable, Optional, Union
@@ -76,7 +87,11 @@ from .parallel.mesh import (
     sync_global_devices,
 )
 from .parallel.ring_attention import ProcessRing, make_ring_attention
+from .utils.chaos import StepTrace, TrainerChaos
+from .utils.checkpoint import CheckpointManager, pack_rng_key, unpack_rng_key
 from .utils.metrics import MetricLogger, StepTimer
+from .utils.profiling import ProfileWindow
+from .utils.signals import PreemptionHandler
 
 __all__ = [
     "TrainConfig",
@@ -85,6 +100,7 @@ __all__ = [
     "lr_schedule_fn",
     "make_optimizer",
     "make_train_step",
+    "TrainStep",
     "make_eval_step",
     "evaluate",
     "clip_by_global_norm_",
@@ -99,6 +115,8 @@ class TrainConfig:
     """The JAX trainer's flags that the ported paths use, plus ``device``."""
 
     dataset_path: str
+    val_dataset_path: Optional[str] = None  # held-out dataset for
+    # eval_every and the eval at the end (else they read the train data)
     task_type: str = "classification"
     num_classes: int = 101
     sampler_type: str = "batch"  # batch | fragment | full
@@ -113,6 +131,9 @@ class TrainConfig:
     warmup_steps: int = 0
     total_steps: Optional[int] = None  # schedule horizon; None = derived
     grad_clip: float = 0.0  # >0: clip gradients by global norm
+    grad_accum: int = 1  # >1: accumulate N micro-steps per optimizer update
+    # (total_steps/warmup_steps count micro-steps; the schedule counts
+    # updates)
     no_ddp: bool = False  # single process even when a coordinator is given
     model_name: Optional[str] = None  # default per task (resnet50 /
     # bert_base / gpt_base)
@@ -124,8 +145,20 @@ class TrainConfig:
     augment: bool = True  # per-image horizontal flip, p = 0.5 (classification)
     eval_at_end: bool = True  # process 0 evaluates every row of the train
     # data once after training (make_eval_pipeline; text: the padded arm)
+    eval_every: int = 0  # >0: eval every N epochs (val_acc in the history)
     seed: int = 0
     log_every: int = 50
+    log_grad_norm: bool = False  # the micro-batch gradient's global norm in
+    # the progress lines (under grad_accum the update clips the mean)
+    run_name: Optional[str] = None  # default DP-iterable-<sampler>-<model>
+    no_wandb: bool = False  # the port has no wandb sink; recorded only
+    checkpoint_dir: Optional[str] = None  # resumes from the newest intact
+    # checkpoint there, when one exists
+    checkpoint_every: int = 1  # save every N epochs
+    checkpoint_every_steps: int = 0  # >0: also every N micro-steps, with
+    # the cursor (absolute steps across restarts)
+    resume: bool = True  # restore the newest checkpoint if one exists
+    profile_dir: Optional[str] = None  # torch.profiler trace of early steps
     flash_attention: bool = False  # the hand-written CUDA flash kernels
     seq_parallelism: int = 1  # masked_lm: ring attention over N sequence
     # blocks (K5), in this process or across N processes a ring
@@ -179,16 +212,21 @@ def lr_schedule_fn(config: TrainConfig,
                    ) -> Union[float, Callable[[int], float]]:
     """A float (constant) or a function of the number of optimizer updates
     done so far — optax's ``linear_schedule``, ``cosine_decay_schedule`` and
-    ``warmup_cosine_decay_schedule`` as the JAX trainer uses them."""
+    ``warmup_cosine_decay_schedule`` as the JAX trainer uses them. The
+    horizon and the warmup count micro-steps; under ``grad_accum`` they
+    become updates by ceiling division, as the JAX trainer converts them."""
     horizon = total_steps or config.total_steps
+    accum = max(config.grad_accum, 1)
     if config.lr_schedule == "constant":
         if config.warmup_steps > 0:
-            return _linear(0.0, config.lr, max(config.warmup_steps, 1))
+            return _linear(0.0, config.lr,
+                           max(-(-config.warmup_steps // accum), 1))
         return config.lr
     if config.lr_schedule == "cosine":
         if not horizon:
             raise ValueError("cosine schedule needs total_steps")
-        warmup = config.warmup_steps
+        horizon = max(-(-horizon // accum), 1)
+        warmup = -(-config.warmup_steps // accum)
         if warmup > 0:
             decay_steps = max(horizon, warmup + 1)
             warm = _linear(0.0, config.lr, warmup)
@@ -221,14 +259,19 @@ def make_optimizer(config: TrainConfig, params,
     return opt, lr
 
 
+def _global_norm(tensors) -> torch.Tensor:
+    """``optax.global_norm``: the 2-norm of all the tensors together, as an
+    f32 device scalar."""
+    norms = torch._foreach_norm(tensors)
+    return torch.linalg.vector_norm(torch.stack([n.float() for n in norms]))
+
+
 def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     """Scale gradients in place by ``max_norm / norm`` when their global
     norm exceeds ``max_norm`` (``optax.clip_by_global_norm``); returns the
     norm as a device scalar, without a host sync."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
-    )
+    norm = _global_norm(grads)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     for g in grads:
@@ -236,42 +279,118 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def make_train_step(task: Task, optimizer: torch.optim.Optimizer,
-                    lr: Union[float, Callable[[int], float], None] = None,
-                    grad_clip: float = 0.0):
+class TrainStep:
     """``step(batch, generator=None, mlm_mask=None, flip_mask=None) ->
-    loss``: forward, backward, optional clipping and one optimizer update.
-    The task's random draw (masked-LM: ``mlm_mask``, classification:
-    ``flip_mask``) is given or made from ``generator``. ``lr`` is what
-    :func:`make_optimizer` returned: a schedule sets each update's rate, a
-    float leaves the optimizer's own. The returned loss is the pre-update
-    loss, detached and still on the device. BatchNorm's running statistics
-    update in the forward."""
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    updates = 0
+    loss``: one micro-step — forward, backward and, every ``grad_accum``
+    micro-steps, optional clipping and one optimizer update. The task's
+    random draw (masked-LM: ``mlm_mask``, classification: ``flip_mask``) is
+    given or made from ``generator``. ``lr`` is what :func:`make_optimizer`
+    returned: a schedule sets each update's rate from the updates done so
+    far, a float leaves the optimizer's own. The returned loss is the
+    pre-update loss, detached and still on the device. BatchNorm's running
+    statistics update in every micro-step's forward, as the JAX step
+    replaces them every step.
 
-    def step(batch, generator=None, mlm_mask=None, flip_mask=None):
-        nonlocal updates
-        if callable(lr):
-            for group in optimizer.param_groups:
-                group["lr"] = lr(updates)
-        optimizer.zero_grad(set_to_none=True)
+    ``grad_accum = k > 1`` keeps ``optax.MultiSteps``' semantics: each
+    backward writes a fresh ``.grad`` (so ``grad_norm`` reads the
+    micro-batch's own gradient, ``optax.global_norm`` of the JAX step's
+    ``grads``), which is folded into one accumulator buffer a parameter as
+    the running mean ``acc + (g - acc) / (n + 1)`` — one ``lerp`` with
+    weight ``1 / (n + 1)``, within an ulp of optax's division. The
+    parameters and the optimizer's state do not change inside a window; on
+    the k-th micro-step the optimizer steps once on the mean (clipping and
+    SGD's L2 decay act on it, as the JAX chain does inside MultiSteps), and
+    the accumulator is zeroed. A partial window is never applied. Under DDP
+    every micro-step's backward all-reduces, as the JAX step's gradient
+    mean does, so the norm is the global batch's. ``fold_times`` (a
+    :class:`_DeviceTimes`) times each fold on the card.
+
+    :meth:`state_dict` / :meth:`load_state_dict` carry the accumulator, its
+    micro-step count and the update count through a checkpoint."""
+
+    def __init__(self, task: Task, optimizer: torch.optim.Optimizer,
+                 lr: Union[float, Callable[[int], float], None] = None,
+                 grad_clip: float = 0.0, grad_accum: int = 1,
+                 grad_norm: bool = False, fold_times=None):
+        self.task = task
+        self.optimizer = optimizer
+        self.lr = lr
+        self.grad_clip = grad_clip
+        self.grad_accum = max(int(grad_accum), 1)
+        self.grad_norm = grad_norm
+        self.fold_times = fold_times or _DeviceTimes(False)
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.updates = 0
+        self.micro_step = 0  # micro-steps folded into the open window
+        self.accum = None
+        if self.grad_accum > 1:
+            self.accum = [torch.zeros_like(p) for p in self.params]
+        self.last_grad_norm: Optional[torch.Tensor] = None
+
+    def _fold(self, grads) -> None:
+        torch._foreach_lerp_(self.accum, grads, 1.0 / (self.micro_step + 1))
+
+    def __call__(self, batch, generator=None, mlm_mask=None, flip_mask=None):
+        self.optimizer.zero_grad(set_to_none=True)
         draws = {name: value for name, value in
                  (("mlm_mask", mlm_mask), ("flip_mask", flip_mask))
                  if value is not None}
-        outputs = task.forward(batch, True, generator, **draws)
-        loss = task.loss(outputs, batch)
+        outputs = self.task.forward(batch, True, generator, **draws)
+        loss = self.task.loss(outputs, batch)
         # The outputs (a text model's [B, S, vocab] f32 logits) are not
         # needed by the backward: dropping them here lowers its peak.
         del outputs
         loss.backward()
-        if grad_clip > 0:
-            clip_by_global_norm_(params, grad_clip)
-        optimizer.step()
-        updates += 1
+        if self.grad_norm:
+            self.last_grad_norm = _global_norm(
+                [p.grad for p in self.params if p.grad is not None])
+        if self.accum is not None:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in self.params]
+            self.fold_times.run(self._fold, grads)
+            self.micro_step += 1
+            if self.micro_step < self.grad_accum:
+                return loss.detach()
+            self.micro_step = 0
+            for p, acc in zip(self.params, self.accum):
+                p.grad = acc
+        if self.grad_clip > 0:
+            clip_by_global_norm_(self.params, self.grad_clip)
+        if callable(self.lr):
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr(self.updates)
+        self.optimizer.step()
+        self.updates += 1
+        if self.accum is not None:
+            self.optimizer.zero_grad(set_to_none=True)
+            torch._foreach_zero_(self.accum)
         return loss.detach()
 
-    return step
+    def state_dict(self) -> dict:
+        return {"grad_accum": self.grad_accum, "updates": self.updates,
+                "micro_step": self.micro_step, "accum": self.accum}
+
+    def load_state_dict(self, state: dict) -> None:
+        if int(state["grad_accum"]) != self.grad_accum:
+            raise ValueError(
+                f"checkpoint was taken with grad_accum {state['grad_accum']}"
+                f", this run has {self.grad_accum}")
+        self.updates = int(state["updates"])
+        self.micro_step = int(state["micro_step"])
+        if self.accum is not None:
+            with torch.no_grad():
+                for acc, saved in zip(self.accum, state["accum"]):
+                    acc.copy_(saved)
+
+
+def make_train_step(task: Task, optimizer: torch.optim.Optimizer,
+                    lr: Union[float, Callable[[int], float], None] = None,
+                    grad_clip: float = 0.0, grad_accum: int = 1,
+                    grad_norm: bool = False, fold_times=None) -> TrainStep:
+    """The train step (:class:`TrainStep`) of ``task`` under
+    ``optimizer``."""
+    return TrainStep(task, optimizer, lr, grad_clip, grad_accum, grad_norm,
+                     fold_times)
 
 
 def make_eval_step(task: Task):
@@ -408,8 +527,22 @@ def train(config: TrainConfig) -> dict:
     decoder's ``pack_*`` counters (every batch it decoded) and,
     with ``token_pack``, ``pack_device_ms`` (median K3 time, on the card)
     and ``pack_new_shapes_total``. ``eval_accuracy`` is the task's metric
-    (next-token or masked-token accuracy for text). ``model`` is the
-    trained module."""
+    (next-token or masked-token accuracy for text), over the
+    ``val_dataset_path`` rows when one is given. ``model`` and
+    ``optimizer`` are the trained module and its optimizer.
+
+    ``steps`` counts this run's micro-steps and ``global_step`` the
+    absolute ones across restarts; ``start_epoch`` is the epoch this run
+    began in and ``preempted`` is True after a drain (the eval at the end
+    is then skipped). With ``eval_every`` each ``history`` entry of such an
+    epoch adds ``val_acc`` and ``val_rows``. With ``checkpoint_dir``:
+    ``ckpt_save_ms`` (each save's time on the training thread),
+    ``ckpt_write_ms`` (each file write on the writer thread),
+    ``ckpt_last_success_step``, ``ckpt_restore_ms`` (None without a
+    restore) and ``ckpt_bytes`` (the newest state file's size). Under
+    ``grad_accum``, ``accum_fold_ms`` is the median fold time on the card
+    (None on the CPU);
+    with ``profile_dir``, ``profile_trace`` names the trace file."""
     if config.task_type not in PORTED_TASKS:
         raise NotImplementedError(
             f"task_type {config.task_type!r} is not yet ported "
@@ -582,6 +715,72 @@ class _TokenCounts:
                 if grid else 0.0}
 
 
+class _CkptJournal:
+    """Checkpoint bookkeeping shared between the step loop and the
+    emergency save. Updated only at completed-step boundaries, so the live
+    train state pairs with the cursor naming the exact next batch whenever
+    ``at_boundary`` holds; a step that raises midway leaves it False, and
+    no state is saved that pairs a half-done step with a cursor."""
+
+    def __init__(self, resume_global_step: int = 0):
+        self.cursor_base: Optional[dict] = None  # loader {"epoch","step"}
+        self.abs_step = resume_global_step  # absolute completed micro-steps
+        self.saved_step = resume_global_step  # newest persisted abs_step
+        self.at_boundary = True
+        self.preempted = False
+
+    @property
+    def dirty(self) -> bool:
+        return self.cursor_base is not None and self.abs_step > self.saved_step
+
+
+def _save_checkpoint(ckpt: CheckpointManager, journal: _CkptJournal,
+                     model, optimizer, train_step, mask_gen, rank: int,
+                     world: int, wait: bool = False) -> None:
+    """Every process's mask generator state, gathered to rank 0, goes into
+    the cursor; rank 0 writes the pair (the replicas are equal); every rank
+    passes a barrier after the save."""
+    states = [pack_rng_key(mask_gen)]
+    if world > 1:
+        states = [None] * world
+        dist.all_gather_object(states, pack_rng_key(mask_gen))
+    if rank == 0:
+        cursor = dict(journal.cursor_base)
+        cursor.update(global_step=journal.abs_step, rng=states)
+        ckpt.save(journal.abs_step,
+                  {"model": model.state_dict(),
+                   "optimizer": optimizer.state_dict(),
+                   "train_step": train_step.state_dict()},
+                  cursor=cursor, wait=wait)
+    sync_global_devices()
+    # An intact duplicate (save returned False) holds this step as well.
+    journal.saved_step = journal.abs_step
+
+
+def _restore_checkpoint(ckpt: CheckpointManager, model, optimizer,
+                        train_step, mask_gen, rank: int, world: int,
+                        epochs: int):
+    """Restore the newest intact checkpoint into the live objects:
+    ``(start_epoch, epoch_step, global_step)``, or ``None`` when there is
+    none. Resuming under a different world size raises."""
+    restored = ckpt.restore_latest()
+    if restored is None:
+        return None
+    state, cursor, step = restored
+    rngs = cursor.get("rng") or []
+    if len(rngs) != world:
+        raise ValueError(
+            f"checkpoint step {step} was taken by {len(rngs)} processes; "
+            f"this run has {world}")
+    model.load_state_dict(state["model"])
+    optimizer.load_state_dict(state["optimizer"])
+    train_step.load_state_dict(state["train_step"])
+    unpack_rng_key(rngs[rank], mask_gen)
+    start_epoch = min(int(cursor.get("epoch", 0)), epochs)
+    epoch_step = int(cursor.get("step", 0)) if start_epoch < epochs else 0
+    return start_epoch, epoch_step, int(cursor.get("global_step", step))
+
+
 def _train(config: TrainConfig, device: torch.device) -> dict:
     rank, world = process_topology()
     if config.no_ddp:
@@ -592,6 +791,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                      else torch.cuda.current_device())
             device = torch.device("cuda", index)
         torch.cuda.set_device(device)
+    cuda = device.type == "cuda"
     sp = config.seq_parallelism
     # The data share this process reads: its rank's, or with a process ring
     # its data index's, which the ring's members share.
@@ -606,16 +806,18 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                          f"{data_world} processes")
     image = config.task_type == "classification"
     dataset = Dataset(config.dataset_path)
+    val_dataset = (Dataset(config.val_dataset_path)
+                   if config.val_dataset_path else None)
     init_gen = torch.Generator().manual_seed(config.seed)
+    attention_fn = None
     if image:
-        if device.type == "cuda":
+        if cuda:
             torch.backends.cudnn.benchmark = True  # conv autotuning, as XLA
         task = get_task("classification", num_classes=config.num_classes,
                         model_name=config.model_name,
                         image_size=config.image_size, augment=config.augment,
                         device=device, generator=init_gen)
     else:
-        attention_fn = None
         if sp > 1:
             attention_fn = make_ring_attention(sp, ring)
         elif config.flash_attention:
@@ -632,8 +834,8 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     if world > 1:
         set_sync_group(task.model, dist.group.WORLD)
         ddp = DistributedDataParallel(
-            task.model, device_ids=[device.index] if device.type == "cuda"
-            else None, broadcast_buffers=False)
+            task.model, device_ids=[device.index] if cuda else None,
+            broadcast_buffers=False)
         train_task = task.with_model(ddp)
     # Classification draws one flip per image of the global batch and each
     # process slices it; masked-LM draws per data share.
@@ -646,11 +848,38 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                        * config.epochs)
     optimizer, lr = make_optimizer(config, task.model.parameters(),
                                    total_steps)
-    step = make_train_step(train_task, optimizer, lr, config.grad_clip)
+    accum = max(config.grad_accum, 1)
+    fold_times = _DeviceTimes(cuda)
+    step = make_train_step(train_task, optimizer, lr, config.grad_clip,
+                           grad_accum=accum, grad_norm=config.log_grad_norm,
+                           fold_times=fold_times)
 
-    logger = MetricLogger(active=rank == 0)
+    # Checkpoint/resume: the newest INTACT step restores the model, the
+    # optimizer, the accumulator and the generators together with the
+    # data-plane cursor (epoch, batches consumed, absolute step), so the
+    # resumed stream — and with it the loss trajectory — is the
+    # uninterrupted run's.
+    ckpt = CheckpointManager(config.checkpoint_dir) \
+        if config.checkpoint_dir else None
+    start_epoch = resume_epoch_step = resume_global_step = 0
+    restore_ms = None
+    if ckpt is not None and config.resume:
+        t0 = time.perf_counter()
+        resumed = _restore_checkpoint(ckpt, task.model, optimizer, step,
+                                      mask_gen, rank, world, config.epochs)
+        if resumed is not None:
+            start_epoch, resume_epoch_step, resume_global_step = resumed
+            if cuda:
+                torch.cuda.synchronize(device)
+            restore_ms = (time.perf_counter() - t0) * 1e3
+
+    logger = MetricLogger(
+        active=rank == 0,
+        run_name=config.run_name or f"DP-iterable-{config.sampler_type}-"
+                                    f"{config.model_name or task.name}",
+        config=dataclasses.asdict(config), enabled=not config.no_wandb)
     timer = StepTimer()
-    log = _StepLog(device.type == "cuda", world)
+    log = _StepLog(cuda, world)
     coeff = config.device_decode
     # The device stage between the H2D copy and the step: K2 on coefficient
     # pages, or K3 on ragged token pages; its CUDA-event times are read at
@@ -662,25 +891,70 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     elif config.token_pack:
         transform = make_pack_transform()
         device_ms_key = "pack_device_ms"
-    transform_times = _DeviceTimes(device.type == "cuda")
+    transform_times = _DeviceTimes(cuda)
     tokens = _TokenCounts()  # text: grid and payload tokens of each step
     entropy_seen = 0  # decode.entropy_ms entries already logged
     if image:
         logger.log({"decoder_arm": decode.arm})
-    global_step = 0
+
+    def run_eval(ds: Dataset):
+        """Rank 0 evaluates every row of ``ds`` once; ``(accuracy, rows)``
+        there, ``None`` elsewhere, after a barrier."""
+        out = None
+        if rank == 0:
+            eval_decode = decode if image else _decoder_for(config,
+                                                            for_eval=True)
+            columns = decode.required_columns if image else None
+            loader = make_eval_pipeline(
+                lambda idx: ds.take(idx, columns=columns), ds.count_rows(),
+                config.batch_size, 0, 1, eval_decode, device,
+                prefetch=config.prefetch)
+            eval_step = make_eval_step(task)
+            if coeff:
+                eval_step = (lambda b, _step=eval_step: _step(transform(b)))
+            # Rank 0 folds whole sequences in its process: the other ranks
+            # do not join a ring during the eval.
+            with (attention_fn.whole_sequence() if ring is not None
+                  else contextlib.nullcontext()):
+                out = evaluate(loader, eval_step)
+        sync_global_devices()
+        return out
+
+    eval_dataset = val_dataset if val_dataset is not None else dataset
+    # Parse the chaos spec BEFORE installing the handler: a malformed
+    # LDT_CHAOS raises, and must not leave SIGTERM hijacked behind it.
+    chaos = TrainerChaos.from_env()
+    trace = StepTrace.from_env() if rank == 0 else None
+    preempt = PreemptionHandler().install()
+    if chaos is not None:
+        chaos.drain_cb = preempt.request
+    journal = _CkptJournal(resume_global_step)
+    profile = (ProfileWindow(config.profile_dir, cuda)
+               if config.profile_dir and rank == 0 else None)
+
+    def save(wait: bool = False) -> None:
+        _save_checkpoint(ckpt, journal, task.model, optimizer, step,
+                         mask_gen, rank, world, wait=wait)
+
+    global_step = 0  # this run's micro-steps
     stop = False
     history = []
     lo, hi = rank * per_process, (rank + 1) * per_process
     t_start = time.perf_counter()
     warm = None  # (steps, time) at the first log point: warm-up ends there
     try:
-        for epoch in range(config.epochs):
+        for epoch in range(start_epoch, config.epochs):
             loader = make_train_pipeline(
                 dataset, config.sampler_type, per_process, data_index,
                 data_world,
                 decode, device, prefetch=config.prefetch,
                 shuffle=config.shuffle, seed=config.seed, epoch=epoch,
             )
+            if epoch == start_epoch and resume_epoch_step:
+                # The rebuilt plan is deterministic: the tail it serves
+                # from the cursor is what the uninterrupted run consumed.
+                loader.load_state_dict({"epoch": epoch,
+                                        "step": resume_epoch_step})
             epoch_steps = 0
             it = iter(loader)
             try:
@@ -690,8 +964,12 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                     timer.loader_stop()
                     if batch is None:
                         break
+                    if profile is not None and epoch == start_epoch:
+                        profile.at(epoch_steps)
+                    journal.at_boundary = False
                     timer.step_start()
                     start = log.start()
+                    fed = batch  # the loader's batch, for the step trace
                     if not image:
                         tokens.add(batch)
                     if transform is not None:
@@ -715,6 +993,13 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                     timer.step_stop()
                     epoch_steps += 1
                     global_step += 1
+                    # Step boundary: the live state pairs with the cursor
+                    # naming the NEXT batch (batches handed out so far).
+                    journal.abs_step = resume_global_step + global_step
+                    journal.cursor_base = loader.state_dict()
+                    journal.at_boundary = True
+                    if trace is not None:
+                        trace.record(journal.abs_step, epoch, fed, loss)
                     if 0 < config.max_steps <= global_step:
                         stop = True
                     if config.log_every and global_step % config.log_every == 0:
@@ -737,6 +1022,17 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                             extra["decode_entropy_ms"] = _mean(
                                 decode.entropy_ms[entropy_seen:seen])
                             entropy_seen = seen
+                        # Schedules count optimizer updates, not
+                        # micro-steps; the restored step count carries the
+                        # position across a resume.
+                        updates = journal.abs_step // accum
+                        extra["lr"] = float(lr(updates) if callable(lr)
+                                            else lr)
+                        if config.log_grad_norm:
+                            extra["grad_norm"] = round(
+                                float(step.last_grad_norm), 4)
+                        if accum > 1:
+                            fold_times.drain()
                         extra = {k: v for k, v in extra.items()
                                  if v is not None}
                         logger.log({
@@ -752,16 +1048,48 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                             ),
                             **extra,
                         })
+                    if (ckpt is not None and config.checkpoint_every_steps > 0
+                            and journal.abs_step >= journal.saved_step
+                            + config.checkpoint_every_steps):
+                        # ">= saved + N" rather than "% N", as the JAX loop.
+                        save()
+                    if chaos is not None:
+                        chaos.on_step(global_step)
+                    if preempt.requested and not stop:
+                        # The in-flight step has finished; the awaited
+                        # emergency checkpoint follows the loop.
+                        journal.preempted = True
+                        logger.log({"preempted": True,
+                                    "at_step": journal.abs_step,
+                                    "epoch": epoch})
+                        stop = True
             finally:
                 it.close()
+            if profile is not None:
+                profile.stop()  # an epoch shorter than the trace window
             if epoch_steps:
                 log.drain()
                 mean = statistics.fmean(log.losses[-epoch_steps:])
-                history.append({"epoch": epoch, "train_loss": mean})
-                logger.log({"epoch": epoch, "train_loss": mean,
-                            "steps": global_step})
+                entry = {"epoch": epoch, "train_loss": mean}
+                if config.eval_every and (epoch + 1) % config.eval_every == 0:
+                    evaluated = run_eval(eval_dataset)
+                    if evaluated is not None:
+                        entry.update(val_acc=evaluated[0],
+                                     val_rows=evaluated[1])
+                history.append(entry)
+                logger.log({**entry, "steps": global_step})
+            if (ckpt is not None and (epoch + 1) % config.checkpoint_every == 0
+                    and not stop):
+                # Epoch-boundary checkpoint with a cursor naming the next
+                # epoch's first batch. A max_steps stop mid-epoch must not
+                # checkpoint the partial epoch as completed (preemption
+                # goes through the emergency save instead).
+                journal.cursor_base = {"epoch": epoch + 1, "step": 0}
+                save()
             if stop:
                 break
+        if journal.preempted and ckpt is not None and journal.dirty:
+            save(wait=True)  # the awaited emergency checkpoint
         log.drain()
         t_end = time.perf_counter()
         train_time = t_end - t_start
@@ -777,30 +1105,37 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                 decode_threads=decode.threads)
         if config.token_pack:
             results["pack_new_shapes_total"] = transform.pack_new_shapes_total
-        if config.eval_at_end:
-            if rank == 0:
-                eval_decode = decode if image else _decoder_for(
-                    config, for_eval=True)
-                columns = decode.required_columns if image else None
-                loader = make_eval_pipeline(
-                    lambda idx: dataset.take(idx, columns=columns),
-                    dataset.count_rows(), config.batch_size, 0, 1,
-                    eval_decode, device, prefetch=config.prefetch)
-                eval_step = make_eval_step(task)
-                if coeff:
-                    eval_step = (lambda b, _step=eval_step:
-                                 _step(transform(b)))
-                # Rank 0 folds whole sequences in its process: the other
-                # ranks do not join a ring during the eval.
-                with (attention_fn.whole_sequence() if ring is not None
-                      else contextlib.nullcontext()):
-                    acc, rows = evaluate(loader, eval_step)
-                evaluated = {"eval_accuracy": acc, "eval_rows": rows}
+        if config.eval_at_end and not journal.preempted:
+            evaluated = run_eval(eval_dataset)
+            if evaluated is not None:
+                evaluated = {"eval_accuracy": evaluated[0],
+                             "eval_rows": evaluated[1]}
                 results.update(evaluated)
                 logger.log(evaluated)
-            sync_global_devices()
+        if ckpt is not None:
+            ckpt.close()
+    except BaseException:
+        if ckpt is not None:
+            try:
+                # A crashed run persists its last completed step, awaited,
+                # when the live state sits at a step boundary. Across
+                # processes the peers may never reach the save's
+                # collectives, so only a lone process saves here.
+                if journal.dirty and journal.at_boundary and world == 1:
+                    save(wait=True)
+                ckpt.close()
+            except Exception:  # noqa: BLE001 — never mask the run's error
+                pass
+        raise
     finally:
-        logger.close()
+        try:
+            if profile is not None:
+                profile.stop()
+        finally:
+            preempt.uninstall()
+            if trace is not None:
+                trace.close()
+            logger.close()
     timed_steps, timed_s = global_step, train_time
     if warm is not None and global_step > warm[0]:
         timed_steps, timed_s = global_step - warm[0], t_end - warm[1]
@@ -814,8 +1149,26 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             images_per_sec_whole_run=config.batch_size * global_step
             / train_time,
             decoder_arm=decode.arm)
+    if journal.preempted:
+        results["preempted"] = True
+    if ckpt is not None:
+        newest = ckpt.latest_step()
+        results.update(
+            ckpt_save_ms=ckpt.save_ms, ckpt_write_ms=ckpt.write_ms,
+            ckpt_last_success_step=ckpt.last_success_step,
+            ckpt_restore_ms=restore_ms,
+            ckpt_bytes=(os.path.getsize(ckpt.state_path(newest))
+                        if newest is not None else None))
+    if accum > 1:
+        fold_times.drain()
+        results["accum_fold_ms"] = (statistics.median(fold_times.ms)
+                                    if fold_times.ms else None)
+    if profile is not None:
+        results["profile_trace"] = profile.path
     return {
         "steps": global_step,
+        "global_step": journal.abs_step,
+        "start_epoch": start_epoch,
         "epochs": len(history),
         "history": history,
         "losses": log.losses,
@@ -827,5 +1180,6 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         "world_size": world,
         "model_params": sum(p.numel() for p in task.model.parameters()),
         "model": task.model,
+        "optimizer": optimizer,
         **results,
     }

@@ -2,9 +2,9 @@
 
 Counterpart of ``MetricLogger`` and ``StepTimer`` in
 ``lance_distributed_training_tpu/utils/metrics.py``, without the wandb sink
-and the metrics registry. The progress window adds ``step_ms`` and, for
-image batches, ``images_per_sec`` (the trainer counts token rates from
-each step's grid).
+(wandb is not a dependency of the port) and the metrics registry. The
+progress window adds ``step_ms`` and, for image batches,
+``images_per_sec`` (the trainer counts token rates from each step's grid).
 """
 
 from __future__ import annotations
@@ -22,13 +22,29 @@ class MetricLogger:
     the record as one JSON line in ``jsonl_path`` (default
     ``$LDT_METRICS_PATH`` or ``metrics.jsonl``). Under data parallelism
     only process 0 logs (``active=False`` elsewhere), as the JAX logger
-    does."""
+    does.
 
-    def __init__(self, jsonl_path: Optional[str] = None, active: bool = True):
+    ``run_name`` and ``config`` (the JAX logger hands them to ``wandb.init``)
+    ride the first JSON record as ``run_name``, ``config`` and ``wandb``
+    (``enabled``: the ``--no_wandb`` flag's inverse), not the stdout line.
+    The port has no wandb sink, so with ``enabled`` that record also says
+    why, as the JAX logger's first record does when ``wandb.init`` fails."""
+
+    def __init__(self, jsonl_path: Optional[str] = None, active: bool = True,
+                 run_name: Optional[str] = None,
+                 config: Optional[dict] = None, enabled: bool = True):
         self._jsonl = None
         self.active = active
+        self._header: Optional[dict] = None
         if not active:
             return
+        if run_name is not None or config is not None:
+            self._header = {"run_name": run_name, "config": config or {},
+                            "wandb": enabled}
+            if enabled:
+                self._header["wandb_disabled_reason"] = (
+                    "the PyTorch port has no wandb sink: JSONL and stdout "
+                    "only")
         path = jsonl_path or os.environ.get("LDT_METRICS_PATH", "metrics.jsonl")
         try:
             self._jsonl = open(path, "a")
@@ -42,7 +58,8 @@ class MetricLogger:
         if step is not None:
             record["step"] = step
         if self._jsonl is not None:
-            self._jsonl.write(json.dumps(record) + "\n")
+            header, self._header = self._header, None
+            self._jsonl.write(json.dumps({**record, **(header or {})}) + "\n")
             self._jsonl.flush()
         pretty = ", ".join(
             f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
