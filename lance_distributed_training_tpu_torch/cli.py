@@ -12,7 +12,11 @@ surface beyond the main path comes with the JAX defaults:
 ``--grad_accum``, ``--checkpoint_dir`` (resume from the newest intact
 checkpoint; ``--checkpoint_every``, ``--checkpoint_every_steps``,
 ``--no_resume``), ``--eval_every`` with ``--val_dataset_path``,
-``--log_grad_norm``, ``--profile_dir``, ``--run_name`` and ``--no_wandb``.
+``--log_grad_norm``, ``--profile_dir``, ``--run_name`` and ``--no_wandb``;
+and the other loaders: ``--loader_style map`` (a ``DistributedSampler``
+permutation each epoch, rows gathered by random access) with ``--filter``
+and ``--val_fraction``, and ``--data_format folder`` (the file-based
+control arm, an image-folder tree, in either loader style).
 The JAX runtime's flags (``--backend``, ``--num_cpu_devices``,
 ``--no_compile_cache``, ``--compile_cache_dir``) raise: the port picks its
 device with ``--device`` and has no XLA compile cache. Any other flag of
@@ -29,6 +33,18 @@ types. Usage::
         --dataset_path /data/web_tokens --task_type causal_lm \
         --model_name gpt_base --seq_len 1024 --token_pack --flash_attention \
         --batch_size 64 --optimizer adamw --lr 1e-4 --max_steps 20
+
+The map-style loader on a filtered pool with a seeded held-out tenth, and
+the folder arm (authored with ``python -m
+lance_distributed_training_tpu_torch.data.authoring``)::
+
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/food101 --loader_style map \
+        --filter "label < 50" --val_fraction 0.1 --eval_every 1 \
+        --max_steps 20 --device_decode
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/food101_files --data_format folder \
+        --loader_style map --max_steps 20
 
 Resume after a preemption: rerun the same command; with
 ``--checkpoint_dir`` it continues from the newest intact checkpoint (SIGTERM
@@ -84,6 +100,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_dataset_path", type=str, default=None,
                    help="held-out dataset for --eval_every and the eval at "
                         "the end (default: the train data)")
+    p.add_argument("--val_fraction", type=float, default=0.0,
+                   help=">0: carve a seeded held-out fraction of the train "
+                        "dataset as the val split (map-style columnar path; "
+                        "composes with --filter)")
     p.add_argument("--task_type", type=str, default="classification",
                    choices=["classification", "masked_lm", "causal_lm",
                             "contrastive"],
@@ -93,6 +113,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sampler_type", type=str, default="batch",
                    choices=["batch", "fragment", "full", "sharded_batch",
                             "sharded_fragment", "full_scan"])
+    p.add_argument("--loader_style", type=str, default="iterable",
+                   choices=["iterable", "map"])
+    p.add_argument("--filter", type=str, default=None,
+                   help="row predicate, e.g. \"label < 50\" or "
+                        "\"label >= 10 & label != 13\" (map-style columnar "
+                        "path; resolved to an index pool once)")
+    p.add_argument("--data_format", type=str, default="columnar",
+                   choices=["columnar", "folder"],
+                   help="folder = the file-reading control arm (an "
+                        "image-folder tree)")
     p.add_argument("--batch_size", type=int, default=512,
                    help="GLOBAL batch size across all processes")
     p.add_argument("--epochs", type=int, default=10)
@@ -138,7 +168,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "the accumulated mean, not this)")
     p.add_argument("--run_name", type=str, default=None,
                    help="recorded with the run's config in the first JSONL "
-                        "record (default DP-iterable-<sampler>-<model>)")
+                        "record (default DP-<loader_style>-<sampler>-"
+                        "<model>)")
     p.add_argument("--no_wandb", action="store_true",
                    help="accepted for the JAX CLI's sake: the port logs to "
                         "JSONL and stdout only")

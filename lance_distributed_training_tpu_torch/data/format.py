@@ -14,6 +14,7 @@ overlapping record batches.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import tempfile
@@ -54,6 +55,21 @@ class Fragment:
 
     def open(self) -> ipc.RecordBatchFileReader:
         return ipc.open_file(pa.memory_map(self.path, "r"))
+
+
+def _grouped_take(group_ids: np.ndarray, local: np.ndarray,
+                  take_group) -> pa.Table:
+    """Rows gathered group by group (a fragment, or a record batch of one)
+    with ``take_group(group, local indices)``, in the order of the caller's
+    indices: each group keeps its rows' order, and one take over the
+    gathered rows alone restores the caller's."""
+    order = np.argsort(group_ids, kind="stable")
+    pieces = [take_group(int(g), local[order[group_ids[order] == g]])
+              for g in np.unique(group_ids)]
+    combined = pa.concat_tables(pieces).combine_chunks()  # row k: order[k]
+    inverse = np.empty_like(order)
+    inverse[order] = np.arange(order.size)
+    return combined.take(pa.array(inverse))
 
 
 class _FragmentReader:
@@ -109,16 +125,29 @@ class _FragmentReader:
 
     def take(self, indices: Sequence[int],
              columns: Optional[Sequence[str]] = None) -> pa.Table:
-        table = self.table()
-        if columns is not None:
-            table = table.select(columns)
-        return table.take(pa.array(np.asarray(indices, dtype=np.int64)))
+        """Rows ``indices`` of this fragment, in their order: gathered
+        record batch by record batch, so only the chosen rows are copied
+        (a take over the whole chunked fragment first concatenates its
+        chunks, a copy of the entire column)."""
+        indices = np.asarray(indices, dtype=np.int64)
+        batch_ids = np.searchsorted(self._offsets, indices, side="right") - 1
+
+        def take_batch(b: int, local: np.ndarray) -> pa.Table:
+            table = pa.Table.from_batches([self._reader.get_batch(b)])
+            if columns is not None:
+                table = table.select(columns)
+            return table.take(pa.array(local))
+
+        return _grouped_take(batch_ids, indices - self._offsets[batch_ids],
+                             take_batch)
 
 
 class Dataset:
     """A fragmented columnar dataset — reader side: manifest metadata
-    (``fragment_rows``, ``count_rows``), row-range reads and global
-    random-access ``take``. ``version`` opens an earlier snapshot."""
+    (``fragment_rows``, ``count_rows``, ``fingerprint``), row-range reads,
+    sequential scans, global random-access ``take`` and row filters
+    resolved to an index pool (``filter_indices``). ``version`` opens an
+    earlier snapshot."""
 
     def __init__(self, uri: Union[str, os.PathLike],
                  version: Optional[int] = None):
@@ -148,6 +177,28 @@ class Dataset:
         ).astype(np.int64)
         self._readers: dict[int, _FragmentReader] = {}
         self._lock = threading.Lock()
+        # Content identity, computed once here: version, schema, and each
+        # fragment's id, file name, rows and file size (size, not mtime, so
+        # two hosts holding the same copy agree). The JAX package's
+        # fingerprint of the same snapshot.
+        h = hashlib.sha256()
+        h.update(str(self.version).encode())
+        h.update(manifest["schema"].encode())
+        for frag in self.fragments:
+            try:
+                size = os.path.getsize(frag.path)
+            except OSError:
+                size = -1
+            h.update(f"{frag.fragment_id}:{os.path.basename(frag.path)}:"
+                     f"{frag.num_rows}:{size};".encode())
+        self._fingerprint = h.hexdigest()
+
+    def fingerprint(self) -> str:
+        """Stable content identity of this dataset snapshot."""
+        return self._fingerprint
+
+    def get_fragments(self) -> list[Fragment]:
+        return list(self.fragments)
 
     def fragment_rows(self) -> list[int]:
         """Per-fragment row counts — the sampler-plan input."""
@@ -173,9 +224,27 @@ class Dataset:
         table = self._reader(fragment_id).read_range(start, stop)
         return table.select(columns) if columns is not None else table
 
+    def scan(self, fragment_ids: Optional[Sequence[int]] = None,
+             batch_size: int = _DEFAULT_CHUNK,
+             columns: Optional[Sequence[str]] = None
+             ) -> Iterator[pa.RecordBatch]:
+        """Sequential streaming scan over (selected) fragments, in order."""
+        ids = (range(len(self.fragments)) if fragment_ids is None
+               else fragment_ids)
+        for fid in ids:
+            reader = self._reader(fid)
+            for start in range(0, reader.num_rows, batch_size):
+                stop = min(start + batch_size, reader.num_rows)
+                table = reader.read_range(start, stop)
+                if columns is not None:
+                    table = table.select(columns)
+                yield from table.to_batches()
+
     def take(self, indices: Sequence[int],
              columns: Optional[Sequence[str]] = None) -> pa.Table:
-        """Random-access global rows, result in the order of ``indices``."""
+        """Random-access global rows, result in the order of ``indices``.
+        ``columns`` projects at the fragment readers, before the gather, so
+        unused columns are never copied."""
         indices = np.asarray(indices, dtype=np.int64)
         if indices.size == 0:
             fields = (
@@ -186,20 +255,30 @@ class Dataset:
         if indices.min() < 0 or indices.max() >= self.count_rows():
             raise IndexError("take index out of bounds")
         frag_ids = np.searchsorted(self._row_offsets, indices, side="right") - 1
-        local = indices - self._row_offsets[frag_ids]
-        # Gather per fragment (order-preserving within each group), then
-        # restore the caller's order with one permutation take.
-        order = np.argsort(frag_ids, kind="stable")
-        pieces = []
-        for fid in np.unique(frag_ids):
-            group = order[frag_ids[order] == fid]
-            pieces.append(
-                self._reader(int(fid)).take(local[group], columns=columns)
-            )
-        combined = pa.concat_tables(pieces)
-        inverse = np.empty_like(order)
-        inverse[order] = np.arange(order.size)
-        return combined.take(pa.array(inverse))
+        return _grouped_take(
+            frag_ids, indices - self._row_offsets[frag_ids],
+            lambda fid, local: self._reader(fid).take(local, columns=columns))
+
+    def take_batch(self, indices: Sequence[int]) -> pa.RecordBatch:
+        return self.take(indices).combine_chunks().to_batches()[0]
+
+    def filter_indices(self, predicate) -> np.ndarray:
+        """Global row indices satisfying ``predicate``, ascending, as int64.
+
+        ``predicate`` is a string in the mini-grammar (``"label < 50"``), a
+        pyarrow compute Expression, or a callable ``table -> bool mask``
+        (:mod:`.filters`). It is resolved once, fragment by fragment in
+        order, to an index pool that the map-style loader deals batches
+        from."""
+        from .filters import predicate_mask
+
+        out = []
+        for fid in range(len(self.fragments)):
+            mask = predicate_mask(self._reader(fid).table(), predicate)
+            (local,) = np.nonzero(mask)
+            out.append(local + self._row_offsets[fid])
+        return (np.concatenate(out).astype(np.int64) if out
+                else np.empty(0, np.int64))
 
 
 def _iter_record_batches(

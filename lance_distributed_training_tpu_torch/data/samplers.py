@@ -21,7 +21,10 @@ __all__ = [
     "sharded_fragment_plan",
     "assert_equal_step_counts",
     "make_plan",
+    "distributed_indices",
+    "distributed_index_batches",
     "padded_eval_index_batches",
+    "slice_plan",
 ]
 
 
@@ -145,15 +148,57 @@ def sharded_fragment_plan(fragment_rows: Sequence[int], batch_size: int,
     return plan
 
 
+def distributed_indices(num_rows: int, process_index: int,
+                        process_count: int, *, shuffle: bool = True,
+                        seed: int = 0, epoch: int = 0,
+                        drop_last: bool = False) -> np.ndarray:
+    """Map-style index sharding with torch ``DistributedSampler``'s
+    semantics, ``set_epoch`` included: the permutation is seeded by
+    ``seed + epoch``; rows are padded by wrap-around (or dropped with
+    ``drop_last``) to a multiple of ``process_count`` and dealt
+    ``indices[rank::world_size]``."""
+    _check_topology(process_index, process_count)
+    if shuffle:
+        indices = np.random.default_rng(seed + epoch).permutation(num_rows)
+    else:
+        indices = np.arange(num_rows)
+    if drop_last:
+        indices = indices[:(num_rows // process_count) * process_count]
+    else:
+        target = -(-num_rows // process_count) * process_count
+        if target > num_rows:
+            indices = np.concatenate([indices, indices[:target - num_rows]])
+    return indices[process_index::process_count]
+
+
+def distributed_index_batches(num_rows: int, batch_size: int,
+                              process_index: int, process_count: int, *,
+                              shuffle: bool = True, seed: int = 0,
+                              epoch: int = 0,
+                              drop_last: bool = True) -> list[np.ndarray]:
+    """:func:`distributed_indices` sliced into per-step batches: the
+    map-style batches of the columnar and the folder loaders."""
+    indices = distributed_indices(num_rows, process_index, process_count,
+                                  shuffle=shuffle, seed=seed, epoch=epoch,
+                                  drop_last=drop_last)
+    n = len(indices)
+    steps = n // batch_size if drop_last else -(-n // batch_size)
+    return [indices[s * batch_size:(s + 1) * batch_size]
+            for s in range(steps)]
+
+
 def padded_eval_index_batches(num_rows: int, global_batch: int,
-                              process_index: int, process_count: int
+                              process_index: int, process_count: int, *,
+                              index_pool: Optional[np.ndarray] = None
                               ) -> list[tuple[np.ndarray, np.ndarray]]:
     """Full-coverage eval plan: every row exactly once at one batch shape.
 
     The tail batch is padded back to ``global_batch`` by wrap-around rows
     carried with weight 0.0, so a weighted metric counts each row once.
     Returns this process's ``(indices, weights)`` per step: its
-    ``global_batch // process_count`` slice of each global batch."""
+    ``global_batch // process_count`` slice of each global batch. With
+    ``index_pool`` (a filter pool, a val split) the positions index into
+    the pool."""
     _check_topology(process_index, process_count)
     per_process, rem = divmod(global_batch, process_count)
     if rem:
@@ -166,11 +211,12 @@ def padded_eval_index_batches(num_rows: int, global_batch: int,
     n_batches = -(-num_rows // global_batch)
     padded = n_batches * global_batch
     pos = np.arange(padded) % num_rows
+    idx = index_pool[pos] if index_pool is not None else pos
     weights = (np.arange(padded) < num_rows).astype(np.float32)
     out = []
     for b in range(n_batches):
         lo = b * global_batch + process_index * per_process
-        out.append((pos[lo:lo + per_process], weights[lo:lo + per_process]))
+        out.append((idx[lo:lo + per_process], weights[lo:lo + per_process]))
     return out
 
 
@@ -218,6 +264,20 @@ def assert_equal_step_counts(plans: Sequence[Plan],
             raise RuntimeError(
                 f"step {step} rows {rows[0]} != batch_size {batch_size}"
             )
+
+
+def slice_plan(plan: Sequence, start_step: int) -> list:
+    """The tail of a per-process plan from the resume cursor
+    ``start_step``. A plan is a pure function of its arguments, so a
+    restarted process rebuilds the same plan and the tail holds exactly the
+    batches not yet consumed. ``start_step == len(plan)`` is valid (a
+    checkpoint taken on the last batch resumes into an empty tail); beyond
+    it the cursor is corrupt and raises."""
+    if not 0 <= start_step <= len(plan):
+        raise ValueError(
+            f"resume cursor {start_step} outside plan of {len(plan)} steps"
+        )
+    return list(plan[start_step:])
 
 
 def _check_topology(process_index: int, process_count: int) -> None:

@@ -51,6 +51,16 @@ every N epochs over a held-out dataset (``eval_every``,
 progress lines (``log_grad_norm``), and a ``torch.profiler`` window
 (``profile_dir``, ``utils/profiling.py``).
 
+The loaders, as the JAX trainer selects them: the iterable range plans
+(``loader_style="iterable"``, the default), the map-style loader
+(``loader_style="map"``: a ``DistributedSampler`` permutation each epoch,
+rows gathered by ``Dataset.take``) with a row filter (``filter``) and a
+seeded held-out fraction (``val_fraction``) resolved once a run to index
+pools, and the file-based control arm (``data_format="folder"``: an
+image-folder tree read file by file, in either style). Every arm feeds the
+same decoders, so K1 (and K2 under ``device_decode``) run unchanged under
+each.
+
 The device is the caller's choice: ``device="cuda"`` (the default) raises
 when no card is present rather than falling back to the CPU.
 """
@@ -63,15 +73,23 @@ import math
 import os
 import statistics
 import time
+import warnings
 from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from .data.decode import decoder_for_task
+from .data.authoring import _folder_samples
+from .data.folder import FolderDataPipeline, read_sample_batch
 from .data.format import Dataset
-from .data.pipeline import make_eval_pipeline, make_train_pipeline
+from .data.pipeline import (
+    make_eval_pipeline,
+    make_map_style_pipeline,
+    make_train_pipeline,
+)
 from .data.token_pack import TokenPackConfig, is_ragged_batch, pack_meta
 from .models.resnet import set_sync_group
 from .models.tasks import Task, draw_mlm_mask, get_task
@@ -117,9 +135,19 @@ class TrainConfig:
     dataset_path: str
     val_dataset_path: Optional[str] = None  # held-out dataset for
     # eval_every and the eval at the end (else they read the train data)
+    val_fraction: float = 0.0  # >0: a seeded held-out fraction of the train
+    # dataset is the val split (torch random_split's train/val separation
+    # without a second dataset). Map-style columnar path; composes with
+    # filter (the split happens inside the filtered pool). Mutually
+    # exclusive with val_dataset_path.
     task_type: str = "classification"
     num_classes: int = 101
     sampler_type: str = "batch"  # batch | fragment | full
+    loader_style: str = "iterable"  # iterable | map (the two reference paths)
+    filter: Optional[str] = None  # row predicate ("label < 50"), resolved to
+    # an index pool once; map-style columnar path only (see data/filters.py)
+    data_format: str = "columnar"  # columnar | folder (the file-based
+    # control arm)
     batch_size: int = 512  # GLOBAL batch, across processes
     epochs: int = 10
     max_steps: int = 0  # >0: stop after N train steps regardless of epochs
@@ -141,16 +169,19 @@ class TrainConfig:
     seq_len: int = 128
     vocab_size: Optional[int] = None  # None = the model's own default
     prefetch: int = 2
-    shuffle: bool = False  # epoch batch-order reshuffle (batch sampler)
+    shuffle: bool = False  # epoch batch-order reshuffle (batch sampler and
+    # the iterable folder arm; the map-style loader always reshuffles rows)
     augment: bool = True  # per-image horizontal flip, p = 0.5 (classification)
-    eval_at_end: bool = True  # process 0 evaluates every row of the train
-    # data once after training (make_eval_pipeline; text: the padded arm)
+    eval_at_end: bool = True  # process 0 evaluates every row of the eval
+    # data once after training: the val split, else the train pool, else
+    # the val dataset (make_eval_pipeline; text: the padded arm)
     eval_every: int = 0  # >0: eval every N epochs (val_acc in the history)
     seed: int = 0
     log_every: int = 50
     log_grad_norm: bool = False  # the micro-batch gradient's global norm in
     # the progress lines (under grad_accum the update clips the mean)
-    run_name: Optional[str] = None  # default DP-iterable-<sampler>-<model>
+    run_name: Optional[str] = None  # default
+    # DP-<loader_style>-<sampler>-<model>
     no_wandb: bool = False  # the port has no wandb sink; recorded only
     checkpoint_dir: Optional[str] = None  # resumes from the newest intact
     # checkpoint there, when one exists
@@ -527,8 +558,10 @@ def train(config: TrainConfig) -> dict:
     decoder's ``pack_*`` counters (every batch it decoded) and,
     with ``token_pack``, ``pack_device_ms`` (median K3 time, on the card)
     and ``pack_new_shapes_total``. ``eval_accuracy`` is the task's metric
-    (next-token or masked-token accuracy for text), over the
-    ``val_dataset_path`` rows when one is given. ``model`` and
+    (next-token or masked-token accuracy for text), over the eval rows: the
+    ``val_fraction`` split, else the train pool (every row, or the
+    ``filter`` pool), else the ``val_dataset_path`` rows (its own filter
+    pool). ``model`` and
     ``optimizer`` are the trained module and its optimizer.
 
     ``steps`` counts this run's micro-steps and ``global_step`` the
@@ -543,6 +576,7 @@ def train(config: TrainConfig) -> dict:
     ``grad_accum``, ``accum_fold_ms`` is the median fold time on the card
     (None on the CPU);
     with ``profile_dir``, ``profile_trace`` names the trace file."""
+    _check_loader_config(config)
     if config.task_type not in PORTED_TASKS:
         raise NotImplementedError(
             f"task_type {config.task_type!r} is not yet ported "
@@ -601,6 +635,118 @@ def train(config: TrainConfig) -> dict:
         return _train(config, device)
     finally:
         shutdown_distributed()
+
+
+def _check_loader_config(config: TrainConfig) -> None:
+    """The JAX trainer's refusals of a loader combination, with its
+    messages, before any dataset I/O."""
+    if config.val_fraction:
+        if not 0.0 < config.val_fraction < 1.0:
+            raise ValueError(
+                f"val_fraction must be in (0, 1), got {config.val_fraction}"
+            )
+        if config.val_dataset_path:
+            raise ValueError(
+                "val_fraction and val_dataset_path are mutually exclusive"
+            )
+        if config.data_format != "columnar" or config.loader_style != "map":
+            raise ValueError(
+                "val_fraction needs the map-style columnar path (the split "
+                "is an index pool); pass loader_style='map'"
+            )
+    if config.filter and config.data_format != "columnar":
+        raise ValueError("filter= needs the columnar store (data_format="
+                         "'columnar'); folder trees have no row predicates")
+    if config.filter and config.loader_style != "map":
+        raise ValueError(
+            "filter= needs the map-style loader (the predicate resolves to "
+            "an index pool; iterable range plans read contiguous rows); pass "
+            "loader_style='map'"
+        )
+
+
+def _split_val_pool(config: TrainConfig, dataset: Dataset,
+                    index_pool: Optional[np.ndarray]):
+    """The held-out validation fraction: a seeded disjoint split of the
+    (possibly filtered) row pool, the same on every process. Returns
+    ``(train_pool, val_pool)``, both sorted global row indices."""
+    pool = (index_pool if index_pool is not None
+            else np.arange(dataset.count_rows(), dtype=np.int64))
+    if len(pool) < 2 * config.batch_size:
+        # Both sides need at least one full global batch (this also guards
+        # an empty filter pool).
+        raise ValueError(
+            f"val_fraction needs at least two global batches "
+            f"(2×{config.batch_size}) in the pool; have {len(pool)} rows"
+        )
+    n_val = int(len(pool) * config.val_fraction)
+    if n_val < config.batch_size:
+        warnings.warn(
+            f"val_fraction {config.val_fraction} yields {n_val} rows — "
+            f"raised to one global batch ({config.batch_size} rows = "
+            f"{config.batch_size / len(pool):.1%} of the pool)",
+            stacklevel=3,
+        )
+        n_val = config.batch_size
+    if len(pool) - n_val < config.batch_size:
+        raise ValueError(
+            f"val_fraction {config.val_fraction} leaves fewer than one "
+            f"global batch ({config.batch_size}) on one side of the "
+            f"split ({len(pool)} rows available)"
+        )
+    perm = np.random.default_rng(config.seed).permutation(len(pool))
+    return np.sort(pool[perm[n_val:]]), np.sort(pool[perm[:n_val]])
+
+
+def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
+                  device: torch.device, epoch: int, per_process: int,
+                  data_index: int, data_world: int,
+                  index_pool: Optional[np.ndarray] = None):
+    """This epoch's train loader: the iterable range plans, the map-style
+    loader over the run's pool, or the folder arm in either style, with
+    the JAX trainer's refusals of an empty plan and of a folder with more
+    classes than ``num_classes``."""
+    if config.data_format == "folder":
+        loader = FolderDataPipeline(
+            config.dataset_path, per_process, data_index, data_world, decode,
+            device, loader_style=config.loader_style,
+            # Map-style always reshuffles (DistributedSampler semantics);
+            # the iterable arm's batch-order shuffle is opt-in, as on the
+            # columnar iterable path.
+            shuffle=True if config.loader_style == "map" else config.shuffle,
+            seed=config.seed, epoch=epoch, prefetch=config.prefetch)
+        if len(loader) == 0:
+            raise ValueError("folder smaller than one global batch")
+        if (config.task_type == "classification"
+                and loader.num_classes > config.num_classes):
+            raise ValueError(
+                f"folder has {loader.num_classes} class directories but "
+                f"num_classes={config.num_classes}; out-of-range labels "
+                "would be silently clamped by the XLA gather"
+            )
+        return loader
+    if config.loader_style == "map":
+        if index_pool is not None and len(index_pool) < config.batch_size:
+            raise ValueError(
+                f"filter {config.filter!r} keeps {len(index_pool)} rows — "
+                f"fewer than one global batch ({config.batch_size})"
+            )
+        loader = make_map_style_pipeline(
+            dataset, per_process, data_index, data_world, decode, device,
+            seed=config.seed, epoch=epoch, prefetch=config.prefetch,
+            columns=getattr(decode, "required_columns", None),
+            index_pool=index_pool)
+        if len(loader) == 0:
+            raise ValueError(
+                "empty plan: dataset smaller than one global batch "
+                f"({dataset.count_rows()} rows, global batch "
+                f"{config.batch_size})"
+            )
+        return loader
+    return make_train_pipeline(
+        dataset, config.sampler_type, per_process, data_index, data_world,
+        decode, device, prefetch=config.prefetch, shuffle=config.shuffle,
+        seed=config.seed, epoch=epoch)
 
 
 def _check_seq_parallelism(config: TrainConfig) -> None:
@@ -805,9 +951,11 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         raise ValueError(f"global batch {config.batch_size} not divisible by "
                          f"{data_world} processes")
     image = config.task_type == "classification"
-    dataset = Dataset(config.dataset_path)
+    folder = config.data_format == "folder"
+    dataset = None if folder else Dataset(config.dataset_path)
+    # The folder arm evaluates its own tree: a val dataset is columnar.
     val_dataset = (Dataset(config.val_dataset_path)
-                   if config.val_dataset_path else None)
+                   if config.val_dataset_path and not folder else None)
     init_gen = torch.Generator().manual_seed(config.seed)
     attention_fn = None
     if image:
@@ -842,10 +990,23 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     mask_gen = torch.Generator(device=device).manual_seed(
         config.seed + 1 if image else _share_seed(config.seed, data_index))
 
+    # The row pools, resolved once a run (deterministic, so every process
+    # derives the same) and passed to every epoch's loader: the filter's
+    # (map-style columnar only, as _check_loader_config holds), then the
+    # val split inside it.
+    index_pool = val_pool = None
+    if config.filter:
+        index_pool = dataset.filter_indices(config.filter)
+    if config.val_fraction > 0:
+        index_pool, val_pool = _split_val_pool(config, dataset, index_pool)
+    samples = _folder_samples(config.dataset_path)[0] if folder else None
     total_steps = config.total_steps
     if total_steps is None and config.lr_schedule != "constant":
-        total_steps = (max(dataset.count_rows() // config.batch_size, 1)
-                       * config.epochs)
+        # Steps an epoch times epochs; a filter pool or a val split
+        # shortens the horizon with it.
+        rows = (len(index_pool) if index_pool is not None
+                else len(samples) if folder else dataset.count_rows())
+        total_steps = max(rows // config.batch_size, 1) * config.epochs
     optimizer, lr = make_optimizer(config, task.model.parameters(),
                                    total_steps)
     accum = max(config.grad_accum, 1)
@@ -875,7 +1036,8 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
 
     logger = MetricLogger(
         active=rank == 0,
-        run_name=config.run_name or f"DP-iterable-{config.sampler_type}-"
+        run_name=config.run_name or f"DP-{config.loader_style}-"
+                                    f"{config.sampler_type}-"
                                     f"{config.model_name or task.name}",
         config=dataclasses.asdict(config), enabled=not config.no_wandb)
     timer = StepTimer()
@@ -897,18 +1059,37 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     if image:
         logger.log({"decoder_arm": decode.arm})
 
-    def run_eval(ds: Dataset):
-        """Rank 0 evaluates every row of ``ds`` once; ``(accuracy, rows)``
-        there, ``None`` elsewhere, after a barrier."""
+    # The eval's rows, in the JAX trainer's order of precedence: the val
+    # split, then the train pool when there is no val dataset, then a val
+    # dataset, which resolves its own filter pool (at its first eval).
+    eval_dataset = val_dataset if val_dataset is not None else dataset
+    eval_pool = (val_pool if val_pool is not None
+                 else index_pool if val_dataset is None else None)
+
+    def run_eval():
+        """Rank 0 evaluates every row (or pool position) of the eval data
+        once; ``(accuracy, rows)`` there, ``None`` elsewhere, after a
+        barrier."""
+        nonlocal eval_pool
         out = None
         if rank == 0:
             eval_decode = decode if image else _decoder_for(config,
                                                             for_eval=True)
-            columns = decode.required_columns if image else None
+            if folder:
+                def read_fn(idx):
+                    return read_sample_batch(samples, idx)
+                total = len(samples)
+            else:
+                columns = decode.required_columns if image else None
+
+                def read_fn(idx):
+                    return eval_dataset.take(idx, columns=columns)
+                total = eval_dataset.count_rows()
+                if config.filter and eval_pool is None:
+                    eval_pool = eval_dataset.filter_indices(config.filter)
             loader = make_eval_pipeline(
-                lambda idx: ds.take(idx, columns=columns), ds.count_rows(),
-                config.batch_size, 0, 1, eval_decode, device,
-                prefetch=config.prefetch)
+                read_fn, total, config.batch_size, 0, 1, eval_decode, device,
+                prefetch=config.prefetch, index_pool=eval_pool)
             eval_step = make_eval_step(task)
             if coeff:
                 eval_step = (lambda b, _step=eval_step: _step(transform(b)))
@@ -920,7 +1101,6 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         sync_global_devices()
         return out
 
-    eval_dataset = val_dataset if val_dataset is not None else dataset
     # Parse the chaos spec BEFORE installing the handler: a malformed
     # LDT_CHAOS raises, and must not leave SIGTERM hijacked behind it.
     chaos = TrainerChaos.from_env()
@@ -944,15 +1124,13 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     warm = None  # (steps, time) at the first log point: warm-up ends there
     try:
         for epoch in range(start_epoch, config.epochs):
-            loader = make_train_pipeline(
-                dataset, config.sampler_type, per_process, data_index,
-                data_world,
-                decode, device, prefetch=config.prefetch,
-                shuffle=config.shuffle, seed=config.seed, epoch=epoch,
-            )
+            loader = _build_loader(config, dataset, decode, device, epoch,
+                                   per_process, data_index, data_world,
+                                   index_pool)
             if epoch == start_epoch and resume_epoch_step:
-                # The rebuilt plan is deterministic: the tail it serves
-                # from the cursor is what the uninterrupted run consumed.
+                # The rebuilt plan is a pure function of (pool, shard,
+                # seed, epoch): the tail it serves from the cursor is what
+                # the uninterrupted run consumed.
                 loader.load_state_dict({"epoch": epoch,
                                         "step": resume_epoch_step})
             epoch_steps = 0
@@ -1072,7 +1250,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                 mean = statistics.fmean(log.losses[-epoch_steps:])
                 entry = {"epoch": epoch, "train_loss": mean}
                 if config.eval_every and (epoch + 1) % config.eval_every == 0:
-                    evaluated = run_eval(eval_dataset)
+                    evaluated = run_eval()
                     if evaluated is not None:
                         entry.update(val_acc=evaluated[0],
                                      val_rows=evaluated[1])
@@ -1106,7 +1284,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         if config.token_pack:
             results["pack_new_shapes_total"] = transform.pack_new_shapes_total
         if config.eval_at_end and not journal.preempted:
-            evaluated = run_eval(eval_dataset)
+            evaluated = run_eval()
             if evaluated is not None:
                 evaluated = {"eval_accuracy": evaluated[0],
                              "eval_rows": evaluated[1]}

@@ -51,6 +51,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "lance_distributed_training_tpu_torch.parallel.ring_attention",
         "lance_distributed_training_tpu_torch.trainer",
         "lance_distributed_training_tpu_torch.cli",
+        "lance_distributed_training_tpu_torch.data.filters",
+        "lance_distributed_training_tpu_torch.data.folder",
+        "lance_distributed_training_tpu_torch.data.authoring",
+        "lance_distributed_training_tpu_torch.data.pipeline",
     }
     assert expected <= set(result["imported"])
     assert result["banned"] == []

@@ -171,7 +171,7 @@ def test_cli_without_device_cpu_raises_without_a_card(tmp_path, monkeypatch):
     ["--num_workers", "2"],
     ["serve-data"],
     ["--task_type", "contrastive"],
-    ["--val_fraction", "0.1"],
+    ["--pretrained", "w.pt"],
 ])
 def test_cli_unported_surface_raises(tmp_path, argv):
     path = _token_dataset(tmp_path)
