@@ -181,6 +181,35 @@ Phases, each printing one JSON line:
              the same figures beside the classification phase's (files
              against the columnar store).
 
+16. pretrained_placement — the JAX package's default way from host to
+             card, on the reference's fine-tuning task: the port's ResNet-50
+             with 1000 classes from a seeded generator is written as a
+             torchvision checkpoint (``{"state_dict": {"module." + k: v}}``
+             with zero ``num_batches_tracked`` entries); imported with
+             ``load_torchvision_resnet`` into a 101-class ResNet-50 on the
+             card, every backbone tensor must equal the file's bit for bit
+             and the head a same-seed model's fresh ``[101, 2048]`` one.
+             Then, on one authored set (the classification phase's recipe,
+             10,240 rows), in each decoder arm (PIL on the host, and the
+             coefficient pages with K2): the first 20 batches of the
+             iterable loader through the placement plane (a ring of 2, 4
+             producers, page-locked pool pages), each followed by K1 (after
+             K2) and a ResNet-50 forward and backward so that the copies of
+             the next batches overlap its kernels, must equal the
+             synchronous arm's batches and K1 outputs bit for bit (int64
+             digests taken on the card); and four runs of ``cli train
+             --pretrained`` (224 px, batch 512, 20 steps, eval at the end):
+             each decoder arm at the defaults and with ``--no_global_batch
+             --producer_threads 1 --no_buffer_pool``. Checks the falling
+             losses, K1's 40 launches a run and K2's 40 (coeff) or 0 (PIL),
+             the eval over every row, that the decoders leased pool pages
+             under the defaults and that no ``ldt-placement`` or
+             ``ldt-producer-*`` thread outlives ``cli.main``; prints each
+             run's median step, images/s over steps 6-20, stall,
+             ``h2d_pct``, placement ms a batch (median and the first three),
+             pool hits, misses and the time spent allocating missed pages,
+             peak memory and the host's CPU count.
+
 Every check that fails raises, so the script exits non-zero. After the
 phases a ``done`` line gives the seconds since the script's ``main`` began
 (the phases run, the kernels built). The last three lines are the card's ``nvidia-smi`` name and power limit, the kernel table
@@ -188,7 +217,9 @@ as JSON (the three flash kernels, K1 and K2, each with its launches on its
 path; K3's pack and unpack with their launches on the causal-LM path; K5's
 three kernels with theirs on the seq-parallel path; K1 and K2 add their
 launches under the map_style and folder loaders as
-``launches_map_style`` and ``launches_folder``), and
+``launches_map_style`` and ``launches_folder``, and their sums over the four
+runs of the pretrained_placement phase as
+``launches_pretrained_placement``), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -208,7 +239,8 @@ import numpy as np
 
 PHASES = ("probe", "build", "kernels", "slice", "trainer", "image_kernels",
           "jpeg_kernels", "classification", "device_decode", "token_kernels",
-          "causal_lm", "ring_kernels", "ring_lm", "map_style", "folder")
+          "causal_lm", "ring_kernels", "ring_lm", "map_style", "folder",
+          "pretrained_placement")
 SHAPE = (32, 12, 512, 64)  # B, H, S, D at BERT-base, seq 512
 STEPS = 20
 LAYERS = 12
@@ -1394,6 +1426,271 @@ def folder_run(paired) -> dict:
                                                   "jpeg_decode")}}
 
 
+# The synchronous control arm of the placement phase: today's path.
+PLACEMENT_CONTROL = ["--no_global_batch", "--producer_threads", "1",
+                     "--no_buffer_pool"]
+PRODUCERS, RING_DEPTH = 4, 2  # the JAX trainer's defaults
+PRETRAINED_CLASSES = 1000  # the checkpoint's head, torchvision's
+
+
+def _loader_threads() -> list:
+    import threading
+
+    return sorted(t.name for t in threading.enumerate()
+                  if t.name.startswith(("ldt-placement", "ldt-producer")))
+
+
+def _write_pretrained(path: str) -> dict:
+    """The port's ResNet-50 with 1000 classes from a seeded generator,
+    written as a torchvision checkpoint behind a DDP wrapper:
+    ``{"state_dict": {"module." + k: v}}`` with torchvision's zero
+    ``num_batches_tracked`` entries. Returns the plain state_dict."""
+    import torch
+    from lance_distributed_training_tpu_torch.models.resnet import resnet50
+
+    model = resnet50(num_classes=PRETRAINED_CLASSES,
+                     generator=torch.Generator().manual_seed(13))
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    saved = {}
+    for key, value in state.items():
+        saved["module." + key] = value
+        if key.endswith("running_var"):
+            saved["module." + key.replace("running_var",
+                                          "num_batches_tracked")] = (
+                torch.zeros((), dtype=torch.int64))
+    torch.save({"state_dict": saved, "epoch": 90}, path)
+    return state
+
+
+def _import_check(path: str, state: dict) -> dict:
+    """``load_torchvision_resnet`` into a 101-class ResNet-50 on the card:
+    every backbone tensor equals the file's bit for bit, and the head is a
+    same-seed model's fresh ``[101, 2048]`` one."""
+    import torch
+    from lance_distributed_training_tpu_torch.models.pretrained import (
+        load_torch_state_dict,
+        load_torchvision_resnet,
+    )
+    from lance_distributed_training_tpu_torch.models.resnet import resnet50
+
+    seed = torch.Generator().manual_seed(14)
+    model = resnet50(num_classes=IMAGE_CLASSES, device="cuda", generator=seed)
+    fresh = resnet50(num_classes=IMAGE_CLASSES,
+                     generator=torch.Generator().manual_seed(14))
+    t0 = time.monotonic()
+    load_torchvision_resnet(model, load_torch_state_dict(path), "resnet50")
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    got = model.state_dict()
+    backbone = [k for k in got if not k.startswith("fc.")]
+    differ = [k for k in backbone if not torch.equal(got[k].cpu(), state[k])]
+    head_fresh = (tuple(model.fc.weight.shape) == (IMAGE_CLASSES, 2048)
+                  and torch.equal(got["fc.weight"].cpu(), fresh.fc.weight)
+                  and torch.equal(got["fc.bias"].cpu(), fresh.fc.bias))
+    fields = {"backbone_tensors": len(backbone), "differ": differ,
+              "head_shape": list(model.fc.weight.shape),
+              "head_fresh": head_fresh, "load_seconds": load_s,
+              "channels_last": model.conv1.weight.is_contiguous(
+                  memory_format=torch.channels_last)}
+    emit("pretrained_placement", check="import", **fields)
+    if differ or not head_fresh:
+        raise RuntimeError(f"pretrained import: {len(differ)} backbone "
+                           f"tensors differ, head fresh: {head_fresh}")
+    return fields
+
+
+def _digest(t, weights: dict):
+    """An int64 digest of a tensor's bytes, on the card: the sum of its
+    32-bit (or 16-bit, or 8-bit) words, each times a fixed odd weight,
+    modulo 2^64 (integer sums do not depend on their order)."""
+    import torch
+
+    flat = t.contiguous().view(-1)
+    nbytes = flat.numel() * flat.element_size()
+    word = (torch.int32 if nbytes % 4 == 0 else
+            torch.int16 if nbytes % 2 == 0 else torch.uint8)
+    words = flat.view(torch.uint8).view(word)
+    n = words.numel()
+    if n not in weights:
+        weights[n] = torch.arange(n, dtype=torch.int64,
+                                  device=t.device) * 2654435761 + 1
+    return (words.to(torch.int64) * weights[n]).sum()
+
+
+def _overlap_run(path: str, device_decode: bool, placed: bool) -> dict:
+    """The first STEPS batches of the iterable loader over ``path``: placed
+    by the plane (depth 2, 4 producers, pooled page-locked pages), each
+    followed by K1 (after K2 in the coeff arm) and a ResNet-50 forward and
+    backward, so that the copies of batches n + 1 and n + 2 overlap batch
+    n's kernels; or through the synchronous arm (one producer, no pool),
+    K1 only. Each batch's leaves are digested after the step, K1's output
+    before it."""
+    import torch
+    import torch.nn.functional as F
+    from lance_distributed_training_tpu_torch.data import (
+        Dataset,
+        PlacementPlane,
+        decoder_for_task,
+        default_buffer_pool,
+        make_train_pipeline,
+    )
+    from lance_distributed_training_tpu_torch.models.resnet import resnet50
+    from lance_distributed_training_tpu_torch.ops import image
+    from lance_distributed_training_tpu_torch.ops.jpeg_device import (
+        make_batch_transform,
+    )
+
+    dev = torch.device("cuda")
+    pool = default_buffer_pool(pin_memory=True) if placed else None
+    decode = decoder_for_task("classification", image_size=224,
+                              device_decode=device_decode, buffer_pool=pool)
+    loader = make_train_pipeline(
+        Dataset(path), "batch", IMAGE_BATCH, 0, 1, decode,
+        None if placed else dev, producers=PRODUCERS if placed else 1,
+        buffer_pool=pool)
+    plane = None
+    if placed:
+        plane = PlacementPlane(dev, depth=RING_DEPTH, buffer_pool=pool)
+        loader = plane.wrap(loader)
+    model = None
+    if placed:
+        model = resnet50(num_classes=IMAGE_CLASSES, device=dev,
+                         generator=torch.Generator().manual_seed(15))
+    transform = make_batch_transform(224)
+    flips = torch.Generator().manual_seed(16)
+    weights: dict = {}
+    digests = []
+    t0 = time.monotonic()
+    it = iter(loader)
+    try:
+        for _ in range(STEPS):
+            batch = next(it)
+            flip = (torch.rand(IMAGE_BATCH, generator=flips) < 0.5).to(dev)
+            images = transform(batch)["image"]
+            x = image.normalize_flip(images, flip)
+            out_digest = _digest(x, weights)
+            if model is not None:
+                logits = model(x.permute(0, 3, 1, 2))
+                F.cross_entropy(logits.float(),
+                                batch["label"].long()).backward()
+                del logits
+            digests.append(([_digest(v, weights) for k, v in
+                             sorted(batch.items())
+                             if isinstance(v, torch.Tensor)], out_digest))
+            del batch, images, x
+    finally:
+        it.close()
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    return {"digests": [([int(d) for d in leaves], int(out))
+                        for leaves, out in digests],
+            "seconds": seconds, "decoder": decode.arm,
+            "placement_ms": plane.h2d_ms if plane is not None else None}
+
+
+def _run_fields(result: dict, fields: dict, launches: dict) -> dict:
+    """The figures each fine-tuning run prints."""
+    placement = result.get("placement_ms") or []
+    return {
+        "decoder": fields["decoder"],
+        "step_ms_median_5_20": fields["step_ms_median_5_20"],
+        "images_per_sec_steps_6_20": fields["images_per_sec_steps_6_20"],
+        "loader_stall_pct": fields["loader_stall_pct"],
+        "h2d_pct": result.get("h2d_pct"),
+        "placement_ms_median": (statistics.median(placement)
+                                if placement else None),
+        "placement_ms_first3": placement[:3],
+        "bufpool_hits": result["bufpool_hits"],
+        "bufpool_misses": result["bufpool_misses"],
+        "bufpool_miss_ms": result["bufpool_miss_ms"],
+        "peak_memory_allocated_bytes": fields["peak_memory_allocated_bytes"],
+        "first_loss": fields["first_loss"],
+        "last5_mean_loss": fields["last5_mean_loss"],
+        "losses": fields["losses"], "steps": fields["steps"],
+        "eval_accuracy": fields["eval_accuracy"],
+        "eval_rows": fields["eval_rows"],
+        "image_normalize_launches": launches["image_normalize"],
+        "jpeg_decode_launches": launches["jpeg_decode"],
+        "decode_entropy_ms": fields["decode_entropy_ms"],
+        "decode_device_ms": fields["decode_device_ms"],
+        "train_seconds": fields["train_seconds"],
+        "total_seconds": fields["total_seconds"],
+        "host_cpu_count": os.cpu_count(),
+    }
+
+
+def pretrained_placement_run() -> dict:
+    """ResNet-50 fine-tuning from a seeded torchvision checkpoint through
+    the placement plane and its synchronous control arm, in both decoder
+    arms (the module's docstring, phase 16)."""
+    rows = IMAGE_BATCH * STEPS
+    eval_batches = -(-rows // IMAGE_BATCH)
+    totals = {"image_normalize": 0, "jpeg_decode": 0}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "resnet50_torchvision.pt")
+        state = _write_pretrained(ckpt)
+        _import_check(ckpt, state)
+        del state
+        path = os.path.join(tmp, "food")
+        t0 = time.monotonic()
+        _learnable_dataset(os.path.join(tmp, "drawn"), path, rows)
+        author_s = time.monotonic() - t0
+        for coeff in (False, True):
+            arm = "coeff" if coeff else "pixel"
+            placed = _overlap_run(path, coeff, placed=True)
+            sync = _overlap_run(path, coeff, placed=False)
+            same = placed["digests"] == sync["digests"]
+            emit("pretrained_placement", check="overlap", arm=arm,
+                 decoder=placed["decoder"], batches=len(placed["digests"]),
+                 bit_identical=same, placed_seconds=placed["seconds"],
+                 sync_seconds=sync["seconds"],
+                 placement_ms=placed["placement_ms"])
+            if not same:
+                bad = [i for i, (a, b) in enumerate(zip(placed["digests"],
+                                                        sync["digests"]))
+                       if a != b]
+                raise RuntimeError(f"{arm} arm: placed batches {bad} differ "
+                                   f"from the synchronous arm's")
+            if _loader_threads():
+                raise RuntimeError(f"loader threads outlived the overlap "
+                                   f"check: {_loader_threads()}")
+        for coeff in (False, True):
+            for control in (False, True):
+                name = ("coeff" if coeff else "pixel") + (
+                    "_control" if control else "_plane")
+                flags = ["--pretrained", ckpt]
+                flags += ["--device_decode"] if coeff else []
+                flags += PLACEMENT_CONTROL if control else []
+                result, launches, fields = _resnet_run(path, flags, author_s,
+                                                       tmp)
+                left = _loader_threads()
+                run = _run_fields(result, fields, launches)
+                run.update(flags=flags, loader_threads_after=left,
+                           dataset_seconds=author_s)
+                emit("pretrained_placement", run=name, **run)
+                _check_trained(f"pretrained_placement {name}", fields)
+                if left:
+                    raise RuntimeError(f"{name}: loader threads outlived "
+                                       f"train(): {left}")
+                if fields["eval_rows"] != rows:
+                    raise RuntimeError(f"{name}: eval covered "
+                                       f"{fields['eval_rows']} rows of {rows}")
+                want = {"image_normalize": STEPS + eval_batches,
+                        "jpeg_decode": STEPS + eval_batches if coeff else 0}
+                for kernel, count in want.items():
+                    if launches[kernel] != count:
+                        raise RuntimeError(
+                            f"{name}: {kernel} launched {launches[kernel]} "
+                            f"times, expected {count}")
+                    totals[kernel] += launches[kernel]
+                if not control and not (result["bufpool_hits"]
+                                        + result["bufpool_misses"]):
+                    raise RuntimeError(f"{name}: the decoders leased no page")
+                runs[name] = run
+    return {"launches": totals, "runs": runs}
+
+
 def _ragged_payloads() -> list:
     """JPEGs unlike the path's: odd sizes, grayscale, progressive,
     restart markers, 4:4:4 (which the decoder re-encodes) and bytes no
@@ -2340,6 +2637,9 @@ def main(argv=None) -> int:
     if "folder" in phases:
         loaders["folder"] = folder_run(
             pixel["fields"] if pixel else None)["launches"]
+    if "pretrained_placement" in phases:
+        loaders["pretrained_placement"] = pretrained_placement_run()[
+            "launches"]
     emit("done", phases=phases, seconds=time.monotonic() - t0)
     if set(phases) != set(PHASES):
         return 0  # a partial run prints no result

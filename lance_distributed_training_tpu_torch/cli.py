@@ -16,7 +16,12 @@ checkpoint; ``--checkpoint_every``, ``--checkpoint_every_steps``,
 and the other loaders: ``--loader_style map`` (a ``DistributedSampler``
 permutation each epoch, rows gathered by random access) with ``--filter``
 and ``--val_fraction``, and ``--data_format folder`` (the file-based
-control arm, an image-folder tree, in either loader style).
+control arm, an image-folder tree, in either loader style). The way from
+host to card takes the JAX defaults: pooled decode pages
+(``--no_buffer_pool`` turns them off), ``--producer_threads 4`` decode
+threads, and the placement plane with a ring of ``--placement_depth 2``
+(``--no_global_batch`` is the synchronous control arm);
+``--pretrained`` fine-tunes a ResNet from a torchvision checkpoint.
 The JAX runtime's flags (``--backend``, ``--num_cpu_devices``,
 ``--no_compile_cache``, ``--compile_cache_dir``) raise: the port picks its
 device with ``--device`` and has no XLA compile cache. Any other flag of
@@ -45,6 +50,15 @@ lance_distributed_training_tpu_torch.data.authoring``)::
     python -m lance_distributed_training_tpu_torch.cli train \
         --dataset_path /data/food101_files --data_format folder \
         --loader_style map --max_steps 20
+
+Fine-tuning a torchvision ResNet-50 checkpoint with a fresh 101-class head,
+and the synchronous control arm of the same run::
+
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/food101 --pretrained /ckpt/resnet50.pt
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/food101 --pretrained /ckpt/resnet50.pt \
+        --no_global_batch --producer_threads 1 --no_buffer_pool
 
 Resume after a preemption: rerun the same command; with
 ``--checkpoint_dir`` it continues from the newest intact checkpoint (SIGTERM
@@ -149,10 +163,31 @@ def build_parser() -> argparse.ArgumentParser:
                             "resnet152", "bert_base", "bert_small",
                             "gpt_base", "gpt_small"],
                    help="default per task: resnet50 / bert_base / gpt_base")
+    p.add_argument("--pretrained", type=str, default=None,
+                   help="path to a torch.save'd torchvision ResNet "
+                        "state_dict: fine-tune from its backbone weights "
+                        "(the reference's pretrained-ResNet50 task shape)")
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--seq_len", type=int, default=128)
     p.add_argument("--vocab_size", type=int, default=None)
     p.add_argument("--prefetch", type=int, default=2)
+    p.add_argument("--producer_threads", type=int, default=4,
+                   help="decode-producer threads (cross-batch decode "
+                        "overlap; with --no_global_batch they also "
+                        "place each batch)")
+    p.add_argument("--placement_depth", type=int, default=2,
+                   help="placed batches the placement plane keeps "
+                        "transferred ahead of the step (default 2 = "
+                        "double-buffered H2D)")
+    p.add_argument("--no_global_batch", action="store_true",
+                   help="disable the placement plane: place each batch "
+                        "synchronously on the consumer thread and the "
+                        "compute stream (control arm; batches stay "
+                        "bit-identical, H2D lands inside loader stall)")
+    p.add_argument("--no_buffer_pool", action="store_true",
+                   help="disable the recycled decode buffer pool — every "
+                        "batch allocates fresh pages (bufpool_* counts stay "
+                        "at zero)")
     p.add_argument("--shuffle", action="store_true")
     p.add_argument("--no_augment", action="store_true")
     p.add_argument("--no_eval_at_end", action="store_true",
@@ -254,6 +289,8 @@ def main(argv=None) -> dict:
     args["resume"] = not args.pop("no_resume")
     args["augment"] = not args.pop("no_augment")
     args["eval_at_end"] = not args.pop("no_eval_at_end")
+    args["global_batch"] = not args.pop("no_global_batch")
+    args["buffer_pool"] = not args.pop("no_buffer_pool")
     no_device_decode = args.pop("no_device_decode")
     args["device_decode"] = args["device_decode"] and not no_device_decode
     no_token_pack = args.pop("no_token_pack")

@@ -1,5 +1,6 @@
-"""Host data plane: columnar format, sampler plans, row filters, decode,
-the iterable, map-style, eval and image-folder loaders, and authoring."""
+"""Host data plane: columnar format, sampler plans, row filters, decode
+into pooled pages, the iterable, map-style, eval and image-folder loaders,
+the placement plane, and authoring."""
 
 from .authoring import (
     IMAGE_SCHEMA,
@@ -11,11 +12,13 @@ from .authoring import (
     create_variable_length_token_dataset,
     ingest_on_process_zero,
 )
+from .buffers import BufferPool, RaggedPage, default_buffer_pool
 from .decode import ImageClassificationDecoder, decoder_for_task, numeric_decoder
 from .device_decode import CoeffImageDecoder
 from .filters import parse_predicate, predicate_mask
 from .folder import FolderDataPipeline, read_sample_batch
 from .format import Dataset, Fragment, write_dataset
+from .placement import PlacedLoader, PlacementPlane
 from .pipeline import (
     MapStylePipeline,
     make_eval_pipeline,
@@ -37,14 +40,16 @@ from .token_pack import (
     TokenPackPlanner,
 )
 
-__all__ = ["CoeffImageDecoder", "Dataset", "FolderDataPipeline", "Fragment",
-           "IMAGE_SCHEMA", "ImageClassificationDecoder", "MapStylePipeline",
-           "PackPlan", "ReadRange", "TokenDecoder", "TokenPackConfig",
+__all__ = ["BufferPool", "CoeffImageDecoder", "Dataset", "FolderDataPipeline",
+           "Fragment", "IMAGE_SCHEMA", "ImageClassificationDecoder",
+           "MapStylePipeline", "PackPlan", "PlacedLoader", "PlacementPlane",
+           "RaggedPage", "ReadRange", "TokenDecoder", "TokenPackConfig",
            "TokenPackPlanner", "create_dataset_from_image_folder",
            "create_food101_datasets",
            "create_synthetic_classification_dataset",
            "create_synthetic_image_folder", "create_text_token_dataset",
            "create_variable_length_token_dataset", "decoder_for_task",
+           "default_buffer_pool",
            "distributed_index_batches", "distributed_indices",
            "ingest_on_process_zero", "make_eval_pipeline",
            "make_map_style_pipeline", "make_plan", "make_train_pipeline",

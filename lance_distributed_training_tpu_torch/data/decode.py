@@ -7,7 +7,9 @@ its library builds, else through PIL on a thread pool, as the JAX decoder
 does; normalisation and augmentation run on the device (``ops/image.py``).
 With ``device_decode`` the host stops at the entropy boundary
 (:class:`~.device_decode.CoeffImageDecoder`) and K2 decodes on the card.
-Decoding for ``contrastive`` is not ported yet.
+With a ``buffer_pool`` (:class:`~.buffers.BufferPool`) every decoder writes
+its output pages into leased pages, which the loaders release. Decoding for
+``contrastive`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -55,12 +57,15 @@ class ImageClassificationDecoder:
     batch decoder, straight from the column's Arrow buffers) when its
     library builds and ``use_native`` is set, else ``"pil"`` (``draft`` and
     a bilinear resize per image). ``arm`` says which one this decoder took.
-    Rows the native decoder cannot read are decoded again through PIL."""
+    Rows the native decoder cannot read are decoded again through PIL. With
+    ``buffer_pool`` the ``image`` page is leased from it."""
 
     required_columns = ["image", "label"]
 
-    def __init__(self, image_size: int = 224, use_native: bool = True):
+    def __init__(self, image_size: int = 224, use_native: bool = True,
+                 buffer_pool=None):
         self.image_size = image_size
+        self.buffer_pool = buffer_pool
         self._native = None
         self._native_arrow = None
         if use_native:
@@ -90,10 +95,21 @@ class ImageClassificationDecoder:
             img = img.resize((self.image_size, self.image_size), Image.BILINEAR)
         return np.asarray(img, dtype=np.uint8)
 
+    def _lease_out(self, n: int) -> Optional[np.ndarray]:
+        """A pooled ``[n, S, S, 3] u8`` output page, or ``None`` without a
+        pool or for an empty batch."""
+        if self.buffer_pool is None or n == 0:
+            return None
+        return self.buffer_pool.lease(
+            (n, self.image_size, self.image_size, 3), np.uint8)
+
     def decode_payloads(self, payloads: list[bytes]) -> np.ndarray:
-        """JPEG byte strings → ``[N, S, S, 3] uint8``."""
+        """JPEG byte strings → ``[N, S, S, 3] uint8``. Each arm leases its
+        page just before the call that fills it, so that a PIL decode that
+        raises first strands no page."""
         if self._native is not None:
-            images, failed = self._native(payloads, self.image_size)
+            images, failed = self._native(
+                payloads, self.image_size, out=self._lease_out(len(payloads)))
             for i in np.nonzero(failed)[0]:
                 images[i] = self._decode_one(payloads[i])
             return images
@@ -103,6 +119,9 @@ class ImageClassificationDecoder:
             images = [self._decode_one(p) for p in payloads]
         if not images:
             return np.empty((0, self.image_size, self.image_size, 3), np.uint8)
+        out = self._lease_out(len(images))
+        if out is not None:
+            return np.stack(images, out=out)
         return np.stack(images)
 
     def decode_column(self, col) -> np.ndarray:
@@ -112,7 +131,8 @@ class ImageClassificationDecoder:
         if self._native_arrow is not None and (
             pa.types.is_binary(col.type) or pa.types.is_large_binary(col.type)
         ):
-            images, failed = self._native_arrow(col, self.image_size)
+            images, failed = self._native_arrow(
+                col, self.image_size, out=self._lease_out(len(col)))
             for i in np.nonzero(failed)[0]:
                 images[i] = self._decode_one(col[int(i)].as_py())
             return images
@@ -127,7 +147,8 @@ class ImageClassificationDecoder:
 
 def decoder_for_task(task_type: str, seq_len: Optional[int] = None,
                      image_size: int = 224, device_decode: bool = False,
-                     token_pack: Optional[TokenPackConfig] = None):
+                     token_pack: Optional[TokenPackConfig] = None,
+                     buffer_pool=None):
     """The task-type → decode-hook dispatch. ``classification`` gets the
     :class:`ImageClassificationDecoder` at ``image_size``; for the text
     tasks, ``token_pack`` (a :class:`~.token_pack.TokenPackConfig`) selects
@@ -136,13 +157,16 @@ def decoder_for_task(task_type: str, seq_len: Optional[int] = None,
     :func:`numeric_decoder` runs. With
     ``device_decode`` classification gets the
     :class:`~.device_decode.CoeffImageDecoder` (``arm == "coeff"``), which
-    raises when its extractor cannot be built."""
+    raises when its extractor cannot be built. Every decoder but
+    :func:`numeric_decoder` leases its pages from ``buffer_pool``."""
     if task_type == "classification":
         if device_decode:
             from .device_decode import CoeffImageDecoder
 
-            return CoeffImageDecoder(image_size=image_size)
-        return ImageClassificationDecoder(image_size=image_size)
+            return CoeffImageDecoder(image_size=image_size,
+                                     buffer_pool=buffer_pool)
+        return ImageClassificationDecoder(image_size=image_size,
+                                          buffer_pool=buffer_pool)
     if device_decode:
         raise ValueError(
             "device_decode currently supports task_type='classification' "
@@ -153,9 +177,11 @@ def decoder_for_task(task_type: str, seq_len: Optional[int] = None,
             return TokenDecoder(mode="pack",
                                 seq_len=seq_len or token_pack.pack_len,
                                 planner=TokenPackPlanner(token_pack),
+                                buffer_pool=buffer_pool,
                                 pad_id=token_pack.pad_id)
         if seq_len is not None:
-            return TokenDecoder(mode="pad", seq_len=seq_len)
+            return TokenDecoder(mode="pad", seq_len=seq_len,
+                                buffer_pool=buffer_pool)
         return numeric_decoder
     if task_type == "contrastive":
         raise NotImplementedError(

@@ -15,10 +15,14 @@ is decoded by PIL and re-encoded as baseline 4:2:0 at quality 95, then
 extracted again; a row that still fails keeps a zeroed page with quant 1
 and geometry 0, which decodes to neutral gray.
 
-Left out against the JAX decoder: the buffer pool, the metrics registry and
-cost ledger, the autotune tunables and pickling for worker processes. The
-per-batch host entropy time is kept in :attr:`CoeffImageDecoder.entropy_ms`,
-which the trainer's ``[metrics]`` lines read as ``decode_entropy_ms``.
+With a ``buffer_pool`` the five pages of a batch are leased from it and
+zero-filled (the extractor never writes padding blocks, and a recycled page
+holds an earlier batch); if a later lease or the extraction raises, the
+pages already leased go back. Left out against the JAX decoder: the metrics
+registry and cost ledger, the autotune tunables and pickling for worker
+processes. The per-batch host entropy time is kept in
+:attr:`CoeffImageDecoder.entropy_ms`, which the trainer's ``[metrics]``
+lines read as ``decode_entropy_ms``.
 
 There is no fallback: when the extractor cannot be built the decoder
 raises with the build error (the JAX package warns and decodes pixels with
@@ -49,14 +53,17 @@ class CoeffImageDecoder:
     ``jpeg_geom`` (:data:`~..ops.jpeg_device.COEFF_KEYS`) and ``label``.
 
     ``arm`` is ``"coeff"``. ``n_threads`` is the extractor's thread count
-    (0: one per hardware thread, :attr:`threads` says how many that is)."""
+    (0: one per hardware thread, :attr:`threads` says how many that is).
+    ``buffer_pool`` (a :class:`~.buffers.BufferPool`) leases the pages."""
 
     arm = "coeff"
 
     def __init__(self, image_size: int = 224, image_column: str = "image",
                  label_column: Optional[str] = "label",
-                 chunk_blocks: int = 4, n_threads: int = 0):
+                 chunk_blocks: int = 4, n_threads: int = 0,
+                 buffer_pool=None):
         self.image_size = image_size
+        self.buffer_pool = buffer_pool
         self.image_column = image_column
         self.label_column = label_column
         self.chunk_blocks = max(1, int(chunk_blocks))
@@ -96,6 +103,19 @@ class CoeffImageDecoder:
             gw = max(gw, _round_up(yb_w, self.chunk_blocks))
             self._grid = (gh, gw)
         return gh, gw, (gh + 1) // 2, (gw + 1) // 2
+
+    def _lease(self, shape, dtype) -> np.ndarray:
+        """A zeroed page: leased (and released again if zeroing raises),
+        or fresh without a pool."""
+        if self.buffer_pool is None:
+            return np.zeros(shape, dtype)
+        arr = self.buffer_pool.lease(shape, dtype)
+        try:
+            arr.fill(0)
+        except BaseException:
+            self.buffer_pool.release(arr)
+            raise
+        return arr
 
     @staticmethod
     def _reencode(payload: bytes) -> Optional[bytes]:
@@ -149,33 +169,41 @@ class CoeffImageDecoder:
         yb_h = int(max(1, (geom[:, 1].max() + 7) // 8))
         yb_w = int(max(1, (geom[:, 0].max() + 7) // 8))
         gh, gw, ch, cw = self._ensure_grid(yb_h, yb_w)
-        batch = {
-            "jpeg_coef_y": np.zeros((n, gh, gw, 64), np.int16),
-            "jpeg_coef_cb": np.zeros((n, ch, cw, 64), np.int16),
-            "jpeg_coef_cr": np.zeros((n, ch, cw, 64), np.int16),
-            "jpeg_quant": np.zeros((n, 3, 64), np.int32),
-            "jpeg_geom": np.zeros((n, 6), np.int32),
-        }
-        if replaced:
-            # Only the re-encoded rows' slots change; ctypes keeps the
-            # assigned bytes alive in the array, and `replaced` too.
-            srcs, lens, _, keepalive = pointers
-            for i, alt in replaced.items():
-                srcs[i] = alt
-                lens[i] = len(alt)
-            pointers = (srcs, lens, n, (keepalive, replaced))
-        failed = coeffs.batch_extract_coeffs(
-            pointers, gh, gw, ch, cw, batch["jpeg_coef_y"],
-            batch["jpeg_coef_cb"], batch["jpeg_coef_cr"],
-            batch["jpeg_quant"], batch["jpeg_geom"], n_threads=self.n_threads)
-        for i in np.nonzero(failed)[0]:
-            # A zeroed page (the extractor may have written part of one),
-            # quant 1 and geometry 0: neutral gray.
-            self.undecodable += 1
-            for key in ("jpeg_coef_y", "jpeg_coef_cb", "jpeg_coef_cr",
-                        "jpeg_geom"):
-                batch[key][i].fill(0)
-            batch["jpeg_quant"][i].fill(1)
+        # The pages go into the dict one by one under the release guard: a
+        # later lease or the extraction raising must not strand the
+        # earlier pages.
+        batch: dict[str, np.ndarray] = {}
+        try:
+            batch["jpeg_coef_y"] = self._lease((n, gh, gw, 64), np.int16)
+            batch["jpeg_coef_cb"] = self._lease((n, ch, cw, 64), np.int16)
+            batch["jpeg_coef_cr"] = self._lease((n, ch, cw, 64), np.int16)
+            batch["jpeg_quant"] = self._lease((n, 3, 64), np.int32)
+            batch["jpeg_geom"] = self._lease((n, 6), np.int32)
+            if replaced:
+                # Only the re-encoded rows' slots change; ctypes keeps the
+                # assigned bytes alive in the array, and `replaced` too.
+                srcs, lens, _, keepalive = pointers
+                for i, alt in replaced.items():
+                    srcs[i] = alt
+                    lens[i] = len(alt)
+                pointers = (srcs, lens, n, (keepalive, replaced))
+            failed = coeffs.batch_extract_coeffs(
+                pointers, gh, gw, ch, cw, batch["jpeg_coef_y"],
+                batch["jpeg_coef_cb"], batch["jpeg_coef_cr"],
+                batch["jpeg_quant"], batch["jpeg_geom"],
+                n_threads=self.n_threads)
+            for i in np.nonzero(failed)[0]:
+                # A zeroed page (the extractor may have written part of
+                # one), quant 1 and geometry 0: neutral gray.
+                self.undecodable += 1
+                for key in ("jpeg_coef_y", "jpeg_coef_cb", "jpeg_coef_cr",
+                            "jpeg_geom"):
+                    batch[key][i].fill(0)
+                batch["jpeg_quant"][i].fill(1)
+        except BaseException:
+            if self.buffer_pool is not None:
+                self.buffer_pool.release_batch(batch)
+            raise
         return batch
 
     def _timed(self, pointers, source) -> dict[str, np.ndarray]:

@@ -12,7 +12,7 @@ store.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import pyarrow as pa
@@ -51,14 +51,17 @@ class FolderDataPipeline(EpochLoader):
       so the A/B isolates storage, not sampling); ``shuffle`` permutes the
       batch order only.
 
-    The cursor and ``set_epoch`` behave as the map-style loader's. The
-    batches are the JAX package's ``FolderDataPipeline``'s."""
+    The cursor and ``set_epoch`` behave as the map-style loader's;
+    ``device``, ``producers`` and ``buffer_pool`` as
+    :class:`~.pipeline.TrainLoader`'s. The batches are the JAX package's
+    ``FolderDataPipeline``'s."""
 
     def __init__(self, root: str, batch_size: int, process_index: int,
                  process_count: int, decode_fn: Callable,
-                 device: torch.device, *, loader_style: str = "map",
-                 shuffle: bool = True, seed: int = 0, epoch: int = 0,
-                 drop_last: bool = True, prefetch: int = 2):
+                 device: Optional[torch.device], *,
+                 loader_style: str = "map", shuffle: bool = True,
+                 seed: int = 0, epoch: int = 0, drop_last: bool = True,
+                 prefetch: int = 2, producers: int = 1, buffer_pool=None):
         self.samples, self.classes = _folder_samples(root)
         if not self.samples:
             raise ValueError(f"no images under {root}")
@@ -67,7 +70,8 @@ class FolderDataPipeline(EpochLoader):
                 f"loader_style must be 'map' or 'iterable', got "
                 f"{loader_style!r}"
             )
-        super().__init__(None, None, decode_fn, device, prefetch, epoch)
+        super().__init__(None, None, decode_fn, device, prefetch, epoch,
+                         producers=producers, buffer_pool=buffer_pool)
         self.loader_style = loader_style
         self.batch_size = batch_size
         self.process_index = process_index
@@ -93,5 +97,5 @@ class FolderDataPipeline(EpochLoader):
             self.process_count, shuffle=self.shuffle, seed=self.seed,
             epoch=self.epoch, drop_last=self.drop_last)
 
-    def _load(self, item) -> dict:
-        return self.decode_fn(read_sample_batch(self.samples, item))
+    def _read(self, item):
+        return read_sample_batch(self.samples, item)

@@ -14,10 +14,22 @@ in the same order:
 - the eval loader (:class:`EvalLoader`) covers every row (or every pool
   position) once, the tail padded by wrap-around rows of weight 0.
 
-One daemon thread reads and decodes the plan into a bounded queue; the
-consumer copies each batch into pinned staging buffers and on to the device
-with ``non_blocking`` copies on the current stream. No worker pool, cache
-or autotuner yet.
+``producers`` daemon threads (``ldt-producer``, or ``ldt-producer-<k>``
+when there are several) read and decode the plan: thread ``k`` takes plan
+items ``k, k + N, …`` into its own bounded queue and the consumer
+round-robins the queues, so batches come out in plan order for any N, with
+about ``max(prefetch, producers)`` buffered (a thread reads its next item
+only once its queue has room). The reads run concurrently; the calls to
+the decoder start in plan order (each decode runs beside the others), so
+a decoder that counts its calls sees the plan's order. With ``device=None`` a loader
+yields host numpy batches (the placement plane, ``data/placement.py``,
+places them); with a device it places each batch itself through the
+synchronous :func:`~..parallel.mesh.make_global_batch` (the
+``--no_global_batch`` arm): on the consumer thread with one producer, in the
+producer threads with several, each with its own pinned staging ring. Pages
+leased from ``buffer_pool`` go back after the consumer's turn (host
+batches), at placement (the synchronous arm), or as drained at teardown.
+No worker pool, cache or autotuner yet.
 
 Resume cursor (the JAX loaders' contract): ``state_dict()`` is ``{"epoch",
 "step"}``, ``step`` counting the batches handed to the consumer (not those
@@ -48,13 +60,11 @@ from .samplers import (
     padded_eval_index_batches,
     slice_plan,
 )
-from .token_pack import is_host_meta_key
+from ..parallel.mesh import PinnedStager, indexed_device, make_global_batch
 
-__all__ = ["EvalLoader", "MapStylePipeline", "PinnedStager", "TrainLoader",
+__all__ = ["EvalLoader", "MapStylePipeline", "TrainLoader",
            "make_eval_pipeline", "make_map_style_pipeline",
            "make_train_pipeline"]
-
-_JOIN_TIMEOUT_S = 10.0
 
 
 def _range_read(dataset: Dataset, ranges: Sequence[ReadRange]) -> pa.Table:
@@ -71,72 +81,24 @@ class _Failure:
 _DONE = object()
 
 
-class PinnedStager:
-    """Host numpy batch → device tensors through a ring of pinned buffers.
-
-    Each slot holds one pinned tensor per key and the CUDA event of the copy
-    that last read it; a slot is refilled only after that event completes, so
-    a ``non_blocking`` copy never reads a buffer being overwritten. On the
-    CPU the batch is copied into fresh tensors. Keys with the host-meta
-    prefix (``_host_*``, e.g. the pack plan's header) stay host numpy, so
-    the device-side transforms read them without a sync. A batch's shapes
-    may change from one batch to the next (the ragged pages and the packed
-    plan do): a slot's pinned buffer is replaced when its shape or type
-    changes."""
-
-    depth = 2  # one slot being copied from while the next is filled
-
-    def __init__(self, device: torch.device):
-        self.device = torch.device(device)
-        self._slots: list[dict] = [{} for _ in range(self.depth)]
-        self._events: list[Optional[torch.cuda.Event]] = [None] * self.depth
-        self._next = 0
-
-    def __call__(self, batch: dict) -> dict:
-        if self.device.type != "cuda":
-            return {k: np.asarray(v) if is_host_meta_key(k)
-                    else torch.from_numpy(np.array(v))
-                    for k, v in batch.items()}
-        i = self._next
-        self._next = (i + 1) % self.depth
-        if self._events[i] is not None:
-            self._events[i].synchronize()
-        slot = self._slots[i]
-        out = {}
-        for name, arr in batch.items():
-            arr = np.asarray(arr)
-            if is_host_meta_key(name):
-                out[name] = arr
-                continue
-            pinned = slot.get(name)
-            if pinned is None or tuple(pinned.shape) != arr.shape or (
-                pinned.numpy().dtype != arr.dtype
-            ):
-                pinned = torch.from_numpy(np.empty(arr.shape, arr.dtype))
-                pinned = pinned.pin_memory()
-                slot[name] = pinned
-            pinned.numpy()[...] = arr
-            out[name] = pinned.to(self.device, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        self._events[i] = event
-        return out
-
-
 class TrainLoader:
-    """Iterate device batches for this process's plan, in plan order, from
-    the resume cursor on (the module's docstring). A plan item is one
-    step's ``ReadRange`` list; subclasses change what a plan item is and
-    how it is read (:meth:`_plan`, :meth:`_load`)."""
+    """Iterate batches of this process's plan, in plan order, from the
+    resume cursor on (the module's docstring): host batches with
+    ``device=None``, else tensors on ``device``. A plan item is one step's
+    ``ReadRange`` list; subclasses change what a plan item is and how it is
+    read and decoded (:meth:`_plan`, :meth:`_read`, :meth:`_decode`)."""
 
     def __init__(self, dataset: Dataset, plan: Optional[Sequence],
                  decode_fn: Callable[[pa.Table], dict],
-                 device: torch.device, prefetch: int = 2, epoch: int = 0):
+                 device: Optional[torch.device], prefetch: int = 2,
+                 epoch: int = 0, producers: int = 1, buffer_pool=None):
         self.dataset = dataset
         self.plan = list(plan) if plan is not None else None
         self.decode_fn = decode_fn
-        self.device = torch.device(device)
+        self.device = indexed_device(device) if device is not None else None
         self.prefetch = max(1, int(prefetch))
+        self.producers = max(1, int(producers))
+        self.buffer_pool = buffer_pool
         self.epoch = epoch
         self._start_step = 0  # where the next iteration starts in the plan
         self._yielded = 0  # batches handed out, absolute within the plan
@@ -144,9 +106,16 @@ class TrainLoader:
     def _plan(self) -> list:
         return self.plan
 
+    def _read(self, item):
+        """One plan item's rows (an Arrow table)."""
+        return _range_read(self.dataset, item)
+
+    def _decode(self, item, table) -> dict:
+        """One plan item's rows decoded into a host numpy batch."""
+        return self.decode_fn(table)
+
     def _load(self, item) -> dict:
-        """One plan item, read and decoded into a host numpy batch."""
-        return self.decode_fn(_range_read(self.dataset, item))
+        return self._decode(item, self._read(item))
 
     def __len__(self) -> int:
         return len(self._plan())
@@ -171,74 +140,147 @@ class TrainLoader:
         beyond it raises here."""
         return map(self._load, slice_plan(self._plan(), self._start_step))
 
-    def _produce(self, batches: Iterator[dict], q: queue.Queue,
-                 stop: threading.Event) -> None:
-        def put(item) -> bool:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    continue
-            return False
+    def _release(self, batch) -> None:
+        if self.buffer_pool is not None and isinstance(batch, dict):
+            self.buffer_pool.release_batch(batch)
 
-        try:
-            for batch in batches:
-                if not put(batch):
-                    return
-        except BaseException as exc:  # handed to the consumer, re-raised there
-            put(_Failure(exc))
-            return
-        put(_DONE)
+    def _place(self, batch: dict, stager) -> dict:
+        return make_global_batch(batch, self.device, stager=stager,
+                                 buffer_pool=self.buffer_pool)
+
+    def _stager(self) -> Optional[PinnedStager]:
+        if self.device is None or self.device.type != "cuda":
+            return None
+        return PinnedStager(self.device)
 
     def __iter__(self) -> Iterator[dict]:
-        batches = self.host_batches()
-        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
-        stop = threading.Event()
-        producer = threading.Thread(target=self._produce,
-                                    args=(batches, q, stop),
-                                    name="ldt-torch-prefetch", daemon=True)
-        stage = PinnedStager(self.device)
+        n = self.producers
+        plan = slice_plan(self._plan(), self._start_step)
         self._yielded = self._start_step
-        producer.start()
+        per = max(1, -(-max(self.prefetch, n) // n))
+        # A queue a thread; its free slots are counted by a semaphore that
+        # the thread takes before it reads an item and the consumer gives
+        # back when it takes one.
+        queues = [queue.Queue() for _ in range(n)]
+        room = [threading.Semaphore(per) for _ in range(n)]
+        stop = threading.Event()
+        turn = [0]  # the next plan item whose decode may start
+        failed = [len(plan)]  # the first plan item that raised
+        turn_cv = threading.Condition()
+        # The synchronous arm places on the consumer thread with one
+        # producer, in the producers with several (each its own stager).
+        place_in_producer = self.device is not None and n > 1
+
+        def wait_room(k: int) -> bool:
+            while not stop.is_set():
+                if room[k].acquire(timeout=0.1):
+                    return True
+            return False
+
+        def wait_turn(j: int) -> bool:
+            with turn_cv:
+                while turn[0] != j:
+                    # The consumer stops at the first item that raised: the
+                    # items before it are still needed, those after not.
+                    if stop.is_set() or j > failed[0]:
+                        return False
+                    turn_cv.wait(timeout=0.1)
+                turn[0] = j + 1
+                turn_cv.notify_all()
+            return True
+
+        def produce(k: int) -> None:
+            j = k
+            try:
+                stager = None
+                if place_in_producer:
+                    if self.device.type == "cuda":
+                        torch.cuda.set_device(self.device)
+                    stager = self._stager()
+                for j in range(k, len(plan), n):
+                    if not wait_room(k):
+                        return
+                    table = self._read(plan[j])
+                    if not wait_turn(j):
+                        return
+                    out = self._decode(plan[j], table)
+                    del table
+                    if place_in_producer:
+                        out = self._place(out, stager)
+                    queues[k].put(out)
+                queues[k].put(_DONE)
+            except BaseException as exc:  # handed to the consumer, re-raised
+                queues[k].put(_Failure(exc))
+                with turn_cv:
+                    failed[0] = min(failed[0], j)
+                    turn_cv.notify_all()
+
+        threads = [
+            threading.Thread(
+                target=produce, args=(k,), daemon=True,
+                name="ldt-producer" if n == 1 else f"ldt-producer-{k}")
+            for k in range(n)
+        ]
+        stager = None if place_in_producer else self._stager()
+        for t in threads:
+            t.start()
         try:
-            while True:
-                item = q.get()
+            active = [True] * n
+            done = i = 0
+            while done < n:
+                k = i % n
+                i += 1
+                if not active[k]:
+                    continue
+                item = queues[k].get()
+                room[k].release()
                 if item is _DONE:
-                    return
+                    active[k] = False
+                    done += 1
+                    continue
                 if isinstance(item, _Failure):
                     raise item.exc
-                batch = stage(item)
+                if self.device is not None and not place_in_producer:
+                    item = self._place(item, stager)
                 # Counted as handed out: between steps the cursor names the
                 # next batch.
                 self._yielded += 1
-                yield batch
+                yield item
+                if self.device is None:
+                    # A host batch: the consumer had its turn. A reference
+                    # it kept defers the page's recycling, never its safety.
+                    self._release(item)
+                del item
         finally:
             stop.set()
-            while producer.is_alive():
-                try:
-                    q.get(timeout=0.05)
-                except queue.Empty:
-                    pass
-                producer.join(timeout=0.05)
-            producer.join(timeout=_JOIN_TIMEOUT_S)
+            # The threads observe the stop flag within a read or a decode;
+            # the batches they left go back to the pool.
+            for t in threads:
+                t.join()
+            for q in queues:
+                while not q.empty():
+                    self._release(q.get_nowait())
 
 
 class EvalLoader(TrainLoader):
-    """Iterate the eval plan's device batches: each plan item is
-    ``(indices, weights)``, read through ``read_fn`` and decoded, with the
-    weights riding the batch as ``_weight``."""
+    """Iterate the eval plan's batches: each plan item is ``(indices,
+    weights)``, read through ``read_fn`` and decoded, with the weights
+    riding the batch as ``_weight``."""
 
     def __init__(self, read_fn: Callable[[np.ndarray], pa.Table],
                  plan: Sequence, decode_fn: Callable[[pa.Table], dict],
-                 device: torch.device, prefetch: int = 2):
-        super().__init__(None, plan, decode_fn, device, prefetch)
+                 device: Optional[torch.device], prefetch: int = 2,
+                 producers: int = 1, buffer_pool=None):
+        super().__init__(None, plan, decode_fn, device, prefetch,
+                         producers=producers, buffer_pool=buffer_pool)
         self.read_fn = read_fn
 
-    def _load(self, item) -> dict:
-        idx, weights = item
-        out = dict(self.decode_fn(self.read_fn(idx)))
-        out["_weight"] = weights
+    def _read(self, item):
+        return self.read_fn(item[0])
+
+    def _decode(self, item, table) -> dict:
+        out = dict(self.decode_fn(table))
+        out["_weight"] = item[1]
         return out
 
 
@@ -249,10 +291,12 @@ def make_eval_pipeline(
     process_index: int,
     process_count: int,
     decode_fn: Callable,
-    device: torch.device,
+    device: Optional[torch.device],
     prefetch: int = 2,
     *,
     index_pool: Optional[np.ndarray] = None,
+    producers: int = 1,
+    buffer_pool=None,
 ) -> EvalLoader:
     """Full-coverage eval loader: every row exactly once, one batch shape.
 
@@ -262,12 +306,14 @@ def make_eval_pipeline(
     Arrow table (``Dataset.take``, or the folder arm's file read). With
     ``index_pool`` every position of the pool is covered once instead of
     every row, and ``num_rows`` is not read. Batches, order and weights
-    are the JAX package's ``make_eval_pipeline``'s."""
+    are the JAX package's ``make_eval_pipeline``'s; ``device``,
+    ``producers`` and ``buffer_pool`` are :class:`TrainLoader`'s."""
     if index_pool is not None:
         num_rows = len(index_pool)
     plan = padded_eval_index_batches(num_rows, global_batch, process_index,
                                      process_count, index_pool=index_pool)
-    return EvalLoader(read_fn, plan, decode_fn, device, prefetch=prefetch)
+    return EvalLoader(read_fn, plan, decode_fn, device, prefetch=prefetch,
+                      producers=producers, buffer_pool=buffer_pool)
 
 
 class EpochLoader(TrainLoader):
@@ -308,12 +354,14 @@ class MapStylePipeline(EpochLoader):
 
     def __init__(self, dataset: Dataset, batch_size: int, process_index: int,
                  process_count: int, decode_fn: Callable,
-                 device: torch.device, *, shuffle: bool = True,
+                 device: Optional[torch.device], *, shuffle: bool = True,
                  seed: int = 0, epoch: int = 0, drop_last: bool = True,
                  prefetch: int = 2,
                  columns: Optional[Sequence[str]] = None,
-                 index_pool: Optional[np.ndarray] = None):
-        super().__init__(dataset, None, decode_fn, device, prefetch, epoch)
+                 index_pool: Optional[np.ndarray] = None,
+                 producers: int = 1, buffer_pool=None):
+        super().__init__(dataset, None, decode_fn, device, prefetch, epoch,
+                         producers=producers, buffer_pool=buffer_pool)
         self.batch_size = batch_size
         self.process_index = process_index
         self.process_count = process_count
@@ -338,8 +386,8 @@ class MapStylePipeline(EpochLoader):
             batches = [pool[b] for b in batches]
         return batches
 
-    def _load(self, item) -> dict:
-        return self.decode_fn(self.dataset.take(item, columns=self.columns))
+    def _read(self, item):
+        return self.dataset.take(item, columns=self.columns)
 
 
 def make_map_style_pipeline(dataset: Dataset, *args,
@@ -357,16 +405,18 @@ def make_train_pipeline(
     process_index: int,
     process_count: int,
     decode_fn: Callable,
-    device: torch.device,
+    device: Optional[torch.device],
     prefetch: int = 2,
     shuffle: bool = False,
     seed: int = 0,
     epoch: int = 0,
+    producers: int = 1,
+    buffer_pool=None,
 ) -> TrainLoader:
     """Iterable-style loader over this process's plan. ``batch_size`` is
     the per-process batch. Every process's plan is checked for equal step
     and row counts before the first batch (unequal counts hang a
-    collective)."""
+    collective). ``device=None`` yields host batches."""
     if sampler_type in ("full", "full_scan") and process_count > 1:
         raise ValueError(
             "sampler_type='full' is not DP-aware (every process scans the "
@@ -387,4 +437,5 @@ def make_train_pipeline(
             f"of {batch_size} on each of {process_count} processes"
         )
     return TrainLoader(dataset, plan, decode_fn, device, prefetch=prefetch,
-                       epoch=epoch)
+                       epoch=epoch, producers=producers,
+                       buffer_pool=buffer_pool)

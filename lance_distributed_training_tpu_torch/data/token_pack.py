@@ -22,14 +22,16 @@ Every mode counts padding waste on the decoder itself:
 ``pack_payload_tokens_total`` (real tokens) against
 ``pack_grid_tokens_total`` (the grid the device processes), plus
 ``pack_sequences_total``, ``pack_truncated_tokens_total`` and
-``pack_batches_total``. The JAX package's buffer pool, metrics registry,
-cost ledger and autotuner hooks are not ported: pages are fresh numpy
-arrays.
+``pack_batches_total``. With a ``buffer_pool`` (:class:`~.buffers.BufferPool`)
+the padded pages, the synthesised mask and the ragged page pairs are
+leased from it. The JAX package's metrics registry, cost ledger and
+autotuner hooks are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -315,7 +317,9 @@ class TokenDecoder:
     fixed-size-list columns become zero-copy ``[B, L]`` views. ``"pack"``
     emits the ragged convention and an FFD :class:`PackPlan`; ``"bucket"``
     a row-preserving plan. Every mode adds to the ``pack_*`` counters
-    (:data:`COUNTER_NAMES`, plain integer attributes)."""
+    (:data:`COUNTER_NAMES`, plain integer attributes, safe under several
+    producer threads). With ``buffer_pool`` the pages it writes are
+    leased."""
 
     def __init__(
         self,
@@ -327,17 +331,15 @@ class TokenDecoder:
     ):
         if mode not in ("pad", "pack", "bucket"):
             raise ValueError(f"invalid TokenDecoder mode: {mode!r}")
-        if buffer_pool is not None:
-            raise NotImplementedError(
-                "the buffer pool is not yet ported (buffer_pool=None only)")
         self.mode = mode
         self.seq_len = int(seq_len)
         self.planner = (
             planner if planner is not None
             else TokenPackPlanner(TokenPackConfig(pack_len=self.seq_len))
         )
-        self.buffer_pool = None
+        self.buffer_pool = buffer_pool
         self.pad_id = int(pad_id)
+        self._count_lock = threading.Lock()
         for name in COUNTER_NAMES:
             setattr(self, name, 0)
 
@@ -347,11 +349,17 @@ class TokenDecoder:
 
     def _add(self, payload: int, grid: int, seqs: int, truncated: int,
              batches: int = 1) -> None:
-        self.pack_payload_tokens_total += int(payload)
-        self.pack_grid_tokens_total += int(grid)
-        self.pack_sequences_total += int(seqs)
-        self.pack_truncated_tokens_total += int(truncated)
-        self.pack_batches_total += int(batches)
+        with self._count_lock:
+            self.pack_payload_tokens_total += int(payload)
+            self.pack_grid_tokens_total += int(grid)
+            self.pack_sequences_total += int(seqs)
+            self.pack_truncated_tokens_total += int(truncated)
+            self.pack_batches_total += int(batches)
+
+    def _lease(self, shape, dtype) -> np.ndarray:
+        if self.buffer_pool is None:
+            return np.empty(tuple(shape), np.dtype(dtype))
+        return self.buffer_pool.lease(shape, dtype)
 
     def cache_fingerprint(self) -> str:
         """Everything that can change the bytes this decoder emits."""
@@ -420,15 +428,18 @@ class TokenDecoder:
                     "than its siblings — the padded arm synthesizes one "
                     "attention_mask for the whole batch"
                 )
-            page = np.full((n, self.seq_len), self.pad_id, values.dtype)
-            fill_padded(page, values, offsets, col_lengths)
+            page = self._lease((n, self.seq_len), values.dtype)
+            # In the batch before it is filled: the consumer's release
+            # reclaims it on every path.
             out[name] = page
+            page[...] = self.pad_id
+            fill_padded(page, values, offsets, col_lengths)
             total_real += int(col_lengths.sum())
             truncated += int((offsets[1:] - offsets[:-1] - col_lengths).sum())
         if "attention_mask" not in out and lengths is not None:
-            out["attention_mask"] = (
-                np.arange(self.seq_len)[None, :] < lengths[:, None]
-            ).astype(np.int8)
+            mask = self._lease((len(lengths), self.seq_len), np.int8)
+            out["attention_mask"] = mask
+            mask[...] = np.arange(self.seq_len)[None, :] < lengths[:, None]
         if lengths is not None:
             # The grid counts every padded token column; the payload
             # mirrors it, so the two compare like with like.
@@ -469,10 +480,19 @@ class TokenDecoder:
                     "ragged column"
                 )
             total = int(offsets[-1])
-            vpage = np.zeros((ragged_capacity(total),), values.dtype)
-            vpage[:total] = values
+            if self.buffer_pool is not None:
+                page = self.buffer_pool.lease_ragged(
+                    total, len(offsets) - 1, values.dtype)
+                vpage, opage = page.values, page.offsets
+            else:
+                vpage = np.empty((ragged_capacity(total),), values.dtype)
+                opage = np.empty((len(offsets),), np.int32)
+            # Both pages ride the batch before they are filled.
             out[name + VALUES_SUFFIX] = vpage
-            out[name + OFFSETS_SUFFIX] = offsets.astype(np.int32)
+            out[name + OFFSETS_SUFFIX] = opage
+            np.copyto(vpage[:total], values)
+            vpage[total:] = 0  # a deterministic tail: digests stay stable
+            np.copyto(opage, offsets.astype(np.int32))
         if plan is None:
             raise AssertionError("no ragged column planned")
         out[PACK_SLOT_KEY] = plan.slot

@@ -61,6 +61,17 @@ image-folder tree read file by file, in either style). Every arm feeds the
 same decoders, so K1 (and K2 under ``device_decode``) run unchanged under
 each.
 
+The way from host to card, at the JAX trainer's defaults: the decoders
+write into pooled pages (``buffer_pool``; page-locked on CUDA,
+``data/buffers.py``), ``producer_threads`` threads decode the plan in
+order, and the placement plane (``global_batch``, ``data/placement.py``)
+places every train and eval batch on a side stream from its own thread,
+``placement_depth`` batches ahead of the step; ``global_batch=False`` is
+the synchronous control arm (``parallel/mesh.make_global_batch`` on the
+consumer thread, or in the producers). ``pretrained`` starts the ResNet
+from a torchvision checkpoint (``models/pretrained.py``), the reference's
+fine-tuning task.
+
 The device is the caller's choice: ``device="cuda"`` (the default) raises
 when no card is present rather than falling back to the CPU.
 """
@@ -81,16 +92,19 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
+from .data.buffers import default_buffer_pool
 from .data.decode import decoder_for_task
 from .data.authoring import _folder_samples
 from .data.folder import FolderDataPipeline, read_sample_batch
 from .data.format import Dataset
+from .data.placement import PlacementPlane
 from .data.pipeline import (
     make_eval_pipeline,
     make_map_style_pipeline,
     make_train_pipeline,
 )
 from .data.token_pack import TokenPackConfig, is_ragged_batch, pack_meta
+from .models.pretrained import load_torch_state_dict, load_torchvision_resnet
 from .models.resnet import set_sync_group
 from .models.tasks import Task, draw_mlm_mask, get_task
 from .ops.flash import make_flash_attention
@@ -168,7 +182,21 @@ class TrainConfig:
     image_size: int = 224
     seq_len: int = 128
     vocab_size: Optional[int] = None  # None = the model's own default
+    pretrained: Optional[str] = None  # path to a torch.save'd torchvision
+    # ResNet state_dict: backbone weights and BN statistics import into the
+    # model (models/pretrained.py); the head stays fresh unless its shape
+    # matches. Classification/ResNet only.
     prefetch: int = 2
+    producer_threads: int = 4  # decode-producer threads; with the placement
+    # plane off (global_batch=False) they also place each batch
+    global_batch: bool = True  # route every loader through the placement
+    # plane (data/placement.py): a dedicated thread copies each host batch
+    # to the card on a side stream and keeps placement_depth batches ahead
+    # of the step. False = the synchronous control arm (make_global_batch on
+    # the consumer thread, on the compute stream; bit-identical batches)
+    placement_depth: int = 2  # placed batches the ring keeps ahead
+    buffer_pool: bool = True  # decode into recycled pages of the process
+    # BufferPool (page-locked on CUDA); False = a fresh allocation per batch
     shuffle: bool = False  # epoch batch-order reshuffle (batch sampler and
     # the iterable folder arm; the map-style loader always reshuffles rows)
     augment: bool = True  # per-image horizontal flip, p = 0.5 (classification)
@@ -446,12 +474,19 @@ def make_eval_step(task: Task):
 def evaluate(loader, eval_step) -> tuple[float, float]:
     """``(mean metric, weighted example count)`` over a loader. The
     per-batch sums accumulate on the device; the only host sync is the
-    fetch at the end."""
+    fetch at the end. The loader's iterator is closed on every path, so
+    that its threads end with the eval."""
     num = den = None
-    for batch in loader:
-        part, count = eval_step(batch)
-        num = part if num is None else num + part
-        den = count if den is None else den + count
+    it = iter(loader)
+    try:
+        for batch in it:
+            part, count = eval_step(batch)
+            num = part if num is None else num + part
+            den = count if den is None else den + count
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
     if den is None:
         return 0.0, 0.0
     total = float(den)
@@ -575,8 +610,25 @@ def train(config: TrainConfig) -> dict:
     restore) and ``ckpt_bytes`` (the newest state file's size). Under
     ``grad_accum``, ``accum_fold_ms`` is the median fold time on the card
     (None on the CPU);
-    with ``profile_dir``, ``profile_trace`` names the trace file."""
+    with ``profile_dir``, ``profile_trace`` names the trace file. Every run
+    adds ``bufpool_hits``, ``bufpool_misses`` and ``bufpool_miss_ms`` (the
+    pool's leases during the run, and the time spent allocating the missed
+    pages; 0 without ``buffer_pool``) and, with ``global_batch``,
+    ``placement_ms`` (each train batch's time on the placement thread, its
+    copies' completion included) and ``h2d_pct`` (the placement time of the
+    progress windows after the first log point over their loader-plus-step
+    time, as ``images_per_sec`` leaves the warm-up out; the whole loop when
+    there is no later window)."""
     _check_loader_config(config)
+    if config.placement_depth < 1:
+        raise ValueError(
+            f"placement_depth must be >= 1, got {config.placement_depth}"
+        )
+    if config.pretrained and config.task_type != "classification":
+        raise ValueError(
+            "--pretrained imports torchvision ResNet checkpoints; task "
+            f"{config.task_type!r} has no importer"
+        )
     if config.task_type not in PORTED_TASKS:
         raise NotImplementedError(
             f"task_type {config.task_type!r} is not yet ported "
@@ -698,6 +750,33 @@ def _split_val_pool(config: TrainConfig, dataset: Dataset,
     return np.sort(pool[perm[n_val:]]), np.sort(pool[perm[:n_val]])
 
 
+def _loader_buffer_pool(config: TrainConfig):
+    """The process :class:`~.data.buffers.BufferPool` when the knob is on
+    (its page-locked one when the run is on a card), shared by the decoders
+    (the lease side) and every loader and placement (the release side)."""
+    if not config.buffer_pool:
+        return None
+    cuda = torch.device(config.device).type == "cuda"
+    return default_buffer_pool(pin_memory=cuda)
+
+
+def _make_placement(config: TrainConfig, device: torch.device):
+    """The :class:`~.data.placement.PlacementPlane` of one loader, or
+    ``None`` for the synchronous control arm (``global_batch=False``)."""
+    if not config.global_batch:
+        return None
+    return PlacementPlane(device, depth=config.placement_depth,
+                          buffer_pool=_loader_buffer_pool(config))
+
+
+def _loader_kwargs(config: TrainConfig, device: torch.device, plane) -> dict:
+    """Where a loader places its batches (nowhere behind a plane: it
+    yields host batches), its producers and its pool."""
+    return dict(device=None if plane is not None else device,
+                producers=config.producer_threads,
+                buffer_pool=_loader_buffer_pool(config))
+
+
 def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
                   device: torch.device, epoch: int, per_process: int,
                   data_index: int, data_world: int,
@@ -705,16 +784,19 @@ def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
     """This epoch's train loader: the iterable range plans, the map-style
     loader over the run's pool, or the folder arm in either style, with
     the JAX trainer's refusals of an empty plan and of a folder with more
-    classes than ``num_classes``."""
+    classes than ``num_classes``; wrapped in the placement plane unless the
+    synchronous arm is chosen."""
+    plane = _make_placement(config, device)
+    kw = _loader_kwargs(config, device, plane)
     if config.data_format == "folder":
         loader = FolderDataPipeline(
             config.dataset_path, per_process, data_index, data_world, decode,
-            device, loader_style=config.loader_style,
+            loader_style=config.loader_style,
             # Map-style always reshuffles (DistributedSampler semantics);
             # the iterable arm's batch-order shuffle is opt-in, as on the
             # columnar iterable path.
             shuffle=True if config.loader_style == "map" else config.shuffle,
-            seed=config.seed, epoch=epoch, prefetch=config.prefetch)
+            seed=config.seed, epoch=epoch, prefetch=config.prefetch, **kw)
         if len(loader) == 0:
             raise ValueError("folder smaller than one global batch")
         if (config.task_type == "classification"
@@ -724,7 +806,7 @@ def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
                 f"num_classes={config.num_classes}; out-of-range labels "
                 "would be silently clamped by the XLA gather"
             )
-        return loader
+        return plane.wrap(loader) if plane is not None else loader
     if config.loader_style == "map":
         if index_pool is not None and len(index_pool) < config.batch_size:
             raise ValueError(
@@ -732,21 +814,22 @@ def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
                 f"fewer than one global batch ({config.batch_size})"
             )
         loader = make_map_style_pipeline(
-            dataset, per_process, data_index, data_world, decode, device,
+            dataset, per_process, data_index, data_world, decode,
             seed=config.seed, epoch=epoch, prefetch=config.prefetch,
             columns=getattr(decode, "required_columns", None),
-            index_pool=index_pool)
+            index_pool=index_pool, **kw)
         if len(loader) == 0:
             raise ValueError(
                 "empty plan: dataset smaller than one global batch "
                 f"({dataset.count_rows()} rows, global batch "
                 f"{config.batch_size})"
             )
-        return loader
-    return make_train_pipeline(
-        dataset, config.sampler_type, per_process, data_index, data_world,
-        decode, device, prefetch=config.prefetch, shuffle=config.shuffle,
-        seed=config.seed, epoch=epoch)
+    else:
+        loader = make_train_pipeline(
+            dataset, config.sampler_type, per_process, data_index,
+            data_world, decode, prefetch=config.prefetch,
+            shuffle=config.shuffle, seed=config.seed, epoch=epoch, **kw)
+    return plane.wrap(loader) if plane is not None else loader
 
 
 def _check_seq_parallelism(config: TrainConfig) -> None:
@@ -801,16 +884,20 @@ def _token_pack_config(config: TrainConfig):
 
 
 def _decoder_for(config: TrainConfig, for_eval: bool = False):
-    """The decode hook of the run's train (or eval) loader. The eval always
-    streams the padded arm: per-row metrics and the eval loader's
-    ``_weight`` pads need one sequence a row."""
+    """The decode hook of the run's train (or eval) loader, leasing its
+    pages from the run's pool. The eval always streams the padded arm:
+    per-row metrics and the eval loader's ``_weight`` pads need one
+    sequence a row."""
+    pool = _loader_buffer_pool(config)
     if config.task_type == "classification":
         return decoder_for_task("classification",
                                 image_size=config.image_size,
-                                device_decode=config.device_decode)
+                                device_decode=config.device_decode,
+                                buffer_pool=pool)
     return decoder_for_task(
         config.task_type, seq_len=config.seq_len,
-        token_pack=None if for_eval else _token_pack_config(config))
+        token_pack=None if for_eval else _token_pack_config(config),
+        buffer_pool=pool)
 
 
 class _TokenCounts:
@@ -977,6 +1064,14 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                         attention_fn=attention_fn, device=device,
                         generator=init_gen,
                         loss_group=dist.group.WORLD if world > 1 else None)
+    if config.pretrained:
+        # Transfer learning, the reference's training task: the backbone
+        # (and a head of the same shape) from the checkpoint, before the
+        # DDP wrap (every rank loads the same weights) and before a
+        # restore (a resumed run takes the checkpoint's weights).
+        load_torchvision_resnet(task.model,
+                                load_torch_state_dict(config.pretrained),
+                                config.model_name or "resnet50")
     decode = _decoder_for(config)
     train_task = task
     if world > 1:
@@ -1087,9 +1182,13 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                 total = eval_dataset.count_rows()
                 if config.filter and eval_pool is None:
                     eval_pool = eval_dataset.filter_indices(config.filter)
+            plane = _make_placement(config, device)
             loader = make_eval_pipeline(
-                read_fn, total, config.batch_size, 0, 1, eval_decode, device,
-                prefetch=config.prefetch, index_pool=eval_pool)
+                read_fn, total, config.batch_size, 0, 1, eval_decode,
+                prefetch=config.prefetch, index_pool=eval_pool,
+                **_loader_kwargs(config, device, plane))
+            if plane is not None:
+                loader = plane.wrap(loader)
             eval_step = make_eval_step(task)
             if coeff:
                 eval_step = (lambda b, _step=eval_step: _step(transform(b)))
@@ -1116,6 +1215,10 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         _save_checkpoint(ckpt, journal, task.model, optimizer, step,
                          mask_gen, rank, world, wait=wait)
 
+    pool = _loader_buffer_pool(config)
+    pool_start = pool.counters() if pool is not None else None
+    placement_ms: list[float] = []  # each train batch's placement
+    h2d_windows: list[tuple] = []  # (placement s, loader + step s) a window
     global_step = 0  # this run's micro-steps
     stop = False
     history = []
@@ -1134,6 +1237,8 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                 loader.load_state_dict({"epoch": epoch,
                                         "step": resume_epoch_step})
             epoch_steps = 0
+            # The plane's placement_* windows ride the progress lines.
+            timer.attach_counters(getattr(loader, "placement_counters", None))
             it = iter(loader)
             try:
                 while not stop:
@@ -1213,6 +1318,17 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                             fold_times.drain()
                         extra = {k: v for k, v in extra.items()
                                  if v is not None}
+                        busy = w["loader_s"] + w["step_s"]
+                        if "placement_h2d_s" in w:
+                            # Placement time of the window (on its own
+                            # thread, beside the step) as a share of the
+                            # same loader-plus-step time.
+                            extra["h2d_pct"] = (
+                                100.0 * w["placement_h2d_s"] / busy
+                                if busy > 0 else 0.0)
+                            h2d_windows.append((w["placement_h2d_s"], busy))
+                            extra["placement_buffer_depth"] = int(
+                                w.get("placement_buffer_depth", 0))
                         logger.log({
                             "step": global_step,
                             "epoch": epoch,
@@ -1220,9 +1336,8 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                             "step_ms": w["step_ms"],
                             **rates,
                             "loader_stall_pct": (
-                                100.0 * w["loader_s"]
-                                / (w["loader_s"] + w["step_s"])
-                                if w["loader_s"] + w["step_s"] > 0 else 0.0
+                                100.0 * w["loader_s"] / busy
+                                if busy > 0 else 0.0
                             ),
                             **extra,
                         })
@@ -1243,6 +1358,10 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                         stop = True
             finally:
                 it.close()
+                timer.attach_counters()
+            plane = getattr(loader, "plane", None)
+            if plane is not None:
+                placement_ms.extend(plane.h2d_ms)
             if profile is not None:
                 profile.stop()  # an epoch shorter than the trace window
             if epoch_steps:
@@ -1337,6 +1456,19 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             ckpt_restore_ms=restore_ms,
             ckpt_bytes=(os.path.getsize(ckpt.state_path(newest))
                         if newest is not None else None))
+    if pool is not None:
+        end = pool.counters()
+        results.update(bufpool_hits=end["hits"] - pool_start["hits"],
+                       bufpool_misses=end["misses"] - pool_start["misses"],
+                       bufpool_miss_ms=end["miss_ms"] - pool_start["miss_ms"])
+    else:
+        results.update(bufpool_hits=0, bufpool_misses=0, bufpool_miss_ms=0.0)
+    if config.global_batch:
+        windows = h2d_windows[1:] or [(sum(placement_ms) / 1e3,
+                                       timer.loader_s + timer.step_s)]
+        h2d_s, busy = map(sum, zip(*windows))
+        results.update(placement_ms=placement_ms,
+                       h2d_pct=100.0 * h2d_s / busy if busy > 0 else 0.0)
     if accum > 1:
         fold_times.drain()
         results["accum_fold_ms"] = (statistics.median(fold_times.ms)

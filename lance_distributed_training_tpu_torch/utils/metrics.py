@@ -1,20 +1,71 @@
 """Metrics and timing: the ``[metrics]`` line, its JSONL copy, step timers.
 
-Counterpart of ``MetricLogger`` and ``StepTimer`` in
+Counterpart of ``MetricLogger``, ``StepTimer`` and ``ServiceCounters`` in
 ``lance_distributed_training_tpu/utils/metrics.py``, without the wandb sink
-(wandb is not a dependency of the port) and the metrics registry. The
+(wandb is not a dependency of the port) and the metrics registry: a
+:class:`ServiceCounters` keeps its per-instance half (``add``, ``gauge``,
+``snapshot``, ``window``) and mirrors nothing into a registry. The
 progress window adds ``step_ms`` and, for image batches,
-``images_per_sec`` (the trainer counts token rates from each step's grid).
+``images_per_sec`` (the trainer counts token rates from each step's grid);
+counters attached to a :class:`StepTimer` (the placement plane's
+``placement_*``) ride every window.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from typing import Optional
 
-__all__ = ["MetricLogger", "StepTimer"]
+__all__ = ["MetricLogger", "ServiceCounters", "StepTimer"]
+
+
+class ServiceCounters:
+    """Thread-safe counters and gauges of one loader stage, keyed
+    ``<prefix>_<key>`` in :meth:`snapshot` and :meth:`window`. The
+    placement plane counts ``placement_h2d_s`` and
+    ``placement_batches_placed`` here and gauges
+    ``placement_buffer_depth``; attached to a :class:`StepTimer`, their
+    window deltas land in the progress lines."""
+
+    def __init__(self, prefix: str = "svc"):
+        self.prefix = prefix
+        self._lock = threading.Lock()
+        self._counts: dict[str, float] = {}
+        self._gauges: dict[str, float] = {}
+        self._window: dict[str, float] = {}
+
+    def add(self, key: str, value: float = 1.0) -> None:
+        """Accumulate a monotonically growing counter."""
+        with self._lock:
+            self._counts[key] = self._counts.get(key, 0.0) + value
+
+    def gauge(self, key: str, value: float) -> None:
+        """Set an instantaneous gauge."""
+        with self._lock:
+            self._gauges[key] = float(value)
+
+    def snapshot(self) -> dict:
+        """Current totals and gauges, keys prefixed."""
+        with self._lock:
+            out = {f"{self.prefix}_{k}": v for k, v in self._counts.items()}
+            out.update(
+                {f"{self.prefix}_{k}": v for k, v in self._gauges.items()})
+        return out
+
+    def window(self) -> dict:
+        """Counter deltas since the previous ``window()`` call, plus the
+        current gauges."""
+        with self._lock:
+            out = {}
+            for k, v in self._counts.items():
+                out[f"{self.prefix}_{k}"] = v - self._window.get(k, 0.0)
+                self._window[k] = v
+            out.update(
+                {f"{self.prefix}_{k}": v for k, v in self._gauges.items()})
+        return out
 
 
 class MetricLogger:
@@ -98,6 +149,13 @@ class StepTimer:
         self._w_step = 0.0
         self._w_steps = 0
         self._w_wall = time.perf_counter()
+        self._counters: list[ServiceCounters] = []
+
+    def attach_counters(self, *counters: Optional[ServiceCounters]) -> None:
+        """Merge one or more :class:`ServiceCounters` windows into every
+        :meth:`window`; ``None`` entries are skipped, and a call with none
+        detaches."""
+        self._counters = [c for c in counters if c is not None]
 
     def loader_start(self) -> None:
         self._t = time.perf_counter()
@@ -122,7 +180,8 @@ class StepTimer:
         """Deltas since the previous call: ``steps``, ``loader_s``,
         ``step_s``, ``wall_s``, ``step_ms`` (wall time per step), and with
         ``batch_size`` ``examples_per_sec`` against the wall width, named
-        again as ``images_per_sec`` (``images``: a batch of images)."""
+        again as ``images_per_sec`` (``images``: a batch of images), and
+        the attached counters' windows."""
         now = time.perf_counter()
         out = {
             "steps": self.steps - self._w_steps,
@@ -140,4 +199,6 @@ class StepTimer:
         self._w_step = self.step_s
         self._w_steps = self.steps
         self._w_wall = now
+        for counters in self._counters:
+            out.update(counters.window())
         return out

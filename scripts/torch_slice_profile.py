@@ -11,8 +11,9 @@ loader is not in this measurement):
 * ``--task classification``: ResNet-50, 224 px, 101 classes, batch 512, SGD
   lr 0.05 momentum 0.9, flips drawn per step (K1 normalises and flips).
   With ``--loader decode`` the batches come instead from the trainer's
-  pipeline over a synthetic FOOD-101-shaped JPEG dataset (host decode,
-  pinned H2D), so that the trace shows what the loader costs the card;
+  pipeline over a synthetic FOOD-101-shaped JPEG dataset (host decode, then
+  the trainer's way to the card), so that the trace shows what the loader
+  costs the card;
   ``--loader stage`` runs the same pipeline with the decode replaced by
   one batch decoded ahead (reads, staging and H2D only); ``--loader
   coeff`` is the ``--device_decode`` arm (host entropy decode into
@@ -23,6 +24,12 @@ loader is not in this measurement):
   log 256, sigma 0.7, 1-1024) and Zipf(1.2) ids: ``--loader packed``
   (default; FFD plan on the host, K3 on the card before each step) or
   ``--loader padded`` (every row padded to 1024).
+
+A ``--loader`` pipeline takes the trainer's defaults: pooled page-locked
+decode pages, ``--producer_threads 4`` and the placement plane (a ring of
+two batches copied on a side stream); ``--no_global_batch`` places each
+batch on the consumer thread instead (the synchronous control arm), and
+``--no_buffer_pool`` decodes into fresh pages.
 
 It warms up and traces a few steps with ``torch.profiler``. Prints one JSON
 line: the step time between CUDA events (no profiler), then, from a
@@ -36,6 +43,7 @@ from the root of a checkout on a machine with a card:
     python3 scripts/torch_slice_profile.py [--seq_parallelism 4]
         [--task classification [--loader decode|stage|coeff]]
         [--task causal_lm [--loader packed|padded]]
+        [--no_global_batch] [--producer_threads N] [--no_buffer_pool]
         [--steps 5] [--batch N] [--out DIR]
 
 ``--out`` also writes the profiler's table and a Chrome trace there.
@@ -57,9 +65,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from lance_distributed_training_tpu_torch.data import (  # noqa: E402
     Dataset,
+    PlacementPlane,
     TokenPackConfig,
     create_synthetic_classification_dataset,
     decoder_for_task,
+    default_buffer_pool,
     make_train_pipeline,
     write_dataset,
 )
@@ -159,6 +169,13 @@ def main(argv=None) -> int:
     parser.add_argument("--seq_parallelism", type=int, default=1,
                         help="masked_lm: ring attention over N sequence "
                              "blocks instead of flash attention")
+    parser.add_argument("--no_global_batch", action="store_true",
+                        help="--loader: place each batch on the consumer "
+                             "thread (the synchronous control arm)")
+    parser.add_argument("--producer_threads", type=int, default=4,
+                        help="--loader: decode-producer threads")
+    parser.add_argument("--no_buffer_pool", action="store_true",
+                        help="--loader: decode into fresh pages")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
     if args.seq_parallelism > 1 and args.task != "masked_lm":
@@ -217,6 +234,22 @@ def main(argv=None) -> int:
     batches = itertools.repeat(batch)
     decoder_arm = tmp = None
     transform = None
+    pool = (None if args.no_buffer_pool
+            else default_buffer_pool(pin_memory=True))
+    plane = None
+
+    def pipeline(dataset, decode):
+        """The trainer's way from the loader to the card."""
+        nonlocal plane
+        if args.no_global_batch:
+            return make_train_pipeline(dataset, "batch", batch_size, 0, 1,
+                                       decode, dev,
+                                       producers=args.producer_threads,
+                                       buffer_pool=pool)
+        plane = PlacementPlane(dev, depth=2, buffer_pool=pool)
+        return plane.wrap(make_train_pipeline(
+            dataset, "batch", batch_size, 0, 1, decode, None,
+            producers=args.producer_threads, buffer_pool=pool))
     if args.loader and args.task == "classification":
         tmp = tempfile.TemporaryDirectory()
         path = os.path.join(tmp.name, "food")
@@ -224,17 +257,18 @@ def main(argv=None) -> int:
             path, rows=batch_size * (3 + 2 * args.steps),
             num_classes=CLASSES, image_size=IMAGE_SIZE)
         decode = decoder_for_task("classification", image_size=IMAGE_SIZE,
-                                  device_decode=args.loader == "coeff")
+                                  device_decode=args.loader == "coeff",
+                                  buffer_pool=pool)
         decoder_arm = decode.arm
         if args.loader == "coeff":
             transform = make_batch_transform(IMAGE_SIZE)
         dataset = Dataset(path)
         if args.loader == "stage":
             decoder_arm = "none"
-            ahead = decode(dataset.read_range(0, 0, batch_size))
-            decode = lambda table: ahead  # noqa: E731
-        batches = iter(make_train_pipeline(dataset, "batch", batch_size, 0,
-                                           1, decode, dev))
+            ahead = decoder_for_task("classification", image_size=IMAGE_SIZE)(
+                dataset.read_range(0, 0, batch_size))
+            decode = lambda table: dict(ahead)  # noqa: E731
+        batches = iter(pipeline(dataset, decode))
     if args.task == "causal_lm":
         loader = args.loader or "packed"
         tmp = tempfile.TemporaryDirectory()
@@ -243,11 +277,10 @@ def main(argv=None) -> int:
         packing = TokenPackConfig(pack_len=GPT_CONTEXT) \
             if loader == "packed" else None
         decode = decoder_for_task("causal_lm", seq_len=GPT_CONTEXT,
-                                  token_pack=packing)
+                                  token_pack=packing, buffer_pool=pool)
         decoder_arm = loader
         transform = make_pack_transform() if packing else None
-        batches = iter(make_train_pipeline(Dataset(path), "batch",
-                                           batch_size, 0, 1, decode, dev))
+        batches = iter(pipeline(Dataset(path), decode))
 
     def step():
         # Each task draws its mask (MLM positions, flips) from gen.
@@ -318,6 +351,13 @@ def main(argv=None) -> int:
         "device": torch.cuda.get_device_name(0),
         "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
+    if args.loader:
+        result.update(global_batch=not args.no_global_batch,
+                      producer_threads=args.producer_threads,
+                      buffer_pool=not args.no_buffer_pool,
+                      placement_ms_median=(float(np.median(plane.h2d_ms))
+                                           if plane and plane.h2d_ms
+                                           else None))
     if args.seq_parallelism > 1:
         result["ring_delta_ms_per_step"] = _ring_delta_ms(batch_size, dev)
     print(json.dumps(result), flush=True)

@@ -55,6 +55,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "lance_distributed_training_tpu_torch.data.folder",
         "lance_distributed_training_tpu_torch.data.authoring",
         "lance_distributed_training_tpu_torch.data.pipeline",
+        "lance_distributed_training_tpu_torch.models.pretrained",
+        "lance_distributed_training_tpu_torch.data.buffers",
+        "lance_distributed_training_tpu_torch.data.placement",
     }
     assert expected <= set(result["imported"])
     assert result["banned"] == []

@@ -32,6 +32,7 @@ from lance_distributed_training_tpu_torch.data import (
     make_train_pipeline,
 )
 from lance_distributed_training_tpu_torch.data import token_pack
+from lance_distributed_training_tpu_torch.data.buffers import BufferPool
 from lance_distributed_training_tpu_torch.ops import token_device
 
 # (pack_len, rows_multiple, len_bucket_lo, rows_align)
@@ -242,8 +243,14 @@ def test_token_decoder_errors_match_jax(jx):
         with pytest.raises(ValueError) as want:
             jx.tp.TokenDecoder(mode=mode, seq_len=32)(table)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="buffer pool"):
-        TokenDecoder(mode="pack", buffer_pool=object())
+    # The buffer pool is ported: a pooled decoder leases its pages and
+    # emits the JAX decoder's batch.
+    pool = BufferPool()
+    pooled = TokenDecoder(mode="pack", seq_len=32, buffer_pool=pool)
+    _assert_batches_equal(pooled(_ragged_table()),
+                          jx.tp.TokenDecoder(mode="pack", seq_len=32)(
+                              _ragged_table()))
+    assert pool.counters()["ragged_leases"] == 1
 
 
 def test_decoder_for_task_text_dispatch_matches_jax(jx):
