@@ -210,6 +210,54 @@ Phases, each printing one JSON line:
              pool hits, misses and the time spent allocating missed pages,
              peak memory and the host's CPU count.
 
+17. workers_caches — the worker pool, the cache plane and the autotuner
+             on the classification phases' corpus with 97 distinct images
+             and labels in place of 64, so that its 20 batches of 512 at 224
+             px differ from one another (no eval); the phase fails unless
+             they do, since equal batches would hide a reordered or wrongly
+             replayed one. First, no training: the first 20 batches of the
+             iterable loader in process, through a ``WorkerPool`` of 4
+             spawned workers over shared-memory slots and over pickles, in
+             both decoder arms; the batches, K2's images and K1's outputs
+             (a fixed flip mask) must be equal bit for bit (digests on the
+             card), no worker may hold a ``/dev/nvidia*`` file nor
+             ``nvidia-smi`` list more than the trainer, the shm runs may
+             fall back to pickles 0 times, and after ``shutdown()`` no
+             worker and no ``ldtshm_*`` segment of the pool may remain;
+             prints ``/dev/shm``'s size, the import time of a worker and of
+             torch, and the decode threads a worker runs. Then five ``cli
+             train`` runs of ResNet-50: PIL with ``--num_workers 4
+             --batch_cache --cache_dir`` (on the machine's own disk where
+             there is one) ``--epochs 2`` and the tuner recording
+             ``LDT_AUTOTUNE_TRACE``, and its control ``--num_workers 0
+             --no_batch_cache --no_autotune``; coeff with ``--num_workers
+             4`` (tuner traced) and its control; coeff with
+             ``--device_cache --data_echo 2 --epochs 2`` (tuner traced),
+             its step trace's digests taken on the card. Checks: epoch 2 of
+             the PIL run hits the cache 20 times of 20 and the pool decodes
+             nothing; zero shm fallbacks; the three tuner traces verify;
+             the fill epoch's 20 batches are distinct, each echo trains on
+             its host batch, and the replayed epoch's 20 batches equal the
+             fill epoch's in order; 80 steps; K1 and K2
+             launches 40/0, 40/0, 20/20, 20/20 and 80/20; the replay run's
+             peak 1-2.5 GB above the streaming run's; no loader, tuner or
+             pool thread, child process or segment of this process's
+             rings after ``cli.main``. Prints each run's images/s an epoch
+             and a progress window, stall, ``h2d_pct``, the p50 and p95 of
+             ``workers_result_wait_ms``, ``shm_slot_wait_ms``,
+             ``pipeline_decode_ms`` and ``cache_lookup_ms``, pool hits and
+             misses, the cache's RAM/disk split, the tuner's decisions
+             (knob, from, to, reason) and bottlenecks, and the replay
+             epoch's images/s, step and the card's idle share between its
+             steps' events.
+
+Phases 1-16 train with ``--no_autotune`` (``FIXED``): each compares its
+runs with another arm's, another phase's or an earlier tree's at a fixed
+layout and fixed queue depths, while the tuner moves depths and, in the
+packed causal-LM arm, re-plans the packed batches. Only phase 17 runs the
+tuner, the trainer's default, and it records and verifies every such
+run's trace.
+
 Every check that fails raises, so the script exits non-zero. After the
 phases a ``done`` line gives the seconds since the script's ``main`` began
 (the phases run, the kernels built). The last three lines are the card's ``nvidia-smi`` name and power limit, the kernel table
@@ -219,7 +267,8 @@ three kernels with theirs on the seq-parallel path; K1 and K2 add their
 launches under the map_style and folder loaders as
 ``launches_map_style`` and ``launches_folder``, and their sums over the four
 runs of the pretrained_placement phase as
-``launches_pretrained_placement``), and
+``launches_pretrained_placement`` and over the five runs of the
+workers_caches phase as ``launches_workers_caches``), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -240,7 +289,7 @@ import numpy as np
 PHASES = ("probe", "build", "kernels", "slice", "trainer", "image_kernels",
           "jpeg_kernels", "classification", "device_decode", "token_kernels",
           "causal_lm", "ring_kernels", "ring_lm", "map_style", "folder",
-          "pretrained_placement")
+          "pretrained_placement", "workers_caches")
 SHAPE = (32, 12, 512, 64)  # B, H, S, D at BERT-base, seq 512
 STEPS = 20
 LAYERS = 12
@@ -265,6 +314,7 @@ IMAGE_BATCH, IMAGE_CLASSES = 512, 101
 JPEG_SOURCE = "lance_distributed_training_tpu_torch/ops/csrc/jpeg_decode.cu"
 JPEG_REPLACES = "lance_distributed_training_tpu/ops/jpeg_device.py:180"
 UNIQUE_IMAGES = 64  # distinct images (and labels) of the classification set
+FIXED = ["--no_autotune"]  # phases 1-16 (the module's docstring)
 TOKEN_SOURCE = "lance_distributed_training_tpu_torch/ops/csrc/token_pack.cu"
 TOKEN_REPLACES = {
     "token_pack": "lance_distributed_training_tpu/ops/token_device.py:67",
@@ -783,7 +833,7 @@ def slice_run() -> dict:
             "--flash_attention", "--batch_size", str(b),
             "--optimizer", "adamw", "--lr", "1e-4",
             "--max_steps", str(STEPS), "--epochs", "1", "--log_every", "5",
-            "--device", "cuda", "--no_eval_at_end",
+            "--device", "cuda", "--no_eval_at_end", *FIXED,
         ])
         launches = {k: ops.LAUNCHES[k] for k in flash.LAUNCHES}
         peak = torch.cuda.max_memory_allocated()
@@ -830,7 +880,7 @@ def _trainer_runs(path: str, tmp: str) -> dict:
         "--lr", "1e-4", "--lr_schedule", "cosine",
         "--total_steps", str(TRAINER_STEPS), "--epochs", "1",
         "--log_every", "1", "--log_grad_norm", "--no_eval_at_end",
-        "--device", "cuda",
+        "--device", "cuda", *FIXED,
     ]
     ckpt = ["--checkpoint_dir", os.path.join(tmp, "ckpt"),
             "--checkpoint_every_steps", str(TRAINER_ACCUM)]
@@ -1124,9 +1174,10 @@ def image_kernels() -> dict:
     return fields
 
 
-def _learnable_dataset(drawn: str, path: str, rows: int) -> None:
+def _learnable_dataset(drawn: str, path: str, rows: int,
+                       unique: int = UNIQUE_IMAGES) -> None:
     """The FOOD-101-shaped synthetic dataset (101 classes, 224 px JPEG,
-    ``UNIQUE_IMAGES`` seeded noise images over ``rows`` rows), with each
+    ``unique`` seeded noise images over ``rows`` rows), with each
     row's label replaced by the index of its image: the authoring function
     draws labels independently of the images, which leaves nothing to learn
     and the loss nothing to fall by."""
@@ -1140,18 +1191,19 @@ def _learnable_dataset(drawn: str, path: str, rows: int) -> None:
 
     create_synthetic_classification_dataset(
         drawn, rows=rows, num_classes=IMAGE_CLASSES, image_size=224,
-        unique_images=UNIQUE_IMAGES)
+        unique_images=unique)
     table = Dataset(drawn).take(np.arange(rows))
-    labels = pa.array(np.arange(rows) % UNIQUE_IMAGES, pa.int64())
+    labels = pa.array(np.arange(rows) % unique, pa.int64())
     table = table.set_column(1, "label", labels)
     write_dataset(table, path, schema=IMAGE_SCHEMA, mode="create")
 
 
 def _resnet_run(source: str, flags: list, author_s: float,
-                tmp: str) -> tuple:
+                tmp: str, tuned: bool = False) -> tuple:
     """ResNet-50 classification through ``cli train`` for STEPS steps at
-    the path's width over ``source`` with ``flags``: ``(result, launches,
-    fields)``, the fields every ResNet phase prints."""
+    the path's width over ``source`` with ``flags``, the tuner off unless
+    ``tuned``: ``(result, launches, fields)``, the fields every ResNet
+    phase prints."""
     import torch
     from lance_distributed_training_tpu_torch import cli, ops
 
@@ -1163,7 +1215,7 @@ def _resnet_run(source: str, flags: list, author_s: float,
         "--model_name", "resnet50", "--image_size", "224",
         "--num_classes", str(IMAGE_CLASSES), "--batch_size", str(IMAGE_BATCH),
         "--max_steps", str(STEPS), "--epochs", "1", "--log_every", "5",
-        "--device", "cuda", *flags,
+        "--device", "cuda", *([] if tuned else FIXED), *flags,
     ])
     launches = dict(ops.LAUNCHES)
     losses = result["losses"]
@@ -1691,6 +1743,596 @@ def pretrained_placement_run() -> dict:
     return {"launches": totals, "runs": runs}
 
 
+WC_WORKERS = 4  # decode worker processes of the workers_caches phase
+WC_EPOCHS = 2
+# The phase's distinct images (and labels): a prime, so that row i's image
+# i % 97 makes each of the 20 batches of 512 start at another image and no
+# two batches equal. With 64 (the other phases' corpus) every batch is the
+# same, and a reordered, duplicated or wrongly replayed batch could not show.
+WC_UNIQUE_IMAGES = 97
+
+
+def _worker_fds(pids) -> dict:
+    """Each worker's open ``/dev/nvidia*`` files: a CUDA context opens the
+    card's device files, importing torch does not."""
+    out = {}
+    for pid in pids:
+        fds = []
+        try:
+            for fd in os.listdir(f"/proc/{pid}/fd"):
+                try:
+                    target = os.readlink(f"/proc/{pid}/fd/{fd}")
+                except OSError:
+                    continue
+                if target.startswith("/dev/nvidia"):
+                    fds.append(target)
+        except OSError:
+            pass
+        out[pid] = sorted(fds)
+    return out
+
+
+def _compute_apps() -> list:
+    """The processes that hold a CUDA context on the card, as
+    ``nvidia-smi --query-compute-apps`` lists them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+_RING_SESSIONS: list = []  # every ShmRing session this process made
+
+
+def _record_ring_sessions() -> None:
+    """Record the session of every ``ShmRing`` this process makes (the
+    trainer's pools' among them), so that the segment checks count this
+    process's segments and no other process's on the machine."""
+    from lance_distributed_training_tpu_torch.data import buffers
+
+    init = buffers.ShmRing.__init__
+    if getattr(init, "records_sessions", False):
+        return
+
+    def recording(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        _RING_SESSIONS.append(self.session)
+
+    recording.records_sessions = True
+    buffers.ShmRing.__init__ = recording
+
+
+def _shm_segments(sessions=None) -> list:
+    """The ``ldtshm_<session>_<slot>`` segments of ``sessions`` (default:
+    every ring this process made)."""
+    import glob
+
+    sessions = _RING_SESSIONS if sessions is None else sessions
+    return sorted(f for f in glob.glob("/dev/shm/ldtshm_*")
+                  if any(os.path.basename(f).startswith(f"ldtshm_{s}_")
+                         for s in sessions))
+
+
+def _local_dir(name: str) -> tuple:
+    """A directory for the batch cache's spill on the machine's own disk:
+    the first of the home directory's ``.cache`` (where the port's default
+    cache directory lives), the checkout's ``build/`` and the temporary
+    directory that is not a network mount. ``(path, filesystem type,
+    {candidate: filesystem type})``."""
+    remote = ("9p", "nfs", "nfs4", "fuse", "cifs", "smb3", "virtiofs")
+    root = os.path.dirname(os.path.abspath(__file__))
+    candidates = (os.path.join(os.path.expanduser("~"), ".cache"),
+                  os.path.join(root, "build"), tempfile.gettempdir())
+    kinds = {}
+    for base in candidates:
+        os.makedirs(base, exist_ok=True)
+        kinds[base] = _filesystem(os.path.realpath(base))
+    for base in candidates:
+        if kinds[base] not in remote:
+            return os.path.join(base, name), kinds[base], kinds
+    base = candidates[1]
+    return os.path.join(base, name), kinds[base], kinds
+
+
+def _wc_loader(path: str, coeff: bool, transport) -> dict:
+    """The first STEPS batches of the iterable loader over ``path`` at the
+    trainer's defaults (page-locked pool pages, the placement plane), read
+    and decoded in process (``transport=None``, four producers) or by a
+    ``WorkerPool`` of WC_WORKERS processes over ``transport``; each batch's
+    leaves, K2's image (coeff arm) and K1's output with a fixed flip mask
+    digested on the card. Checks, during the worker runs, that no worker
+    holds a CUDA context, and after ``shutdown()`` that no worker process
+    and no shared-memory segment of the pool is left."""
+    import torch
+    from lance_distributed_training_tpu_torch.data import (
+        Dataset,
+        PlacementPlane,
+        decoder_for_task,
+        default_buffer_pool,
+        make_train_pipeline,
+    )
+    from lance_distributed_training_tpu_torch.data.workers import (
+        WorkerPool,
+        columnar_spec,
+    )
+    from lance_distributed_training_tpu_torch.obs.registry import (
+        default_registry,
+    )
+    from lance_distributed_training_tpu_torch.ops import image
+    from lance_distributed_training_tpu_torch.ops.jpeg_device import (
+        make_batch_transform,
+    )
+
+    dev = torch.device("cuda")
+    pinned = default_buffer_pool(pin_memory=True)
+    decode = decoder_for_task("classification", image_size=224,
+                              device_decode=coeff, buffer_pool=pinned)
+    fallbacks = default_registry().counter("shm_fallback_total")
+    fallbacks_before = fallbacks.value
+    t0 = time.monotonic()
+    pool = None
+    if transport is not None:
+        pool = WorkerPool(columnar_spec(path), decode, WC_WORKERS,
+                          columns=decode.required_columns,
+                          transport=transport, buffer_pool=pinned)
+    loader = PlacementPlane(dev, depth=RING_DEPTH, buffer_pool=pinned).wrap(
+        make_train_pipeline(
+            Dataset(path), "batch", IMAGE_BATCH, 0, 1, decode, None,
+            producers=1 if pool is not None else PRODUCERS,
+            buffer_pool=pinned, workers=pool,
+            columns=decode.required_columns))
+    transform = make_batch_transform(224)
+    flip = (torch.rand(IMAGE_BATCH, generator=torch.Generator().manual_seed(
+        17)) < 0.5).to(dev)
+    weights: dict = {}
+    digests, first_s = [], None
+    apps, fds = [], {}
+    it = iter(loader)
+    try:
+        for i in range(STEPS):
+            batch = next(it)
+            if first_s is None:
+                first_s = time.monotonic() - t0
+            decoded = transform(batch)
+            x = image.normalize_flip(decoded["image"], flip)
+            digests.append((
+                [_digest(v, weights) for _, v in sorted(batch.items())
+                 if isinstance(v, torch.Tensor)],
+                _digest(decoded["image"], weights), _digest(x, weights)))
+            if pool is not None and i == STEPS // 2:
+                apps = _compute_apps()
+                fds = _worker_fds(list(pool._pool._processes))
+            del batch, decoded, x
+    finally:
+        it.close()
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    out = {"digests": [([int(d) for d in leaves], int(k2), int(k1))
+                       for leaves, k2, k1 in digests],
+           "seconds": seconds, "first_batch_seconds": first_s,
+           "decoder": decode.arm}
+    if pool is not None:
+        session = pool._ring.session if pool._ring is not None else None
+        procs = list(pool._pool._processes.values())
+        out.update(transport=pool.transport,
+                   shm_fallbacks=fallbacks.value - fallbacks_before,
+                   compute_apps=apps, worker_pids=sorted(fds),
+                   worker_nvidia_fds=fds)
+        pool.shutdown()
+        for p in procs:
+            p.join(timeout=30)
+        out.update(
+            workers_alive_after_shutdown=sum(p.is_alive() for p in procs),
+            segments_after_shutdown=_shm_segments(
+                [session] if session is not None else []))
+    return out
+
+
+def _wc_equality(path: str) -> dict:
+    """Loader equality across the in-process, shm and pickle settings in
+    both decoder arms (the module's docstring, phase 17, step 1)."""
+    import torch
+
+    report = {}
+    for coeff in (False, True):
+        arm = "coeff" if coeff else "pixel"
+        runs = {name: _wc_loader(path, coeff, transport)
+                for name, transport in (("in_process", None),
+                                        ("shm", "shm"), ("pickle", "pickle"))}
+        ref = runs["in_process"]["digests"]
+        distinct = len({str(d[0]) for d in ref})
+        if distinct != STEPS:
+            raise RuntimeError(
+                f"{arm} arm: {distinct} distinct batches of {STEPS}: the "
+                "comparison could not see a batch out of order")
+        for name in ("shm", "pickle"):
+            run = runs[name]
+            same = run["digests"] == ref
+            held = {pid: fds for pid, fds in run["worker_nvidia_fds"].items()
+                    if fds}
+            emit("workers_caches", check="loader_equality", arm=arm,
+                 setting=name, decoder=run["decoder"],
+                 batches=len(run["digests"]), distinct_batches=distinct,
+                 bit_identical=same,
+                 transport=run["transport"],
+                 shm_fallbacks=run["shm_fallbacks"],
+                 compute_apps=run["compute_apps"], trainer_pid=os.getpid(),
+                 worker_pids=run["worker_pids"],
+                 workers_with_nvidia_files=held,
+                 workers_alive_after_shutdown=run[
+                     "workers_alive_after_shutdown"],
+                 segments_after_shutdown=run["segments_after_shutdown"],
+                 seconds=run["seconds"],
+                 first_batch_seconds=run["first_batch_seconds"],
+                 in_process_seconds=runs["in_process"]["seconds"],
+                 in_process_first_batch_seconds=runs["in_process"][
+                     "first_batch_seconds"])
+            if not same:
+                bad = [i for i, (a, b) in enumerate(zip(run["digests"], ref))
+                       if a != b]
+                raise RuntimeError(f"{arm} arm, {name}: batches {bad} differ "
+                                   f"from the in-process loader's")
+            if run["transport"] != name:
+                raise RuntimeError(f"{arm} arm: the pool took the "
+                                   f"{run['transport']} transport, not {name}")
+            if name == "shm" and run["shm_fallbacks"]:
+                raise RuntimeError(f"{arm} arm: {run['shm_fallbacks']} shm "
+                                   f"fallbacks")
+            if held:
+                raise RuntimeError(f"{arm} arm, {name}: workers hold the "
+                                   f"card's device files: {held}")
+            if len(run["compute_apps"]) > 1:
+                raise RuntimeError(f"{arm} arm, {name}: "
+                                   f"{run['compute_apps']} hold CUDA contexts")
+            if run["workers_alive_after_shutdown"] or run[
+                    "segments_after_shutdown"]:
+                raise RuntimeError(
+                    f"{arm} arm, {name}: "
+                    f"{run['workers_alive_after_shutdown']} workers and "
+                    f"{run['segments_after_shutdown']} segments outlived "
+                    "shutdown()")
+        report[arm] = runs["in_process"]["decoder"]
+    torch.cuda.empty_cache()
+    return report
+
+
+def _left_behind(segments_before: list) -> dict:
+    """What a run left: loader, tuner and pool threads, child processes and
+    the shared-memory segments of this process's rings that were not there
+    before it."""
+    import multiprocessing
+    import threading
+
+    # The PIL arm's decode threads (ldt-torch-decode_*) are the process's
+    # for its lifetime, as in the JAX package; every other ldt- thread
+    # belongs to one run.
+    return {
+        "threads": sorted(t.name for t in threading.enumerate()
+                          if t.name.startswith("ldt-")
+                          and not t.name.startswith("ldt-torch-decode")),
+        "children": [p.pid for p in multiprocessing.active_children()],
+        "segments": [f for f in _shm_segments()
+                     if f not in segments_before],
+    }
+
+
+def _progress_lines(tmp: str) -> list:
+    """The progress records of the run that wrote ``tmp/metrics.jsonl``."""
+    with open(os.path.join(tmp, "metrics.jsonl"), encoding="utf-8") as f:
+        records = [json.loads(line) for line in f]
+    return [r for r in records if "images_per_sec" in r and "loss" in r]
+
+
+def _tuner_report(trace_path: str) -> dict:
+    """The recorded tuner trace: its verification, the applied decisions
+    (knob, from, to, reason) and the policy's bottleneck each tick (a
+    replay of the trace through a fresh policy)."""
+    from collections import Counter
+
+    from lance_distributed_training_tpu_torch.tune import (
+        BOTTLENECK_CODES,
+        HillClimbPolicy,
+        read_trace,
+        verify_trace,
+    )
+
+    records = read_trace(trace_path)
+    ok, mismatched = verify_trace(trace_path)
+    policy = HillClimbPolicy()
+    bottlenecks = Counter()
+    for r in records:
+        policy.decide(r["window"], {k: int(v) for k, v in r["knobs"].items()},
+                      {k: (int(v[0]), int(v[1]))
+                       for k, v in r["bounds"].items()})
+        bottlenecks[policy.last_bottleneck] += 1
+    decisions = [[knob, r["knobs"].get(knob), to, reason]
+                 for r in records for knob, to, reason in r["applied"]]
+    return {"ticks": len(records), "verified": ok, "mismatched": mismatched,
+            "decisions": decisions,
+            "bottlenecks": {str(k): [BOTTLENECK_CODES.get(k, 0), n]
+                            for k, n in bottlenecks.items()}}
+
+
+def _device_batch_digest(batch) -> str:
+    """The step trace's batch digest taken on the card (the int64 digests
+    of ``_digest``, one a tensor leaf, key-ordered): a host SHA-256 of a
+    77 MB batch would cost the replay epoch more host time than its
+    steps."""
+    import torch
+
+    weights = _DIGEST_WEIGHTS
+    return "|".join(f"{k}:{int(_digest(v, weights))}"
+                    for k, v in sorted(batch.items())
+                    if isinstance(v, torch.Tensor))
+
+
+_DIGEST_WEIGHTS: dict = {}
+
+
+def _wc_run(name: str, path: str, flags: list, author_s: float, tmp: str,
+            env: dict = None, device_digests: bool = False) -> tuple:
+    """One ``cli train`` run of the phase: ResNet-50 at the path's width
+    for WC_EPOCHS epochs (or as ``flags`` say), no eval; ``(result,
+    launches, fields)`` with the figures it prints. With
+    ``device_digests`` the step trace digests each batch on the card."""
+    from lance_distributed_training_tpu_torch import trainer
+    from lance_distributed_training_tpu_torch.obs.registry import (
+        RegistryDelta,
+        default_registry,
+    )
+
+    segments = _shm_segments()
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    delta = RegistryDelta(default_registry())
+    delta.delta()  # the baseline: the windows below are this run's
+    digest_saved = None
+    if device_digests:
+        digest_saved = trainer.batch_digest
+        trainer.batch_digest = _device_batch_digest
+    try:
+        result, launches, fields = _resnet_run(
+            path, ["--max_steps", "0", "--no_eval_at_end", *flags],
+            author_s, tmp, tuned=True)
+    finally:
+        if digest_saved is not None:
+            trainer.batch_digest = digest_saved
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    window = delta.delta()
+    left = _left_behind(segments)
+    history = result["history"]
+    fields = {
+        "flags": flags, "steps": result["steps"], "decoder": fields["decoder"],
+        "epochs": [{k: h.get(k) for k in (
+            "epoch", "epoch_steps", "images_per_sec", "epoch_time",
+            "train_loss", "replay", "worker_results", "cache_hits",
+            "cache_disk_hits", "cache_misses", "autotune_decisions")}
+            for h in history],
+        "step_ms_median_5_20": fields["step_ms_median_5_20"],
+        "images_per_sec_after_first_log": fields[
+            "images_per_sec_steps_6_20"],
+        "loader_stall_pct": fields["loader_stall_pct"],
+        "h2d_pct": result.get("h2d_pct"),
+        **{f"{series}_{q}": window.get(f"{series}_{q}")
+           for series in ("workers_result_wait_ms", "shm_slot_wait_ms",
+                          "pipeline_decode_ms", "cache_lookup_ms",
+                          "trainer_h2d_ms")
+           for q in ("p50", "p95")},
+        "window_images_per_sec": [
+            r["images_per_sec"] for r in _progress_lines(tmp)],
+        "bufpool_hits": result["bufpool_hits"],
+        "bufpool_misses": result["bufpool_misses"],
+        "bufpool_miss_ms": result["bufpool_miss_ms"],
+        "decode_entropy_ms": fields["decode_entropy_ms"],
+        # This process's decodes only: a worker's land in its registry.
+        "decode_entropy_ms_p50_in_process": window.get(
+            "decode_entropy_ms_p50"),
+        "decode_device_ms": fields["decode_device_ms"],
+        "peak_memory_allocated_bytes": fields["peak_memory_allocated_bytes"],
+        "first_loss": fields["first_loss"],
+        "last5_mean_loss": fields["last5_mean_loss"],
+        "image_normalize_launches": launches["image_normalize"],
+        "jpeg_decode_launches": launches["jpeg_decode"],
+        "train_seconds": fields["train_seconds"],
+        "left_behind": left,
+        **{k: result.get(k) for k in (
+            "worker_transport", "shm_fallbacks", "cache_hits",
+            "cache_disk_hits", "cache_misses", "cache_stats",
+            "autotune_ticks", "autotune_decisions", "device_cache_batches",
+            "device_cache_refused", "data_echo", "unique_images_per_sec")},
+    }
+    os.remove(os.path.join(tmp, "metrics.jsonl"))
+    if any(left.values()):
+        raise RuntimeError(f"{name}: left behind {left}")
+    losses = result["losses"]
+    if not all(np.isfinite(losses)) or not (
+            statistics.fmean(losses[-5:]) < losses[0]):
+        raise RuntimeError(f"{name}: losses {losses} did not fall")
+    return result, launches, fields
+
+
+def workers_caches_run() -> dict:
+    """ResNet-50 through the worker pool, the batch cache, the autotuner,
+    the HBM replay tier and data echoing (the module's docstring, phase
+    17)."""
+    import shutil
+
+    import torch
+
+    _record_ring_sessions()
+    rows = IMAGE_BATCH * STEPS
+    totals = {"image_normalize": 0, "jpeg_decode": 0}
+    cache_dir, cache_fs, candidates = _local_dir("ldt_workers_caches")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    from lance_distributed_training_tpu_torch.native import coeffs
+
+    shm = os.statvfs("/dev/shm")
+    imports = {}
+    for label, module in (("worker", "lance_distributed_training_tpu_torch."
+                                     "data.workers"), ("torch", "torch")):
+        t_import = time.monotonic()
+        subprocess.run([sys.executable, "-c", f"import {module}"], check=True,
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       timeout=300)
+        imports[label] = time.monotonic() - t_import
+    # A worker's decoder runs its own threads, as the JAX workers' do: the
+    # PIL arm's pool, the extractor's one thread a hardware thread.
+    threads = {"pil": max(4, (os.cpu_count() or 8) // 2),
+               "coeff": coeffs.default_threads()}
+    emit("workers_caches", check="host", host_cpu_count=os.cpu_count(),
+         decode_threads_a_worker=threads,
+         decode_threads_all_workers={k: v * WC_WORKERS
+                                     for k, v in threads.items()},
+         dev_shm_bytes=shm.f_blocks * shm.f_frsize,
+         dev_shm_free_bytes=shm.f_bavail * shm.f_frsize,
+         cache_dir=cache_dir, cache_dir_filesystem=cache_fs,
+         cache_dir_candidates=candidates,
+         tmp_filesystem=_filesystem(tempfile.gettempdir()),
+         worker_import_seconds=imports["worker"],
+         torch_import_seconds=imports["torch"])
+    runs = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "food")
+            t0 = time.monotonic()
+            _learnable_dataset(os.path.join(tmp, "drawn"), path, rows,
+                               WC_UNIQUE_IMAGES)
+            author_s = time.monotonic() - t0
+            _wc_equality(path)
+            steps_trace = os.path.join(tmp, "steps.jsonl")
+            plans = [
+                ("pil_workers", ["--num_workers", str(WC_WORKERS),
+                                 "--batch_cache", "--cache_dir", cache_dir,
+                                 "--epochs", str(WC_EPOCHS)],
+                 {"LDT_AUTOTUNE_TRACE": os.path.join(tmp, "at_pil.jsonl")}),
+                ("pil_control", ["--num_workers", "0", "--no_batch_cache",
+                                 "--no_autotune", "--epochs",
+                                 str(WC_EPOCHS)], {}),
+                ("coeff_workers", ["--device_decode", "--num_workers",
+                                   str(WC_WORKERS), "--epochs", "1"],
+                 {"LDT_AUTOTUNE_TRACE": os.path.join(tmp,
+                                                     "at_coeff.jsonl")}),
+                ("coeff_control", ["--device_decode", "--num_workers", "0",
+                                   "--no_autotune", "--epochs", "1"], {}),
+                ("coeff_replay", ["--device_decode", "--device_cache",
+                                  "--data_echo", "2", "--epochs",
+                                  str(WC_EPOCHS)],
+                 {"LDT_STEP_TRACE_PATH": steps_trace,
+                  "LDT_AUTOTUNE_TRACE": os.path.join(tmp,
+                                                     "at_replay.jsonl")}),
+            ]
+            for name, flags, env in plans:
+                result, launches, fields = _wc_run(
+                    name, path, flags, author_s, tmp, env,
+                    device_digests=name == "coeff_replay")
+                if "LDT_AUTOTUNE_TRACE" in env:
+                    fields["tuner"] = _tuner_report(env["LDT_AUTOTUNE_TRACE"])
+                if name == "coeff_replay":
+                    fields.update(_replay_report(result, steps_trace))
+                emit("workers_caches", run=name, **fields)
+                runs[name] = (result, launches, fields)
+                for kernel in totals:
+                    totals[kernel] += launches[kernel]
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    _wc_checks(runs)
+    return {"launches": totals}
+
+
+def _replay_report(result: dict, steps_trace: str) -> dict:
+    """The replay epoch against the fill epoch: the step trace's digests
+    (after the transform stage, one a host batch, each step of an echo),
+    the replay epoch's rate, step and the card's idle share between its
+    steps' events."""
+    with open(steps_trace, encoding="utf-8") as f:
+        steps = [json.loads(line) for line in f]
+    fill = [s["batch_sha256"] for s in steps if s["epoch"] == 0]
+    replay = [s["batch_sha256"] for s in steps if s["epoch"] == 1]
+    history = result["history"]
+    per_epoch = len(fill)
+    replay_ms = result["step_ms"][per_epoch:]
+    wall_ms = history[1]["epoch_time"] * 1e3 if len(history) > 1 else None
+    return {
+        "fill_digests": fill[::2], "replay_digests": replay[::2],
+        "distinct_fill_batches": len(set(fill[::2])),
+        "echoes_equal": fill[::2] == fill[1::2] and replay[::2] == replay[1::2],
+        "replay_bit_identical": fill == replay,
+        "replay_images_per_sec": history[1]["images_per_sec"]
+        if len(history) > 1 else None,
+        "replay_step_ms_median": (statistics.median(replay_ms)
+                                  if replay_ms else None),
+        "replay_device_idle_pct_events": (
+            100.0 * (1.0 - sum(replay_ms) / wall_ms)
+            if wall_ms and replay_ms else None),
+        "schedule_horizon_steps": result["steps"],
+    }
+
+
+def _wc_checks(runs: dict) -> None:
+    """The phase's checks over its five ``cli train`` runs."""
+    want = {"pil_workers": (40, 0), "pil_control": (40, 0),
+            "coeff_workers": (20, 20), "coeff_control": (20, 20),
+            "coeff_replay": (80, 20)}
+    for name, (k1, k2) in want.items():
+        result, launches, fields = runs[name]
+        if (launches["image_normalize"], launches["jpeg_decode"]) != (k1, k2):
+            raise RuntimeError(
+                f"{name}: K1 {launches['image_normalize']} and K2 "
+                f"{launches['jpeg_decode']} launches, expected {k1} and {k2}")
+    result, _, fields = runs["pil_workers"]
+    first, second = result["history"]
+    if (first["worker_results"], second["worker_results"]) != (STEPS, 0):
+        raise RuntimeError(f"pil_workers: the pool decoded "
+                           f"{first['worker_results']} and "
+                           f"{second['worker_results']} batches")
+    if (second["cache_hits"], second["cache_misses"]) != (STEPS, 0):
+        raise RuntimeError(f"pil_workers: epoch 2 hit "
+                           f"{second['cache_hits']} of {STEPS}")
+    if result["worker_transport"] != "shm" or result["shm_fallbacks"]:
+        raise RuntimeError(f"pil_workers: transport "
+                           f"{result['worker_transport']}, "
+                           f"{result['shm_fallbacks']} fallbacks")
+    for name in ("pil_workers", "coeff_workers", "coeff_replay"):
+        tuner = runs[name][2]["tuner"]
+        if not tuner["verified"] or not tuner["ticks"]:
+            raise RuntimeError(f"{name}: the tuner trace does not verify "
+                               f"({tuner['ticks']} ticks, mismatched "
+                               f"{tuner['mismatched']})")
+    result, _, _ = runs["coeff_workers"]
+    if result["worker_transport"] != "shm" or result["shm_fallbacks"]:
+        raise RuntimeError("coeff_workers: shm fallbacks")
+    result, _, fields = runs["coeff_replay"]
+    if result["steps"] != 2 * STEPS * WC_EPOCHS or [
+            h["replay"] for h in result["history"]] != [False, True]:
+        raise RuntimeError(f"coeff_replay: {result['steps']} steps, epochs "
+                           f"{[h['replay'] for h in result['history']]}")
+    if fields["distinct_fill_batches"] != STEPS or not fields[
+            "echoes_equal"]:
+        raise RuntimeError(
+            f"coeff_replay: {fields['distinct_fill_batches']} distinct fill "
+            f"batches of {STEPS}, echoes equal: {fields['echoes_equal']}")
+    if result["device_cache_batches"] != STEPS or not fields[
+            "replay_bit_identical"]:
+        raise RuntimeError(f"coeff_replay: {result['device_cache_batches']} "
+                           f"cached batches, the replay equal to the fill: "
+                           f"{fields['replay_bit_identical']}")
+    rise = (fields["peak_memory_allocated_bytes"]
+            - runs["coeff_control"][2]["peak_memory_allocated_bytes"])
+    fields["peak_rise_over_streaming_bytes"] = rise
+    emit("workers_caches", check="replay_memory",
+         peak_rise_over_streaming_bytes=rise,
+         cached_bytes_expected=STEPS * IMAGE_BATCH * 224 * 224 * 3)
+    if not 1.0e9 < rise < 2.5e9:
+        raise RuntimeError(f"coeff_replay: peak rose by {rise} bytes over "
+                           f"the streaming run, not about 1.5 GB")
+
+
 def _ragged_payloads() -> list:
     """JPEGs unlike the path's: odd sizes, grayscale, progressive,
     restart markers, 4:4:4 (which the decoder re-encodes) and bytes no
@@ -2130,6 +2772,7 @@ def causal_lm_run() -> dict:
                 "--log_every", "5", "--device", "cuda",
                 "--pack_rows_multiple", str(PACK_ROWS_MULTIPLE),
                 "--token_pack" if arm == "packed" else "--no_token_pack",
+                *FIXED,
             ])
             launches = dict(ops.LAUNCHES)
             peak = torch.cuda.max_memory_allocated()
@@ -2550,7 +3193,7 @@ def ring_lm_run(slice_step_ms) -> dict:
             "--seq_parallelism", str(RING_SP), "--batch_size", str(b),
             "--optimizer", "adamw", "--lr", "1e-4",
             "--max_steps", str(STEPS), "--epochs", "1", "--log_every", "5",
-            "--device", "cuda",
+            "--device", "cuda", *FIXED,
         ])
         launches = {k: ops.LAUNCHES[k] for k in ops.LAUNCHES}
         peak = torch.cuda.max_memory_allocated()
@@ -2640,6 +3283,8 @@ def main(argv=None) -> int:
     if "pretrained_placement" in phases:
         loaders["pretrained_placement"] = pretrained_placement_run()[
             "launches"]
+    if "workers_caches" in phases:
+        loaders["workers_caches"] = workers_caches_run()["launches"]
     emit("done", phases=phases, seconds=time.monotonic() - t0)
     if set(phases) != set(PHASES):
         return 0  # a partial run prints no result

@@ -10,48 +10,46 @@ the hand-written K1 kernel, ``ops/csrc/image.cu``; data parallel over
 hand-written Hopper flash-attention kernels (``ops/csrc/flash_attn.cu``).
 Entry points run on CUDA unless the caller asks for the CPU
 (``TrainConfig.device`` / ``--device cpu``).
+
+The names below load their modules on first use: a decode worker process
+imports the data plane it needs and never torch's CUDA libraries.
 """
 
-from .data import (
-    Dataset,
-    create_synthetic_classification_dataset,
-    create_text_token_dataset,
-    decoder_for_task,
-    make_eval_pipeline,
-    make_train_pipeline,
-    write_dataset,
-)
-from .models import (
-    ResNet,
-    TransformerEncoder,
-    get_model_and_loss,
-    get_task,
-    load_flax_params,
-    load_flax_resnet,
-)
-from .ops import LAUNCHES, flash_attention, make_flash_attention, normalize_flip
-from .trainer import TrainConfig, evaluate, make_eval_step, train
+import importlib
 
-__all__ = [
-    "Dataset",
-    "LAUNCHES",
-    "ResNet",
-    "TrainConfig",
-    "TransformerEncoder",
-    "create_synthetic_classification_dataset",
-    "create_text_token_dataset",
-    "decoder_for_task",
-    "evaluate",
-    "flash_attention",
-    "get_model_and_loss",
-    "get_task",
-    "load_flax_params",
-    "load_flax_resnet",
-    "make_eval_pipeline",
-    "make_eval_step",
-    "make_flash_attention",
-    "make_train_pipeline",
-    "normalize_flip",
-    "train",
-    "write_dataset",
-]
+# Name -> the submodule that defines it. Imported on first use, so that a
+# process that needs one plane (a decode worker: the format, the
+# decoders, the shm ring) does not import torch and the trainer with it.
+_EXPORTS = {
+    "data": (
+        "Dataset", "create_synthetic_classification_dataset",
+        "create_text_token_dataset", "decoder_for_task", "make_eval_pipeline",
+        "make_train_pipeline", "write_dataset",
+    ),
+    "models": (
+        "ResNet", "TransformerEncoder", "get_model_and_loss", "get_task",
+        "load_flax_params", "load_flax_resnet",
+    ),
+    "ops": (
+        "LAUNCHES", "flash_attention", "make_flash_attention",
+        "normalize_flip",
+    ),
+    "trainer": (
+        "TrainConfig", "evaluate", "make_eval_step", "train",
+    ),
+}
+_WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
+__all__ = sorted(_WHERE)
+
+
+def __getattr__(name):
+    mod = _WHERE.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{mod}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_WHERE))

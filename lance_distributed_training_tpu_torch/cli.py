@@ -22,6 +22,13 @@ host to card takes the JAX defaults: pooled decode pages
 threads, and the placement plane with a ring of ``--placement_depth 2``
 (``--no_global_batch`` is the synchronous control arm);
 ``--pretrained`` fine-tunes a ResNet from a torchvision checkpoint.
+The worker pool, the caches and the autotuner take the JAX defaults too:
+``--num_workers 0`` (N > 0 decodes in N spawned processes, through
+shared-memory slots unless ``--no_shm_workers``), ``--batch_cache`` off
+(``--no_batch_cache``; ``--cache_dir``, ``--cache_ram_budget_mb 512``,
+``--cache_disk_budget_mb 2048``), ``--device_cache`` off
+(``--device_cache_gb 8``), ``--data_echo 1``, and the autotuner on
+(``--no_autotune``, ``--autotune_interval_s 1.0``).
 The JAX runtime's flags (``--backend``, ``--num_cpu_devices``,
 ``--no_compile_cache``, ``--compile_cache_dir``) raise: the port picks its
 device with ``--device`` and has no XLA compile cache. Any other flag of
@@ -50,6 +57,18 @@ lance_distributed_training_tpu_torch.data.authoring``)::
     python -m lance_distributed_training_tpu_torch.cli train \
         --dataset_path /data/food101_files --data_format folder \
         --loader_style map --max_steps 20
+
+Four decode workers, a batch cache for the second epoch on, and the
+autotuner's decisions recorded for replay; then two host batches a step
+from an epoch kept on the card::
+
+    LDT_AUTOTUNE_TRACE=/tmp/at.jsonl \
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/food101 --num_workers 4 --batch_cache \
+        --cache_dir /local/ldt-cache --epochs 2
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/food101 --device_decode --device_cache \
+        --data_echo 2 --epochs 2
 
 Fine-tuning a torchvision ResNet-50 checkpoint with a fresh 101-class head,
 and the synchronous control arm of the same run::
@@ -87,9 +106,18 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .trainer import TrainConfig, train
-
 __all__ = ["build_parser", "main"]
+
+
+def __getattr__(name):
+    # The trainer (and torch with it) loads when a run starts, not when
+    # this module is imported: a spawned decode worker of a run started
+    # with ``python -m ...cli`` re-imports this module.
+    if name in ("TrainConfig", "train"):
+        from . import trainer
+
+        return getattr(trainer, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 # Flags of the JAX CLI that configure XLA's runtime: accepted by the parser
 # so that they raise with the reason rather than as unrecognised.
@@ -188,6 +216,49 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disable the recycled decode buffer pool — every "
                         "batch allocates fresh pages (bufpool_* counts stay "
                         "at zero)")
+    p.add_argument("--num_workers", type=int, default=0,
+                   help=">0: read and decode in N spawned worker processes "
+                        "(one pool a run; workers never touch the card)")
+    p.add_argument("--no_shm_workers", action="store_true",
+                   help="worker-pool IPC falls back to pickling decoded "
+                        "batches instead of shared-memory ring slots "
+                        "(control arm; shm is the default)")
+    p.add_argument("--no_autotune", action="store_true",
+                   help="disable the closed-loop pipeline autotuner (tune/)"
+                        " — run the exact fixed-knob configuration; the "
+                        "control arm")
+    p.add_argument("--autotune_interval_s", type=float, default=1.0,
+                   help="autotune controller tick period (decisions also "
+                        "respect a policy cooldown between actuations)")
+    p.add_argument("--data_echo", type=int, default=1,
+                   help=">1: run N train steps per host batch with a fresh "
+                        "draw of the flips / MLM mask each echo")
+    p.add_argument("--device_cache", action="store_true",
+                   help="keep the first epoch's batches on the card and "
+                        "replay them in later epochs (no host decode, no "
+                        "H2D; flips and MLM masks stay fresh)")
+    p.add_argument("--device_cache_gb", type=float, default=8.0,
+                   help="fall back to streaming when the projected resident "
+                        "size exceeds this")
+    bc = p.add_mutually_exclusive_group()
+    bc.add_argument("--batch_cache", action="store_true",
+                    help="epoch-coherent decoded-batch cache (RAM, then "
+                         "disk): later epochs and restarted runs stream "
+                         "byte-identical cached batches instead of "
+                         "re-reading and re-decoding")
+    bc.add_argument("--no_batch_cache", action="store_true",
+                    help="the uncached decode path (the default)")
+    p.add_argument("--cache_ram_budget_mb", type=int, default=512,
+                   help="batch-cache RAM budget (pool-leased pages; LRU "
+                        "spill to disk over budget); an autotuner knob")
+    p.add_argument("--cache_disk_budget_mb", type=int, default=2048,
+                   help="batch-cache disk budget (atomic sha256-verified "
+                        "segments; oldest evicted over budget); an "
+                        "autotuner knob")
+    p.add_argument("--cache_dir", type=str, default=None,
+                   help="batch-cache spill directory (default ~/.cache/"
+                        "lance_distributed_training_tpu_torch/batch-cache, "
+                        "stable across restarts)")
     p.add_argument("--shuffle", action="store_true")
     p.add_argument("--no_augment", action="store_true")
     p.add_argument("--no_eval_at_end", action="store_true",
@@ -291,11 +362,18 @@ def main(argv=None) -> dict:
     args["eval_at_end"] = not args.pop("no_eval_at_end")
     args["global_batch"] = not args.pop("no_global_batch")
     args["buffer_pool"] = not args.pop("no_buffer_pool")
+    args["shm_workers"] = not args.pop("no_shm_workers")
+    args["autotune"] = not args.pop("no_autotune")
+    no_batch_cache = args.pop("no_batch_cache")
+    args["batch_cache"] = args["batch_cache"] and not no_batch_cache
     no_device_decode = args.pop("no_device_decode")
     args["device_decode"] = args["device_decode"] and not no_device_decode
     no_token_pack = args.pop("no_token_pack")
     args["token_pack"] = args["token_pack"] and not no_token_pack
-    return train(TrainConfig(**args))
+    from .trainer import TrainConfig
+
+    # ``train`` through the module, so that a caller may replace it.
+    return getattr(sys.modules[__name__], "train")(TrainConfig(**args))
 
 
 if __name__ == "__main__":

@@ -1,58 +1,73 @@
 """Host data plane: columnar format, sampler plans, row filters, decode
 into pooled pages, the iterable, map-style, eval and image-folder loaders,
-the placement plane, and authoring."""
+decode worker processes, the batch and replay caches, the placement plane,
+and authoring."""
 
-from .authoring import (
-    IMAGE_SCHEMA,
-    create_dataset_from_image_folder,
-    create_food101_datasets,
-    create_synthetic_classification_dataset,
-    create_synthetic_image_folder,
-    create_text_token_dataset,
-    create_variable_length_token_dataset,
-    ingest_on_process_zero,
-)
-from .buffers import BufferPool, RaggedPage, default_buffer_pool
-from .decode import ImageClassificationDecoder, decoder_for_task, numeric_decoder
-from .device_decode import CoeffImageDecoder
-from .filters import parse_predicate, predicate_mask
-from .folder import FolderDataPipeline, read_sample_batch
-from .format import Dataset, Fragment, write_dataset
-from .placement import PlacedLoader, PlacementPlane
-from .pipeline import (
-    MapStylePipeline,
-    make_eval_pipeline,
-    make_map_style_pipeline,
-    make_train_pipeline,
-)
-from .samplers import (
-    ReadRange,
-    distributed_index_batches,
-    distributed_indices,
-    make_plan,
-    padded_eval_index_batches,
-    slice_plan,
-)
-from .token_pack import (
-    PackPlan,
-    TokenDecoder,
-    TokenPackConfig,
-    TokenPackPlanner,
-)
+import importlib
 
-__all__ = ["BufferPool", "CoeffImageDecoder", "Dataset", "FolderDataPipeline",
-           "Fragment", "IMAGE_SCHEMA", "ImageClassificationDecoder",
-           "MapStylePipeline", "PackPlan", "PlacedLoader", "PlacementPlane",
-           "RaggedPage", "ReadRange", "TokenDecoder", "TokenPackConfig",
-           "TokenPackPlanner", "create_dataset_from_image_folder",
-           "create_food101_datasets",
-           "create_synthetic_classification_dataset",
-           "create_synthetic_image_folder", "create_text_token_dataset",
-           "create_variable_length_token_dataset", "decoder_for_task",
-           "default_buffer_pool",
-           "distributed_index_batches", "distributed_indices",
-           "ingest_on_process_zero", "make_eval_pipeline",
-           "make_map_style_pipeline", "make_plan", "make_train_pipeline",
-           "numeric_decoder", "padded_eval_index_batches", "parse_predicate",
-           "predicate_mask", "read_sample_batch", "slice_plan",
-           "write_dataset"]
+# Name -> the submodule that defines it. Imported on first use, so that a
+# process that needs one plane (a decode worker: the format, the
+# decoders, the shm ring) does not import torch and the trainer with it.
+_EXPORTS = {
+    "authoring": (
+        "IMAGE_SCHEMA", "create_dataset_from_image_folder",
+        "create_food101_datasets", "create_synthetic_classification_dataset",
+        "create_synthetic_image_folder", "create_text_token_dataset",
+        "create_variable_length_token_dataset", "ingest_on_process_zero",
+    ),
+    "buffers": (
+        "BufferPool", "RaggedPage", "default_buffer_pool",
+    ),
+    "cache": (
+        "BatchCache", "DeviceReplayCache", "PlanCache", "decode_fingerprint",
+        "default_cache_dir", "folder_fingerprint", "item_fingerprint",
+        "plan_fingerprint",
+    ),
+    "decode": (
+        "ImageClassificationDecoder", "decoder_for_task", "numeric_decoder",
+    ),
+    "device_decode": (
+        "CoeffImageDecoder",
+    ),
+    "filters": (
+        "parse_predicate", "predicate_mask",
+    ),
+    "folder": (
+        "FolderDataPipeline", "read_sample_batch",
+    ),
+    "format": (
+        "Dataset", "Fragment", "write_dataset",
+    ),
+    "placement": (
+        "PlacedLoader", "PlacementPlane",
+    ),
+    "pipeline": (
+        "MapStylePipeline", "make_eval_pipeline", "make_map_style_pipeline",
+        "make_train_pipeline",
+    ),
+    "samplers": (
+        "ReadRange", "distributed_index_batches", "distributed_indices",
+        "make_plan", "padded_eval_index_batches", "slice_plan",
+    ),
+    "token_pack": (
+        "PackPlan", "TokenDecoder", "TokenPackConfig", "TokenPackPlanner",
+    ),
+    "workers": (
+        "WorkerPool", "columnar_spec", "folder_spec",
+    ),
+}
+_WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
+__all__ = sorted(_WHERE)
+
+
+def __getattr__(name):
+    mod = _WHERE.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{mod}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_WHERE))

@@ -8,8 +8,11 @@ does; normalisation and augmentation run on the device (``ops/image.py``).
 With ``device_decode`` the host stops at the entropy boundary
 (:class:`~.device_decode.CoeffImageDecoder`) and K2 decodes on the card.
 With a ``buffer_pool`` (:class:`~.buffers.BufferPool`) every decoder writes
-its output pages into leased pages, which the loaders release. Decoding for
-``contrastive`` is not ported yet.
+its output pages into leased pages, which the loaders release. Each decoder
+states its batch-cache identity (``cache_fingerprint``, the JAX string) and
+pickles for a worker process without its pool and native bindings; the
+pixel decoder counts ``decode_pixel_bytes_total`` in the process registry.
+Decoding for ``contrastive`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +38,15 @@ from .token_pack import (
 __all__ = ["ImageClassificationDecoder", "decoder_for_task",
            "numeric_decoder"]
 
+
+def _pixel_bytes_counter():
+    """``decode_pixel_bytes_total``: finished-pixel bytes the host decode
+    produces, against the coeff arm's ``decode_coeff_bytes_total``. Looked
+    up at each call, so the decoder holds no registry handle."""
+    from ..obs.registry import default_registry
+
+    return default_registry().counter("decode_pixel_bytes_total")
+
 _POOL: Optional[ThreadPoolExecutor] = None
 
 
@@ -58,17 +70,40 @@ class ImageClassificationDecoder:
     library builds and ``use_native`` is set, else ``"pil"`` (``draft`` and
     a bilinear resize per image). ``arm`` says which one this decoder took.
     Rows the native decoder cannot read are decoded again through PIL. With
-    ``buffer_pool`` the ``image`` page is leased from it."""
-
-    required_columns = ["image", "label"]
+    ``buffer_pool`` the ``image`` page is leased from it. Without a
+    ``label_column`` the batch carries the image alone."""
 
     def __init__(self, image_size: int = 224, use_native: bool = True,
-                 buffer_pool=None):
+                 buffer_pool=None, image_column: str = "image",
+                 label_column: Optional[str] = "label"):
         self.image_size = image_size
+        self.image_column = image_column
+        self.label_column = label_column
+        self.use_native = use_native
         self.buffer_pool = buffer_pool
+        self._bind_native()
+
+    @property
+    def required_columns(self) -> list[str]:
+        cols = [self.image_column]
+        if self.label_column is not None:
+            cols.append(self.label_column)
+        return cols
+
+    def cache_fingerprint(self) -> str:
+        """The decoder's batch-cache identity: everything that can change
+        the bytes it emits. The arm is part of it: libjpeg and PIL decode
+        to slightly different pixels."""
+        return (
+            f"ImageClassificationDecoder/{self.image_size}/"
+            f"{self.image_column}/{self.label_column}/"
+            f"native={self._native is not None}"
+        )
+
+    def _bind_native(self) -> None:
         self._native = None
         self._native_arrow = None
-        if use_native:
+        if self.use_native:
             from ..native import (
                 batch_decode_jpeg,
                 batch_decode_jpeg_arrow,
@@ -78,6 +113,19 @@ class ImageClassificationDecoder:
             if native_available():
                 self._native = batch_decode_jpeg
                 self._native_arrow = batch_decode_jpeg_arrow
+
+    # Picklable for worker processes: the ctypes binding and the pool are
+    # process-local; a worker re-binds its own (data/workers._init_worker).
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_native"] = None
+        state["_native_arrow"] = None
+        state["buffer_pool"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._bind_native()
 
     @property
     def arm(self) -> str:
@@ -140,9 +188,14 @@ class ImageClassificationDecoder:
 
     def __call__(self, batch: Union[pa.RecordBatch, pa.Table]
                  ) -> dict[str, np.ndarray]:
-        labels = batch.column("label").to_numpy(zero_copy_only=False)
-        return {"image": self.decode_column(batch.column("image")),
-                "label": np.asarray(labels, dtype=np.int32)}
+        images = self.decode_column(batch.column(self.image_column))
+        _pixel_bytes_counter().inc(images.nbytes)
+        out = {"image": images}
+        if self.label_column is not None:
+            labels = batch.column(self.label_column).to_numpy(
+                zero_copy_only=False)
+            out["label"] = np.asarray(labels, dtype=np.int32)
+        return out
 
 
 def decoder_for_task(task_type: str, seq_len: Optional[int] = None,

@@ -18,11 +18,17 @@ and geometry 0, which decodes to neutral gray.
 With a ``buffer_pool`` the five pages of a batch are leased from it and
 zero-filled (the extractor never writes padding blocks, and a recycled page
 holds an earlier batch); if a later lease or the extraction raises, the
-pages already leased go back. Left out against the JAX decoder: the metrics
-registry and cost ledger, the autotune tunables and pickling for worker
-processes. The per-batch host entropy time is kept in
+pages already leased go back. The per-batch host entropy time is kept in
 :attr:`CoeffImageDecoder.entropy_ms`, which the trainer's ``[metrics]``
-lines read as ``decode_entropy_ms``.
+lines read as ``decode_entropy_ms``, and observed into the process
+registry's ``decode_entropy_ms`` histogram beside the
+``decode_coeff_bytes_total``, ``decode_coeff_reencode_total`` and
+``decode_coeff_undecodable_total`` counters, as the JAX decoder does; the
+entropy time and the re-encode flag also go to an open cost context
+(:mod:`..obs.costs`). ``coeff_chunk`` (the grid rounding) is an autotuner
+knob. The decoder pickles for a worker process without its pool and its
+registry handles, which the worker binds anew; its grid is then the
+worker's own (``data/workers.py``).
 
 There is no fallback: when the extractor cannot be built the decoder
 raises with the build error (the JAX package warns and decodes pixels with
@@ -39,6 +45,8 @@ import numpy as np
 import pyarrow as pa
 
 from ..native import coeffs
+from ..obs.costs import note_cost
+from ..obs.registry import default_registry
 
 __all__ = ["CoeffImageDecoder"]
 
@@ -76,6 +84,30 @@ class CoeffImageDecoder:
         # The canonical luma grid (blocks), grown monotonically; chroma is
         # always its ceil-half (the 4:2:0 layout).
         self._grid: tuple[int, int] = (0, 0)
+        self._bind()
+
+    def _bind(self) -> None:
+        reg = default_registry()
+        self._entropy_hist = reg.histogram("decode_entropy_ms")
+        self._coeff_bytes = reg.counter("decode_coeff_bytes_total")
+        self._reencodes = reg.counter("decode_coeff_reencode_total")
+        self._undecodable = reg.counter("decode_coeff_undecodable_total")
+
+    # Picklable for worker processes: the pool and the registry handles are
+    # process-local; a worker binds its own (data/workers._init_worker
+    # re-attaches a pool).
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        for key in ("_entropy_hist", "_coeff_bytes", "_reencodes",
+                    "_undecodable"):
+            state.pop(key, None)
+        state["buffer_pool"] = None
+        state["entropy_ms"] = []
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._bind()
 
     @property
     def required_columns(self) -> list[str]:
@@ -95,6 +127,21 @@ class CoeffImageDecoder:
         growth of the grid, which never shrinks."""
         self.chunk_blocks = max(1, int(blocks))
         return self.chunk_blocks
+
+    def tunables(self):
+        from ..tune.tunable import Tunable
+
+        return [Tunable(
+            "coeff_chunk",
+            lambda: self.chunk_blocks,
+            self.set_chunk,
+            lo=1, hi=16,
+            doc="coefficient-page grid rounding, in 8x8 blocks (coarser = "
+                "fewer kernel recompiles / warmer pages, more padding "
+                "bytes on the wire). In-process decode only: WorkerPool "
+                "workers hold pickled decoder copies made at spawn, so an "
+                "actuation there lands on the next respawn, not live",
+        )]
 
     def _ensure_grid(self, yb_h: int, yb_w: int) -> tuple[int, int, int, int]:
         gh, gw = self._grid
@@ -161,6 +208,7 @@ class CoeffImageDecoder:
             alt = self._reencode(self._payload(source, int(i)))
             if alt is not None:
                 self.reencoded += 1
+                self._reencodes.inc()
                 replaced[int(i)] = alt
                 alt_geom, alt_failed = coeffs.batch_probe_jpeg(
                     coeffs.payload_pointers([alt]))
@@ -196,6 +244,7 @@ class CoeffImageDecoder:
                 # A zeroed page (the extractor may have written part of
                 # one), quant 1 and geometry 0: neutral gray.
                 self.undecodable += 1
+                self._undecodable.inc()
                 for key in ("jpeg_coef_y", "jpeg_coef_cb", "jpeg_coef_cr",
                             "jpeg_geom"):
                     batch[key][i].fill(0)
@@ -208,8 +257,14 @@ class CoeffImageDecoder:
 
     def _timed(self, pointers, source) -> dict[str, np.ndarray]:
         t0 = time.perf_counter()
+        reencoded = self.reencoded
         batch = self._extract(pointers, source)
-        self.entropy_ms.append((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.entropy_ms.append(ms)
+        self._entropy_hist.observe(ms)
+        self._coeff_bytes.inc(sum(v.nbytes for v in batch.values()))
+        note_cost(entropy_ms=round(ms, 3),
+                  reencode=self.reencoded > reencoded)
         return batch
 
     def decode_payloads(self, payloads: list[bytes]) -> dict[str, np.ndarray]:

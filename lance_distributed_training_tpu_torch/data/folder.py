@@ -52,16 +52,20 @@ class FolderDataPipeline(EpochLoader):
       batch order only.
 
     The cursor and ``set_epoch`` behave as the map-style loader's;
-    ``device``, ``producers`` and ``buffer_pool`` as
-    :class:`~.pipeline.TrainLoader`'s. The batches are the JAX package's
-    ``FolderDataPipeline``'s."""
+    ``device``, ``producers``, ``buffer_pool``, ``workers`` and
+    ``batch_cache`` as :class:`~.pipeline.TrainLoader`'s. The batches are
+    the JAX package's ``FolderDataPipeline``'s. The corpus's content
+    identity (:attr:`dataset_fingerprint`, keying the batch cache) is
+    hashed at most once, on first use, unless the caller passes it."""
 
     def __init__(self, root: str, batch_size: int, process_index: int,
                  process_count: int, decode_fn: Callable,
                  device: Optional[torch.device], *,
                  loader_style: str = "map", shuffle: bool = True,
                  seed: int = 0, epoch: int = 0, drop_last: bool = True,
-                 prefetch: int = 2, producers: int = 1, buffer_pool=None):
+                 prefetch: int = 2, producers: int = 1, buffer_pool=None,
+                 workers=None, batch_cache=None,
+                 dataset_fingerprint: Optional[str] = None):
         self.samples, self.classes = _folder_samples(root)
         if not self.samples:
             raise ValueError(f"no images under {root}")
@@ -71,7 +75,11 @@ class FolderDataPipeline(EpochLoader):
                 f"{loader_style!r}"
             )
         super().__init__(None, None, decode_fn, device, prefetch, epoch,
-                         producers=producers, buffer_pool=buffer_pool)
+                         producers=producers, buffer_pool=buffer_pool,
+                         workers=workers, batch_cache=batch_cache)
+        self._dataset_fingerprint = (str(dataset_fingerprint)
+                                     if dataset_fingerprint is not None
+                                     else None)
         self.loader_style = loader_style
         self.batch_size = batch_size
         self.process_index = process_index
@@ -83,6 +91,29 @@ class FolderDataPipeline(EpochLoader):
     @property
     def num_classes(self) -> int:
         return len(self.classes)
+
+    @property
+    def dataset_fingerprint(self) -> str:
+        """The corpus's content identity (``cache.folder_fingerprint``),
+        computed on first use and kept for the loader's lifetime."""
+        if self._dataset_fingerprint is None:
+            from .cache import folder_fingerprint
+
+            self._dataset_fingerprint = folder_fingerprint(self.samples)
+        return self._dataset_fingerprint
+
+    def _plan_cache(self):
+        """The batch cache over the corpus's fingerprint. Iterable-style
+        epochs permute batch order only, so every epoch after the first
+        hits; map-style row reshuffles miss (content keys)."""
+        if self.batch_cache is None:
+            return None
+        from .cache import PlanCache, decode_fingerprint, plan_fingerprint
+
+        return PlanCache(
+            self.batch_cache, self.dataset_fingerprint,
+            lambda: plan_fingerprint(
+                decode=decode_fingerprint(self.decode_fn)))
 
     def _plan(self) -> list[np.ndarray]:
         if self.loader_style == "iterable":

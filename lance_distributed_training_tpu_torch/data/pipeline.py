@@ -29,7 +29,29 @@ synchronous :func:`~..parallel.mesh.make_global_batch` (the
 producer threads with several, each with its own pinned staging ring. Pages
 leased from ``buffer_pool`` go back after the consumer's turn (host
 batches), at placement (the synchronous arm), or as drained at teardown.
-No worker pool, cache or autotuner yet.
+
+Worker processes (``workers``, a :class:`~.workers.WorkerPool`): read and
+decode run in the pool instead; one producer thread (``ldt-producer``)
+takes its results in plan order (``imap``) into a bounded queue, and
+placement stays downstream, as in the JAX pipeline. With ``producers > 1``
+it warns (the pool already decodes in parallel), and when the loader's
+read projection differs from the pool's ``columns`` it warns too (reads
+run inside the pool). The iterable, map-style and folder loaders take a
+pool; the eval loader decodes on its own threads.
+
+Batch cache (``batch_cache``, a :class:`~.cache.BatchCache`): consulted at
+the decode boundary of every loader through a per-iteration
+:class:`~.cache.PlanCache` (the dataset's fingerprint, the decoder's and
+the read projection's, the plan item's content hash): a hit skips the read
+and the decode and returns a byte-identical copy in pages of
+``buffer_pool``; a miss decodes and fills. Under a worker pool the plan is
+probed once and only the misses go to the pool.
+
+The autotuner's knobs (``tunables()``): ``prefetch`` (the producers' queues
+are :class:`~..tune.tunable.AdjustableQueue` objects, moved live) and the
+decoder's own. Each batch's read and decode time (under a pool, the wait
+for its result) is observed into the registry's ``pipeline_decode_ms`` and
+recorded as a ``pipeline.decode`` span.
 
 Resume cursor (the JAX loaders' contract): ``state_dict()`` is ``{"epoch",
 "step"}``, ``step`` counting the batches handed to the consumer (not those
@@ -45,12 +67,24 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
+import warnings
 from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import pyarrow as pa
 import torch
 
+from ..obs.costs import cost_context
+from ..obs.registry import default_registry
+from ..obs.spans import span
+from ..tune.tunable import AdjustableQueue, Tunable, _LiveQueues
+from .cache import (
+    PlanCache,
+    decode_fingerprint,
+    item_fingerprint,
+    plan_fingerprint,
+)
 from .format import Dataset
 from .samplers import (
     ReadRange,
@@ -67,9 +101,11 @@ __all__ = ["EvalLoader", "MapStylePipeline", "TrainLoader",
            "make_train_pipeline"]
 
 
-def _range_read(dataset: Dataset, ranges: Sequence[ReadRange]) -> pa.Table:
-    """Concatenate one step's row ranges."""
-    tables = [dataset.read_range(r.fragment, r.start, r.stop) for r in ranges]
+def _range_read(dataset: Dataset, ranges: Sequence[ReadRange],
+                columns: Optional[Sequence[str]] = None) -> pa.Table:
+    """Concatenate one step's row ranges, projected to ``columns``."""
+    tables = [dataset.read_range(r.fragment, r.start, r.stop,
+                                 columns=columns) for r in ranges]
     return pa.concat_tables(tables) if len(tables) > 1 else tables[0]
 
 
@@ -81,17 +117,33 @@ class _Failure:
 _DONE = object()
 
 
+def _put(q: queue.Queue, item, stop: threading.Event) -> bool:
+    """Put ``item`` once ``q`` has room, unless ``stop`` is set first."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.1)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
 class TrainLoader:
     """Iterate batches of this process's plan, in plan order, from the
     resume cursor on (the module's docstring): host batches with
     ``device=None``, else tensors on ``device``. A plan item is one step's
-    ``ReadRange`` list; subclasses change what a plan item is and how it is
-    read and decoded (:meth:`_plan`, :meth:`_read`, :meth:`_decode`)."""
+    ``ReadRange`` list, read projected to ``columns``; subclasses change
+    what a plan item is and how it is read and decoded (:meth:`_plan`,
+    :meth:`_read`, :meth:`_decode`) and how it is keyed in a batch cache
+    (:meth:`_plan_cache`). ``workers`` and ``batch_cache`` are the module
+    docstring's."""
 
     def __init__(self, dataset: Dataset, plan: Optional[Sequence],
                  decode_fn: Callable[[pa.Table], dict],
                  device: Optional[torch.device], prefetch: int = 2,
-                 epoch: int = 0, producers: int = 1, buffer_pool=None):
+                 epoch: int = 0, producers: int = 1, buffer_pool=None,
+                 workers=None, batch_cache=None,
+                 columns: Optional[Sequence[str]] = None):
         self.dataset = dataset
         self.plan = list(plan) if plan is not None else None
         self.decode_fn = decode_fn
@@ -99,16 +151,22 @@ class TrainLoader:
         self.prefetch = max(1, int(prefetch))
         self.producers = max(1, int(producers))
         self.buffer_pool = buffer_pool
+        self.workers = workers
+        self.batch_cache = batch_cache
+        self.columns = list(columns) if columns is not None else None
         self.epoch = epoch
         self._start_step = 0  # where the next iteration starts in the plan
         self._yielded = 0  # batches handed out, absolute within the plan
+        # The live prefetch queues of the current iteration, so that
+        # set_prefetch moves their bound mid-epoch.
+        self._live = _LiveQueues()
 
     def _plan(self) -> list:
         return self.plan
 
     def _read(self, item):
         """One plan item's rows (an Arrow table)."""
-        return _range_read(self.dataset, item)
+        return _range_read(self.dataset, item, self.columns)
 
     def _decode(self, item, table) -> dict:
         """One plan item's rows decoded into a host numpy batch."""
@@ -116,6 +174,18 @@ class TrainLoader:
 
     def _load(self, item) -> dict:
         return self._decode(item, self._read(item))
+
+    def _plan_cache(self) -> Optional[PlanCache]:
+        """This iteration's binding of the batch cache: the dataset's
+        fingerprint, and (evaluated per key, so that a live decoder knob
+        re-scopes later entries) the decoder's and the projection's."""
+        if self.batch_cache is None:
+            return None
+        columns = self.columns
+        return PlanCache(
+            self.batch_cache, self.dataset.fingerprint(),
+            lambda: plan_fingerprint(
+                decode=decode_fingerprint(self.decode_fn), columns=columns))
 
     def __len__(self) -> int:
         return len(self._plan())
@@ -133,6 +203,29 @@ class TrainLoader:
                              f"loader of epoch {self.epoch}")
         self._start_step = step
         self._yielded = step
+
+    def set_prefetch(self, depth: int) -> int:
+        """Move the prefetch bound, live: it takes effect on the current
+        iteration's queues (growing wakes a waiting producer, shrinking
+        lets the backlog drain; no batch is dropped or reordered) and on
+        later iterations."""
+        depth = max(1, int(depth))
+        self.prefetch = depth
+        self._live.resize_total(depth)
+        return depth
+
+    def tunables(self):
+        """The autotuner's knobs: the prefetch depth, then the decoder's
+        (the coefficient grid's rounding, the pack plan's shape)."""
+        out = [Tunable(
+            "prefetch", lambda: self.prefetch, self.set_prefetch,
+            lo=1, hi=16,
+            doc="decoded host batches buffered ahead of the consumer",
+        )]
+        decoder = getattr(self.decode_fn, "tunables", None)
+        if decoder is not None:
+            out.extend(decoder())
+        return out
 
     def host_batches(self) -> Iterator[dict]:
         """Decoded host numpy batches from the cursor on, read and decoded
@@ -154,27 +247,71 @@ class TrainLoader:
         return PinnedStager(self.device)
 
     def __iter__(self) -> Iterator[dict]:
-        n = self.producers
         plan = slice_plan(self._plan(), self._start_step)
-        self._yielded = self._start_step
+        base = self._start_step
+        self._yielded = base
+        if self.workers is not None:
+            self._check_workers()
+            yield from self._iter_workers(plan, base)
+        else:
+            yield from self._iter_threads(plan, base)
+
+    def _check_workers(self) -> None:
+        """The JAX pipeline's warnings about a worker pool's seam."""
+        if self.producers > 1:
+            warnings.warn(
+                "producers>1 has no effect with a WorkerPool: worker "
+                "processes already decode in parallel (and H2D lives in "
+                "the placement plane, or on the consumer thread for the "
+                "synchronous arm). Drop num_workers to use producer "
+                "threads instead.",
+                stacklevel=3,
+            )
+        if self.dataset is not None:
+            # Reads run inside the pool with the pool's projection.
+            pool_cols = getattr(self.workers, "columns", None)
+            if self.columns != pool_cols:
+                warnings.warn(
+                    f"pipeline columns {self.columns} differ from the "
+                    f"WorkerPool's {pool_cols}; reads run inside the pool, "
+                    "so pass the same columns= to WorkerPool(...) for the "
+                    "projection to apply.",
+                    stacklevel=3,
+                )
+
+    def _consume(self, item, stager):
+        """A produced item on the consumer's side: raised, placed (the
+        synchronous arm) or handed out as it is."""
+        if isinstance(item, _Failure):
+            raise item.exc
+        if self.device is not None and stager is not False:
+            item = self._place(item, stager)
+        return item
+
+    def _iter_threads(self, plan: list, base: int) -> Iterator[dict]:
+        n = self.producers
         per = max(1, -(-max(self.prefetch, n) // n))
-        # A queue a thread; its free slots are counted by a semaphore that
-        # the thread takes before it reads an item and the consumer gives
-        # back when it takes one.
-        queues = [queue.Queue() for _ in range(n)]
-        room = [threading.Semaphore(per) for _ in range(n)]
+        # A bounded queue a thread; a thread reads its next item only once
+        # its queue has room.
+        queues = [AdjustableQueue(per) for _ in range(n)]
+        self._live.install(queues)
         stop = threading.Event()
         turn = [0]  # the next plan item whose decode may start
         failed = [len(plan)]  # the first plan item that raised
         turn_cv = threading.Condition()
+        cache = self._plan_cache()
+        decode_ms = default_registry().histogram("pipeline_decode_ms")
         # The synchronous arm places on the consumer thread with one
         # producer, in the producers with several (each its own stager).
         place_in_producer = self.device is not None and n > 1
 
         def wait_room(k: int) -> bool:
-            while not stop.is_set():
-                if room[k].acquire(timeout=0.1):
-                    return True
+            q = queues[k]
+            with q.not_full:
+                while not stop.is_set():
+                    if q._qsize() < q.maxsize:
+                        return True
+                    q.not_full.wait(0.1)
             return False
 
         def wait_turn(j: int) -> bool:
@@ -189,6 +326,31 @@ class TrainLoader:
                 turn_cv.notify_all()
             return True
 
+        def load(j: int):
+            """Plan item ``j``'s batch (``None`` when told to stop): a
+            cache hit, else read, then decoded in its turn."""
+            item = plan[j]
+            out = cache.get(item, pool=self.buffer_pool) \
+                if cache is not None else None
+            if out is not None:
+                if not wait_turn(j):
+                    self._release(out)
+                    return None
+                return out
+            table = self._read(item)
+            if not wait_turn(j):
+                return None
+            with cost_context(item_fingerprint(item), step=base + j) as cost:
+                t0 = time.perf_counter()
+                out = self._decode(item, table)
+                cost.note(decode_ms=round((time.perf_counter() - t0) * 1e3,
+                                          3),
+                          bytes=sum(getattr(v, "nbytes", 0)
+                                    for v in out.values()))
+            if cache is not None:
+                cache.put(item, out)
+            return out
+
         def produce(k: int) -> None:
             j = k
             try:
@@ -200,17 +362,21 @@ class TrainLoader:
                 for j in range(k, len(plan), n):
                     if not wait_room(k):
                         return
-                    table = self._read(plan[j])
-                    if not wait_turn(j):
+                    t0 = time.perf_counter()
+                    with span("pipeline.decode", batch_seq=base + j,
+                              producer=k):
+                        out = load(j)
+                    if out is None:
                         return
-                    out = self._decode(plan[j], table)
-                    del table
+                    decode_ms.observe((time.perf_counter() - t0) * 1e3)
                     if place_in_producer:
                         out = self._place(out, stager)
-                    queues[k].put(out)
-                queues[k].put(_DONE)
+                    if not _put(queues[k], out, stop):
+                        self._release(out)
+                        return
+                _put(queues[k], _DONE, stop)
             except BaseException as exc:  # handed to the consumer, re-raised
-                queues[k].put(_Failure(exc))
+                _put(queues[k], _Failure(exc), stop)
                 with turn_cv:
                     failed[0] = min(failed[0], j)
                     turn_cv.notify_all()
@@ -221,7 +387,7 @@ class TrainLoader:
                 name="ldt-producer" if n == 1 else f"ldt-producer-{k}")
             for k in range(n)
         ]
-        stager = None if place_in_producer else self._stager()
+        stager = False if place_in_producer else self._stager()
         for t in threads:
             t.start()
         try:
@@ -233,15 +399,11 @@ class TrainLoader:
                 if not active[k]:
                     continue
                 item = queues[k].get()
-                room[k].release()
                 if item is _DONE:
                     active[k] = False
                     done += 1
                     continue
-                if isinstance(item, _Failure):
-                    raise item.exc
-                if self.device is not None and not place_in_producer:
-                    item = self._place(item, stager)
+                item = self._consume(item, stager)
                 # Counted as handed out: between steps the cursor names the
                 # next batch.
                 self._yielded += 1
@@ -253,6 +415,7 @@ class TrainLoader:
                 del item
         finally:
             stop.set()
+            self._live.clear()
             # The threads observe the stop flag within a read or a decode;
             # the batches they left go back to the pool.
             for t in threads:
@@ -261,19 +424,110 @@ class TrainLoader:
                 while not q.empty():
                     self._release(q.get_nowait())
 
+    def _iter_workers(self, plan: list, base: int) -> Iterator[dict]:
+        """The worker pool's seam: one producer thread takes the pool's
+        results in plan order (only the cache's misses go to the pool);
+        the consumer places (synchronous arm) and hands them out."""
+        q = AdjustableQueue(self.prefetch)
+        self._live.install([q])
+        stop = threading.Event()
+        cache = self._plan_cache()
+        decode_ms = default_registry().histogram("pipeline_decode_ms")
+
+        def produce() -> None:
+            try:
+                if cache is not None:
+                    # Probe once: result k of the pool's iterator is the
+                    # k-th probed miss. A probed hit evicted before its
+                    # fetch decodes here, never off the iterator (that
+                    # would shift every later batch).
+                    probed = [cache.contains(item) for item in plan]
+                    results = self.workers.imap(
+                        [i for i, hit in zip(plan, probed) if not hit])
+                else:
+                    probed = None
+                    results = self.workers.imap(plan)
+                try:
+                    for off, item in enumerate(plan):
+                        if stop.is_set():
+                            return
+                        t0 = time.perf_counter()
+                        with span("pipeline.decode", batch_seq=base + off):
+                            if probed is not None and probed[off]:
+                                out = cache.get(item, pool=self.buffer_pool)
+                                if out is None:  # evicted since the probe
+                                    out = self._load(item)
+                                    cache.put(item, out)
+                            else:
+                                out = next(results)
+                                if cache is not None:
+                                    # A miss that never went through get().
+                                    cache.note_miss()
+                                    cache.put(item, out)
+                        # The wait for the pool's result, not decode time.
+                        decode_ms.observe((time.perf_counter() - t0) * 1e3)
+                        if not _put(q, out, stop):
+                            self._release(out)
+                            return
+                    _put(q, _DONE, stop)
+                finally:
+                    # Hands in-flight items (and their shm slots) back.
+                    results.close()
+            except BaseException as exc:  # handed to the consumer, re-raised
+                _put(q, _Failure(exc), stop)
+
+        thread = threading.Thread(target=produce, daemon=True,
+                                  name="ldt-producer")
+        stager = self._stager()
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _DONE:
+                    return
+                item = self._consume(item, stager)
+                self._yielded += 1
+                yield item
+                if self.device is None:
+                    self._release(item)
+                del item
+        finally:
+            stop.set()
+            self._live.clear()
+            while thread.is_alive():
+                try:
+                    self._release(q.get_nowait())
+                except queue.Empty:
+                    thread.join(timeout=0.1)
+            while not q.empty():
+                self._release(q.get_nowait())
+
 
 class EvalLoader(TrainLoader):
     """Iterate the eval plan's batches: each plan item is ``(indices,
     weights)``, read through ``read_fn`` and decoded, with the weights
-    riding the batch as ``_weight``."""
+    riding the batch as ``_weight``. With a ``batch_cache`` and the
+    ``dataset_fingerprint`` its entries are scoped ``eval=1``: they carry
+    ``_weight`` and never alias a train entry over the same rows."""
 
     def __init__(self, read_fn: Callable[[np.ndarray], pa.Table],
                  plan: Sequence, decode_fn: Callable[[pa.Table], dict],
                  device: Optional[torch.device], prefetch: int = 2,
-                 producers: int = 1, buffer_pool=None):
+                 producers: int = 1, buffer_pool=None, batch_cache=None,
+                 dataset_fingerprint: Optional[str] = None):
         super().__init__(None, plan, decode_fn, device, prefetch,
-                         producers=producers, buffer_pool=buffer_pool)
+                         producers=producers, buffer_pool=buffer_pool,
+                         batch_cache=batch_cache)
         self.read_fn = read_fn
+        self.dataset_fingerprint = dataset_fingerprint
+
+    def _plan_cache(self) -> Optional[PlanCache]:
+        if self.batch_cache is None or self.dataset_fingerprint is None:
+            return None
+        return PlanCache(
+            self.batch_cache, self.dataset_fingerprint,
+            lambda: plan_fingerprint(
+                decode=decode_fingerprint(self.decode_fn), eval=1))
 
     def _read(self, item):
         return self.read_fn(item[0])
@@ -297,6 +551,8 @@ def make_eval_pipeline(
     index_pool: Optional[np.ndarray] = None,
     producers: int = 1,
     buffer_pool=None,
+    batch_cache=None,
+    dataset_fingerprint: Optional[str] = None,
 ) -> EvalLoader:
     """Full-coverage eval loader: every row exactly once, one batch shape.
 
@@ -307,13 +563,17 @@ def make_eval_pipeline(
     ``index_pool`` every position of the pool is covered once instead of
     every row, and ``num_rows`` is not read. Batches, order and weights
     are the JAX package's ``make_eval_pipeline``'s; ``device``,
-    ``producers`` and ``buffer_pool`` are :class:`TrainLoader`'s."""
+    ``producers``, ``buffer_pool`` and ``batch_cache`` are
+    :class:`TrainLoader`'s (the eval takes no worker pool, as in JAX), the
+    cache keyed by ``dataset_fingerprint``."""
     if index_pool is not None:
         num_rows = len(index_pool)
     plan = padded_eval_index_batches(num_rows, global_batch, process_index,
                                      process_count, index_pool=index_pool)
     return EvalLoader(read_fn, plan, decode_fn, device, prefetch=prefetch,
-                      producers=producers, buffer_pool=buffer_pool)
+                      producers=producers, buffer_pool=buffer_pool,
+                      batch_cache=batch_cache,
+                      dataset_fingerprint=dataset_fingerprint)
 
 
 class EpochLoader(TrainLoader):
@@ -350,7 +610,9 @@ class MapStylePipeline(EpochLoader):
     semantics: each epoch deals a ``seed + epoch`` permutation of the rows
     (``shuffle``), or of ``index_pool``'s positions (a row filter's pool, a
     val split), ``batch_size`` rows a step to each process; ``drop_last``
-    drops the ragged tail. ``columns`` is projected before the gather."""
+    drops the ragged tail. ``columns`` is projected before the gather.
+    Row reshuffles change the plan items each epoch, so a batch cache hits
+    only unshuffled or repeated items (content keys)."""
 
     def __init__(self, dataset: Dataset, batch_size: int, process_index: int,
                  process_count: int, decode_fn: Callable,
@@ -359,16 +621,18 @@ class MapStylePipeline(EpochLoader):
                  prefetch: int = 2,
                  columns: Optional[Sequence[str]] = None,
                  index_pool: Optional[np.ndarray] = None,
-                 producers: int = 1, buffer_pool=None):
+                 producers: int = 1, buffer_pool=None, workers=None,
+                 batch_cache=None):
         super().__init__(dataset, None, decode_fn, device, prefetch, epoch,
-                         producers=producers, buffer_pool=buffer_pool)
+                         producers=producers, buffer_pool=buffer_pool,
+                         workers=workers, batch_cache=batch_cache,
+                         columns=columns)
         self.batch_size = batch_size
         self.process_index = process_index
         self.process_count = process_count
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
-        self.columns = list(columns) if columns is not None else None
         # Every process derives the same pool, so the equal-step invariant
         # holds unchanged: positions in the pool are dealt, then mapped
         # back to global rows.
@@ -412,11 +676,15 @@ def make_train_pipeline(
     epoch: int = 0,
     producers: int = 1,
     buffer_pool=None,
+    workers=None,
+    batch_cache=None,
+    columns: Optional[Sequence[str]] = None,
 ) -> TrainLoader:
     """Iterable-style loader over this process's plan. ``batch_size`` is
     the per-process batch. Every process's plan is checked for equal step
     and row counts before the first batch (unequal counts hang a
-    collective). ``device=None`` yields host batches."""
+    collective). ``device=None`` yields host batches; ``columns`` projects
+    the reads (pass the worker pool's)."""
     if sampler_type in ("full", "full_scan") and process_count > 1:
         raise ValueError(
             "sampler_type='full' is not DP-aware (every process scans the "
@@ -438,4 +706,5 @@ def make_train_pipeline(
         )
     return TrainLoader(dataset, plan, decode_fn, device, prefetch=prefetch,
                        epoch=epoch, producers=producers,
-                       buffer_pool=buffer_pool)
+                       buffer_pool=buffer_pool, workers=workers,
+                       batch_cache=batch_cache, columns=columns)

@@ -41,11 +41,14 @@ thread outlives the iteration.
 
 Telemetry: a ``placement_*`` :class:`~..utils.metrics.ServiceCounters`
 (``placement_h2d_s``, ``placement_batches_placed``, the
-``placement_buffer_depth`` gauge), which ``StepTimer.attach_counters``
-merges into the progress lines (``h2d_pct``), and :attr:`PlacementPlane.
-h2d_ms`, each batch's time on the placement thread from its host batch to
-its copies' completion. ``tunables()`` and the JAX plane's adjustable ring
-wait for the port of ``tune/``: the ring is a plain bounded queue.
+``placement_buffer_depth`` gauge, mirrored into the process registry),
+which ``StepTimer.attach_counters`` merges into the progress lines
+(``h2d_pct``); :attr:`PlacementPlane.h2d_ms`, each batch's time on the
+placement thread from its host batch to its copies' completion, also
+observed into the registry's ``trainer_h2d_ms`` histogram and recorded as
+a ``placement.h2d`` span. The ring is an
+:class:`~..tune.tunable.AdjustableQueue`: ``ring_depth`` is an autotuner
+knob (``tunables()``), moved live without dropping or reordering a batch.
 """
 
 from __future__ import annotations
@@ -57,7 +60,10 @@ from typing import Iterator, Optional
 
 import torch
 
+from ..obs.registry import MetricsRegistry, default_registry
+from ..obs.spans import span
 from ..parallel.mesh import PinnedStager, indexed_device, make_global_batch
+from ..tune.tunable import AdjustableQueue, Tunable, _LiveQueues
 from ..utils.metrics import ServiceCounters
 
 __all__ = ["PlacementPlane", "PlacedLoader"]
@@ -80,15 +86,38 @@ class PlacementPlane:
     """
 
     def __init__(self, device: torch.device, *, depth: int = 2,
-                 buffer_pool=None):
+                 buffer_pool=None,
+                 registry: Optional[MetricsRegistry] = None):
         self.device = indexed_device(device)
         self.depth = max(1, int(depth))
         self.buffer_pool = buffer_pool
-        self.counters = ServiceCounters(prefix="placement")
+        self.registry = registry if registry is not None else default_registry()
+        self.counters = ServiceCounters(prefix="placement",
+                                        registry=self.registry)
+        self._h2d_hist = self.registry.histogram("trainer_h2d_ms")
         self.h2d_ms: list[float] = []
         self._cuda = self.device.type == "cuda"
         self._stager = PinnedStager(self.device) if self._cuda else None
         self._stream: Optional[torch.cuda.Stream] = None
+        # The live ring of the current iteration, for set_ring_depth.
+        self._live = _LiveQueues()
+
+    def set_ring_depth(self, depth: int) -> int:
+        """Move the ring's bound, live: growing wakes the placement
+        thread, shrinking lets the ring drain through the consumer (placed
+        batches are never dropped)."""
+        depth = max(1, int(depth))
+        self.depth = depth
+        self._live.resize_total(depth)
+        return depth
+
+    def tunables(self):
+        """The autotuner's knob: the ring depth."""
+        return [Tunable(
+            "ring_depth", lambda: self.depth, self.set_ring_depth,
+            lo=1, hi=8,
+            doc="device-resident global batches kept ahead of the step",
+        )]
 
     # -- single-batch placement --------------------------------------------
 
@@ -137,7 +166,8 @@ class PlacementPlane:
         drain-then-join, and ``inner``'s iterator is closed from the
         placement thread, so its producer threads observe their stop
         flags."""
-        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        q: queue.Queue = AdjustableQueue(self.depth)
+        self._live.install([q])
         stop = threading.Event()
 
         def put(item) -> bool:
@@ -155,16 +185,18 @@ class PlacementPlane:
                     torch.cuda.set_device(self.device)
                 it = iter(inner)
                 try:
-                    for host in it:
+                    for seq, host in enumerate(it):
                         if stop.is_set():
                             if self.buffer_pool is not None:
                                 self.buffer_pool.release_batch(host)
                             return
                         t0 = time.perf_counter()
-                        placed = self._place(host)
+                        with span("placement.h2d", batch_seq=seq):
+                            placed = self._place(host)
                         seconds = time.perf_counter() - t0
                         del host
                         self.h2d_ms.append(seconds * 1e3)
+                        self._h2d_hist.observe(seconds * 1e3)
                         self.counters.add("h2d_s", seconds)
                         self.counters.add("batches_placed")
                         if not put(placed):
@@ -199,6 +231,7 @@ class PlacementPlane:
                     q.get_nowait()
                 except queue.Empty:
                     thread.join(timeout=0.1)
+            self._live.clear()
             self._set_depth(0)
 
     def _set_depth(self, n: int) -> None:
@@ -250,6 +283,14 @@ class PlacedLoader:
             inner_load(state)
         self._start = int(state.get("step", 0))
         self._yielded = self._start
+
+    def tunables(self):
+        """The plane's ring depth, then the wrapped loader's knobs."""
+        out = list(self.plane.tunables())
+        inner = getattr(self.inner, "tunables", None)
+        if inner is not None:
+            out.extend(inner())
+        return out
 
     @property
     def counters(self):

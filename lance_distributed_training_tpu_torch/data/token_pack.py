@@ -22,10 +22,15 @@ Every mode counts padding waste on the decoder itself:
 ``pack_payload_tokens_total`` (real tokens) against
 ``pack_grid_tokens_total`` (the grid the device processes), plus
 ``pack_sequences_total``, ``pack_truncated_tokens_total`` and
-``pack_batches_total``. With a ``buffer_pool`` (:class:`~.buffers.BufferPool`)
+``pack_batches_total``, mirrored into the process registry under the same
+names with ``decode_token_bytes_total`` and ``decode_token_copies_total``
+(token bytes leaving decode, and those copied because no zero-copy Arrow
+view was possible). With a ``buffer_pool`` (:class:`~.buffers.BufferPool`)
 the padded pages, the synthesised mask and the ragged page pairs are
-leased from it. The JAX package's metrics registry, cost ledger and
-autotuner hooks are not ported.
+leased from it. The planner's ``pack_len`` and ``pack_rows_quantum`` are
+autotuner knobs (``tunables()``); ``pack_len`` re-plans the packed batches
+it touches, as in the JAX package. A decoder pickles for a worker process
+without its pool and its lock.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
+
+from ..obs.registry import default_registry
 
 __all__ = [
     "VALUES_SUFFIX",
@@ -244,6 +251,31 @@ class TokenPackPlanner:
         self.config.rows_multiple = value
         return value
 
+    def tunables(self):
+        """The autotuner's knobs over the pack layout: the slot-length cap
+        (when it can move) and the row-count quantum."""
+        from ..tune.tunable import Tunable
+
+        cfg = self.config
+        out = []
+        if cfg.pack_len > 8:
+            out.append(Tunable(
+                "pack_len",
+                lambda: self.config.pack_len,
+                self.set_pack_len,
+                lo=8, hi=max(cfg.pack_len, 16),
+                doc="packed slot length cap (tokens per packed row)",
+            ))
+        out.append(Tunable(
+            "pack_rows_quantum",
+            lambda: self.config.rows_multiple,
+            self.set_rows_multiple,
+            lo=1, hi=64,
+            doc="packed row-count rounding quantum: smaller = less padding "
+                "waste, more distinct compiled shapes",
+        ))
+        return out
+
     def plan(self, lengths: Sequence[int]) -> PackPlan:
         """FFD packing of ``lengths`` into slots of the bucketed length:
         longest first (ties by original index), each into the first open
@@ -347,6 +379,24 @@ class TokenDecoder:
         """The waste counters, by name."""
         return {name: getattr(self, name) for name in COUNTER_NAMES}
 
+    def tunables(self):
+        """The planner's knobs (none in the padded mode)."""
+        if self.mode == "pad":
+            return []
+        return self.planner.tunables()
+
+    # Picklable for worker processes: the pool and the lock are process
+    # local; a worker re-binds its own pool (data/workers._init_worker).
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["buffer_pool"] = None
+        state.pop("_count_lock", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._count_lock = threading.Lock()
+
     def _add(self, payload: int, grid: int, seqs: int, truncated: int,
              batches: int = 1) -> None:
         with self._count_lock:
@@ -355,6 +405,10 @@ class TokenDecoder:
             self.pack_sequences_total += int(seqs)
             self.pack_truncated_tokens_total += int(truncated)
             self.pack_batches_total += int(batches)
+        reg = default_registry()
+        for name, value in zip(COUNTER_NAMES,
+                               (payload, grid, seqs, truncated, batches)):
+            reg.counter(name).inc(int(value))
 
     def _lease(self, shape, dtype) -> np.ndarray:
         if self.buffer_pool is None:
@@ -375,16 +429,25 @@ class TokenDecoder:
         )
         fixed: Dict[str, np.ndarray] = {}
         ragged: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        reg = default_registry()
+        tok_bytes = reg.counter("decode_token_bytes_total")
+        tok_copies = reg.counter("decode_token_copies_total")
         for name in table.column_names:
             col = table.column(name).combine_chunks()
             if pa.types.is_fixed_size_list(col.type):
                 flat = _single(col)
-                values, _ = primitive_view(flat.flatten())
+                values, copied = primitive_view(flat.flatten())
+                tok_bytes.inc(values.nbytes)
+                if copied:
+                    tok_copies.inc(values.nbytes)
                 fixed[name] = values.reshape(len(flat), col.type.list_size)
             elif pa.types.is_list(col.type) or pa.types.is_large_list(
                 col.type
             ):
-                values, offsets, _ = list_column_parts(col)
+                values, offsets, copied = list_column_parts(col)
+                tok_bytes.inc(values.nbytes)
+                if copied:
+                    tok_copies.inc(values.nbytes)
                 ragged[name] = (values, offsets)
             else:
                 fixed[name], _ = primitive_view(_single(col))

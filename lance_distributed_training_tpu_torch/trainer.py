@@ -72,6 +72,22 @@ consumer thread, or in the producers). ``pretrained`` starts the ResNet
 from a torchvision checkpoint (``models/pretrained.py``), the reference's
 fine-tuning task.
 
+The worker pool, the cache plane and the autotuner, at the JAX trainer's
+defaults: ``num_workers > 0`` decodes in that many spawned processes
+(``data/workers.py``; shared-memory slots unless ``shm_workers`` is off),
+one pool a run; ``batch_cache`` keeps decoded host batches in a RAM/disk
+cache (``data/cache.BatchCache``, one a run, outliving the per-epoch
+loaders) so that later epochs and restarted runs skip read and decode;
+``device_cache`` keeps the first streamed epoch's batches on the card,
+after the transform stage, and replays them in later epochs in a seeded
+batch order (``DeviceReplayCache``); ``data_echo`` runs N optimizer steps
+a host batch, each with a fresh draw of the flips or the MLM mask. The
+closed-loop autotuner (``autotune``, on by default; ``tune/``) reads the
+metrics registry every ``autotune_interval_s`` and moves the knobs of the
+epoch's loader, the pool, the buffer pool and the cache; replay epochs
+register none. The tuner stops before the pool shuts down, the pool before
+the cache closes.
+
 The device is the caller's choice: ``device="cuda"`` (the default) raises
 when no card is present rather than falling back to the CPU.
 """
@@ -93,6 +109,7 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from .data.buffers import default_buffer_pool
+from .data.cache import BatchCache, DeviceReplayCache, folder_fingerprint
 from .data.decode import decoder_for_task
 from .data.authoring import _folder_samples
 from .data.folder import FolderDataPipeline, read_sample_batch
@@ -105,6 +122,7 @@ from .data.pipeline import (
 )
 from .data.token_pack import TokenPackConfig, is_ragged_batch, pack_meta
 from .models.pretrained import load_torch_state_dict, load_torchvision_resnet
+from .obs.registry import default_registry
 from .models.resnet import set_sync_group
 from .models.tasks import Task, draw_mlm_mask, get_task
 from .ops.flash import make_flash_attention
@@ -119,7 +137,8 @@ from .parallel.mesh import (
     sync_global_devices,
 )
 from .parallel.ring_attention import ProcessRing, make_ring_attention
-from .utils.chaos import StepTrace, TrainerChaos
+from .tune import AutoTuner, collect_tunables
+from .utils.chaos import StepTrace, TrainerChaos, batch_digest
 from .utils.checkpoint import CheckpointManager, pack_rng_key, unpack_rng_key
 from .utils.metrics import MetricLogger, StepTimer
 from .utils.profiling import ProfileWindow
@@ -197,6 +216,27 @@ class TrainConfig:
     placement_depth: int = 2  # placed batches the ring keeps ahead
     buffer_pool: bool = True  # decode into recycled pages of the process
     # BufferPool (page-locked on CUDA); False = a fresh allocation per batch
+    num_workers: int = 0  # >0: read and decode in that many spawned worker
+    # processes (data/workers.py), one pool a run
+    shm_workers: bool = True  # worker batches cross through shared-memory
+    # slots; False = pickled (the control arm)
+    autotune: bool = True  # the closed-loop autotuner (tune/) moves the
+    # live knobs of the loaders, the pool and the caches (capacity only,
+    # but pack_len re-plans packed batches); False = fixed knobs
+    autotune_interval_s: float = 1.0  # the tuner's tick period
+    data_echo: int = 1  # >1: N optimizer steps a host batch, each with a
+    # fresh draw of the flips / MLM mask (the schedule horizon counts them)
+    device_cache: bool = False  # keep the first streamed epoch's batches on
+    # the card (after the transform stage) and replay them afterwards in a
+    # seeded batch order
+    device_cache_gb: float = 8.0  # projected-size guard: stream instead
+    # when the epoch would not fit (clamped to 90% of the card's free memory)
+    batch_cache: bool = False  # the decoded-batch cache (RAM, then disk;
+    # content-keyed, so the stream is bit-identical to the uncached run)
+    cache_ram_budget_mb: int = 512  # the cache's RAM budget
+    cache_disk_budget_mb: int = 2048  # the cache's disk budget
+    cache_dir: Optional[str] = None  # spill directory; default
+    # ~/.cache/lance_distributed_training_tpu_torch/batch-cache
     shuffle: bool = False  # epoch batch-order reshuffle (batch sampler and
     # the iterable folder arm; the map-style loader always reshuffles rows)
     augment: bool = True  # per-image horizontal flip, p = 0.5 (classification)
@@ -496,10 +536,12 @@ def evaluate(loader, eval_step) -> tuple[float, float]:
 class _DeviceTimes:
     """CUDA event pairs around one piece of device work per step, read at
     log points (:meth:`drain`), so timing adds no host sync of its own. On
-    the CPU nothing is timed."""
+    the CPU nothing is timed. Each time read is also observed into
+    ``histogram`` when one is given (a registry series)."""
 
-    def __init__(self, cuda: bool):
+    def __init__(self, cuda: bool, histogram=None):
         self.cuda = cuda
+        self.histogram = histogram
         self._events: list[tuple] = []
         self.ms: list[float] = []
 
@@ -522,6 +564,9 @@ class _DeviceTimes:
             new.append(start.elapsed_time(end))
         self._events.clear()
         self.ms.extend(new)
+        if self.histogram is not None:
+            for ms in new:
+                self.histogram.observe(ms)
         return new
 
 
@@ -618,12 +663,31 @@ def train(config: TrainConfig) -> dict:
     copies' completion included) and ``h2d_pct`` (the placement time of the
     progress windows after the first log point over their loader-plus-step
     time, as ``images_per_sec`` leaves the warm-up out; the whole loop when
-    there is no later window)."""
+    there is no later window).
+
+    Each ``history`` entry also gives the epoch's ``epoch_steps``,
+    ``epoch_time``, ``images_per_sec`` (image tasks: its images over its
+    wall time, a device sync included), ``replay`` (True for a
+    ``device_cache`` replay epoch) and, with ``num_workers``,
+    ``worker_results`` (batches the pool decoded that epoch), with
+    ``batch_cache`` ``cache_hits``, ``cache_disk_hits`` and
+    ``cache_misses``. With ``data_echo > 1`` the result gives
+    ``data_echo`` and ``unique_images_per_sec`` (image tasks). With
+    ``device_cache``: ``device_cache_batches`` (the replay set's size, 0
+    when the guard refused it) and ``device_cache_refused`` (the
+    projection and the budget, or None). With ``num_workers``:
+    ``worker_transport`` (``shm`` or ``pickle``) and ``shm_fallbacks``.
+    With ``autotune``: ``autotune_ticks`` and ``autotune_decisions``."""
     _check_loader_config(config)
     if config.placement_depth < 1:
         raise ValueError(
             f"placement_depth must be >= 1, got {config.placement_depth}"
         )
+    if config.data_echo < 1:
+        raise ValueError(f"data_echo must be >= 1, got {config.data_echo}")
+    if config.num_workers < 0:
+        raise ValueError(
+            f"num_workers must be >= 0, got {config.num_workers}")
     if config.pretrained and config.task_type != "classification":
         raise ValueError(
             "--pretrained imports torchvision ResNet checkpoints; task "
@@ -777,17 +841,41 @@ def _loader_kwargs(config: TrainConfig, device: torch.device, plane) -> dict:
                 buffer_pool=_loader_buffer_pool(config))
 
 
+def _make_worker_pool(config: TrainConfig, decode):
+    """The run's decode worker pool (the reference's ``num_workers`` with
+    ``persistent_workers``), or ``None`` when ``num_workers`` is 0. Its
+    workers take a pickled copy of ``decode``; their batches land in pages
+    of the run's pool."""
+    if config.num_workers <= 0:
+        return None
+    from .data.workers import WorkerPool, columnar_spec, folder_spec
+
+    transport = "shm" if config.shm_workers else "pickle"
+    pool = _loader_buffer_pool(config)
+    if config.data_format == "folder":
+        samples, _ = _folder_samples(config.dataset_path)
+        return WorkerPool(folder_spec(samples), decode, config.num_workers,
+                          transport=transport, buffer_pool=pool)
+    return WorkerPool(columnar_spec(config.dataset_path), decode,
+                      config.num_workers,
+                      columns=getattr(decode, "required_columns", None),
+                      transport=transport, buffer_pool=pool)
+
+
 def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
                   device: torch.device, epoch: int, per_process: int,
                   data_index: int, data_world: int,
-                  index_pool: Optional[np.ndarray] = None):
+                  index_pool: Optional[np.ndarray] = None, workers=None,
+                  batch_cache=None, folder_fp: Optional[str] = None):
     """This epoch's train loader: the iterable range plans, the map-style
     loader over the run's pool, or the folder arm in either style, with
     the JAX trainer's refusals of an empty plan and of a folder with more
-    classes than ``num_classes``; wrapped in the placement plane unless the
+    classes than ``num_classes``; fed by the run's worker pool and cache
+    when there are, and wrapped in the placement plane unless the
     synchronous arm is chosen."""
     plane = _make_placement(config, device)
     kw = _loader_kwargs(config, device, plane)
+    kw.update(workers=workers, batch_cache=batch_cache)
     if config.data_format == "folder":
         loader = FolderDataPipeline(
             config.dataset_path, per_process, data_index, data_world, decode,
@@ -796,7 +884,8 @@ def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
             # the iterable arm's batch-order shuffle is opt-in, as on the
             # columnar iterable path.
             shuffle=True if config.loader_style == "map" else config.shuffle,
-            seed=config.seed, epoch=epoch, prefetch=config.prefetch, **kw)
+            seed=config.seed, epoch=epoch, prefetch=config.prefetch,
+            dataset_fingerprint=folder_fp, **kw)
         if len(loader) == 0:
             raise ValueError("folder smaller than one global batch")
         if (config.task_type == "classification"
@@ -828,7 +917,8 @@ def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
         loader = make_train_pipeline(
             dataset, config.sampler_type, per_process, data_index,
             data_world, decode, prefetch=config.prefetch,
-            shuffle=config.shuffle, seed=config.seed, epoch=epoch, **kw)
+            shuffle=config.shuffle, seed=config.seed, epoch=epoch,
+            columns=getattr(decode, "required_columns", None), **kw)
     return plane.wrap(loader) if plane is not None else loader
 
 
@@ -946,6 +1036,39 @@ class _TokenCounts:
                 "valid_tokens_per_sec": payload * per_s,
                 "pad_waste_pct": 100.0 * (1.0 - payload / grid)
                 if grid else 0.0}
+
+
+_MARKS = {
+    # name in a result: (registry series, kind)
+    "worker_results": ("workers_result_wait_ms", "histogram"),
+    "shm_fallbacks": ("shm_fallback_total", "counter"),
+    "cache_hits": ("cache_hit_total", "counter"),
+    "cache_disk_hits": ("cache_disk_hit_total", "counter"),
+    "cache_misses": ("cache_miss_total", "counter"),
+    "autotune_ticks": ("autotune_ticks_total", "counter"),
+    "autotune_decisions": ("autotune_decisions_total", "counter"),
+}
+
+
+def _registry_marks() -> dict:
+    """The process registry's series that a run reports, read now."""
+    reg = default_registry()
+    return {name: (reg.histogram(series).count if kind == "histogram"
+                   else reg.counter(series).value)
+            for name, (series, kind) in _MARKS.items()}
+
+
+def _registry_deltas(before: dict, after: dict, *, workers: bool,
+                     cache: bool) -> dict:
+    """The series' growth between two marks: the pool's batches and shm
+    fallbacks with a pool, the cache's hits and misses with a cache, the
+    tuner's ticks and decisions."""
+    names = ["autotune_ticks", "autotune_decisions"]
+    if workers:
+        names += ["worker_results", "shm_fallbacks"]
+    if cache:
+        names += ["cache_hits", "cache_disk_hits", "cache_misses"]
+    return {n: int(after[n] - before[n]) for n in names}
 
 
 class _CkptJournal:
@@ -1101,7 +1224,9 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         # shortens the horizon with it.
         rows = (len(index_pool) if index_pool is not None
                 else len(samples) if folder else dataset.count_rows())
-        total_steps = max(rows // config.batch_size, 1) * config.epochs
+        # Echoes are real optimizer steps.
+        total_steps = (max(rows // config.batch_size, 1) * config.epochs
+                       * config.data_echo)
     optimizer, lr = make_optimizer(config, task.model.parameters(),
                                    total_steps)
     accum = max(config.grad_accum, 1)
@@ -1148,7 +1273,13 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     elif config.token_pack:
         transform = make_pack_transform()
         device_ms_key = "pack_device_ms"
-    transform_times = _DeviceTimes(cuda)
+    # The registry's series of the stage, as the JAX trainer's: the host
+    # time of each transform call, and the device times read from events
+    # (decode_device_ms feeds the tuner's decode_split).
+    registry = default_registry()
+    transform_ms = registry.histogram("trainer_transform_ms")
+    transform_times = _DeviceTimes(
+        cuda, registry.histogram(device_ms_key) if device_ms_key else None)
     tokens = _TokenCounts()  # text: grid and payload tokens of each step
     entropy_seen = 0  # decode.entropy_ms entries already logged
     if image:
@@ -1186,6 +1317,9 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             loader = make_eval_pipeline(
                 read_fn, total, config.batch_size, 0, 1, eval_decode,
                 prefetch=config.prefetch, index_pool=eval_pool,
+                batch_cache=batch_cache,
+                dataset_fingerprint=(folder_fp if folder else
+                                     eval_dataset.fingerprint()),
                 **_loader_kwargs(config, device, plane))
             if plane is not None:
                 loader = plane.wrap(loader)
@@ -1223,23 +1357,125 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     stop = False
     history = []
     lo, hi = rank * per_process, (rank + 1) * per_process
+    def log_progress(epoch: int, global_step: int) -> None:
+        """One progress line: the window since the last one, after the
+        window's one host sync."""
+        nonlocal warm, entropy_seen
+        log.drain()  # the one host sync of this window
+        if warm is None:
+            warm = (global_step, time.perf_counter())
+        w = timer.window(config.batch_size, images=image)
+        if image:
+            rates = {"images_per_sec": w["images_per_sec"]}
+        else:
+            rates = tokens.rates(w["steps"], w["wall_s"])
+        extra = {}
+        if transform is not None:
+            extra[device_ms_key] = _mean(transform_times.drain())
+        if coeff:
+            # The decoder's batches since the last log (its producer
+            # thread may run ahead of the steps).
+            seen = len(decode.entropy_ms)
+            extra["decode_entropy_ms"] = _mean(
+                decode.entropy_ms[entropy_seen:seen])
+            entropy_seen = seen
+        # Schedules count optimizer updates, not micro-steps; the restored
+        # step count carries the position across a resume.
+        updates = (resume_global_step + global_step) // accum
+        extra["lr"] = float(lr(updates) if callable(lr) else lr)
+        if config.log_grad_norm:
+            extra["grad_norm"] = round(float(step.last_grad_norm), 4)
+        if accum > 1:
+            fold_times.drain()
+        extra = {k: v for k, v in extra.items() if v is not None}
+        busy = w["loader_s"] + w["step_s"]
+        if "placement_h2d_s" in w:
+            # Placement time of the window (on its own thread, beside the
+            # step) as a share of the same loader-plus-step time.
+            extra["h2d_pct"] = (100.0 * w["placement_h2d_s"] / busy
+                                if busy > 0 else 0.0)
+            h2d_windows.append((w["placement_h2d_s"], busy))
+            extra["placement_buffer_depth"] = int(
+                w.get("placement_buffer_depth", 0))
+        if config.data_echo > 1:
+            # The window counts echoed steps; the unique-data rate beside.
+            extra["data_echo"] = config.data_echo
+            if image:
+                extra["unique_images_per_sec"] = (w["images_per_sec"]
+                                                  / config.data_echo)
+        logger.log({
+            "step": global_step,
+            "epoch": epoch,
+            "loss": round(log.losses[-1], 4),
+            "step_ms": w["step_ms"],
+            **rates,
+            "loader_stall_pct": (100.0 * w["loader_s"] / busy
+                                 if busy > 0 else 0.0),
+            **extra,
+        })
+
+    # The HBM replay tier (device_cache): the first streamed epoch's
+    # batches, after the transform stage, replayed in later epochs.
+    dev_cache = DeviceReplayCache(enabled=config.device_cache,
+                                  budget_gb=config.device_cache_gb,
+                                  seed=config.seed)
+    dev_refused = None
+    worker_pool = batch_cache = tuner = None
+    folder_fp = None
+    registry_start = _registry_marks()
     t_start = time.perf_counter()
     warm = None  # (steps, time) at the first log point: warm-up ends there
     try:
+        worker_pool = _make_worker_pool(config, decode)
+        if config.batch_cache:
+            # One cache a run: the epoch loop rebuilds the loaders, the
+            # cache outlives them (epoch 2 hits what epoch 1 filled).
+            batch_cache = BatchCache(
+                cache_dir=config.cache_dir,
+                ram_budget_mb=config.cache_ram_budget_mb,
+                disk_budget_mb=config.cache_disk_budget_mb,
+                buffer_pool=pool)
+            if folder:
+                # The corpus's identity, hashed once a run.
+                folder_fp = folder_fingerprint(samples)
+        if config.autotune:
+            # One controller a run; each epoch registers its loader's knobs.
+            tuner = AutoTuner(interval_s=config.autotune_interval_s).start()
         for epoch in range(start_epoch, config.epochs):
-            loader = _build_loader(config, dataset, decode, device, epoch,
-                                   per_process, data_index, data_world,
-                                   index_pool)
-            if epoch == start_epoch and resume_epoch_step:
-                # The rebuilt plan is a pure function of (pool, shard,
-                # seed, epoch): the tail it serves from the cursor is what
-                # the uninterrupted run consumed.
-                loader.load_state_dict({"epoch": epoch,
-                                        "step": resume_epoch_step})
+            # The cursor of a resumed epoch: batches already consumed.
+            resume_step = resume_epoch_step if epoch == start_epoch else 0
+            replay_it = dev_cache.replay_iter(
+                epoch, start_epoch,
+                shuffled=config.shuffle or config.loader_style == "map")
+            replay = replay_it is not None
+            if replay:
+                loader, it = None, replay_it
+            else:
+                loader = _build_loader(config, dataset, decode, device, epoch,
+                                       per_process, data_index, data_world,
+                                       index_pool, workers=worker_pool,
+                                       batch_cache=batch_cache,
+                                       folder_fp=folder_fp)
+                if resume_step:
+                    # The rebuilt plan is a pure function of (pool, shard,
+                    # seed, epoch): the tail it serves from the cursor is
+                    # what the uninterrupted run consumed.
+                    loader.load_state_dict({"epoch": epoch,
+                                            "step": resume_step})
+                it = iter(loader)
+            if tuner is not None:
+                # This epoch's live knobs; a replay epoch has no pipeline,
+                # so a stale epoch's knobs are never moved.
+                tuner.set_tunables(
+                    collect_tunables(loader, worker_pool, pool, batch_cache)
+                    if loader is not None else [])
+            # A resumed epoch never seeds the replay set.
+            filling = dev_cache.start_fill(replay, resume_step)
             epoch_steps = 0
+            epoch_marks = _registry_marks()
+            epoch_t0 = time.perf_counter()
             # The plane's placement_* windows ride the progress lines.
             timer.attach_counters(getattr(loader, "placement_counters", None))
-            it = iter(loader)
             try:
                 while not stop:
                     timer.loader_start()
@@ -1247,104 +1483,86 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                     timer.loader_stop()
                     if batch is None:
                         break
-                    if profile is not None and epoch == start_epoch:
-                        profile.at(epoch_steps)
                     journal.at_boundary = False
-                    timer.step_start()
-                    start = log.start()
-                    fed = batch  # the loader's batch, for the step trace
-                    if not image:
-                        tokens.add(batch)
-                    if transform is not None:
-                        batch = transform_times.run(transform, batch)
-                    if image and config.augment:
-                        # One draw over the global batch, sliced per
-                        # process: the flips do not depend on the world size.
-                        draw = torch.rand(config.batch_size, generator=mask_gen,
-                                          device=device) < 0.5
-                        loss = step(batch, flip_mask=draw[lo:hi])
-                    elif ring is not None:
-                        # The ring's members draw alike over the whole rows
-                        # and each trains on its sequence block.
-                        block, drawn = _sequence_block(
-                            batch, draw_mlm_mask(batch, mask_gen), seq_index,
-                            sp)
-                        loss = step(block, mlm_mask=drawn)
-                    else:
-                        loss = step(batch, mask_gen)
-                    log.stop(start, loss)
-                    timer.step_stop()
-                    epoch_steps += 1
-                    global_step += 1
-                    # Step boundary: the live state pairs with the cursor
-                    # naming the NEXT batch (batches handed out so far).
-                    journal.abs_step = resume_global_step + global_step
-                    journal.cursor_base = loader.state_dict()
-                    journal.at_boundary = True
-                    if trace is not None:
-                        trace.record(journal.abs_step, epoch, fed, loss)
-                    if 0 < config.max_steps <= global_step:
-                        stop = True
-                    if config.log_every and global_step % config.log_every == 0:
-                        log.drain()  # the one host sync of this window
-                        if warm is None:
-                            warm = (global_step, time.perf_counter())
-                        w = timer.window(config.batch_size, images=image)
-                        if image:
-                            rates = {"images_per_sec": w["images_per_sec"]}
+                    fed = batch  # the loader's batch, for the token counts
+                    digest = None  # the step trace's, once a host batch
+                    for echo in range(config.data_echo):
+                        if profile is not None and epoch == start_epoch:
+                            profile.at(epoch_steps)
+                        timer.step_start()
+                        start = log.start()
+                        if not image:
+                            tokens.add(fed)
+                        if echo == 0 and transform is not None and not replay:
+                            # A replayed batch was transformed when cached.
+                            t0 = time.perf_counter()
+                            batch = transform_times.run(transform, batch)
+                            transform_ms.observe(
+                                (time.perf_counter() - t0) * 1e3)
+                        if echo == 0 and filling:
+                            refused = dev_cache.admit(batch, len(loader))
+                            if refused is not None:
+                                # The first batch's projection is over the
+                                # budget: stream, and say why.
+                                filling = False
+                                dev_refused = refused
+                                logger.log({
+                                    "device_cache": "disabled",
+                                    "projected_per_device_gb": round(
+                                        refused["projected"] / 1e9, 3),
+                                    "limit_per_device_gb": round(
+                                        refused["budget"] / 1e9, 3)})
+                        # Each echo is a real optimizer step with a fresh
+                        # draw of the flips or the MLM mask.
+                        if image and config.augment:
+                            # One draw over the global batch, sliced per
+                            # process: the flips do not depend on the world
+                            # size.
+                            draw = torch.rand(config.batch_size,
+                                              generator=mask_gen,
+                                              device=device) < 0.5
+                            loss = step(batch, flip_mask=draw[lo:hi])
+                        elif ring is not None:
+                            # The ring's members draw alike over the whole
+                            # rows and each trains on its sequence block.
+                            block, drawn = _sequence_block(
+                                batch, draw_mlm_mask(batch, mask_gen),
+                                seq_index, sp)
+                            loss = step(block, mlm_mask=drawn)
                         else:
-                            rates = tokens.rates(w["steps"], w["wall_s"])
-                        extra = {}
-                        if transform is not None:
-                            extra[device_ms_key] = _mean(
-                                transform_times.drain())
-                        if coeff:
-                            # The decoder's batches since the last log (its
-                            # producer thread may run ahead of the steps).
-                            seen = len(decode.entropy_ms)
-                            extra["decode_entropy_ms"] = _mean(
-                                decode.entropy_ms[entropy_seen:seen])
-                            entropy_seen = seen
-                        # Schedules count optimizer updates, not
-                        # micro-steps; the restored step count carries the
-                        # position across a resume.
-                        updates = journal.abs_step // accum
-                        extra["lr"] = float(lr(updates) if callable(lr)
-                                            else lr)
-                        if config.log_grad_norm:
-                            extra["grad_norm"] = round(
-                                float(step.last_grad_norm), 4)
-                        if accum > 1:
-                            fold_times.drain()
-                        extra = {k: v for k, v in extra.items()
-                                 if v is not None}
-                        busy = w["loader_s"] + w["step_s"]
-                        if "placement_h2d_s" in w:
-                            # Placement time of the window (on its own
-                            # thread, beside the step) as a share of the
-                            # same loader-plus-step time.
-                            extra["h2d_pct"] = (
-                                100.0 * w["placement_h2d_s"] / busy
-                                if busy > 0 else 0.0)
-                            h2d_windows.append((w["placement_h2d_s"], busy))
-                            extra["placement_buffer_depth"] = int(
-                                w.get("placement_buffer_depth", 0))
-                        logger.log({
-                            "step": global_step,
-                            "epoch": epoch,
-                            "loss": round(log.losses[-1], 4),
-                            "step_ms": w["step_ms"],
-                            **rates,
-                            "loader_stall_pct": (
-                                100.0 * w["loader_s"] / busy
-                                if busy > 0 else 0.0
-                            ),
-                            **extra,
-                        })
+                            loss = step(batch, mask_gen)
+                        log.stop(start, loss)
+                        timer.step_stop()
+                        epoch_steps += 1
+                        global_step += 1
+                        if trace is not None:
+                            # The batch the step trained on, after the
+                            # transform stage, as the JAX trainer records.
+                            digest = digest or batch_digest(batch)
+                            trace.record(resume_global_step + global_step,
+                                         epoch, batch, loss, digest=digest)
+                        if 0 < config.max_steps <= global_step:
+                            stop = True
+                        if (config.log_every
+                                and global_step % config.log_every == 0):
+                            log_progress(epoch, global_step)
+                        if stop:
+                            break
+                    # Host-batch boundary: the live state pairs with the
+                    # cursor naming the NEXT batch (batches handed out so
+                    # far). A replay epoch's stream is the cached set in a
+                    # cache-local order, so its cursor pins the epoch's
+                    # start: a restart streams that epoch again.
+                    journal.abs_step = resume_global_step + global_step
+                    journal.cursor_base = (
+                        loader.state_dict() if loader is not None
+                        else {"epoch": epoch, "step": 0})
+                    journal.at_boundary = True
                     if (ckpt is not None and config.checkpoint_every_steps > 0
                             and journal.abs_step >= journal.saved_step
                             + config.checkpoint_every_steps):
-                        # ">= saved + N" rather than "% N", as the JAX loop.
+                        # ">= saved + N" rather than "% N", as the JAX
+                        # loop: echoes jump several steps at once.
                         save()
                     if chaos is not None:
                         chaos.on_step(global_step)
@@ -1357,7 +1575,9 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                                     "epoch": epoch})
                         stop = True
             finally:
-                it.close()
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
                 timer.attach_counters()
             plane = getattr(loader, "plane", None)
             if plane is not None:
@@ -1365,9 +1585,19 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             if profile is not None:
                 profile.stop()  # an epoch shorter than the trace window
             if epoch_steps:
-                log.drain()
+                log.drain()  # a device sync: the epoch's work is done
+                epoch_time = time.perf_counter() - epoch_t0
                 mean = statistics.fmean(log.losses[-epoch_steps:])
-                entry = {"epoch": epoch, "train_loss": mean}
+                entry = {"epoch": epoch, "train_loss": mean,
+                         "epoch_steps": epoch_steps,
+                         "epoch_time": epoch_time, "replay": replay}
+                if image:
+                    entry["images_per_sec"] = (
+                        config.batch_size * epoch_steps / epoch_time)
+                entry.update(_registry_deltas(
+                    epoch_marks, _registry_marks(),
+                    workers=worker_pool is not None,
+                    cache=batch_cache is not None))
                 if config.eval_every and (epoch + 1) % config.eval_every == 0:
                     evaluated = run_eval()
                     if evaluated is not None:
@@ -1429,6 +1659,15 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             if profile is not None:
                 profile.stop()
         finally:
+            # The tuner first (it must not resize a pool that is shutting
+            # down), then the pool, then the cache, whose RAM leases go
+            # back once no loader reads it; its disk tier stays.
+            if tuner is not None:
+                tuner.stop()
+            if worker_pool is not None:
+                worker_pool.shutdown()
+            if batch_cache is not None:
+                batch_cache.close()
             preempt.uninstall()
             if trace is not None:
                 trace.close()
@@ -1469,6 +1708,28 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         h2d_s, busy = map(sum, zip(*windows))
         results.update(placement_ms=placement_ms,
                        h2d_pct=100.0 * h2d_s / busy if busy > 0 else 0.0)
+    if config.data_echo > 1:
+        results["data_echo"] = config.data_echo
+        if image:
+            results["unique_images_per_sec"] = (results["images_per_sec"]
+                                                / config.data_echo)
+    if config.device_cache:
+        results.update(device_cache_batches=len(dev_cache),
+                       device_cache_refused=dev_refused)
+    marks = _registry_deltas(registry_start, _registry_marks(),
+                             workers=worker_pool is not None,
+                             cache=batch_cache is not None)
+    if worker_pool is not None:
+        results.update(worker_transport=worker_pool.transport,
+                       shm_fallbacks=marks["shm_fallbacks"])
+    if batch_cache is not None:
+        results.update(cache_hits=marks["cache_hits"],
+                       cache_disk_hits=marks["cache_disk_hits"],
+                       cache_misses=marks["cache_misses"],
+                       cache_stats=batch_cache.stats())
+    if config.autotune:
+        results.update(autotune_ticks=marks["autotune_ticks"],
+                       autotune_decisions=marks["autotune_decisions"])
     if accum > 1:
         fold_times.drain()
         results["accum_fold_ms"] = (statistics.median(fold_times.ms)

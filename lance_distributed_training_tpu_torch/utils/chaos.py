@@ -22,7 +22,9 @@ Armed by ``TrainerChaos.from_env()`` reading ``LDT_CHAOS`` (e.g.
 
 :class:`StepTrace` is the proof instrument: with ``LDT_STEP_TRACE_PATH``
 set, the trainer appends one JSONL record per completed step — absolute
-step, epoch, a SHA-256 over the batch's host bytes and the loss — so a
+step, epoch, a SHA-256 over the host bytes of the batch the step trained
+on (after the transform stage, as the JAX trainer records it; hashed once
+for a host batch's echoes) and the loss — so a
 preempted-and-resumed run is compared with an uninterrupted control step
 for step. Hashing copies the batch to the host and fetches the loss every
 step; the trace is a debug and test instrument, never on in production
@@ -148,11 +150,14 @@ class StepTrace:
         path = (env if env is not None else os.environ).get(TRACE_ENV)
         return cls(path) if path else None
 
-    def record(self, step: int, epoch: int, batch, loss) -> None:
+    def record(self, step: int, epoch: int, batch, loss,
+               digest: Optional[str] = None) -> None:
+        """One step's record; ``digest`` is ``batch_digest(batch)`` when the
+        caller already has it (the echoes of one host batch)."""
         self._f.write(json.dumps({
             "step": int(step),
             "epoch": int(epoch),
-            "batch_sha256": batch_digest(batch),
+            "batch_sha256": digest or batch_digest(batch),
             "loss": float(loss),
         }) + "\n")
         self._f.flush()

@@ -2,10 +2,13 @@
 
 Counterpart of ``MetricLogger``, ``StepTimer`` and ``ServiceCounters`` in
 ``lance_distributed_training_tpu/utils/metrics.py``, without the wandb sink
-(wandb is not a dependency of the port) and the metrics registry: a
-:class:`ServiceCounters` keeps its per-instance half (``add``, ``gauge``,
-``snapshot``, ``window``) and mirrors nothing into a registry. The
-progress window adds ``step_ms`` and, for image batches,
+(wandb is not a dependency of the port). As in the JAX package both are
+facades over the process :class:`~..obs.registry.MetricsRegistry`: a
+:class:`ServiceCounters` keeps its per-instance ``snapshot``/``window`` and
+mirrors every ``add``/``gauge`` into ``<prefix>_<key>`` there, and
+:class:`StepTimer` observes each loader wait and step into the
+``trainer_loader_ms``/``trainer_step_ms`` histograms the autotuner reads.
+The progress window adds ``step_ms`` and, for image batches,
 ``images_per_sec`` (the trainer counts token rates from each step's grid);
 counters attached to a :class:`StepTimer` (the placement plane's
 ``placement_*``) ride every window.
@@ -19,6 +22,8 @@ import threading
 import time
 from typing import Optional
 
+from ..obs.registry import MetricsRegistry, default_registry
+
 __all__ = ["MetricLogger", "ServiceCounters", "StepTimer"]
 
 
@@ -30,8 +35,10 @@ class ServiceCounters:
     ``placement_buffer_depth``; attached to a :class:`StepTimer`, their
     window deltas land in the progress lines."""
 
-    def __init__(self, prefix: str = "svc"):
+    def __init__(self, prefix: str = "svc",
+                 registry: Optional[MetricsRegistry] = None):
         self.prefix = prefix
+        self.registry = registry if registry is not None else default_registry()
         self._lock = threading.Lock()
         self._counts: dict[str, float] = {}
         self._gauges: dict[str, float] = {}
@@ -41,11 +48,13 @@ class ServiceCounters:
         """Accumulate a monotonically growing counter."""
         with self._lock:
             self._counts[key] = self._counts.get(key, 0.0) + value
+        self.registry.counter(f"{self.prefix}_{key}").inc(value)
 
     def gauge(self, key: str, value: float) -> None:
         """Set an instantaneous gauge."""
         with self._lock:
             self._gauges[key] = float(value)
+        self.registry.gauge(f"{self.prefix}_{key}").set(value)
 
     def snapshot(self) -> dict:
         """Current totals and gauges, keys prefixed."""
@@ -138,9 +147,12 @@ class StepTimer:
 
     Steps are dispatched asynchronously on the card, so a step segment
     covers host dispatch; :meth:`window` rates divide by the window's wall
-    width, which a value fetch at the log point closes honestly."""
+    width, which a value fetch at the log point closes honestly. Each
+    ``*_stop`` also observes the ``trainer_loader_ms``/``trainer_step_ms``
+    histogram of ``registry``."""
 
-    def __init__(self):
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self.registry = registry if registry is not None else default_registry()
         self.loader_s = 0.0
         self.step_s = 0.0
         self.steps = 0
@@ -161,14 +173,18 @@ class StepTimer:
         self._t = time.perf_counter()
 
     def loader_stop(self) -> None:
-        self.loader_s += time.perf_counter() - self._t
+        dt = time.perf_counter() - self._t
+        self.loader_s += dt
+        self.registry.histogram("trainer_loader_ms").observe(dt * 1e3)
 
     def step_start(self) -> None:
         self._t = time.perf_counter()
 
     def step_stop(self) -> None:
-        self.step_s += time.perf_counter() - self._t
+        dt = time.perf_counter() - self._t
+        self.step_s += dt
         self.steps += 1
+        self.registry.histogram("trainer_step_ms").observe(dt * 1e3)
 
     @property
     def loader_stall_pct(self) -> float:

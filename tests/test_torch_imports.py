@@ -58,6 +58,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "lance_distributed_training_tpu_torch.models.pretrained",
         "lance_distributed_training_tpu_torch.data.buffers",
         "lance_distributed_training_tpu_torch.data.placement",
+        "lance_distributed_training_tpu_torch.data.workers",
+        "lance_distributed_training_tpu_torch.data.cache",
+        "lance_distributed_training_tpu_torch.obs.registry",
+        "lance_distributed_training_tpu_torch.obs.spans",
+        "lance_distributed_training_tpu_torch.obs.costs",
+        "lance_distributed_training_tpu_torch.tune.tunable",
+        "lance_distributed_training_tpu_torch.tune.policy",
+        "lance_distributed_training_tpu_torch.tune.controller",
+        "lance_distributed_training_tpu_torch.utils.leaktrack",
     }
     assert expected <= set(result["imported"])
     assert result["banned"] == []

@@ -168,10 +168,10 @@ def test_cli_without_device_cpu_raises_without_a_card(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--num_workers", "2"],
+    ["--num_experts", "4"],
     ["serve-data"],
     ["--task_type", "contrastive"],
-    ["--no_autotune"],
+    ["--model_parallelism", "2"],
 ])
 def test_cli_unported_surface_raises(tmp_path, argv):
     path = _token_dataset(tmp_path)
