@@ -64,7 +64,8 @@ Phases, each printing one JSON line:
              bytes, the restore time and the peak memory.
 6. image_kernels — K1 (``ops/csrc/image.cu``) against its plain PyTorch
              version on the card, bit for bit, on every uint8 value, at
-             [512, 224, 224, 3] and at other shapes of both routes (W = 16,
+             [512, 224, 224, 3] (classification and CLIP), at
+             [256, 224, 224, 3] (ViT) and at other shapes of both routes (W = 16,
              17, 48, 224, 2048, 4096 and 8192, batches 1 byte off 16-byte
              alignment), with no, a random and an all-set flip mask; times
              it (CUDA events around 20 launches back to back, median of 5)
@@ -74,7 +75,8 @@ Phases, each printing one JSON line:
              PyTorch version on the card, bit for bit: at the path's shape
              (pages ``int16 [512, 28, 28, 64]`` and ``[512, 14, 14, 64]``
              extracted here from the seeded classification set →
-             ``uint8 [512, 224, 224, 3]``) and at ragged cases (odd sizes,
+             ``uint8 [512, 224, 224, 3]``), at the vit phase's (the first
+             256 rows) and at ragged cases (odd sizes,
              grayscale, progressive, re-encoded 4:4:4, a zero-geometry
              row; out sizes 224, 32 and 40), and on a repeat launch; times
              its one launch (between CUDA events, median of 20, and 20
@@ -103,7 +105,9 @@ Phases, each printing one JSON line:
 10. token_kernels — K3 (``ops/csrc/token_pack.cu``, pack and unpack)
              against its plain PyTorch version on the card, bit for bit: at
              the path's shape (a batch of 64 sequences of the causal-LM
-             corpus, pack_len 1024), at ragged cases (empty sequences, one
+             corpus, pack_len 1024), at the contrastive phase's (its two
+             distinct batches of 512 captions, bucket mode, one caption a
+             row, pack_len 64 or 77), at ragged cases (empty sequences, one
              sequence, sequences truncated at pack_len, a values tail past
              offsets[n], padding rows from rows_multiple, bucket mode), on
              a repeat launch, and the round trip unpack(pack(x)) == x; and
@@ -250,13 +254,53 @@ Phases, each printing one JSON line:
              (knob, from, to, reason) and bottlenecks, and the replay
              epoch's images/s, step and the card's idle share between its
              steps' events.
+18. contrastive — the BASELINE's fifth configuration: CLIP
+             (``clip_resnet50_bert``: a ResNet-50 image tower projecting to
+             512, a 512/6/8/2048 text tower over a 30522-token vocabulary)
+             through ``cli train --task_type contrastive`` at 224 px,
+             captions of up to 77 tokens, global batch 512, AdamW lr 1e-4,
+             20 steps and the eval, on a seeded corpus of 10,240 rows: 1,024
+             distinct 224 px JPEGs (an 8 x 8 grid of random colours scaled
+             up, plus pixel noise), each with its own caption stored as a
+             variable-length ``list<int32>`` of lognormal length (5-77
+             tokens), PIL on the host. Twice: with ``--token_pack`` (the
+             captions ride as ragged pages with a bucket plan, one caption
+             a row, which K3 turns into the grid on the card; the caption
+             pages and plans of both distinct batches, as the trainer's
+             decoder makes them, are checked to be bucket mode and equal,
+             bit for bit, to the token_kernels phase's cases) and without (padded
+             to 77). Checks K1 once a train step and an eval batch (40), K3
+             20 launches in the packed run and 0 in the padded one, the 20
+             finite losses (the last five averaging below the first and
+             below the first five) and the eval (``retrieval_top1``) over
+             every row; prints the step, images/s, stall, K3's time, the
+             captions' payload and grid tokens and peak memory.
+19. vit     — ViT-B/16 (``vit_base``: 768/12/12/3072, patch 16, 196
+             tokens) through ``cli train --model_name vit_base
+             --device_decode`` at 224 px, 101 classes, batch 256, AdamW lr
+             3e-4, 20 steps and the eval, on the classification phases'
+             learnable set (10,240 rows, 40 eval batches). Checks K1 and K2
+             once a train step and an eval batch (60 each), no flash
+             launch, the falling loss and the eval over every row; prints
+             the step, images/s and peak memory beside ResNet-50's from the
+             device_decode phase (else the classification phase).
+20. moe     — BERT-base masked-LM with switch-MoE blocks (``--num_experts
+             8 --moe_every 2``: blocks 1, 3, ..., 11, each expert a
+             768-3072-768 MLP, capacity 2,560 of the 16,384 tokens a step;
+             the queues gathered by index, not by a dense dispatch tensor)
+             through ``cli train --flash_attention`` at sequence 512, batch
+             32, AdamW lr 1e-4, 20 steps on the slice phase's corpus, no
+             eval. Checks flash's 12 fwd, 12 dQ and 12 dK/dV launches a
+             step, the last step's six load-balance terms finite and above
+             0, and the falling loss; prints the step beside the slice
+             phase's dense step, tokens/s and peak memory.
 
-Phases 1-16 train with ``--no_autotune`` (``FIXED``): each compares its
-runs with another arm's, another phase's or an earlier tree's at a fixed
-layout and fixed queue depths, while the tuner moves depths and, in the
-packed causal-LM arm, re-plans the packed batches. Only phase 17 runs the
-tuner, the trainer's default, and it records and verifies every such
-run's trace.
+Every phase but 17 trains with ``--no_autotune`` (``FIXED``): each
+compares its runs with another arm's, another phase's or an earlier
+tree's at a fixed layout and fixed queue depths, while the tuner moves
+depths and, in the packed causal-LM arm, re-plans the packed batches.
+Only phase 17 runs the tuner, the trainer's default, and it records and
+verifies every such run's trace.
 
 Every check that fails raises, so the script exits non-zero. After the
 phases a ``done`` line gives the seconds since the script's ``main`` began
@@ -268,8 +312,10 @@ launches under the map_style and folder loaders as
 ``launches_map_style`` and ``launches_folder``, and their sums over the four
 runs of the pretrained_placement phase as
 ``launches_pretrained_placement`` and over the five runs of the
-workers_caches phase as ``launches_workers_caches``), and
-``{"ok": true, "device": {...}}``.
+workers_caches phase as ``launches_workers_caches``; K1 and K3's pack add
+the contrastive phase's packed run as ``launches_contrastive``, K1 and K2
+the vit phase's as ``launches_vit``, and the three flash kernels the moe
+phase's as ``launches_moe``), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -289,7 +335,8 @@ import numpy as np
 PHASES = ("probe", "build", "kernels", "slice", "trainer", "image_kernels",
           "jpeg_kernels", "classification", "device_decode", "token_kernels",
           "causal_lm", "ring_kernels", "ring_lm", "map_style", "folder",
-          "pretrained_placement", "workers_caches")
+          "pretrained_placement", "workers_caches", "contrastive", "vit",
+          "moe")
 SHAPE = (32, 12, 512, 64)  # B, H, S, D at BERT-base, seq 512
 STEPS = 20
 LAYERS = 12
@@ -300,8 +347,10 @@ SOURCE = "lance_distributed_training_tpu_torch/ops/csrc/flash_attn.cu"
 IMAGE_SOURCE = "lance_distributed_training_tpu_torch/ops/csrc/image.cu"
 IMAGE_REPLACES = "lance_distributed_training_tpu/ops/image.py:24,37"
 IMAGE_SHAPE = (512, 224, 224, 3)  # B, H, W, C of the classification path
+VIT_BATCH = 256
 IMAGE_OPS = 3  # f32 operations a K1 element takes: divide, subtract, divide
-IMAGE_CASES = (IMAGE_SHAPE, (1, 224, 224, 3), (3, 5, 16, 3), (1, 33, 17, 3),
+IMAGE_CASES = (IMAGE_SHAPE, (VIT_BATCH, 224, 224, 3), (1, 224, 224, 3),
+               (3, 5, 16, 3), (1, 33, 17, 3),
                (3, 33, 17, 3), (2, 7, 48, 3), (2, 3, 2048, 3),
                (1, 3, 4096, 3), (1, 2, 8192, 3))
 IMAGE_UNALIGNED_CASES = ((4, 224, 224, 3), (2, 9, 16, 3))
@@ -314,7 +363,7 @@ IMAGE_BATCH, IMAGE_CLASSES = 512, 101
 JPEG_SOURCE = "lance_distributed_training_tpu_torch/ops/csrc/jpeg_decode.cu"
 JPEG_REPLACES = "lance_distributed_training_tpu/ops/jpeg_device.py:180"
 UNIQUE_IMAGES = 64  # distinct images (and labels) of the classification set
-FIXED = ["--no_autotune"]  # phases 1-16 (the module's docstring)
+FIXED = ["--no_autotune"]  # every phase but 17 (the module's docstring)
 TOKEN_SOURCE = "lance_distributed_training_tpu_torch/ops/csrc/token_pack.cu"
 TOKEN_REPLACES = {
     "token_pack": "lance_distributed_training_tpu/ops/token_device.py:67",
@@ -2430,7 +2479,9 @@ def jpeg_kernels() -> dict:
         pages = decoder(table)
     entropy_ms = decoder.entropy_ms
     jpeg_bytes = sum(len(v) for v in table.column("image").to_pylist())
-    cases = [("path", on_card(pages), 224)]
+    cases = [("path", on_card(pages), 224),
+             ("path_vit", on_card(CoeffImageDecoder(image_size=224)(
+                 table.slice(0, VIT_BATCH))), 224)]
     ragged = CoeffImageDecoder(image_size=224).decode_payloads(
         _ragged_payloads())
     for size in (224, 32, 40):
@@ -2482,6 +2533,40 @@ def jpeg_kernels() -> dict:
 
 
 # ------------------------------------------------------------ causal LM
+
+CLIP_BATCH, CLIP_SEQ, CLIP_IMAGES = 512, 77, 1024
+CLIP_VOCAB = 30522
+# Caption lengths in tokens, lognormal: (log of the median, sigma, least).
+# An assumption of short captions, not a measured LAION statistic;
+# ``scripts/torch_slice_profile.py`` draws its captions from it too.
+CAPTION_LENGTHS = (float(np.log(14.0)), 0.5, 5)
+
+
+def caption_lengths(rng, n: int) -> np.ndarray:
+    """``n`` caption lengths drawn from ``CAPTION_LENGTHS`` by ``rng``,
+    clipped to ``CLIP_SEQ``."""
+    log_median, sigma, least = CAPTION_LENGTHS
+    return np.clip(rng.lognormal(log_median, sigma, n), least,
+                   CLIP_SEQ).astype(np.int64)
+
+
+def _caption_docs() -> list:
+    """The contrastive corpus's ``CLIP_IMAGES`` captions, one an image:
+    ``caption_lengths`` long, ids uniform in [2, ``CLIP_VOCAB``)."""
+    if "captions" not in _CORPUS:
+        rng = np.random.default_rng(16)
+        _CORPUS["captions"] = [
+            rng.integers(2, CLIP_VOCAB, int(m), dtype=np.int32)
+            for m in caption_lengths(rng, CLIP_IMAGES)]
+    return _CORPUS["captions"]
+
+
+def _caption_batches() -> list:
+    """The contrastive path's two distinct caption batches (rows cycle
+    through the images in order), through TokenDecoder's bucket mode."""
+    docs = _caption_docs()
+    return [_decode_tokens(docs[i:i + CLIP_BATCH], CLIP_SEQ, mode="bucket")
+            for i in range(0, CLIP_IMAGES, CLIP_BATCH)]
 
 
 _CORPUS: dict = {}
@@ -2562,6 +2647,8 @@ def _token_cases() -> list:
 
     path = _decode_tokens(_corpus_docs()[:GPT_BATCH], GPT_CONTEXT)
     cases = [("path", path, None)]
+    cases += [(f"contrastive_path_{i}", batch, None)
+              for i, batch in enumerate(_caption_batches())]
     cases.append(("empty_sequences", _decode_tokens(
         docs([0, 5, 0, 0, 40, 17, 0, 3, 64, 0]), 64), None))
     cases.append(("one_sequence", _decode_tokens(docs([37]), GPT_CONTEXT),
@@ -3236,6 +3323,293 @@ def ring_lm_run(slice_step_ms) -> dict:
     return {"launches": {k: launches[k] for k in RING_KERNELS}}
 
 
+# ------------------------------------------------ the remaining model families
+
+MOE_EXPERTS, MOE_EVERY = 8, 2
+
+
+def _caption_corpus(path: str) -> None:
+    """The contrastive corpus, ``CLIP_BATCH * STEPS`` rows: ``CLIP_IMAGES``
+    distinct seeded 224 px JPEGs (an 8 x 8 grid of random colours scaled up,
+    plus pixel noise, so that a ResNet tells them apart), row i holding image
+    i mod ``CLIP_IMAGES`` and that image's own caption from
+    ``_caption_docs``, a variable-length ``list<int32>``. No mask column:
+    the caption decoder makes it."""
+    import io
+
+    import pyarrow as pa
+    from PIL import Image
+    from lance_distributed_training_tpu_torch.data import write_dataset
+
+    rng = np.random.default_rng(15)
+    jpegs, captions = [], _caption_docs()
+    for _ in range(CLIP_IMAGES):
+        grid = rng.integers(0, 256, (8, 8, 3)).astype(np.float32)
+        pixels = np.kron(grid, np.ones((28, 28, 1), np.float32))
+        pixels += rng.normal(0.0, 24.0, pixels.shape)
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(pixels, 0, 255).astype(np.uint8)).save(
+            buf, format="JPEG", quality=85)
+        jpegs.append(buf.getvalue())
+    rows = CLIP_BATCH * STEPS
+    table = pa.table({
+        "image": pa.array([jpegs[i % CLIP_IMAGES] for i in range(rows)],
+                          pa.binary()),
+        "input_ids": pa.array([captions[i % CLIP_IMAGES]
+                               for i in range(rows)], pa.list_(pa.int32())),
+    })
+    write_dataset(table, path, schema=table.schema, mode="create")
+
+
+def _caption_bucket_mode(path: str) -> dict:
+    """The packed run's caption pages and plans, as the decoder the trainer
+    builds makes them from the corpus's two distinct batches: bucket mode,
+    one caption a row, and equal bit for bit to the token_kernels phase's
+    ``contrastive_path`` cases, so that those cases hold K3 at this path's
+    shapes."""
+    from lance_distributed_training_tpu_torch.data import (
+        Dataset,
+        TokenPackConfig,
+        decoder_for_task,
+    )
+    from lance_distributed_training_tpu_torch.data.token_pack import (
+        PACK_MODE_BUCKET,
+        pack_meta,
+    )
+
+    decode = decoder_for_task(
+        "contrastive", seq_len=CLIP_SEQ, image_size=224,
+        token_pack=TokenPackConfig(pack_len=CLIP_SEQ,
+                                   rows_multiple=PACK_ROWS_MULTIPLE))
+    keys = ("input_ids__values", "input_ids__offsets", "_pack_slot",
+            "_pack_start", "_host_pack_meta")
+    plans = []
+    for i, want in enumerate(_caption_batches()):
+        batch = decode(Dataset(path).take(
+            np.arange(i * CLIP_BATCH, (i + 1) * CLIP_BATCH)))
+        rows, pack_len, payload, mode = pack_meta(batch)
+        if mode != PACK_MODE_BUCKET or rows != CLIP_BATCH:
+            raise RuntimeError(f"contrastive: caption plan {i} mode {mode}, "
+                               f"rows {rows}; expected bucket mode, "
+                               f"{CLIP_BATCH}")
+        differ = [k for k in keys if not np.array_equal(batch[k], want[k])]
+        if differ:
+            raise RuntimeError(f"contrastive: caption batch {i} differs from "
+                               f"the token_kernels case at {differ}")
+        plans.append({"rows": rows, "pack_len": pack_len,
+                      "payload_tokens": payload})
+    return plans
+
+
+def _model_run_fields(result: dict, launches: dict, rows: int) -> dict:
+    """The figures each run of the model phases prints."""
+    import torch
+
+    losses = result["losses"]
+    step_ms = statistics.median(result["step_ms"][4:])
+    return {
+        "steps": result["steps"], "first_loss": losses[0],
+        "last5_mean_loss": statistics.fmean(losses[-5:]), "losses": losses,
+        "step_ms_median_5_20": step_ms,
+        "peak_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "eval_accuracy": result.get("eval_accuracy"),
+        "eval_rows": result.get("eval_rows"), "dataset_rows": rows,
+        "launches": {k: launches[k] for k in launches if launches[k]},
+        "train_seconds": result["train_time"],
+        "total_seconds": result["total_time"],
+        "model_params": result["model_params"],
+    }
+
+
+def contrastive_run() -> dict:
+    """CLIP (``clip_resnet50_bert``) through ``cli train --task_type
+    contrastive`` at 224 px, captions of up to 77 tokens, global batch 512,
+    AdamW, STEPS steps and the eval, with ``--token_pack`` (K3 buckets the
+    captions) and without."""
+    import torch
+    from lance_distributed_training_tpu_torch import cli, ops
+
+    rows = CLIP_BATCH * STEPS
+    eval_batches = -(-rows // CLIP_BATCH)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "captions")
+        t0 = time.monotonic()
+        _caption_corpus(path)
+        author_s = time.monotonic() - t0
+        plan = _caption_bucket_mode(path)
+        os.environ["LDT_METRICS_PATH"] = os.path.join(tmp, "metrics.jsonl")
+        for arm in ("packed", "padded"):
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            result = cli.main([
+                "train", "--dataset_path", path,
+                "--task_type", "contrastive",
+                "--model_name", "clip_resnet50_bert", "--image_size", "224",
+                "--seq_len", str(CLIP_SEQ), "--batch_size", str(CLIP_BATCH),
+                "--optimizer", "adamw", "--lr", "1e-4",
+                "--max_steps", str(STEPS), "--epochs", "1",
+                "--log_every", "5", "--device", "cuda",
+                "--pack_rows_multiple", str(PACK_ROWS_MULTIPLE),
+                "--token_pack" if arm == "packed" else "--no_token_pack",
+                *FIXED,
+            ])
+            launches = dict(ops.LAUNCHES)
+            fields = {"arm": arm, **_model_run_fields(result, launches, rows)}
+            losses = fields["losses"]
+            fields.update(first5_mean_loss=statistics.fmean(losses[:5]),
+                          # A batch of unit rows all alike scores ln B.
+                          ln_batch=float(np.log(CLIP_BATCH)))
+            fields.update(
+                images_per_sec_steps_6_20=result["images_per_sec"],
+                images_per_sec_whole_run=result["images_per_sec_whole_run"],
+                loader_stall_pct=result["loader_stall_pct"],
+                decoder=result["decoder_arm"],
+                pack_device_ms=result.get("pack_device_ms"),
+                pack_new_shapes_total=result.get("pack_new_shapes_total"),
+                caption_payload_tokens=result.get("pack_payload_tokens_total"),
+                caption_grid_tokens=result.get("pack_grid_tokens_total"),
+                eval_retrieval_top1=result.get("eval_accuracy"),
+                dataset_seconds=author_s, caption_plans=plan)
+            emit("contrastive", **fields)
+            _check_trained(f"contrastive {arm}", fields)
+            if not fields["last5_mean_loss"] < fields["first5_mean_loss"]:
+                raise RuntimeError(f"contrastive {arm}: the last five "
+                                   "losses average above the first five")
+            if fields["eval_rows"] != rows:
+                raise RuntimeError(f"contrastive {arm}: eval covered "
+                                   f"{fields['eval_rows']} rows of {rows}")
+            want = {"image_normalize": STEPS + eval_batches,
+                    "token_pack": STEPS if arm == "packed" else 0,
+                    "jpeg_decode": 0, "fwd": 0}
+            wrong = {k: (launches[k], n) for k, n in want.items()
+                     if launches[k] != n}
+            if wrong:
+                raise RuntimeError(f"contrastive {arm}: launches (got, "
+                                   f"expected) {wrong}")
+            out[arm] = fields
+    return {"launches": {k: out["packed"]["launches"].get(k, 0)
+                         for k in ("image_normalize", "token_pack")},
+            "arms": out}
+
+
+def vit_run(resnet_fields) -> dict:
+    """ViT-B/16 (``vit_base``) classification through ``cli train
+    --device_decode`` at 224 px, 101 classes, batch 256, AdamW, STEPS steps
+    and the eval, on the classification phases' learnable set."""
+    import torch
+    from lance_distributed_training_tpu_torch import cli, ops
+
+    rows = IMAGE_BATCH * STEPS
+    eval_batches = -(-rows // VIT_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "food")
+        t0 = time.monotonic()
+        _learnable_dataset(os.path.join(tmp, "drawn"), path, rows)
+        author_s = time.monotonic() - t0
+        os.environ["LDT_METRICS_PATH"] = os.path.join(tmp, "metrics.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        result = cli.main([
+            "train", "--dataset_path", path, "--task_type", "classification",
+            "--model_name", "vit_base", "--image_size", "224",
+            "--num_classes", str(IMAGE_CLASSES),
+            "--batch_size", str(VIT_BATCH), "--optimizer", "adamw",
+            "--lr", "3e-4", "--max_steps", str(STEPS), "--epochs", "1",
+            "--log_every", "5", "--device", "cuda", "--device_decode",
+            *FIXED,
+        ])
+        launches = dict(ops.LAUNCHES)
+    fields = _model_run_fields(result, launches, rows)
+    fields.update(
+        batch=VIT_BATCH,
+        images_per_sec_steps_6_20=result["images_per_sec"],
+        loader_stall_pct=result["loader_stall_pct"],
+        decoder=result["decoder_arm"],
+        decode_device_ms=result.get("decode_device_ms"),
+        decode_entropy_ms=result.get("decode_entropy_ms"),
+        dataset_seconds=author_s)
+    if resnet_fields is not None:
+        fields.update(
+            resnet50_decoder=resnet_fields["decoder"],
+            resnet50_step_ms_median_5_20=resnet_fields["step_ms_median_5_20"],
+            resnet50_images_per_sec_steps_6_20=resnet_fields[
+                "images_per_sec_steps_6_20"],
+            resnet50_peak_memory_allocated_bytes=resnet_fields[
+                "peak_memory_allocated_bytes"])
+    emit("vit", **fields)
+    _check_trained("vit", fields)
+    if fields["eval_rows"] != rows:
+        raise RuntimeError(f"vit: eval covered {fields['eval_rows']} rows "
+                           f"of {rows}")
+    if fields["decoder"] != "coeff":
+        raise RuntimeError(f"vit: decoder arm {fields['decoder']!r}")
+    want = {"image_normalize": STEPS + eval_batches,
+            "jpeg_decode": STEPS + eval_batches, "fwd": 0}
+    wrong = {k: (launches[k], n) for k, n in want.items()
+             if launches[k] != n}
+    if wrong:
+        raise RuntimeError(f"vit: launches (got, expected) {wrong}")
+    return {"launches": {k: launches[k]
+                         for k in ("image_normalize", "jpeg_decode")}}
+
+
+def moe_run(slice_step_ms) -> dict:
+    """BERT-base masked-LM with switch-MoE blocks (``--num_experts 8
+    --moe_every 2``: six of the twelve blocks, the experts' queues gathered
+    by index) through ``cli train --flash_attention`` on the slice phase's
+    corpus, sequence 512, batch 32, STEPS steps."""
+    import torch
+    from lance_distributed_training_tpu_torch import cli, ops
+    from lance_distributed_training_tpu_torch.data import (
+        create_text_token_dataset,
+    )
+    from lance_distributed_training_tpu_torch.models.moe import MoEMLP
+    from lance_distributed_training_tpu_torch.ops import flash
+
+    b, _, s, _ = SHAPE
+    lengths, docs = _slice_docs()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens")
+        create_text_token_dataset(path, docs, seq_len=s, pack=False)
+        os.environ["LDT_METRICS_PATH"] = os.path.join(tmp, "metrics.jsonl")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        result = cli.main([
+            "train", "--dataset_path", path, "--task_type", "masked_lm",
+            "--model_name", "bert_base", "--seq_len", str(s),
+            "--flash_attention", "--num_experts", str(MOE_EXPERTS),
+            "--moe_every", str(MOE_EVERY), "--batch_size", str(b),
+            "--optimizer", "adamw", "--lr", "1e-4",
+            "--max_steps", str(STEPS), "--epochs", "1", "--log_every", "5",
+            "--device", "cuda", "--no_eval_at_end", *FIXED,
+        ])
+        launches = {k: ops.LAUNCHES[k] for k in flash.LAUNCHES}
+    # The last step's load-balance term of each MoE layer.
+    aux = [float(m.aux.detach()) for m in result["model"].modules()
+           if isinstance(m, MoEMLP)]
+    tokens = b * s
+    fields = _model_run_fields(result, launches, len(docs))
+    fields.update(
+        num_experts=MOE_EXPERTS, moe_every=MOE_EVERY, moe_layers=len(aux),
+        capacity=int(1.25 * tokens / MOE_EXPERTS), tokens_a_step=tokens,
+        dispatch="index (gather of the queues, gather of the outputs)",
+        last_step_aux=aux, dense_slice_step_ms_median_5_20=slice_step_ms,
+        tokens_per_sec=tokens / (fields["step_ms_median_5_20"] / 1e3),
+        valid_tokens_per_sec=int(sum(min(int(n), s) for n in lengths))
+        / result["steps"] / (fields["step_ms_median_5_20"] / 1e3))
+    emit("moe", **fields)
+    _check_trained("moe", fields)
+    if len(aux) != LAYERS // MOE_EVERY or not all(
+            np.isfinite(a) and a > 0 for a in aux):
+        raise RuntimeError(f"moe: load-balance terms {aux}")
+    want = LAYERS * STEPS
+    if any(launches[k] != want for k in launches):
+        raise RuntimeError(f"moe: launch counts {launches}, expected {want} "
+                           f"each")
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -3285,21 +3659,36 @@ def main(argv=None) -> int:
             "launches"]
     if "workers_caches" in phases:
         loaders["workers_caches"] = workers_caches_run()["launches"]
+    if "contrastive" in phases:
+        loaders["contrastive"] = contrastive_run()["launches"]
+    if "vit" in phases:
+        # ResNet-50 beside it, in the same decoder arm when that phase ran.
+        resnet = coeff or pixel
+        loaders["vit"] = vit_run(resnet["fields"] if resnet else None)[
+            "launches"]
+    if "moe" in phases:
+        loaders["moe"] = moe_run(sliced["step_ms"] if sliced else None)[
+            "launches"]
     emit("done", phases=phases, seconds=time.monotonic() - t0)
     if set(phases) != set(PHASES):
         return 0  # a partial run prints no result
     print(card["smi"], flush=True)
+
+    def phase_launches(name: str) -> dict:
+        """``name``'s launches under the phases after the main paths."""
+        return {f"launches_{phase}": counts[name]
+                for phase, counts in loaders.items() if name in counts}
+
     table = [{
         "name": f"flash_attention_{name}", "route": "cuda",
         "source": SOURCE, "replaces": REPLACES[name],
-        "launches": launches[name],
+        "launches": launches[name], **phase_launches(name),
         "max_abs_err": timing["errors"][name], **timing["table"][name],
     } for name in ("fwd", "bwd_dq", "bwd_dkv")]
     table.append({
         "name": "image_normalize", "route": "cuda", "source": IMAGE_SOURCE,
         "replaces": IMAGE_REPLACES, "launches": launches["image_normalize"],
-        **{f"launches_{phase}": counts["image_normalize"]
-           for phase, counts in loaders.items()},
+        **phase_launches("image_normalize"),
         "max_abs_err": 0.0, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None, "share_of_bound": k1["share_of_bound"],
@@ -3310,8 +3699,7 @@ def main(argv=None) -> int:
     table.append({
         "name": "jpeg_decode", "route": "cuda", "source": JPEG_SOURCE,
         "replaces": JPEG_REPLACES, "launches": launches["jpeg_decode"],
-        **{f"launches_{phase}": counts["jpeg_decode"]
-           for phase, counts in loaders.items()},
+        **phase_launches("jpeg_decode"),
         "max_abs_err": 0.0, "ms": k2["ms"],
         "back_to_back_ms": k2["back_to_back_ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -3324,6 +3712,7 @@ def main(argv=None) -> int:
         table.append({
             "name": name, "route": "cuda", "source": TOKEN_SOURCE,
             "replaces": TOKEN_REPLACES[name], "launches": launches[name],
+            **phase_launches(name),
             "check_launches": k3["check_launches"][name],
             "max_abs_err": 0.0, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -3,11 +3,13 @@
 A second package beside the JAX one, which stays the reference. It mirrors
 the JAX package's module layout and imports nothing of it (nor JAX): it keeps
 its own copies of the host code it needs. The ported paths are image
-classification (the ResNet family on JPEG datasets, host-decoded by a
-native libjpeg batch decoder or PIL, normalised and flipped on the card by
-the hand-written K1 kernel, ``ops/csrc/image.cu``; data parallel over
-``torch.distributed``) and masked-LM training of the BERT family through
-hand-written Hopper flash-attention kernels (``ops/csrc/flash_attn.cu``).
+classification (the ResNet family and the ViTs on JPEG datasets,
+host-decoded by a native libjpeg batch decoder or PIL, normalised and
+flipped on the card by the hand-written K1 kernel, ``ops/csrc/image.cu``;
+data parallel over ``torch.distributed``), masked-LM and causal-LM training
+of the BERT and GPT families (with switch-MoE blocks on request) through
+hand-written Hopper flash-attention kernels (``ops/csrc/flash_attn.cu``),
+and CLIP contrastive training on image-caption rows.
 Entry points run on CUDA unless the caller asks for the CPU
 (``TrainConfig.device`` / ``--device cpu``).
 
@@ -27,8 +29,8 @@ _EXPORTS = {
         "make_train_pipeline", "write_dataset",
     ),
     "models": (
-        "ResNet", "TransformerEncoder", "get_model_and_loss", "get_task",
-        "load_flax_params", "load_flax_resnet",
+        "CLIP", "ResNet", "TransformerEncoder", "ViT", "get_model_and_loss",
+        "get_task", "load_flax_params", "load_flax_resnet",
     ),
     "ops": (
         "LAUNCHES", "flash_attention", "make_flash_attention",

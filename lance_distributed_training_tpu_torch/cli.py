@@ -2,8 +2,12 @@
 
 Counterpart of ``lance_distributed_training_tpu/cli.py`` for the ported
 paths, image classification (its defaults: ResNet-50, 224 px, 101 classes,
-global batch 512, SGD lr 0.05 momentum 0.9, flips, eval at the end),
-masked-LM and causal-LM text with ``--token_pack`` (ragged pages, an FFD
+global batch 512, SGD lr 0.05 momentum 0.9, flips, eval at the end; the
+ViTs by ``--model_name vit_tiny|vit_small|vit_base``), CLIP contrastive
+image-caption training (``--task_type contrastive``, default
+``clip_resnet50_bert``; ``clip_tiny``), masked-LM and causal-LM text with
+switch-MoE blocks (``--num_experts N --moe_every K``) and with
+``--token_pack`` (ragged pages, an FFD
 plan and K3 packing on the device), ``--seq_parallelism`` (masked-LM
 through ring attention), ``--device_decode`` (JPEG decode split
 at the entropy boundary, K2 on the device), plus ``--device {cuda,cpu}``
@@ -32,8 +36,10 @@ shared-memory slots unless ``--no_shm_workers``), ``--batch_cache`` off
 The JAX runtime's flags (``--backend``, ``--num_cpu_devices``,
 ``--no_compile_cache``, ``--compile_cache_dir``) raise: the port picks its
 device with ``--device`` and has no XLA compile cache. Any other flag of
-the JAX CLI raises "not yet ported"; so do the other subcommands and task
-types. Usage::
+the JAX CLI raises "not yet ported"; so do the other subcommands. Model
+and vocabulary default per task (``--vocab_size`` unset keeps the model's
+own: 30522 for BERT and CLIP-ResNet-50, 50257 for GPT, 1000 for
+``clip_tiny``). Usage::
 
     python -m lance_distributed_training_tpu_torch.cli train \\
         --dataset_path /data/food101 --max_steps 20 [--device_decode]
@@ -45,6 +51,17 @@ types. Usage::
         --dataset_path /data/web_tokens --task_type causal_lm \
         --model_name gpt_base --seq_len 1024 --token_pack --flash_attention \
         --batch_size 64 --optimizer adamw --lr 1e-4 --max_steps 20
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/laion_subset --task_type contrastive \
+        --seq_len 77 --token_pack --optimizer adamw --lr 1e-4 --max_steps 20
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/food101 --model_name vit_base --batch_size 256 \
+        --device_decode --max_steps 20
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/c4_tokens --task_type masked_lm \
+        --model_name bert_base --seq_len 512 --flash_attention \
+        --num_experts 8 --moe_every 2 --batch_size 32 --optimizer adamw \
+        --lr 1e-4 --max_steps 20
 
 The map-style loader on a filtered pool with a seeded held-out tenth, and
 the folder arm (authored with ``python -m
@@ -137,7 +154,7 @@ class _Parser(argparse.ArgumentParser):
 
 def build_parser() -> argparse.ArgumentParser:
     p = _Parser(description="PyTorch/CUDA trainer (classification, "
-                            "masked-LM, causal-LM)")
+                            "masked-LM, causal-LM, contrastive)")
     p.add_argument("--dataset_path", type=str, required=True)
     p.add_argument("--val_dataset_path", type=str, default=None,
                    help="held-out dataset for --eval_every and the eval at "
@@ -148,9 +165,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "composes with --filter)")
     p.add_argument("--task_type", type=str, default="classification",
                    choices=["classification", "masked_lm", "causal_lm",
-                            "contrastive"],
-                   help="classification, masked_lm and causal_lm are "
-                        "ported; contrastive raises")
+                            "contrastive"])
     p.add_argument("--num_classes", type=int, default=101)
     p.add_argument("--sampler_type", type=str, default="batch",
                    choices=["batch", "fragment", "full", "sharded_batch",
@@ -188,16 +203,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="single process even with --coordinator_address")
     p.add_argument("--model_name", type=str, default=None,
                    choices=["resnet18", "resnet34", "resnet50", "resnet101",
-                            "resnet152", "bert_base", "bert_small",
-                            "gpt_base", "gpt_small"],
-                   help="default per task: resnet50 / bert_base / gpt_base")
+                            "resnet152", "vit_tiny", "vit_small", "vit_base",
+                            "bert_base", "bert_small", "gpt_base",
+                            "gpt_small", "clip_resnet50_bert", "clip_tiny"],
+                   help="default per task: resnet50 / bert_base / gpt_base "
+                        "/ clip_resnet50_bert")
     p.add_argument("--pretrained", type=str, default=None,
                    help="path to a torch.save'd torchvision ResNet "
                         "state_dict: fine-tune from its backbone weights "
                         "(the reference's pretrained-ResNet50 task shape)")
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--seq_len", type=int, default=128)
-    p.add_argument("--vocab_size", type=int, default=None)
+    p.add_argument("--vocab_size", type=int, default=None,
+                   help="token vocabulary; default = the model's own "
+                        "(bert_*, clip_resnet50_bert: 30522, gpt_*: 50257, "
+                        "clip_tiny: 1000)")
     p.add_argument("--prefetch", type=int, default=2)
     p.add_argument("--producer_threads", type=int, default=4,
                    help="decode-producer threads (cross-batch decode "
@@ -297,6 +317,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flash_attention", action="store_true",
                    help="attention through the hand-written CUDA flash "
                         "kernels (the plain version on the CPU)")
+    p.add_argument("--num_experts", type=int, default=0,
+                   help=">0: switch-MoE transformer blocks (masked_lm, "
+                        "causal_lm; every expert on each card)")
+    p.add_argument("--moe_every", type=int, default=2,
+                   help="MoE MLP on every Nth block")
     p.add_argument("--seq_parallelism", type=int, default=1,
                    help="sequence/context-parallel degree (ring attention)")
     dd = p.add_mutually_exclusive_group()

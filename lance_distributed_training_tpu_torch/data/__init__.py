@@ -12,7 +12,8 @@ _EXPORTS = {
     "authoring": (
         "IMAGE_SCHEMA", "create_dataset_from_image_folder",
         "create_food101_datasets", "create_synthetic_classification_dataset",
-        "create_synthetic_image_folder", "create_text_token_dataset",
+        "create_synthetic_image_folder",
+        "create_synthetic_image_text_dataset", "create_text_token_dataset",
         "create_variable_length_token_dataset", "ingest_on_process_zero",
     ),
     "buffers": (
@@ -24,7 +25,8 @@ _EXPORTS = {
         "plan_fingerprint",
     ),
     "decode": (
-        "ImageClassificationDecoder", "decoder_for_task", "numeric_decoder",
+        "ImageClassificationDecoder", "ImageTextDecoder", "decoder_for_task",
+        "numeric_decoder",
     ),
     "device_decode": (
         "CoeffImageDecoder",

@@ -1,7 +1,8 @@
 """Dataset authoring — tokenised text rows, image rows and image folders.
 
 Counterpart of ``lance_distributed_training_tpu/data/authoring.py``: the
-token and synthetic-image writers, an image-folder tree (or the Food-101
+token, synthetic-image and synthetic image-caption writers, an
+image-folder tree (or the Food-101
 archive) into a columnar dataset, the synthetic image-folder tree of the
 file-based control arm, ``ingest_on_process_zero`` and the authoring CLI.
 The rows and the schemas are the same (the same seed gives the same JPEG
@@ -27,7 +28,8 @@ from .format import Dataset, write_dataset
 __all__ = ["IMAGE_SCHEMA", "create_dataset_from_image_folder",
            "create_food101_datasets",
            "create_synthetic_classification_dataset",
-           "create_synthetic_image_folder", "create_text_token_dataset",
+           "create_synthetic_image_folder",
+           "create_synthetic_image_text_dataset", "create_text_token_dataset",
            "create_variable_length_token_dataset", "ingest_on_process_zero",
            "main"]
 
@@ -188,6 +190,61 @@ def create_synthetic_classification_dataset(
 
     return write_dataset(
         gen(), output_path, schema=IMAGE_SCHEMA, mode="overwrite",
+        max_rows_per_file=fragment_size,
+    )
+
+
+def create_synthetic_image_text_dataset(
+    output_path: str,
+    rows: int,
+    seq_len: int = 16,
+    vocab_size: int = 1000,
+    image_size: int = 224,
+    fragment_size: int = 12500,
+    unique_images: int = 64,
+    seed: int = 0,
+    jpeg_quality: int = 85,
+) -> Dataset:
+    """LAION-shaped mixed-modal rows ``{image: JPEG bytes, input_ids,
+    attention_mask}`` for the CLIP contrastive configuration: a seeded pool
+    of ``unique_images`` noise JPEGs over the rows, and per row a caption of
+    ``seq_len // 2 .. seq_len`` ids uniform in ``[2, vocab_size)``, stored
+    as fixed-size ``seq_len`` lists padded with 0 beside its mask. The
+    decode hook is :class:`..decode.ImageTextDecoder`."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    pool = []
+    for _ in range(min(unique_images, rows)):
+        arr = (rng.random((image_size, image_size, 3)) * 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="JPEG", quality=jpeg_quality)
+        pool.append(buf.getvalue())
+    schema = pa.schema([
+        ("image", pa.binary()),
+        ("input_ids", pa.list_(pa.int32(), seq_len)),
+        ("attention_mask", pa.list_(pa.int8(), seq_len)),
+    ])
+
+    def gen() -> Iterator[pa.RecordBatch]:
+        done = 0
+        while done < rows:
+            n = min(_ROWS_PER_BATCH, rows - done)
+            images = [pool[(done + i) % len(pool)] for i in range(n)]
+            lengths = rng.integers(seq_len // 2, seq_len + 1, n)
+            ids = [list(rng.integers(2, vocab_size, length))
+                   + [0] * (seq_len - length) for length in lengths]
+            mask = [[1] * length + [0] * (seq_len - length)
+                    for length in lengths]
+            yield pa.record_batch(
+                [pa.array(images, pa.binary()),
+                 pa.array(ids, schema.field("input_ids").type),
+                 pa.array(mask, schema.field("attention_mask").type)],
+                schema=schema)
+            done += n
+
+    return write_dataset(
+        gen(), output_path, schema=schema, mode="overwrite",
         max_rows_per_file=fragment_size,
     )
 

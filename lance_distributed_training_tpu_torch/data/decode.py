@@ -1,7 +1,9 @@
 """Decode hooks: Arrow batches → dicts of host numpy arrays.
 
 Counterpart of ``lance_distributed_training_tpu/data/decode.py`` for the
-text tasks and image classification. The image decoder turns JPEG bytes
+text tasks, image classification and the mixed-modal contrastive task
+(:class:`ImageTextDecoder`: images and captions in one batch). The image
+decoder turns JPEG bytes
 into a uint8 NHWC page through the native batch decoder (``native/``) when
 its library builds, else through PIL on a thread pool, as the JAX decoder
 does; normalisation and augmentation run on the device (``ops/image.py``).
@@ -11,8 +13,7 @@ With a ``buffer_pool`` (:class:`~.buffers.BufferPool`) every decoder writes
 its output pages into leased pages, which the loaders release. Each decoder
 states its batch-cache identity (``cache_fingerprint``, the JAX string) and
 pickles for a worker process without its pool and native bindings; the
-pixel decoder counts ``decode_pixel_bytes_total`` in the process registry.
-Decoding for ``contrastive`` is not ported yet.
+pixel decoders count ``decode_pixel_bytes_total`` in the process registry.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ from .token_pack import (
     primitive_view,
 )
 
-__all__ = ["ImageClassificationDecoder", "decoder_for_task",
-           "numeric_decoder"]
+__all__ = ["ImageClassificationDecoder", "ImageTextDecoder",
+           "decoder_for_task", "numeric_decoder"]
 
 
 def _pixel_bytes_counter():
@@ -198,12 +199,86 @@ class ImageClassificationDecoder:
         return out
 
 
+class ImageTextDecoder:
+    """Mixed-modal collate: ``{image: JPEG bytes, <token columns>}`` rows →
+    one batch dict (the BASELINE "LAION-subset image+caption → CLIP"
+    configuration). Images go through an :class:`ImageClassificationDecoder`
+    (no label), the token columns through the ragged plane's
+    :class:`~.token_pack.TokenDecoder` in ``bucket`` mode with
+    ``token_pack`` (one caption a slot, so caption i stays paired with
+    image i, the slot length bucketed to the batch's longest caption; K3
+    finishes it on the device), in ``pad`` mode with ``seq_len`` alone, or
+    through :func:`numeric_decoder` with neither. Fixed-size caption
+    columns pass through the token decoder unchanged in every mode."""
+
+    def __init__(self, image_size: int = 224, image_column: str = "image",
+                 buffer_pool=None, token_pack: Optional[TokenPackConfig] = None,
+                 seq_len: Optional[int] = None):
+        self._image = ImageClassificationDecoder(
+            image_size=image_size, image_column=image_column,
+            label_column=None, buffer_pool=buffer_pool)
+        self.image_column = image_column
+        self._text = None
+        if token_pack is not None:
+            self._text = TokenDecoder(mode="bucket",
+                                      seq_len=seq_len or token_pack.pack_len,
+                                      planner=TokenPackPlanner(token_pack),
+                                      buffer_pool=buffer_pool,
+                                      pad_id=token_pack.pad_id)
+        elif seq_len is not None:
+            self._text = TokenDecoder(mode="pad", seq_len=seq_len,
+                                      buffer_pool=buffer_pool)
+
+    @property
+    def buffer_pool(self):
+        return self._image.buffer_pool
+
+    @buffer_pool.setter
+    def buffer_pool(self, pool) -> None:
+        self._image.buffer_pool = pool
+        if self._text is not None:
+            self._text.buffer_pool = pool
+
+    @property
+    def arm(self) -> str:
+        """The image decoder's arm (``native`` or ``pil``)."""
+        return self._image.arm
+
+    def cache_fingerprint(self) -> str:
+        text = (self._text.cache_fingerprint() if self._text is not None
+                else "numeric")
+        return f"ImageTextDecoder/{self._image.cache_fingerprint()}/{text}"
+
+    def tunables(self):
+        if self._text is None:
+            return []
+        return self._text.tunables()
+
+    def counters(self) -> dict:
+        """The token decoder's ``pack_*`` counters (none with the numeric
+        decoder)."""
+        return self._text.counters() if self._text is not None else {}
+
+    def __call__(self, batch: Union[pa.RecordBatch, pa.Table]
+                 ) -> dict[str, np.ndarray]:
+        table = (pa.Table.from_batches([batch])
+                 if isinstance(batch, pa.RecordBatch) else batch)
+        text_fn = self._text if self._text is not None else numeric_decoder
+        out = text_fn(table.drop_columns([self.image_column]))
+        out["image"] = self._image.decode_column(
+            table.column(self.image_column))
+        _pixel_bytes_counter().inc(out["image"].nbytes)
+        return out
+
+
 def decoder_for_task(task_type: str, seq_len: Optional[int] = None,
                      image_size: int = 224, device_decode: bool = False,
                      token_pack: Optional[TokenPackConfig] = None,
                      buffer_pool=None):
     """The task-type → decode-hook dispatch. ``classification`` gets the
-    :class:`ImageClassificationDecoder` at ``image_size``; for the text
+    :class:`ImageClassificationDecoder` at ``image_size``, ``contrastive``
+    the :class:`ImageTextDecoder` (captions bucketed with ``token_pack``,
+    padded to ``seq_len`` without); for the text
     tasks, ``token_pack`` (a :class:`~.token_pack.TokenPackConfig`) selects
     the ragged FFD-packing :class:`~.token_pack.TokenDecoder`, ``seq_len``
     alone the padded one, and with neither the plain
@@ -237,9 +312,9 @@ def decoder_for_task(task_type: str, seq_len: Optional[int] = None,
                                 buffer_pool=buffer_pool)
         return numeric_decoder
     if task_type == "contrastive":
-        raise NotImplementedError(
-            f"decoding for task_type {task_type!r} is not yet ported"
-        )
+        return ImageTextDecoder(image_size=image_size,
+                                buffer_pool=buffer_pool,
+                                token_pack=token_pack, seq_len=seq_len)
     raise ValueError(f"Invalid task type: {task_type}")
 
 

@@ -1,9 +1,9 @@
 """Task registry — ``task_type`` string → (model, loss_fn, eval_fn).
 
 Counterpart of ``lance_distributed_training_tpu/models/registry.py``: only
-``"classification"`` is registered here and any other task type raises
-``ValueError``, with the same message; the other tasks live behind
-:func:`~.tasks.get_task`.
+``"classification"`` is registered here (a ResNet or a ViT by
+``model_name``) and any other task type raises ``ValueError``, with the
+same message; the other tasks live behind :func:`~.tasks.get_task`.
 """
 
 from __future__ import annotations

@@ -1,20 +1,26 @@
 """Task abstraction: model + forward + loss + metric as one unit.
 
-Counterpart of ``lance_distributed_training_tpu/models/tasks.py``, ported for
-``classification``, ``masked_lm`` and ``causal_lm``. The text tasks take
-packed batches too: ``segment_ids`` and ``position_ids`` (from K3,
-:mod:`..ops.token_device`) go to the model when the batch carries them.
-The JAX tasks draw their random masks (the MLM mask, the per-image flip)
-with ``jax.random``; here ``forward`` takes the draw explicitly
-(``mlm_mask``, ``flip_mask``) or makes it from a ``torch.Generator`` (the
-two generators give different bits, so parity tests pass the draw in).
+Counterpart of ``lance_distributed_training_tpu/models/tasks.py``:
+``classification`` (the ResNets and the ViTs), ``masked_lm`` and
+``causal_lm`` (with switch-MoE blocks when ``num_experts > 0``: in
+training their load-balance terms, weighted 0.01, join the loss) and
+``contrastive`` (CLIP). The text tasks take packed batches too:
+``segment_ids`` and ``position_ids`` (from K3, :mod:`..ops.token_device`)
+go to the model when the batch carries them; a contrastive batch's
+captions may come bucketed by K3 (one caption a row). The JAX tasks draw
+their random masks (the MLM mask, the per-image flip) with ``jax.random``;
+here ``forward`` takes the draw explicitly (``mlm_mask``, ``flip_mask``)
+or makes it from a ``torch.Generator`` (the two generators give different
+bits, so parity tests pass the draw in).
 
 Across processes the text losses are the JAX package's weighted mean over
 the GLOBAL batch: with ``loss_group`` each process divides its weighted
 sum by the group's total weight (all-reduced, no gradient) and scales by
 the group's size, so that DDP's mean of the per-process gradients is the
 gradient of the global loss, and the mean of the per-process losses is
-that loss.
+that loss. The MoE layers route over the same group's global batch and
+the contrastive loss gathers both embeddings over it (``models/moe.py``,
+``models/clip.py``).
 """
 
 from __future__ import annotations
@@ -27,13 +33,23 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops.image import normalize_flip
+from .clip import (
+    clip_contrastive_loss,
+    clip_resnet50_bert,
+    clip_tiny,
+    retrieval_top1,
+)
+from .moe import moe_aux_loss, set_moe_group
 from .resnet import RESNETS
 from .transformer import bert_base, bert_small, gpt_base, gpt_small
+from .vit import vit_base, vit_small, vit_tiny
 
 __all__ = ["Task", "get_task", "classification_task", "masked_lm_task",
-           "causal_lm_task", "draw_mlm_mask", "TASK_REGISTRY"]
+           "causal_lm_task", "contrastive_task", "draw_mlm_mask",
+           "TASK_REGISTRY"]
 
-TASK_REGISTRY = ("classification", "masked_lm", "causal_lm")
+TASK_REGISTRY = ("classification", "masked_lm", "causal_lm", "contrastive")
+AUX_LOSS_WEIGHT = 0.01  # the MoE load-balance term's weight in the loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,27 +64,37 @@ class Task:
     with_model: Optional[Callable] = None
 
 
+def _images(batch, train: bool, augment: bool,
+            generator: Optional[torch.Generator],
+            flip_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1 on the batch's uint8 images: normalised and, in training with
+    ``augment``, flipped by ``flip_mask`` (drawn from ``generator`` with
+    p = 0.5 when not given); the channels_last NCHW view of the bf16
+    NHWC output."""
+    images = batch["image"]
+    if not (train and augment):
+        flip_mask = None
+    elif flip_mask is None and generator is not None:
+        flip_mask = torch.rand(images.shape[0], generator=generator,
+                               device=images.device) < 0.5
+    if flip_mask is not None:
+        flip_mask = flip_mask.to(images.device)
+    return normalize_flip(images, flip_mask).permute(0, 3, 1, 2)
+
+
 def classification_task(model, augment: bool = True) -> Task:
     """Image classification over ``{image: u8 [B, H, W, 3], label}``
     batches: K1 normalises (and in training flips) the images on the
-    device, the model (a ResNet) maps them to f32 logits. ``forward`` puts
-    the model in training or eval mode to match ``train``; ``flip_mask``
-    (``[B]``) is the per-image flip draw, made from ``generator`` with
-    p = 0.5 when not given."""
+    device, the model (a ResNet or a ViT) maps them to f32 logits.
+    ``forward`` puts the model in training or eval mode to match
+    ``train``; ``flip_mask`` (``[B]``) is the per-image flip draw, made
+    from ``generator`` with p = 0.5 when not given."""
 
     def forward(batch, train: bool, generator: Optional[torch.Generator] = None,
                 flip_mask: Optional[torch.Tensor] = None):
-        images = batch["image"]
-        if not (train and augment):
-            flip_mask = None
-        elif flip_mask is None and generator is not None:
-            flip_mask = torch.rand(images.shape[0], generator=generator,
-                                   device=images.device) < 0.5
-        if flip_mask is not None:
-            flip_mask = flip_mask.to(images.device)
-        x = normalize_flip(images, flip_mask)  # NHWC bf16
+        x = _images(batch, train, augment, generator, flip_mask)
         model.train(train)
-        return model(x.permute(0, 3, 1, 2))  # channels_last NCHW view
+        return model(x)
 
     def loss(logits, batch):
         return F.cross_entropy(logits.float(), batch["label"].long())
@@ -80,16 +106,23 @@ def classification_task(model, augment: bool = True) -> Task:
                 with_model=lambda module: classification_task(module, augment))
 
 
+VITS = {"vit_tiny": vit_tiny, "vit_small": vit_small, "vit_base": vit_base}
+
+
 def _classification_task(num_classes: int, model_name: str, augment: bool,
                          device=None,
                          generator: Optional[torch.Generator] = None,
-                         **model_kwargs) -> Task:
-    """A ResNet classification task; the model is built on ``device`` and
-    initialised from ``generator``."""
-    ctor = RESNETS.get(model_name)
+                         image_size: int = 224, **model_kwargs) -> Task:
+    """A ResNet or ViT classification task; the model is built on
+    ``device`` and initialised from ``generator``. A ViT is built for
+    ``image_size`` (its position table); the ResNets take any size."""
+    registry = {**RESNETS, **VITS}
+    ctor = registry.get(model_name)
     if ctor is None:
         raise ValueError(f"Invalid model name: {model_name} "
-                         f"(have {sorted(RESNETS)})")
+                         f"(have {sorted(registry)})")
+    if model_name in VITS:
+        model_kwargs["image_size"] = image_size
     model = ctor(num_classes=num_classes, device=device, generator=generator,
                  **model_kwargs)
     return classification_task(model, augment)
@@ -119,11 +152,22 @@ def draw_mlm_mask(batch, generator: torch.Generator) -> torch.Tensor:
     return (draw < MASK_PROB) & (batch["attention_mask"] > 0)
 
 
+def _with_aux(loss: torch.Tensor, model) -> torch.Tensor:
+    """The loss plus the weighted load-balance terms of ``model``'s MoE
+    layers from their last forward, in training only (the JAX task collects
+    the sown terms in training only)."""
+    aux = moe_aux_loss(model) if model.training else None
+    return loss if aux is None else loss + AUX_LOSS_WEIGHT * aux
+
+
 def masked_lm_task(model, loss_group=None) -> Task:
     """BERT masked-LM over ``{input_ids, attention_mask}`` batches (plus
     ``segment_ids``/``position_ids`` when packed). Masked positions are
     replaced by ``MASK_ID`` and are the loss targets. ``loss_group`` makes
-    the loss the global batch's."""
+    the loss the global batch's (and routes the MoE layers over it).
+    ``forward`` returns ``(logits, mlm_mask)``; in training the MoE
+    layers' load-balance terms join the loss."""
+    set_moe_group(model, loss_group)
 
     def forward(batch, train: bool, generator: Optional[torch.Generator] = None,
                 mlm_mask: Optional[torch.Tensor] = None):
@@ -139,6 +183,7 @@ def masked_lm_task(model, loss_group=None) -> Task:
                 mlm_mask = ((positions % stride) == 0)[None, :] & valid
         mlm_mask = mlm_mask.to(device=ids.device, dtype=torch.bool)
         corrupted = torch.where(mlm_mask, torch.full_like(ids, MASK_ID), ids)
+        model.train(train)
         logits = model(corrupted, batch["attention_mask"],
                        segment_ids=batch.get("segment_ids"),
                        position_ids=batch.get("position_ids"))
@@ -149,7 +194,9 @@ def masked_lm_task(model, loss_group=None) -> Task:
         targets = batch["input_ids"].long()
         raw = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
                               targets.reshape(-1), reduction="none")
-        return _weighted_mean(raw, mlm_mask.reshape(-1).float(), loss_group)
+        return _with_aux(
+            _weighted_mean(raw, mlm_mask.reshape(-1).float(), loss_group),
+            model)
 
     def metric(outputs, batch):
         logits, mlm_mask = outputs
@@ -165,15 +212,18 @@ def masked_lm_task(model, loss_group=None) -> Task:
 def _masked_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
                     attention_fn: Optional[Callable] = None, device=None,
                     generator: Optional[torch.Generator] = None,
-                    loss_group=None) -> Task:
-    """A ``bert_base`` or ``bert_small`` masked-LM task; the model is built
+                    loss_group=None, num_experts: int = 0,
+                    moe_every: int = 2) -> Task:
+    """A ``bert_base`` or ``bert_small`` masked-LM task (switch-MoE on every
+    ``moe_every``-th block with ``num_experts > 0``); the model is built
     on ``device`` and initialised from ``generator``."""
     ctor = {"bert_base": bert_base, "bert_small": bert_small}.get(model_name)
     if ctor is None:
         raise ValueError(f"Invalid model name: {model_name} "
                          "(have ['bert_base', 'bert_small'])")
     model = ctor(vocab_size=vocab_size or 30522, max_len=seq_len,
-                 attention_fn=attention_fn, device=device, generator=generator)
+                 attention_fn=attention_fn, num_experts=num_experts,
+                 moe_every=moe_every, device=device, generator=generator)
     return masked_lm_task(model, loss_group)
 
 
@@ -183,10 +233,14 @@ def causal_lm_task(model, loss_group=None) -> Task:
     packed. Position t predicts token t + 1, weighted by the target's
     validity; in packed rows a position whose target lies in another
     sequence (a junction) is weighted out. ``loss_group`` makes the loss
-    the global batch's."""
+    the global batch's (and routes the MoE layers over it); in training
+    the MoE layers' load-balance terms join the loss. ``forward`` returns
+    the logits."""
+    set_moe_group(model, loss_group)
 
     def forward(batch, train: bool, generator: Optional[torch.Generator] = None):
         ids = batch["input_ids"].long()
+        model.train(train)
         return model(ids, batch["attention_mask"],
                      segment_ids=batch.get("segment_ids"),
                      position_ids=batch.get("position_ids"))
@@ -208,7 +262,8 @@ def causal_lm_task(model, loss_group=None) -> Task:
         targets, w = _targets(batch)
         raw = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
                               targets.reshape(-1), reduction="none")
-        return _weighted_mean(raw, w.reshape(-1), loss_group)
+        return _with_aux(_weighted_mean(raw, w.reshape(-1), loss_group),
+                         model)
 
     def metric(logits, batch):
         targets, w = _targets(batch)
@@ -223,9 +278,11 @@ def causal_lm_task(model, loss_group=None) -> Task:
 def _causal_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
                     attention_fn: Optional[Callable] = None, device=None,
                     generator: Optional[torch.Generator] = None,
-                    loss_group=None) -> Task:
+                    loss_group=None, num_experts: int = 0,
+                    moe_every: int = 2) -> Task:
     """A ``gpt_base`` (GPT-2 124M's shape) or ``gpt_small`` causal-LM task,
-    vocabulary 50257 by default; the model is built on ``device`` and
+    vocabulary 50257 by default (switch-MoE on every ``moe_every``-th
+    block with ``num_experts > 0``); the model is built on ``device`` and
     initialised from ``generator``. An ``attention_fn`` must bind its own
     causality (``make_flash_attention(causal=True)``)."""
     ctor = {"gpt_base": gpt_base, "gpt_small": gpt_small}.get(model_name)
@@ -233,30 +290,85 @@ def _causal_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
         raise ValueError(f"Invalid model name: {model_name} "
                          "(have ['gpt_base', 'gpt_small'])")
     model = ctor(vocab_size=vocab_size or 50257, max_len=seq_len,
-                 attention_fn=attention_fn, device=device, generator=generator)
+                 attention_fn=attention_fn, num_experts=num_experts,
+                 moe_every=moe_every, device=device, generator=generator)
     return causal_lm_task(model, loss_group)
+
+
+def contrastive_task(model, augment: bool = True, loss_group=None) -> Task:
+    """CLIP contrastive over ``{image: u8 [B, H, W, 3], input_ids,
+    attention_mask}`` batches: K1 normalises (and in training flips) the
+    images as for classification, the model gives both unit embeddings
+    and the scale; the loss is :func:`~.clip.clip_contrastive_loss` over
+    ``loss_group``'s global batch, the metric ``retrieval_top1`` (per
+    image, over the batch's captions)."""
+
+    def forward(batch, train: bool, generator: Optional[torch.Generator] = None,
+                flip_mask: Optional[torch.Tensor] = None):
+        x = _images(batch, train, augment, generator, flip_mask)
+        model.train(train)
+        return model(x, batch["input_ids"].long(), batch["attention_mask"])
+
+    def loss(outputs, batch):
+        return clip_contrastive_loss(*outputs, group=loss_group)
+
+    def metric(outputs, batch):
+        img_emb, txt_emb, _scale = outputs
+        return retrieval_top1(img_emb, txt_emb)
+
+    return Task("contrastive", model, forward, loss, metric,
+                metric_name="retrieval_top1",
+                with_model=lambda module: contrastive_task(module, augment,
+                                                           loss_group))
+
+
+def _contrastive_task(model_name: str, seq_len: int,
+                      vocab_size: Optional[int], augment: bool = True,
+                      device=None, generator: Optional[torch.Generator] = None,
+                      loss_group=None) -> Task:
+    """A ``clip_resnet50_bert`` or ``clip_tiny`` contrastive task with
+    captions of ``seq_len`` tokens; ``vocab_size=None`` keeps the preset's
+    own (30522 and 1000)."""
+    ctor = {"clip_resnet50_bert": clip_resnet50_bert,
+            "clip_tiny": clip_tiny}.get(model_name)
+    if ctor is None:
+        raise ValueError(f"Invalid model name: {model_name} "
+                         "(have ['clip_resnet50_bert', 'clip_tiny'])")
+    kwargs = {"max_len": seq_len}
+    if vocab_size is not None:
+        kwargs["vocab_size"] = vocab_size
+    model = ctor(device=device, generator=generator, **kwargs)
+    return contrastive_task(model, augment, loss_group)
 
 
 def get_task(task_type: str, *, num_classes: int = 101,
              model_name: Optional[str] = None, image_size: int = 224,
              seq_len: int = 128, vocab_size: Optional[int] = None,
              augment: bool = True, attention_fn: Optional[Callable] = None,
+             num_experts: int = 0, moe_every: int = 2,
              device=None, generator: Optional[torch.Generator] = None,
              loss_group=None) -> Task:
-    """The task for ``task_type``: ``classification`` (a ResNet, default
-    ``resnet50``), ``masked_lm`` (default ``bert_base``) or ``causal_lm``
-    (default ``gpt_base``). ``image_size``
-    is the JAX signature's; the ResNets take any size. ``loss_group``
-    (text tasks) makes the loss the global batch's across its processes."""
+    """The task for ``task_type``: ``classification`` (a ResNet or a ViT,
+    default ``resnet50``), ``masked_lm`` (default ``bert_base``),
+    ``causal_lm`` (default ``gpt_base``) or ``contrastive`` (default
+    ``clip_resnet50_bert``). ``image_size`` sizes a ViT's position table;
+    the ResNets take any size. ``num_experts``/``moe_every`` give the text
+    tasks switch-MoE blocks. ``loss_group`` makes the loss the global
+    batch's across its processes."""
     if task_type == "classification":
         return _classification_task(num_classes, model_name or "resnet50",
-                                    augment, device, generator)
+                                    augment, device, generator,
+                                    image_size=image_size)
     if task_type == "masked_lm":
         return _masked_lm_task(vocab_size, model_name or "bert_base", seq_len,
-                               attention_fn, device, generator, loss_group)
+                               attention_fn, device, generator, loss_group,
+                               num_experts, moe_every)
     if task_type == "causal_lm":
         return _causal_lm_task(vocab_size, model_name or "gpt_base", seq_len,
-                               attention_fn, device, generator, loss_group)
+                               attention_fn, device, generator, loss_group,
+                               num_experts, moe_every)
     if task_type == "contrastive":
-        raise NotImplementedError(f"task_type {task_type!r} is not yet ported")
+        return _contrastive_task(model_name or "clip_resnet50_bert", seq_len,
+                                 vocab_size, augment, device, generator,
+                                 loss_group)
     raise ValueError(f"Invalid task type: {task_type}")

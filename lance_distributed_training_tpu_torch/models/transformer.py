@@ -7,7 +7,13 @@ two compute the same function:
 
 * LayerNorm epsilon 1e-6 (Flax's default), statistics in f32;
 * GELU with the tanh approximation (``flax.linen.gelu``'s default);
-* the MLM head is tied to the token embedding and runs in f32.
+* the MLM head is tied to the token embedding and runs in f32;
+  ``head="none"`` returns the final hidden states instead (CLIP's text
+  tower).
+
+With ``num_experts > 0`` every ``moe_every``-th block (block ``i`` with
+``i % moe_every == moe_every - 1``) replaces its dense MLP by a
+switch-routed :class:`.moe.MoEMLP`, as the JAX encoder does.
 
 Weights initialise as Flax's do (LeCun-normal dense kernels, zero biases,
 ``N(0, 1/vocab)`` embeddings, ``N(0, 0.02)`` positions) from an explicit
@@ -130,22 +136,31 @@ class SelfAttention(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN block: attention and a dense GELU MLP, each residual."""
+    """Pre-LN block: attention and a GELU MLP, each residual; the MLP is a
+    switch-routed :class:`.moe.MoEMLP` when ``num_experts > 0``."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int,
                  dtype=torch.bfloat16, attention_fn: Optional[Callable] = None,
-                 num_experts: int = 0, causal: bool = False):
+                 num_experts: int = 0, causal: bool = False,
+                 capacity_factor: float = 1.25):
         super().__init__()
-        if num_experts > 0:
-            raise NotImplementedError("MoE blocks are not yet ported")
         self.ln_attn = _LayerNorm(hidden, dtype)
         self.attn = SelfAttention(hidden, num_heads, dtype, attention_fn, causal)
         self.ln_mlp = _LayerNorm(hidden, dtype)
-        self.mlp_in = _Dense(hidden, mlp_dim, dtype)
-        self.mlp_out = _Dense(mlp_dim, hidden, dtype)
+        self.moe = None
+        if num_experts > 0:
+            from .moe import MoEMLP
+
+            self.moe = MoEMLP(hidden, num_experts, mlp_dim, capacity_factor,
+                              dtype)
+        else:
+            self.mlp_in = _Dense(hidden, mlp_dim, dtype)
+            self.mlp_out = _Dense(mlp_dim, hidden, dtype)
 
     def forward(self, x, mask=None, segment_ids=None):
         x = x + self.attn(self.ln_attn(x), mask, segment_ids)
+        if self.moe is not None:
+            return x + self.moe(self.ln_mlp(x))
         y = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
         return x + self.mlp_out(y)
 
@@ -154,7 +169,8 @@ class TransformerEncoder(nn.Module):
     """Pre-LN BERT-style encoder with a tied MLM head.
 
     ``forward(input_ids, attention_mask, segment_ids=None,
-    position_ids=None)`` → f32 logits ``[B, S, vocab]``. Packed rows carry
+    position_ids=None)`` → f32 logits ``[B, S, vocab]``, or with
+    ``head="none"`` the final hidden states ``[B, S, H]`` in ``dtype``. Packed rows carry
     ``segment_ids`` (1-based, 0 = dead) and ``position_ids`` (restarting
     per sequence): positions are gathered from ``pos_embed``; an
     ``attention_fn`` takes the segment ids straight through, the dense path
@@ -166,10 +182,15 @@ class TransformerEncoder(nn.Module):
                  num_layers: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, max_len: int = 512,
                  dtype=torch.bfloat16, attention_fn: Optional[Callable] = None,
-                 num_experts: int = 0, causal: bool = False,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 num_experts: int = 0, moe_every: int = 2,
+                 capacity_factor: float = 1.25, causal: bool = False,
+                 head: str = "mlm", device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        if head not in ("mlm", "none"):
+            raise ValueError(f"head must be 'mlm' or 'none', got {head!r}")
         self.vocab_size = vocab_size
+        self.head = head
         self.hidden_size = hidden_size
         self.max_len = max_len
         self.dtype = dtype
@@ -179,8 +200,10 @@ class TransformerEncoder(nn.Module):
         self.pos_embed = nn.Parameter(torch.empty(max_len, hidden_size))
         self.layers = nn.ModuleList(
             EncoderBlock(hidden_size, num_heads, mlp_dim, dtype, attention_fn,
-                         num_experts, causal)
-            for _ in range(num_layers)
+                         num_experts if num_experts > 0
+                         and i % moe_every == moe_every - 1 else 0,
+                         causal, capacity_factor)
+            for i in range(num_layers)
         )
         self.ln_final = _LayerNorm(hidden_size, dtype)
         self.reset_parameters(generator)
@@ -194,8 +217,10 @@ class TransformerEncoder(nn.Module):
             self.tok_embed.weight.normal_(0.0, 1.0 / math.sqrt(self.vocab_size),
                                           generator=generator)
             self.pos_embed.normal_(0.0, 0.02, generator=generator)
+        from .moe import MoEMLP
+
         for module in self.modules():
-            if isinstance(module, _Dense):
+            if isinstance(module, (_Dense, MoEMLP)):
                 module.reset_from(generator)
             elif isinstance(module, _LayerNorm):
                 nn.init.ones_(module.weight)
@@ -221,6 +246,8 @@ class TransformerEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, mask, segment_ids)
         x = self.ln_final(x)
+        if self.head == "none":
+            return x
         return torch.matmul(x.float(), self.tok_embed.weight.t())
 
 

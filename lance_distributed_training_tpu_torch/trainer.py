@@ -1,7 +1,9 @@
 """The trainer: one ``train()`` over a pluggable input pipeline and task.
 
 Counterpart of ``lance_distributed_training_tpu/trainer.py`` for image
-classification (ResNet), masked-LM and causal-LM text: ``TrainConfig``
+classification (ResNet, ViT), masked-LM and causal-LM text (switch-MoE
+blocks with ``num_experts``) and CLIP contrastive image-caption training:
+``TrainConfig``
 (the subset of the JAX flags these paths use, plus ``device``), the
 learning-rate schedules, the optimizers (SGD with momentum, AdamW,
 global-norm clipping), the train step, the weighted eval (``make_eval_step``, ``evaluate``) and the
@@ -14,8 +16,10 @@ JPEG coefficient pages (``data/device_decode.py``) and K2
 after the H2D copy and before the step, for the train and the eval
 batches alike; its device time is read from CUDA events at log points.
 
-Token packing (``token_pack``, text tasks): the loader ships ragged token
-pages and a first-fit-decreasing plan (``data/token_pack.py``), and K3
+Token packing (``token_pack``, text tasks; for contrastive the captions
+are bucketed, one a row, so each stays beside its image): the loader
+ships ragged token pages and a first-fit-decreasing plan
+(``data/token_pack.py``), and K3
 (``ops/token_device.py``) packs them into ``[rows, pack_len]`` grids with
 segment and position ids on the device, after the H2D copy and before the
 step; its device time is read as K2's is. The eval at the end always
@@ -29,7 +33,9 @@ Data parallelism: with ``coordinator_address``/``num_processes``/
 device, reads ``batch_size / world`` rows of each global batch through the
 samplers' rank arguments, and trains a DDP replica whose BatchNorm takes
 the global batch's statistics, as the JAX step does over its sharded batch.
-A text loss is the global batch's weighted mean (``models/tasks.py``).
+A text loss is the global batch's weighted mean (``models/tasks.py``);
+MoE layers route over the global batch and the contrastive loss takes
+every process's embeddings (``models/moe.py``, ``models/clip.py``).
 
 Sequence parallelism (``seq_parallelism``, masked-LM): attention runs as a
 ring over ``seq_parallelism`` sequence blocks (``parallel/
@@ -157,8 +163,9 @@ __all__ = [
     "clip_by_global_norm_",
 ]
 
-PORTED_TASKS = ("classification", "masked_lm", "causal_lm")
+PORTED_TASKS = ("classification", "masked_lm", "causal_lm", "contrastive")
 _TEXT_TASKS = ("masked_lm", "causal_lm", "contrastive")
+_IMAGE_TASKS = ("classification", "contrastive")
 
 
 @dataclasses.dataclass
@@ -197,9 +204,9 @@ class TrainConfig:
     # updates)
     no_ddp: bool = False  # single process even when a coordinator is given
     model_name: Optional[str] = None  # default per task (resnet50 /
-    # bert_base / gpt_base)
+    # bert_base / gpt_base / clip_resnet50_bert)
     image_size: int = 224
-    seq_len: int = 128
+    seq_len: int = 128  # text tasks and contrastive captions
     vocab_size: Optional[int] = None  # None = the model's own default
     pretrained: Optional[str] = None  # path to a torch.save'd torchvision
     # ResNet state_dict: backbone weights and BN statistics import into the
@@ -239,7 +246,7 @@ class TrainConfig:
     # ~/.cache/lance_distributed_training_tpu_torch/batch-cache
     shuffle: bool = False  # epoch batch-order reshuffle (batch sampler and
     # the iterable folder arm; the map-style loader always reshuffles rows)
-    augment: bool = True  # per-image horizontal flip, p = 0.5 (classification)
+    augment: bool = True  # per-image horizontal flip, p = 0.5 (image tasks)
     eval_at_end: bool = True  # process 0 evaluates every row of the eval
     # data once after training: the val split, else the train pool, else
     # the val dataset (make_eval_pipeline; text: the padded arm)
@@ -259,6 +266,8 @@ class TrainConfig:
     resume: bool = True  # restore the newest checkpoint if one exists
     profile_dir: Optional[str] = None  # torch.profiler trace of early steps
     flash_attention: bool = False  # the hand-written CUDA flash kernels
+    num_experts: int = 0  # >0: switch-MoE blocks (masked_lm, causal_lm)
+    moe_every: int = 2  # MoE on every Nth block
     seq_parallelism: int = 1  # masked_lm: ring attention over N sequence
     # blocks (K5), in this process or across N processes a ring
     device_decode: bool = False  # classification: the host stops at the
@@ -622,11 +631,13 @@ def train(config: TrainConfig) -> dict:
     Returns ``{"steps", "epochs", "losses", "step_ms", "device", …}``:
     ``losses`` holds every step's loss (the global batch's) and, on the
     card, ``step_ms`` every step's time between CUDA events around it;
-    classification adds ``images_per_sec`` (the images of the steps after
+    the image tasks (classification, contrastive) add ``images_per_sec``
+    (the images of the steps after
     the first log point over their wall time, loader waits included, closed
     by a device sync; the whole loop when there is no later step),
     ``images_per_sec_whole_run`` (every image over the whole loop, warm-up
-    included) and ``decoder_arm``; with ``eval_at_end`` every task adds
+    included) and ``decoder_arm``, contrastive also its caption decoder's
+    ``pack_*`` counters; with ``eval_at_end`` every task adds
     ``eval_accuracy`` and ``eval_rows``; with ``device_decode`` also
     ``decode_entropy_ms`` (median host time of a batch's entropy decode,
     over the train loop), ``decode_threads`` and, on the card,
@@ -924,12 +935,23 @@ def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
 
 def _check_seq_parallelism(config: TrainConfig) -> None:
     """The JAX trainer's refusals of an attention path it cannot take
-    (``_task_from_config``), with its messages."""
+    (``_task_from_config``), with its messages, and the port's refusal of
+    MoE blocks on a ring of processes."""
     if config.flash_attention and config.seq_parallelism > 1:
         raise ValueError(
             "flash_attention cannot combine with seq_parallelism or "
             "pipeline_parallelism (they select their own attention path)"
         )
+    if config.flash_attention and config.task_type not in ("masked_lm",
+                                                           "causal_lm"):
+        raise ValueError("flash_attention requires a sequence model")
+    if (config.num_experts > 0 and config.seq_parallelism > 1
+            and (config.num_processes or 1) > 1 and not config.no_ddp):
+        # The JAX routing counts the global batch's tokens in row order;
+        # a process ring holds a sequence block of every row.
+        raise NotImplementedError(
+            "num_experts with seq_parallelism across processes is not yet "
+            "ported")
     if config.seq_parallelism > 1:
         if config.task_type != "masked_lm":
             raise ValueError(
@@ -986,6 +1008,7 @@ def _decoder_for(config: TrainConfig, for_eval: bool = False):
                                 buffer_pool=pool)
     return decoder_for_task(
         config.task_type, seq_len=config.seq_len,
+        image_size=config.image_size,
         token_pack=None if for_eval else _token_pack_config(config),
         buffer_pool=pool)
 
@@ -1160,7 +1183,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     if rem:
         raise ValueError(f"global batch {config.batch_size} not divisible by "
                          f"{data_world} processes")
-    image = config.task_type == "classification"
+    image = config.task_type in _IMAGE_TASKS
     folder = config.data_format == "folder"
     dataset = None if folder else Dataset(config.dataset_path)
     # The folder arm evaluates its own tree: a val dataset is columnar.
@@ -1168,13 +1191,20 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                    if config.val_dataset_path and not folder else None)
     init_gen = torch.Generator().manual_seed(config.seed)
     attention_fn = None
-    if image:
-        if cuda:
-            torch.backends.cudnn.benchmark = True  # conv autotuning, as XLA
+    loss_group = dist.group.WORLD if world > 1 else None
+    if image and cuda:
+        torch.backends.cudnn.benchmark = True  # conv autotuning, as XLA
+    if config.task_type == "classification":
         task = get_task("classification", num_classes=config.num_classes,
                         model_name=config.model_name,
                         image_size=config.image_size, augment=config.augment,
                         device=device, generator=init_gen)
+    elif config.task_type == "contrastive":
+        task = get_task("contrastive", model_name=config.model_name,
+                        image_size=config.image_size, seq_len=config.seq_len,
+                        vocab_size=config.vocab_size, augment=config.augment,
+                        device=device, generator=init_gen,
+                        loss_group=loss_group)
     else:
         if sp > 1:
             attention_fn = make_ring_attention(sp, ring)
@@ -1184,9 +1214,10 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                 causal=config.task_type == "causal_lm")
         task = get_task(config.task_type, model_name=config.model_name,
                         seq_len=config.seq_len, vocab_size=config.vocab_size,
-                        attention_fn=attention_fn, device=device,
-                        generator=init_gen,
-                        loss_group=dist.group.WORLD if world > 1 else None)
+                        attention_fn=attention_fn,
+                        num_experts=config.num_experts,
+                        moe_every=config.moe_every, device=device,
+                        generator=init_gen, loss_group=loss_group)
     if config.pretrained:
         # Transfer learning, the reference's training task: the backbone
         # (and a head of the same shape) from the checkpoint, before the
@@ -1203,7 +1234,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             task.model, device_ids=[device.index] if cuda else None,
             broadcast_buffers=False)
         train_task = task.with_model(ddp)
-    # Classification draws one flip per image of the global batch and each
+    # The image tasks draw one flip per image of the global batch and each
     # process slices it; masked-LM draws per data share.
     mask_gen = torch.Generator(device=device).manual_seed(
         config.seed + 1 if image else _share_seed(config.seed, data_index))
@@ -1299,14 +1330,14 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         nonlocal eval_pool
         out = None
         if rank == 0:
-            eval_decode = decode if image else _decoder_for(config,
-                                                            for_eval=True)
+            eval_decode = (decode if config.task_type == "classification"
+                           else _decoder_for(config, for_eval=True))
             if folder:
                 def read_fn(idx):
                     return read_sample_batch(samples, idx)
                 total = len(samples)
             else:
-                columns = decode.required_columns if image else None
+                columns = getattr(eval_decode, "required_columns", None)
 
                 def read_fn(idx):
                     return eval_dataset.take(idx, columns=columns)
@@ -1680,6 +1711,8 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             tokens.rates(timed_steps, timed_s), grid_tokens=tokens.grid,
             payload_tokens=tokens.payload, **decode.counters())
     if image:
+        if config.task_type == "contrastive":
+            results.update(decode.counters())  # the captions' pack_* counts
         results.update(
             images_per_sec=config.batch_size * timed_steps / timed_s,
             images_per_sec_whole_run=config.batch_size * global_step

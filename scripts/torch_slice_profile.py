@@ -8,8 +8,11 @@ loader is not in this measurement):
 * ``--task masked_lm`` (default): BERT-base, seq 512, batch 32, AdamW,
   flash attention, or with ``--seq_parallelism N`` ring attention over N
   sequence blocks held on the one card (K5);
+* ``--task masked_lm --num_experts 8``: the same with switch-MoE blocks
+  on every second layer (``MOE_EVERY``), the queues gathered by index;
 * ``--task classification``: ResNet-50, 224 px, 101 classes, batch 512, SGD
-  lr 0.05 momentum 0.9, flips drawn per step (K1 normalises and flips).
+  lr 0.05 momentum 0.9, flips drawn per step (K1 normalises and flips);
+  ``--model_name vit_base`` (with ``--batch 256``) trains ViT-B/16 instead.
   With ``--loader decode`` the batches come instead from the trainer's
   pipeline over a synthetic FOOD-101-shaped JPEG dataset (host decode, then
   the trainer's way to the card), so that the trace shows what the loader
@@ -23,7 +26,11 @@ loader is not in this measurement):
   trainer's pipeline over a seeded corpus of lognormal lengths (log-mean
   log 256, sigma 0.7, 1-1024) and Zipf(1.2) ids: ``--loader packed``
   (default; FFD plan on the host, K3 on the card before each step) or
-  ``--loader padded`` (every row padded to 1024).
+  ``--loader padded`` (every row padded to 1024);
+* ``--task contrastive``: CLIP (``clip_resnet50_bert``), 224 px, captions
+  of up to 77 tokens (lengths from ``chip_smoke.caption_lengths``, padded
+  to 77), batch 512,
+  AdamW lr 1e-4, flips drawn per step.
 
 A ``--loader`` pipeline takes the trainer's defaults: pooled page-locked
 decode pages, ``--producer_threads 4`` and the placement plane (a ring of
@@ -34,15 +41,19 @@ batch on the consumer thread instead (the synchronous control arm), and
 It warms up and traces a few steps with ``torch.profiler``. Prints one JSON
 line: the step time between CUDA events (no profiler), then, from a
 profiled run of the same steps, the kernel time per step split by kind
-(the port's kernels, convolutions, BatchNorm, matrix products, the rest),
+(the port's kernels, convolutions, BatchNorm, matrix products, softmax,
+the gathers, scatters and index kernels (the MoE dispatch among them), the
+rest),
 the device's idle share over the traced window, and the top kernels; with
 ``--seq_parallelism``, also the milliseconds a step of the ring backward's
 plain ``delta = rowsum(dO * O)``, timed alone between CUDA events. Run
 from the root of a checkout on a machine with a card:
 
     python3 scripts/torch_slice_profile.py [--seq_parallelism 4]
-        [--task classification [--loader decode|stage|coeff]]
-        [--task causal_lm [--loader packed|padded]]
+        [--num_experts 8]
+        [--task classification [--loader decode|stage|coeff]
+                               [--model_name vit_base]]
+        [--task causal_lm [--loader packed|padded]] [--task contrastive]
         [--no_global_batch] [--producer_threads N] [--no_buffer_pool]
         [--steps 5] [--batch N] [--out DIR]
 
@@ -91,10 +102,12 @@ from lance_distributed_training_tpu_torch.trainer import (  # noqa: E402
     make_optimizer,
     make_train_step,
 )
+from chip_smoke import CLIP_SEQ, caption_lengths  # noqa: E402
 
 BATCH, SEQ, VOCAB = 32, 512, 30522
 IMAGE_BATCH, IMAGE_SIZE, CLASSES = 512, 224, 101
 GPT_BATCH, GPT_CONTEXT, GPT_VOCAB = 64, 1024, 50257
+MOE_EVERY = 2  # as chip_smoke.py's moe phase
 
 
 def _causal_corpus(path: str, rows: int) -> None:
@@ -122,6 +135,10 @@ def _kind(name: str) -> str:
         return "convolution"
     if "batch_norm" in low or "batchnorm" in low:
         return "batch_norm"
+    if "softmax" in low:
+        return "softmax"
+    if any(t in low for t in ("index", "scatter", "gather")):
+        return "index_gather_scatter"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet")):
         # cuBLAS names its f32 SIMT kernels *f32f32* / *sgemm*: the tied
         # vocab head, which runs in f32 without TF32.
@@ -153,7 +170,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--task", default="masked_lm",
                         choices=["masked_lm", "classification",
-                                 "causal_lm"])
+                                 "causal_lm", "contrastive"])
+    parser.add_argument("--model_name", default=None,
+                        help="classification: resnet50 (default) or a ViT")
+    parser.add_argument("--num_experts", type=int, default=0,
+                        help="masked_lm: switch-MoE blocks")
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--batch", type=int, default=None,
                         help="batch size (default: the path's own)")
@@ -178,8 +199,10 @@ def main(argv=None) -> int:
                         help="--loader: decode into fresh pages")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
-    if args.seq_parallelism > 1 and args.task != "masked_lm":
-        parser.error("--seq_parallelism needs --task masked_lm")
+    if (args.seq_parallelism > 1 or args.num_experts) \
+            and args.task != "masked_lm":
+        parser.error("--seq_parallelism and --num_experts need --task "
+                     "masked_lm")
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
@@ -194,7 +217,8 @@ def main(argv=None) -> int:
         batch_size = args.batch or IMAGE_BATCH
         config = TrainConfig(dataset_path="-", batch_size=batch_size)
         task = get_task("classification", num_classes=CLASSES,
-                        model_name="resnet50", device=dev, generator=init)
+                        model_name=args.model_name or "resnet50",
+                        image_size=IMAGE_SIZE, device=dev, generator=init)
         shape = (batch_size, IMAGE_SIZE, IMAGE_SIZE, 3)
         batch = {
             "image": torch.from_numpy(
@@ -212,17 +236,39 @@ def main(argv=None) -> int:
                         attention_fn=make_flash_attention(causal=True),
                         device=dev, generator=init)
         batch = None
+    elif args.task == "contrastive":
+        torch.backends.cudnn.benchmark = True
+        batch_size = args.batch or IMAGE_BATCH
+        config = TrainConfig(dataset_path="-", task_type="contrastive",
+                             optimizer="adamw", lr=1e-4, seq_len=CLIP_SEQ,
+                             batch_size=batch_size)
+        task = get_task("contrastive", model_name="clip_resnet50_bert",
+                        image_size=IMAGE_SIZE, seq_len=CLIP_SEQ, device=dev,
+                        generator=init)
+        lengths = caption_lengths(rng, batch_size)
+        mask = (np.arange(CLIP_SEQ)[None] < lengths[:, None]).astype(np.int8)
+        ids = rng.integers(2, VOCAB, (batch_size, CLIP_SEQ)) * mask
+        batch = {
+            "image": torch.from_numpy(rng.integers(
+                0, 256, (batch_size, IMAGE_SIZE, IMAGE_SIZE, 3),
+                dtype=np.uint8)).to(dev),
+            "input_ids": torch.from_numpy(ids.astype(np.int32)).to(dev),
+            "attention_mask": torch.from_numpy(mask).to(dev)}
     else:
         batch_size = args.batch or BATCH
         ring = args.seq_parallelism > 1
         config = TrainConfig(dataset_path="-", task_type="masked_lm",
                              optimizer="adamw", lr=1e-4, seq_len=SEQ,
                              batch_size=batch_size, flash_attention=not ring,
-                             seq_parallelism=args.seq_parallelism)
+                             seq_parallelism=args.seq_parallelism,
+                             num_experts=args.num_experts,
+                             moe_every=MOE_EVERY)
         attention_fn = (make_ring_attention(args.seq_parallelism) if ring
                         else make_flash_attention())
         task = get_task("masked_lm", model_name="bert_base", seq_len=SEQ,
-                        attention_fn=attention_fn, device=dev,
+                        attention_fn=attention_fn,
+                        num_experts=args.num_experts,
+                        moe_every=MOE_EVERY, device=dev,
                         generator=init)
         lengths = rng.integers(128, SEQ + 1, batch_size)
         mask = (np.arange(SEQ)[None] < lengths[:, None]).astype(np.int8)
@@ -334,6 +380,8 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     result = {
         "task": args.task,
+        "model_name": args.model_name,
+        "num_experts": args.num_experts,
         "seq_parallelism": args.seq_parallelism,
         "loader": decoder_arm,
         "batch": batch_size,

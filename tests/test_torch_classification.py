@@ -284,11 +284,13 @@ def test_get_model_and_loss_and_unported_tasks():
         torch.nn.functional.cross_entropy(logits, batch["label"])))
     with pytest.raises(ValueError, match="Invalid task type: masked_lm"):
         get_model_and_loss("masked_lm", 10)
-    # causal_lm is ported (tests/test_torch_causal_lm.py); contrastive not.
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_task("contrastive")
+    # causal_lm and contrastive are ported (tests/test_torch_causal_lm.py,
+    # tests/test_torch_contrastive.py), and so are the ViTs
+    # (tests/test_torch_vit.py); unknown names raise.
     with pytest.raises(ValueError, match="Invalid model name"):
-        get_task("classification", model_name="vit_base")
+        get_task("contrastive", model_name="clip_vit_b16")
+    with pytest.raises(ValueError, match="Invalid model name"):
+        get_task("classification", model_name="vit_huge")
 
 
 def _image_dataset(tmp_path, rows=24):

@@ -144,16 +144,16 @@ def test_decoders_match_on_variable_length_rows(tmp_path):
 
 def test_pack_mode_and_image_tasks_not_yet_ported():
     # Pack mode is ported (tests/test_torch_token_pack.py); an unknown mode
-    # raises as in the JAX package, and the contrastive decoder is not yet
-    # ported.
+    # raises as in the JAX package. The contrastive decoder is ported
+    # (tests/test_torch_contrastive.py).
     assert TokenDecoder(mode="pack").mode == "pack"
     with pytest.raises(ValueError, match="invalid TokenDecoder mode"):
         TokenDecoder(mode="ffd")
-    with pytest.raises(NotImplementedError):
-        decoder_for_task("contrastive")
+    assert type(decoder_for_task("contrastive")).__name__ == "ImageTextDecoder"
     # Device decode is ported for classification and for nothing else.
-    with pytest.raises(ValueError, match="classification"):
-        decoder_for_task("masked_lm", device_decode=True)
+    for task_type in ("masked_lm", "contrastive"):
+        with pytest.raises(ValueError, match="classification"):
+            decoder_for_task(task_type, device_decode=True)
 
 
 # ------------------------------------------------------------- image data

@@ -67,6 +67,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "lance_distributed_training_tpu_torch.tune.policy",
         "lance_distributed_training_tpu_torch.tune.controller",
         "lance_distributed_training_tpu_torch.utils.leaktrack",
+        "lance_distributed_training_tpu_torch.models.moe",
+        "lance_distributed_training_tpu_torch.models.vit",
+        "lance_distributed_training_tpu_torch.models.clip",
+        "lance_distributed_training_tpu_torch.data.decode",
     }
     assert expected <= set(result["imported"])
     assert result["banned"] == []

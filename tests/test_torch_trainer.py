@@ -168,17 +168,13 @@ def test_cli_without_device_cpu_raises_without_a_card(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--num_experts", "4"],
     ["serve-data"],
-    ["--task_type", "contrastive"],
     ["--model_parallelism", "2"],
 ])
 def test_cli_unported_surface_raises(tmp_path, argv):
     path = _token_dataset(tmp_path)
     if argv[0] == "serve-data":
         args = argv + ["--dataset_path", path]
-    elif argv[0] == "--task_type":
-        args = ["train", "--dataset_path", path, "--device", "cpu", *argv]
     else:
         args = _cli_args(path, "--device", "cpu", *argv)
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -96,7 +96,3 @@ def test_init_is_seeded_by_generator():
                                  b.state_dict().items()):
         assert torch.equal(x, y), name
 
-
-def test_moe_blocks_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TransformerEncoder(VOCAB, num_experts=2, **DIMS)
