@@ -295,6 +295,52 @@ Phases, each printing one JSON line:
              0, and the falling loss; prints the step beside the slice
              phase's dense step, tokens/s and peak memory.
 
+21. graph   — the loader graph (``data/graph.py``): each in-process
+             shape of ``canonical_graphs()`` (train-iterable, train-map-style,
+             train-folder) plus eval, device-decode pages and token-pack,
+             over a learnable classification set of 6 batches of 512 at 224
+             px (97 distinct images), a 64-class folder tree of the same
+             size and 384 documents of the causal-LM corpus (6 batches of
+             64, FFD-packed at 1024), each built as a ``LoaderGraph`` and
+             by the engine's own constructor, both placed by a placement
+             plane (ring of 2, 4 producers, page-locked pool pages). Checks
+             that the two streams' batch digests (taken on the card) are
+             equal, that a cursor taken after 2 batches and restored into a
+             fresh graph streams the rest, and that every stream's batches
+             differ; then, the launch counts set to 0 just before and read
+             just after, streams every graph again with the iterable
+             batches training ResNet-50 (SGD, lr 0.05, a fixed flip mask;
+             K1 once a step), the coefficient pages through K2 and the
+             ragged token pages through K3 (6 launches each), and holds K1,
+             K2 and K3 against their plain versions on the first batch of
+             each, bit for bit. Then the scheduled arm: a set of 32
+             batches of 512 rows where one batch in each quarter of the
+             plan (at a seeded offset) holds an oversized JPEG (1,536-2,048
+             px wide) in one row of 4 (1 row in 32 overall);
+             a second unscheduled in-process epoch, on one producer so
+             that each batch's decode time is its own, writes
+             ``LDT_COST_PATH`` (the first pays the loader's start-up), and
+             a ``WorkerPool`` of 4 streams the epoch with
+             ``Decode(schedule={"lookahead": 16, "heavy_share": 25})`` (its
+             cost model warm-started from that file) once to spawn its
+             workers and its heavy lane, then unscheduled, scheduled,
+             again scheduled and again unscheduled; every
+             run's batches must equal the
+             in-process epoch's bit for bit and each scheduled run must
+             reorder its dispatch and route a batch to the heavy lane;
+             prints each run's images/s, the
+             consumer's p50/p95 wait a batch, the reorders, heavy-lane
+             routes and the p95 of ``sched_predicted_error_ms``.
+22. remat   — BERT-base masked-LM (768/12/12/3072, sequence 512, batch
+             32, AdamW lr 1e-4, 20 steps, no eval) through ``cli train
+             --flash_attention`` without and with ``--remat`` from one seed,
+             then through ``--seq_parallelism 4`` (the in-process ring)
+             without and with it. Checks the losses and the final
+             parameters equal bit for bit, and the launches: the flash
+             forward 24 a step with ``--remat`` against 12 without, dQ and
+             dK/dV 12 a step each way; K5's fold likewise on the ring arm;
+             prints each run's median step, peak memory and losses.
+
 Every phase but 17 trains with ``--no_autotune`` (``FIXED``): each
 compares its runs with another arm's, another phase's or an earlier
 tree's at a fixed layout and fixed queue depths, while the tuner moves
@@ -315,7 +361,10 @@ runs of the pretrained_placement phase as
 workers_caches phase as ``launches_workers_caches``; K1 and K3's pack add
 the contrastive phase's packed run as ``launches_contrastive``, K1 and K2
 the vit phase's as ``launches_vit``, and the three flash kernels the moe
-phase's as ``launches_moe``), and ``{"ok": true, "device": {...}}``.
+phase's as ``launches_moe``; K1, K2 and K3's pack add the graph phase's as
+``launches_graph``, and the flash kernels and K5 the remat phase's
+``--remat`` runs as ``launches_remat``), and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -324,6 +373,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -336,7 +386,7 @@ PHASES = ("probe", "build", "kernels", "slice", "trainer", "image_kernels",
           "jpeg_kernels", "classification", "device_decode", "token_kernels",
           "causal_lm", "ring_kernels", "ring_lm", "map_style", "folder",
           "pretrained_placement", "workers_caches", "contrastive", "vit",
-          "moe")
+          "moe", "graph", "remat")
 SHAPE = (32, 12, 512, 64)  # B, H, S, D at BERT-base, seq 512
 STEPS = 20
 LAYERS = 12
@@ -1354,9 +1404,9 @@ MAP_ROWS, MAP_FILTER, MAP_VAL_FRACTION = IMAGE_BATCH * 30, "label < 48", 0.1
 FOLDER_FILES = 160  # hard links a class directory of the folder phase
 
 
-def _learnable_tree(root: str) -> None:
+def _learnable_tree(root: str, files: int = FOLDER_FILES) -> None:
     """An ImageFolder tree of ``UNIQUE_IMAGES`` class directories: class
-    ``c`` holds ``FOLDER_FILES`` hard links to one 224 px noise JPEG, the
+    ``c`` holds ``files`` hard links to one 224 px noise JPEG, the
     image ``c`` of the classification set (the authoring pool's recipe and
     seed), so that the label can be learnt and the bytes are the columnar
     phases' bytes."""
@@ -1374,7 +1424,7 @@ def _learnable_tree(root: str) -> None:
         first = os.path.join(cdir, "00000.jpg")
         with open(first, "wb") as f:
             f.write(buf.getvalue())
-        for i in range(1, FOLDER_FILES):
+        for i in range(1, files):
             os.link(first, os.path.join(cdir, f"{i:05d}.jpg"))
 
 
@@ -2825,10 +2875,11 @@ def token_kernels() -> dict:
     return {"table": table, "check_launches": check_launches}
 
 
-def _write_corpus(path: str) -> None:
+def _write_corpus(path: str, docs=None) -> None:
+    """``docs`` (the causal-LM corpus by default) as a token dataset."""
     from lance_distributed_training_tpu_torch.data import write_dataset
 
-    table = _token_table(_corpus_docs())
+    table = _token_table(_corpus_docs() if docs is None else docs)
     write_dataset(table, path, schema=table.schema, mode="create")
 
 
@@ -3610,6 +3661,574 @@ def moe_run(slice_step_ms) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------- the loader graph, the scheduler
+
+GRAPH_BATCHES = 6  # batches of 512 a shape of the graph phase streams
+GRAPH_RESUME_AT = 2  # its cursor is taken after this many batches
+SCHED_BATCHES = 32  # batches of 512 of the scheduled arm's corpus
+# One straggler batch in each quarter of its plan, at a seeded offset: the
+# epoch is 4x the pool's window, so dispatch can pull stragglers forward.
+SCHED_STRAGGLERS = 4
+SCHED_HEAVY_ROWS = 4  # in a straggler batch, one row in 4 is oversized
+SCHED_OPTS = {"lookahead": 16, "heavy_share": 25}
+# A first, scheduled epoch spawns the pool's workers and its heavy lane;
+# then the two arms alternate.
+SCHED_ORDER = ("warmup", "plain", "scheduled", "scheduled", "plain")
+
+
+def _graph_shapes(paths: dict, pinned) -> dict:
+    """``name -> (graph, engine)`` factories of each in-process shape of
+    the graph phase, both placed on the card by a placement plane: the
+    graph composes nodes; the engine is the constructor that the trainer
+    and the factories called before the graph, wrapped by hand."""
+    import torch
+    from lance_distributed_training_tpu_torch.data import (
+        Dataset,
+        PlacementPlane,
+        TokenPackConfig,
+        decoder_for_task,
+    )
+    from lance_distributed_training_tpu_torch.data import graph as G
+    from lance_distributed_training_tpu_torch.data.folder import (
+        FolderDataPipeline,
+    )
+    from lance_distributed_training_tpu_torch.data.pipeline import (
+        EvalLoader,
+        MapStylePipeline,
+        TrainLoader,
+    )
+    from lance_distributed_training_tpu_torch.data.samplers import (
+        make_plan,
+        padded_eval_index_batches,
+    )
+
+    dev = torch.device("cuda")
+    food, tokens = Dataset(paths["food"]), Dataset(paths["tokens"])
+    pack = TokenPackConfig(pack_len=GPT_CONTEXT,
+                           rows_multiple=PACK_ROWS_MULTIPLE)
+    decoders = {
+        "pixels": lambda: decoder_for_task(
+            "classification", image_size=224, buffer_pool=pinned),
+        "coeff": lambda: decoder_for_task(
+            "classification", image_size=224, device_decode=True,
+            buffer_pool=pinned),
+        "tokens": lambda: decoder_for_task(
+            "causal_lm", seq_len=GPT_CONTEXT, token_pack=pack,
+            buffer_pool=pinned),
+    }
+
+    def plane():
+        return PlacementPlane(dev, depth=RING_DEPTH, buffer_pool=pinned)
+
+    def graph(source, decode):
+        return G.LoaderGraph(
+            source, G.Decode(decode,
+                             columns=getattr(decode, "required_columns",
+                                             None)),
+            G.Cache(), G.Pool(), G.Buffers(pinned),
+            G.Prefetch(2, producers=PRODUCERS), G.DevicePut(None),
+            G.InProcess(), G.Place(plane()))
+
+    def engine(loader):
+        return plane().wrap(loader)
+
+    def read(idx):
+        return food.take(idx, columns=["image", "label"])
+
+    def iterable(ds, dec, batch):
+        def direct():
+            decode = decoders[dec]()
+            return engine(TrainLoader(
+                ds, make_plan("batch", ds.fragment_rows(), batch, 0, 1),
+                decode, None, producers=PRODUCERS, buffer_pool=pinned,
+                columns=getattr(decode, "required_columns", None)))
+        return (lambda: graph(G.LanceSource(ds, "batch", batch, 0, 1),
+                              decoders[dec]()), direct)
+
+    rows = food.count_rows()
+    return {
+        "train-iterable": iterable(food, "pixels", IMAGE_BATCH),
+        "train-map-style": (
+            lambda: graph(G.MapStyleSource(food, IMAGE_BATCH, 0, 1),
+                          decoders["pixels"]()),
+            lambda: engine(MapStylePipeline(
+                food, IMAGE_BATCH, 0, 1, decoders["pixels"](), None,
+                columns=["image", "label"], producers=PRODUCERS,
+                buffer_pool=pinned))),
+        "train-folder": (
+            lambda: graph(G.FolderSource(paths["tree"], IMAGE_BATCH, 0, 1),
+                          decoders["pixels"]()),
+            lambda: engine(FolderDataPipeline(
+                paths["tree"], IMAGE_BATCH, 0, 1, decoders["pixels"](), None,
+                producers=PRODUCERS, buffer_pool=pinned))),
+        "eval": (
+            lambda: graph(G.EvalSource(read, rows, IMAGE_BATCH, 0, 1),
+                          decoders["pixels"]()),
+            lambda: engine(EvalLoader(
+                read, padded_eval_index_batches(rows, IMAGE_BATCH, 0, 1),
+                decoders["pixels"](), None, producers=PRODUCERS,
+                buffer_pool=pinned))),
+        "device-decode": iterable(food, "coeff", IMAGE_BATCH),
+        "token-pack": iterable(tokens, "tokens", GPT_BATCH),
+    }
+
+
+def _stream(loader, on_batch=None) -> list:
+    """Every batch's digest (taken on the card); ``on_batch(i, batch)``
+    runs on each before the next is taken."""
+    out = []
+    for i, batch in enumerate(loader):
+        out.append(_device_batch_digest(batch))
+        if on_batch is not None:
+            on_batch(i, batch)
+        del batch
+    return out
+
+
+def _straggler_corpus(path: str, drawn: str) -> dict:
+    """The scheduled arm's corpus: the classification phases' recipe
+    (224 px noise JPEGs, 97 distinct images) over ``SCHED_BATCHES`` batches
+    of rows, where one batch in each of ``SCHED_STRAGGLERS`` equal spans
+    of the plan, at a seeded offset, holds an oversized JPEG (1,536-2,048
+    px wide, 4:3, a colour grid scaled up plus noise) in one row of
+    ``SCHED_HEAVY_ROWS``: 1 row in 32 over the corpus, and plan items that
+    cost several times the mean's decode."""
+    import io
+
+    import pyarrow as pa
+    from PIL import Image
+    from lance_distributed_training_tpu_torch.data import (
+        IMAGE_SCHEMA,
+        Dataset,
+        create_synthetic_classification_dataset,
+        write_dataset,
+    )
+
+    rows = SCHED_BATCHES * IMAGE_BATCH
+    create_synthetic_classification_dataset(
+        drawn, rows=rows, num_classes=IMAGE_CLASSES, image_size=224,
+        unique_images=WC_UNIQUE_IMAGES)
+    table = Dataset(drawn).take(np.arange(rows))
+    rng = np.random.default_rng(16)
+    big = []
+    for _ in range(8):
+        w = int(rng.integers(1536, 2049))
+        grid = rng.integers(0, 256, (6, 8, 3), dtype=np.uint8)
+        img = np.asarray(Image.fromarray(grid).resize((w, w * 3 // 4),
+                                                      Image.BILINEAR),
+                         dtype=np.int16)
+        img = np.clip(img + rng.integers(-24, 25, img.shape), 0, 255)
+        buf = io.BytesIO()
+        Image.fromarray(img.astype(np.uint8)).save(buf, format="JPEG",
+                                                   quality=85)
+        big.append(buf.getvalue())
+    span = SCHED_BATCHES // SCHED_STRAGGLERS
+    heavy = [q * span + int(rng.integers(span))
+             for q in range(SCHED_STRAGGLERS)]
+    images = table.column("image").to_pylist()
+    oversized = {b * IMAGE_BATCH + i for b in heavy
+                 for i in range(0, IMAGE_BATCH, SCHED_HEAVY_ROWS)}
+    for k, row in enumerate(sorted(oversized)):
+        images[row] = big[k % len(big)]
+    table = table.set_column(0, "image", pa.array(images, pa.binary()))
+    write_dataset(table, path, schema=IMAGE_SCHEMA, mode="create")
+    return {"rows": rows, "heavy_batches": heavy,
+            "oversized_rows": len(oversized),
+            "oversized_bytes_mean": float(np.mean([len(b) for b in big])),
+            "small_bytes_mean": float(np.mean(
+                [len(b) for i, b in enumerate(images)
+                 if i not in oversized])),
+            "dataset_bytes": int(sum(len(b) for b in images))}
+
+
+def _scheduled_arm(tmp: str) -> dict:
+    """The straggler scheduler on its corpus: one unscheduled in-process
+    epoch on one producer, after a first one, writes ``LDT_COST_PATH``;
+    then a ``WorkerPool``
+    of 4 streams the
+    epoch unscheduled and with ``Decode(schedule=SCHED_OPTS)`` (the cost
+    model warm-started from that file), in the order ``SCHED_ORDER`` (the
+    warm-up scheduled, so that it spawns the heavy lane too).
+    Every run's batches must equal the first's bit for bit, and each
+    scheduled run must reorder dispatch and route a batch to the heavy
+    lane."""
+    from lance_distributed_training_tpu_torch.data import (
+        Dataset,
+        decoder_for_task,
+        make_train_pipeline,
+    )
+    from lance_distributed_training_tpu_torch.data.schedule import (
+        CostModel,
+        DecodeScheduler,
+    )
+    from lance_distributed_training_tpu_torch.data.workers import (
+        WorkerPool,
+        columnar_spec,
+    )
+    from lance_distributed_training_tpu_torch.obs import costs
+    from lance_distributed_training_tpu_torch.obs.registry import (
+        MetricsRegistry,
+    )
+    from lance_distributed_training_tpu_torch.utils.chaos import (
+        batch_digest,
+    )
+
+    base, fs, _ = _local_dir("ldt_graph_sched")
+    os.makedirs(base, exist_ok=True)
+    path = os.path.join(base, "food")
+    t0 = time.monotonic()
+    corpus = _straggler_corpus(path, os.path.join(base, "drawn"))
+    author_s = time.monotonic() - t0
+    ds = Dataset(path)
+    decode = decoder_for_task("classification", image_size=224)
+    cols = decode.required_columns
+    ledger_path = os.path.join(tmp, "costs.jsonl")
+    # The first in-process epoch pays the loader's start-up in its first
+    # items' decode times, which would drown the stragglers in the priors:
+    # stream one epoch before the ledger records one.
+    os.environ.pop("LDT_COST_PATH", None)
+    # The process ledger is made on first use and reads the variable then;
+    # earlier phases made it, so make it again for each epoch.
+    costs._DEFAULT = None
+    for _ in make_train_pipeline(ds, "batch", IMAGE_BATCH, 0, 1, decode,
+                                 None, producers=PRODUCERS, columns=cols):
+        pass
+    os.environ["LDT_COST_PATH"] = ledger_path
+    costs._DEFAULT = None
+    t0 = time.monotonic()
+    # One producer: concurrent batches share the decoder's threads, which
+    # stretches every batch's decode time to its neighbours' and hides the
+    # stragglers; alone, each batch's time is its own work.
+    ledger_digests = [batch_digest(b) for b in make_train_pipeline(
+        ds, "batch", IMAGE_BATCH, 0, 1, decode, None, producers=1,
+        columns=cols)]
+    ledger_s = time.monotonic() - t0
+    costs.default_ledger().close()
+    with open(ledger_path) as f:
+        ledger_lines = sum(1 for _ in f)
+
+    runs = []
+    pool = WorkerPool(columnar_spec(path), decode, WC_WORKERS, columns=cols)
+    try:
+        for arm in SCHED_ORDER:
+            reg = MetricsRegistry()
+            sched = (DecodeScheduler(CostModel.from_env(), registry=reg,
+                                     **SCHED_OPTS)
+                     if arm != "plain" else None)
+            loader = make_train_pipeline(ds, "batch", IMAGE_BATCH, 0, 1,
+                                         decode, None, workers=pool,
+                                         columns=cols, schedule=sched)
+            waits, digests = [], []
+            it = iter(loader)
+            t0 = time.monotonic()
+            while True:
+                w0 = time.monotonic()
+                batch = next(it, None)
+                if batch is None:
+                    break
+                waits.append((time.monotonic() - w0) * 1e3)
+                digests.append(batch_digest(batch))
+                del batch
+            seconds = time.monotonic() - t0
+            runs.append({
+                "arm": arm, "seconds": seconds,
+                "images_per_sec": corpus["rows"] / seconds,
+                "wait_ms_p50": float(np.percentile(waits, 50)),
+                "wait_ms_p95": float(np.percentile(waits, 95)),
+                "wait_ms_max": max(waits),
+                "reorders": reg.counter(
+                    "sched_dispatch_reorders_total").value,
+                "heavy_lane_batches": reg.counter(
+                    "sched_heavy_lane_batches_total").value,
+                "predicted_error_ms_p95": reg.histogram(
+                    "sched_predicted_error_ms").percentile(95)
+                if sched is not None else None,
+                "bit_identical": digests == ledger_digests,
+            })
+    finally:
+        pool.shutdown()
+        del os.environ["LDT_COST_PATH"]
+        shutil.rmtree(base, ignore_errors=True)
+    fields = dict(corpus, author_seconds=author_s, filesystem=fs,
+                  ledger_epoch_seconds=ledger_s, ledger_lines=ledger_lines,
+                  workers=WC_WORKERS, schedule=SCHED_OPTS, runs=runs)
+    emit("graph", check="scheduled", **fields)
+    bad = [r["arm"] for r in runs if not r["bit_identical"]]
+    if bad:
+        raise RuntimeError(f"graph: the {bad} runs' batches differ from the "
+                           "unscheduled in-process epoch's")
+    if ledger_lines < SCHED_BATCHES:
+        raise RuntimeError(f"graph: the unscheduled epoch wrote "
+                           f"{ledger_lines} cost records")
+    if not all(r["reorders"] > 0 for r in runs if r["arm"] == "scheduled"):
+        raise RuntimeError("graph: a scheduled run reordered no dispatch")
+    if not all(r["heavy_lane_batches"] > 0 for r in runs
+               if r["arm"] == "scheduled"):
+        raise RuntimeError("graph: a scheduled run routed no batch to the "
+                           "heavy lane")
+    return fields
+
+
+def graph_run() -> dict:
+    """The loader graph on the card (the module's docstring, phase 21)."""
+    import torch
+    from lance_distributed_training_tpu_torch import ops, trainer
+    from lance_distributed_training_tpu_torch.data import (
+        create_text_token_dataset,
+        default_buffer_pool,
+    )
+    from lance_distributed_training_tpu_torch.data import graph as G
+    from lance_distributed_training_tpu_torch.models.tasks import get_task
+    from lance_distributed_training_tpu_torch.ops import image, jpeg_device
+    from lance_distributed_training_tpu_torch.ops import token_device
+
+    dev = torch.device("cuda")
+    pinned = default_buffer_pool(pin_memory=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"food": os.path.join(tmp, "food"),
+                 "tree": os.path.join(tmp, "tree"),
+                 "tokens": os.path.join(tmp, "tokens")}
+        t0 = time.monotonic()
+        _learnable_dataset(os.path.join(tmp, "drawn"), paths["food"],
+                           GRAPH_BATCHES * IMAGE_BATCH,
+                           unique=WC_UNIQUE_IMAGES)
+        _learnable_tree(paths["tree"], GRAPH_BATCHES * IMAGE_BATCH
+                        // UNIQUE_IMAGES)
+        _write_corpus(paths["tokens"],
+                      _corpus_docs()[:GRAPH_BATCHES * GPT_BATCH])
+        author_s = time.monotonic() - t0
+        shapes = _graph_shapes(paths, pinned)
+        engine, resumed, cursors = {}, {}, {}
+        for name, (make_graph, make_engine) in shapes.items():
+            engine[name] = _stream(make_engine())
+            graph = make_graph()
+            it = iter(graph)
+            for _ in range(GRAPH_RESUME_AT):
+                next(it)
+            cursors[name] = graph.state_dict()
+            it.close()
+            graph = make_graph()
+            graph.load_state_dict(cursors[name])
+            resumed[name] = _stream(graph)
+
+        # The main path: every shape's graph streamed and fed to its
+        # kernels, the launch counts set to 0 just before and read just
+        # after; the first batches kept for the comparisons after.
+        task = get_task("classification", model_name="resnet50",
+                        num_classes=IMAGE_CLASSES, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+        optimizer, lr = trainer.make_optimizer(
+            trainer.TrainConfig(dataset_path="-", lr=0.05), task.model
+            .parameters())
+        step = trainer.make_train_step(task, optimizer, lr)
+        flip = (torch.rand(IMAGE_BATCH, generator=torch.Generator()
+                           .manual_seed(17)) < 0.5).to(dev)
+        decode_k2 = jpeg_device.make_batch_transform(224)
+        pack_k3 = token_device.make_pack_transform()
+        kept, losses, engines = {}, [], {}
+
+        def feed(name):
+            def on_batch(i, batch):
+                if i == 0:
+                    kept[name] = {k: v.clone() if isinstance(
+                        v, torch.Tensor) else v for k, v in batch.items()}
+                if name == "train-iterable":
+                    losses.append(float(step(batch, flip_mask=flip)))
+                elif name == "device-decode":
+                    decode_k2(batch)
+                elif name == "token-pack":
+                    pack_k3(batch)
+            return on_batch
+
+        streamed = {}
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.monotonic()
+        for name, (make_graph, _) in shapes.items():
+            graph = make_graph()
+            # Under the Place node's wrap: the engine the graph compiled to.
+            engines[name] = type(graph.compile().inner).__name__
+            streamed[name] = _stream(graph, feed(name))
+        torch.cuda.synchronize()
+        main_s = time.monotonic() - t0
+        launches = {k: ops.LAUNCHES[k] for k in ("image_normalize",
+                                                  "jpeg_decode",
+                                                  "token_pack")}
+
+        # Each kernel against its plain version on a batch of the path.
+        x = kept["train-iterable"]["image"]
+        got = image.normalize_flip(x, flip)
+        want = image.random_flip_reference(
+            image.normalize_images_reference(x), flip)
+        k1_err = float((got.float() - want.float()).abs().max())
+        c = kept["device-decode"]
+        keys = ("jpeg_coef_y", "jpeg_coef_cb", "jpeg_coef_cr", "jpeg_quant",
+                "jpeg_geom")
+        got = jpeg_device.decode_coeff_batch(*(c[k] for k in keys),
+                                             out_size=224)
+        want = jpeg_device.decode_coeff_batch_reference(
+            *(c[k] for k in keys), out_size=224)
+        k2_err = float((got.int() - want.int()).abs().max())
+        t = kept["token-pack"]
+        args = tuple(t[k] for k in ("input_ids__values",
+                                    "input_ids__offsets", "_pack_slot",
+                                    "_pack_start"))
+        rows, pack_len = (int(v) for v in t["_host_pack_meta"][:2])
+        got = token_device.pack_token_batch(*args, rows=rows,
+                                            pack_len=pack_len)
+        want = token_device.pack_token_batch_reference(*args, rows=rows,
+                                                       pack_len=pack_len)
+        k3_err = max(float((g.long() - w.long()).abs().max())
+                     for g, w in zip(got, want))
+        del task, optimizer, step, kept, got, want
+        torch.cuda.empty_cache()
+        sched = _scheduled_arm(tmp)
+    counts = {name: len(d) for name, d in streamed.items()}
+    fields = {
+        "shapes": list(shapes), "engines": engines, "batches": counts,
+        "dataset_seconds": author_s, "main_path_seconds": main_s,
+        "graph_equals_engine": {n: streamed[n] == engine[n]
+                                for n in shapes},
+        "cursors": cursors,
+        "resumed_tail_equal": {n: resumed[n] == engine[n][GRAPH_RESUME_AT:]
+                               for n in shapes},
+        "distinct_batches": {n: len(set(d)) for n, d in streamed.items()},
+        "resnet50_losses": losses, "launches": launches,
+        "max_abs_err": {"image_normalize": k1_err, "jpeg_decode": k2_err,
+                        "token_pack": k3_err},
+        "canonical": {n: g.describe()["cursor_owner"]
+                      for n, g in G.canonical_graphs().items()},
+    }
+    emit("graph", check="shapes", **fields)
+    for name in shapes:
+        if not fields["graph_equals_engine"][name]:
+            raise RuntimeError(f"graph: {name} graph batches differ from "
+                               "the direct engine's")
+        if not fields["resumed_tail_equal"][name]:
+            raise RuntimeError(f"graph: {name} resumed at "
+                               f"{cursors[name]} differs from the tail")
+        if counts[name] != GRAPH_BATCHES or len(engine[name]) != counts[name]:
+            raise RuntimeError(f"graph: {name} streamed {counts[name]} "
+                               f"batches, expected {GRAPH_BATCHES}")
+        if fields["distinct_batches"][name] != counts[name]:
+            raise RuntimeError(f"graph: {name} streamed equal batches: an "
+                               "order fault could not show")
+    want = {k: GRAPH_BATCHES for k in launches}
+    if launches != want:
+        raise RuntimeError(f"graph: launches {launches}, expected {want}")
+    if any(fields["max_abs_err"].values()):
+        raise RuntimeError(f"graph: kernels differ from their plain "
+                           f"versions: {fields['max_abs_err']}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"graph: ResNet-50 losses {losses}")
+    return {"launches": launches, "scheduled": sched}
+
+
+# ------------------------------------------------------------------- remat
+
+def _remat_runs(path: str, tmp: str, flags: list) -> dict:
+    """BERT-base masked-LM through ``cli train`` with ``flags``, without and
+    then with ``--remat``, each from the same seed, the launch counts set
+    to 0 just before each run and read just after. Each run's model and
+    optimizer are freed before the next starts, so that its peak memory is
+    its own; its final parameters are kept on the host."""
+    import gc
+
+    import torch
+    from lance_distributed_training_tpu_torch import cli, ops
+
+    b, _, s, _ = SHAPE
+    out = {}
+    for remat in (False, True):
+        os.environ["LDT_METRICS_PATH"] = os.path.join(
+            tmp, f"metrics_{remat}_{len(flags)}.jsonl")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        result = cli.main([
+            "train", "--dataset_path", path, "--task_type", "masked_lm",
+            "--model_name", "bert_base", "--seq_len", str(s), *flags,
+            "--batch_size", str(b), "--optimizer", "adamw", "--lr", "1e-4",
+            "--max_steps", str(STEPS), "--epochs", "1", "--log_every", "5",
+            "--device", "cuda", "--no_eval_at_end", *FIXED,
+            *(["--remat"] if remat else [])])
+        out[remat] = {
+            "launches": {k: ops.LAUNCHES[k] for k in ops.LAUNCHES},
+            "peak": torch.cuda.max_memory_allocated(),
+            "params": {k: v.detach().cpu() for k, v in
+                       result["model"].state_dict().items()},
+            **{k: result[k] for k in ("losses", "steps", "step_ms")},
+        }
+        del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_run() -> dict:
+    """``--remat`` on the card (the module's docstring, phase 22)."""
+    import torch
+    from lance_distributed_training_tpu_torch.data import (
+        create_text_token_dataset,
+    )
+
+    b, _, s, _ = SHAPE
+    _, docs = _slice_docs()
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens")
+        create_text_token_dataset(path, docs, seq_len=s, pack=False)
+        for arm, flags, kernels in (
+                ("flash", ["--flash_attention"], ("fwd", "bwd_dq",
+                                                  "bwd_dkv")),
+                ("ring", ["--seq_parallelism", str(RING_SP)],
+                 RING_KERNELS)):
+            runs = _remat_runs(path, tmp, flags)
+            plain, remat = runs[False], runs[True]
+            same_params = all(torch.equal(remat["params"][k], v)
+                              for k, v in plain["params"].items())
+            max_param_diff = max(
+                float((remat["params"][k].float() - v.float()).abs().max())
+                for k, v in plain["params"].items())
+            fields = {"arm": arm}
+            for name, run in (("plain", plain), ("remat", remat)):
+                fields[name] = {
+                    "step_ms_median_5_20": statistics.median(
+                        run["step_ms"][4:]),
+                    "peak_memory_allocated_bytes": run["peak"],
+                    "losses": run["losses"], "steps": run["steps"],
+                    "launches": {k: run["launches"][k] for k in kernels},
+                }
+            fields.update(
+                losses_equal=plain["losses"] == remat["losses"],
+                params_equal=same_params, max_param_abs_diff=max_param_diff,
+                step_ratio=fields["remat"]["step_ms_median_5_20"]
+                / fields["plain"]["step_ms_median_5_20"],
+                peak_saved_bytes=plain["peak"] - remat["peak"])
+            emit("remat", **fields)
+            fwd = kernels[0]
+            want_plain = {k: LAYERS * STEPS for k in kernels}
+            want_remat = dict(want_plain, **{fwd: 2 * LAYERS * STEPS})
+            if fields["plain"]["launches"] != want_plain:
+                raise RuntimeError(f"remat {arm}: launches without remat "
+                                   f"{fields['plain']['launches']}, "
+                                   f"expected {want_plain}")
+            if fields["remat"]["launches"] != want_remat:
+                raise RuntimeError(f"remat {arm}: launches with remat "
+                                   f"{fields['remat']['launches']}, "
+                                   f"expected {want_remat}")
+            if not (fields["losses_equal"] and same_params):
+                raise RuntimeError(
+                    f"remat {arm}: losses equal {fields['losses_equal']}, "
+                    f"parameters equal {same_params} (largest difference "
+                    f"{max_param_diff})")
+            if not all(np.isfinite(fields["remat"]["losses"])):
+                raise RuntimeError(f"remat {arm}: non-finite loss")
+            report[arm] = fields["remat"]["launches"]
+    return {"launches": {**report["flash"], **report["ring"]}}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -3669,6 +4288,10 @@ def main(argv=None) -> int:
     if "moe" in phases:
         loaders["moe"] = moe_run(sliced["step_ms"] if sliced else None)[
             "launches"]
+    if "graph" in phases:
+        loaders["graph"] = graph_run()["launches"]
+    if "remat" in phases:
+        loaders["remat"] = remat_run()["launches"]
     emit("done", phases=phases, seconds=time.monotonic() - t0)
     if set(phases) != set(PHASES):
         return 0  # a partial run prints no result
@@ -3725,6 +4348,7 @@ def main(argv=None) -> int:
         table.append({
             "name": name, "route": "cuda", "source": RING_SOURCE,
             "replaces": RING_REPLACES, "launches": launches[name],
+            **phase_launches(name),
             "max_abs_err": k5["errors"][name], **k5["table"][name],
         })
     print(json.dumps({"kernels": table}), flush=True)

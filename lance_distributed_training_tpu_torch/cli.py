@@ -317,6 +317,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flash_attention", action="store_true",
                    help="attention through the hand-written CUDA flash "
                         "kernels (the plain version on the CPU)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize transformer blocks (long-context)")
     p.add_argument("--num_experts", type=int, default=0,
                    help=">0: switch-MoE transformer blocks (masked_lm, "
                         "causal_lm; every expert on each card)")

@@ -1,7 +1,8 @@
 """Host data plane: columnar format, sampler plans, row filters, decode
-into pooled pages, the iterable, map-style, eval and image-folder loaders,
-decode worker processes, the batch and replay caches, the placement plane,
-and authoring."""
+into pooled pages, the iterable, map-style, eval and image-folder loaders
+and the loader graph that composes them, decode worker processes and the
+straggler scheduler over them, the batch and replay caches, the placement
+plane, and authoring."""
 
 import importlib
 
@@ -40,12 +41,21 @@ _EXPORTS = {
     "format": (
         "Dataset", "Fragment", "write_dataset",
     ),
+    "graph": (
+        "Buffers", "Cache", "Decode", "DevicePut", "EvalSource",
+        "FleetTransport", "FolderSource", "InProcess", "LanceSource",
+        "LoaderGraph", "MapStyleSource", "Place", "Pool", "Prefetch",
+        "ServiceTransport", "canonical_graphs",
+    ),
     "placement": (
         "PlacedLoader", "PlacementPlane",
     ),
     "pipeline": (
         "MapStylePipeline", "make_eval_pipeline", "make_map_style_pipeline",
         "make_train_pipeline",
+    ),
+    "schedule": (
+        "CostModel", "DecodeScheduler", "plan_item_hints",
     ),
     "samplers": (
         "ReadRange", "distributed_index_batches", "distributed_indices",

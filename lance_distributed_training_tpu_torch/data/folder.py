@@ -52,9 +52,9 @@ class FolderDataPipeline(EpochLoader):
       batch order only.
 
     The cursor and ``set_epoch`` behave as the map-style loader's;
-    ``device``, ``producers``, ``buffer_pool``, ``workers`` and
-    ``batch_cache`` as :class:`~.pipeline.TrainLoader`'s. The batches are
-    the JAX package's ``FolderDataPipeline``'s. The corpus's content
+    ``device``, ``producers``, ``buffer_pool``, ``workers``,
+    ``batch_cache`` and ``scheduler`` as :class:`~.pipeline.TrainLoader`'s.
+    The batches are the JAX package's ``FolderDataPipeline``'s. The corpus's content
     identity (:attr:`dataset_fingerprint`, keying the batch cache) is
     hashed at most once, on first use, unless the caller passes it."""
 
@@ -65,7 +65,7 @@ class FolderDataPipeline(EpochLoader):
                  seed: int = 0, epoch: int = 0, drop_last: bool = True,
                  prefetch: int = 2, producers: int = 1, buffer_pool=None,
                  workers=None, batch_cache=None,
-                 dataset_fingerprint: Optional[str] = None):
+                 dataset_fingerprint: Optional[str] = None, scheduler=None):
         self.samples, self.classes = _folder_samples(root)
         if not self.samples:
             raise ValueError(f"no images under {root}")
@@ -76,7 +76,8 @@ class FolderDataPipeline(EpochLoader):
             )
         super().__init__(None, None, decode_fn, device, prefetch, epoch,
                          producers=producers, buffer_pool=buffer_pool,
-                         workers=workers, batch_cache=batch_cache)
+                         workers=workers, batch_cache=batch_cache,
+                         scheduler=scheduler)
         self._dataset_fingerprint = (str(dataset_fingerprint)
                                      if dataset_fingerprint is not None
                                      else None)

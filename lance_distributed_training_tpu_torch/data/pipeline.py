@@ -2,8 +2,10 @@
 
 Counterpart of ``make_train_pipeline``, ``make_map_style_pipeline`` and
 ``make_eval_pipeline`` in ``lance_distributed_training_tpu/data/
-pipeline.py``. For the same arguments each yields the JAX loader's batches
-in the same order:
+pipeline.py``. As there, each factory composes a
+:class:`~.graph.LoaderGraph` and compiles it at once; the classes here are
+the engines a graph compiles to. For the same arguments each yields the
+JAX loader's batches in the same order:
 
 - the iterable loader (:class:`TrainLoader`) reads this process's range
   plan (``sampler_type``, ``shuffle`` permuting batch order);
@@ -37,7 +39,11 @@ placement stays downstream, as in the JAX pipeline. With ``producers > 1``
 it warns (the pool already decodes in parallel), and when the loader's
 read projection differs from the pool's ``columns`` it warns too (reads
 run inside the pool). The iterable, map-style and folder loaders take a
-pool; the eval loader decodes on its own threads.
+pool; the eval loader decodes on its own threads. A ``scheduler`` (a
+:class:`~.schedule.DecodeScheduler`) reorders the pool's dispatch,
+predicted-heaviest first within its lookahead; results still come in plan
+order, so the batches are the same bit for bit (without a pool it is not
+used: in-process decode has no dispatch to reorder).
 
 Batch cache (``batch_cache``, a :class:`~.cache.BatchCache`): consulted at
 the decode boundary of every loader through a per-iteration
@@ -86,19 +92,12 @@ from .cache import (
     plan_fingerprint,
 )
 from .format import Dataset
-from .samplers import (
-    ReadRange,
-    assert_equal_step_counts,
-    distributed_index_batches,
-    make_plan,
-    padded_eval_index_batches,
-    slice_plan,
-)
+from .samplers import ReadRange, distributed_index_batches, slice_plan
 from ..parallel.mesh import PinnedStager, indexed_device, make_global_batch
 
 __all__ = ["EvalLoader", "MapStylePipeline", "TrainLoader",
            "make_eval_pipeline", "make_map_style_pipeline",
-           "make_train_pipeline"]
+           "make_train_pipeline", "refuse_empty_plan"]
 
 
 def _range_read(dataset: Dataset, ranges: Sequence[ReadRange],
@@ -135,15 +134,15 @@ class TrainLoader:
     ``ReadRange`` list, read projected to ``columns``; subclasses change
     what a plan item is and how it is read and decoded (:meth:`_plan`,
     :meth:`_read`, :meth:`_decode`) and how it is keyed in a batch cache
-    (:meth:`_plan_cache`). ``workers`` and ``batch_cache`` are the module
-    docstring's."""
+    (:meth:`_plan_cache`). ``workers``, ``scheduler`` and ``batch_cache``
+    are the module docstring's."""
 
     def __init__(self, dataset: Dataset, plan: Optional[Sequence],
                  decode_fn: Callable[[pa.Table], dict],
                  device: Optional[torch.device], prefetch: int = 2,
                  epoch: int = 0, producers: int = 1, buffer_pool=None,
                  workers=None, batch_cache=None,
-                 columns: Optional[Sequence[str]] = None):
+                 columns: Optional[Sequence[str]] = None, scheduler=None):
         self.dataset = dataset
         self.plan = list(plan) if plan is not None else None
         self.decode_fn = decode_fn
@@ -152,6 +151,7 @@ class TrainLoader:
         self.producers = max(1, int(producers))
         self.buffer_pool = buffer_pool
         self.workers = workers
+        self.scheduler = scheduler
         self.batch_cache = batch_cache
         self.columns = list(columns) if columns is not None else None
         self.epoch = epoch
@@ -216,7 +216,8 @@ class TrainLoader:
 
     def tunables(self):
         """The autotuner's knobs: the prefetch depth, then the decoder's
-        (the coefficient grid's rounding, the pack plan's shape)."""
+        (the coefficient grid's rounding, the pack plan's shape), then the
+        scheduler's (its lookahead and heavy-lane share)."""
         out = [Tunable(
             "prefetch", lambda: self.prefetch, self.set_prefetch,
             lo=1, hi=16,
@@ -225,6 +226,8 @@ class TrainLoader:
         decoder = getattr(self.decode_fn, "tunables", None)
         if decoder is not None:
             out.extend(decoder())
+        if self.scheduler is not None:
+            out.extend(self.scheduler.tunables())
         return out
 
     def host_batches(self) -> Iterator[dict]:
@@ -424,6 +427,13 @@ class TrainLoader:
                 while not q.empty():
                     self._release(q.get_nowait())
 
+    def _worker_imap(self, items):
+        """The pool's dispatch seam: straggler-aware when a scheduler is
+        attached (dispatch reordered; results still come in plan order)."""
+        if self.scheduler is not None:
+            return self.scheduler.imap(self.workers, items)
+        return self.workers.imap(items)
+
     def _iter_workers(self, plan: list, base: int) -> Iterator[dict]:
         """The worker pool's seam: one producer thread takes the pool's
         results in plan order (only the cache's misses go to the pool);
@@ -442,11 +452,11 @@ class TrainLoader:
                     # fetch decodes here, never off the iterator (that
                     # would shift every later batch).
                     probed = [cache.contains(item) for item in plan]
-                    results = self.workers.imap(
+                    results = self._worker_imap(
                         [i for i, hit in zip(plan, probed) if not hit])
                 else:
                     probed = None
-                    results = self.workers.imap(plan)
+                    results = self._worker_imap(plan)
                 try:
                     for off, item in enumerate(plan):
                         if stop.is_set():
@@ -553,7 +563,7 @@ def make_eval_pipeline(
     buffer_pool=None,
     batch_cache=None,
     dataset_fingerprint: Optional[str] = None,
-) -> EvalLoader:
+):
     """Full-coverage eval loader: every row exactly once, one batch shape.
 
     The tail is padded back to a full global batch by wrap-around rows and
@@ -565,15 +575,23 @@ def make_eval_pipeline(
     are the JAX package's ``make_eval_pipeline``'s; ``device``,
     ``producers``, ``buffer_pool`` and ``batch_cache`` are
     :class:`TrainLoader`'s (the eval takes no worker pool, as in JAX), the
-    cache keyed by ``dataset_fingerprint``."""
-    if index_pool is not None:
-        num_rows = len(index_pool)
-    plan = padded_eval_index_batches(num_rows, global_batch, process_index,
-                                     process_count, index_pool=index_pool)
-    return EvalLoader(read_fn, plan, decode_fn, device, prefetch=prefetch,
-                      producers=producers, buffer_pool=buffer_pool,
-                      batch_cache=batch_cache,
-                      dataset_fingerprint=dataset_fingerprint)
+    cache keyed by ``dataset_fingerprint``. A compiled
+    :class:`~.graph.LoaderGraph` over an :class:`~.graph.EvalSource`."""
+    from .graph import (Buffers, Cache, Decode, DevicePut, EvalSource,
+                        InProcess, LoaderGraph, Prefetch)
+
+    graph = LoaderGraph(
+        EvalSource(read_fn, num_rows, global_batch, process_index,
+                   process_count, index_pool=index_pool),
+        Decode(decode_fn),
+        Cache(batch_cache, dataset_fingerprint=dataset_fingerprint),
+        Buffers(buffer_pool),
+        Prefetch(prefetch, producers=producers),
+        DevicePut(device),
+        InProcess(),
+    )
+    graph.compile()
+    return graph
 
 
 class EpochLoader(TrainLoader):
@@ -622,11 +640,11 @@ class MapStylePipeline(EpochLoader):
                  columns: Optional[Sequence[str]] = None,
                  index_pool: Optional[np.ndarray] = None,
                  producers: int = 1, buffer_pool=None, workers=None,
-                 batch_cache=None):
+                 batch_cache=None, scheduler=None):
         super().__init__(dataset, None, decode_fn, device, prefetch, epoch,
                          producers=producers, buffer_pool=buffer_pool,
                          workers=workers, batch_cache=batch_cache,
-                         columns=columns)
+                         columns=columns, scheduler=scheduler)
         self.batch_size = batch_size
         self.process_index = process_index
         self.process_count = process_count
@@ -654,12 +672,48 @@ class MapStylePipeline(EpochLoader):
         return self.dataset.take(item, columns=self.columns)
 
 
-def make_map_style_pipeline(dataset: Dataset, *args,
-                            **kwargs) -> MapStylePipeline:
-    """The map-style loader: :class:`MapStylePipeline`'s signature. The
-    JAX package assembles a ``LoaderGraph`` here, which the port does not
-    have yet; its batches are this loader's."""
-    return MapStylePipeline(dataset, *args, **kwargs)
+def make_map_style_pipeline(dataset: Dataset, *args, **kwargs):
+    """The map-style loader as a compiled :class:`~.graph.LoaderGraph`
+    (``MapStyleSource → Decode → … → InProcess``): it takes
+    :class:`MapStylePipeline`'s signature and streams bit-identically to a
+    direct construction. The signature's ``scheduler`` rides the Decode
+    node."""
+    import inspect
+
+    from .graph import (Buffers, Cache, Decode, DevicePut, InProcess,
+                        LoaderGraph, MapStyleSource, Pool, Prefetch)
+
+    bound = inspect.signature(MapStylePipeline.__init__).bind(
+        None, dataset, *args, **kwargs)
+    bound.apply_defaults()
+    a = bound.arguments
+    graph = LoaderGraph(
+        MapStyleSource(dataset, a["batch_size"], a["process_index"],
+                       a["process_count"], shuffle=a["shuffle"],
+                       seed=a["seed"], epoch=a["epoch"],
+                       drop_last=a["drop_last"],
+                       index_pool=a["index_pool"]),
+        Decode(a["decode_fn"], columns=a["columns"],
+               schedule=a["scheduler"]),
+        Cache(a["batch_cache"]),
+        Pool(a["workers"]),
+        Buffers(a["buffer_pool"]),
+        Prefetch(a["prefetch"], producers=a["producers"]),
+        DevicePut(a["device"]),
+        InProcess(),
+    )
+    graph.compile()
+    return graph
+
+
+def refuse_empty_plan(loader, dataset: Dataset, batch_size: int,
+                      process_count: int) -> None:
+    """The port's refusal of an iterable plan without one batch."""
+    if len(loader) == 0:
+        raise ValueError(
+            f"empty plan: {dataset.count_rows()} rows cannot fill one batch "
+            f"of {batch_size} on each of {process_count} processes"
+        )
 
 
 def make_train_pipeline(
@@ -679,32 +733,31 @@ def make_train_pipeline(
     workers=None,
     batch_cache=None,
     columns: Optional[Sequence[str]] = None,
-) -> TrainLoader:
-    """Iterable-style loader over this process's plan. ``batch_size`` is
-    the per-process batch. Every process's plan is checked for equal step
-    and row counts before the first batch (unequal counts hang a
-    collective). ``device=None`` yields host batches; ``columns`` projects
-    the reads (pass the worker pool's)."""
-    if sampler_type in ("full", "full_scan") and process_count > 1:
-        raise ValueError(
-            "sampler_type='full' is not DP-aware (every process scans the "
-            f"whole dataset) and cannot run across {process_count} processes"
-        )
-    rows = dataset.fragment_rows()
-    plans = [
-        make_plan(sampler_type, rows, batch_size, p, process_count,
-                  shuffle=shuffle, seed=seed, epoch=epoch)
-        for p in range(process_count)
-    ]
-    if sampler_type not in ("full", "full_scan"):
-        assert_equal_step_counts(plans, batch_size)
-    plan = plans[process_index]
-    if not plan:
-        raise ValueError(
-            f"empty plan: {dataset.count_rows()} rows cannot fill one batch "
-            f"of {batch_size} on each of {process_count} processes"
-        )
-    return TrainLoader(dataset, plan, decode_fn, device, prefetch=prefetch,
-                       epoch=epoch, producers=producers,
-                       buffer_pool=buffer_pool, workers=workers,
-                       batch_cache=batch_cache, columns=columns)
+    schedule=None,
+):
+    """Iterable-style loader over this process's plan, as a compiled
+    :class:`~.graph.LoaderGraph` over a :class:`~.graph.LanceSource`.
+    ``batch_size`` is the per-process batch. Every process's plan is
+    checked for equal step and row counts before the first batch (unequal
+    counts hang a collective). ``device=None`` yields host batches;
+    ``columns`` projects the reads (pass the worker pool's); ``schedule``
+    attaches the straggler scheduler to the pool's dispatch. Compiled here,
+    so the refusals (a full scan across processes, an empty plan) surface
+    at construction."""
+    from .graph import (Buffers, Cache, Decode, DevicePut, InProcess,
+                        LanceSource, LoaderGraph, Pool, Prefetch)
+
+    graph = LoaderGraph(
+        LanceSource(dataset, sampler_type, batch_size, process_index,
+                    process_count, shuffle=shuffle, seed=seed, epoch=epoch),
+        Decode(decode_fn, columns=columns, schedule=schedule),
+        Cache(batch_cache),
+        Pool(workers),
+        Buffers(buffer_pool),
+        Prefetch(prefetch, producers=producers),
+        DevicePut(device),
+        InProcess(),
+    )
+    graph.compile()
+    refuse_empty_plan(graph, dataset, batch_size, process_count)
+    return graph

@@ -213,17 +213,19 @@ def _masked_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
                     attention_fn: Optional[Callable] = None, device=None,
                     generator: Optional[torch.Generator] = None,
                     loss_group=None, num_experts: int = 0,
-                    moe_every: int = 2) -> Task:
+                    moe_every: int = 2, remat: bool = False) -> Task:
     """A ``bert_base`` or ``bert_small`` masked-LM task (switch-MoE on every
-    ``moe_every``-th block with ``num_experts > 0``); the model is built
-    on ``device`` and initialised from ``generator``."""
+    ``moe_every``-th block with ``num_experts > 0``, each block
+    rematerialized with ``remat``); the model is built on ``device`` and
+    initialised from ``generator``."""
     ctor = {"bert_base": bert_base, "bert_small": bert_small}.get(model_name)
     if ctor is None:
         raise ValueError(f"Invalid model name: {model_name} "
                          "(have ['bert_base', 'bert_small'])")
     model = ctor(vocab_size=vocab_size or 30522, max_len=seq_len,
-                 attention_fn=attention_fn, num_experts=num_experts,
-                 moe_every=moe_every, device=device, generator=generator)
+                 attention_fn=attention_fn, remat=remat,
+                 num_experts=num_experts, moe_every=moe_every, device=device,
+                 generator=generator)
     return masked_lm_task(model, loss_group)
 
 
@@ -279,19 +281,21 @@ def _causal_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
                     attention_fn: Optional[Callable] = None, device=None,
                     generator: Optional[torch.Generator] = None,
                     loss_group=None, num_experts: int = 0,
-                    moe_every: int = 2) -> Task:
+                    moe_every: int = 2, remat: bool = False) -> Task:
     """A ``gpt_base`` (GPT-2 124M's shape) or ``gpt_small`` causal-LM task,
     vocabulary 50257 by default (switch-MoE on every ``moe_every``-th
-    block with ``num_experts > 0``); the model is built on ``device`` and
-    initialised from ``generator``. An ``attention_fn`` must bind its own
+    block with ``num_experts > 0``, each block rematerialized with
+    ``remat``); the model is built on ``device`` and initialised from
+    ``generator``. An ``attention_fn`` must bind its own
     causality (``make_flash_attention(causal=True)``)."""
     ctor = {"gpt_base": gpt_base, "gpt_small": gpt_small}.get(model_name)
     if ctor is None:
         raise ValueError(f"Invalid model name: {model_name} "
                          "(have ['gpt_base', 'gpt_small'])")
     model = ctor(vocab_size=vocab_size or 50257, max_len=seq_len,
-                 attention_fn=attention_fn, num_experts=num_experts,
-                 moe_every=moe_every, device=device, generator=generator)
+                 attention_fn=attention_fn, remat=remat,
+                 num_experts=num_experts, moe_every=moe_every, device=device,
+                 generator=generator)
     return causal_lm_task(model, loss_group)
 
 
@@ -345,7 +349,7 @@ def get_task(task_type: str, *, num_classes: int = 101,
              model_name: Optional[str] = None, image_size: int = 224,
              seq_len: int = 128, vocab_size: Optional[int] = None,
              augment: bool = True, attention_fn: Optional[Callable] = None,
-             num_experts: int = 0, moe_every: int = 2,
+             remat: bool = False, num_experts: int = 0, moe_every: int = 2,
              device=None, generator: Optional[torch.Generator] = None,
              loss_group=None) -> Task:
     """The task for ``task_type``: ``classification`` (a ResNet or a ViT,
@@ -353,8 +357,10 @@ def get_task(task_type: str, *, num_classes: int = 101,
     ``causal_lm`` (default ``gpt_base``) or ``contrastive`` (default
     ``clip_resnet50_bert``). ``image_size`` sizes a ViT's position table;
     the ResNets take any size. ``num_experts``/``moe_every`` give the text
-    tasks switch-MoE blocks. ``loss_group`` makes the loss the global
-    batch's across its processes."""
+    tasks switch-MoE blocks and ``remat`` rematerializes their blocks (the
+    classification and contrastive tasks take neither, as in JAX).
+    ``loss_group`` makes the loss the global batch's across its
+    processes."""
     if task_type == "classification":
         return _classification_task(num_classes, model_name or "resnet50",
                                     augment, device, generator,
@@ -362,11 +368,11 @@ def get_task(task_type: str, *, num_classes: int = 101,
     if task_type == "masked_lm":
         return _masked_lm_task(vocab_size, model_name or "bert_base", seq_len,
                                attention_fn, device, generator, loss_group,
-                               num_experts, moe_every)
+                               num_experts, moe_every, remat)
     if task_type == "causal_lm":
         return _causal_lm_task(vocab_size, model_name or "gpt_base", seq_len,
                                attention_fn, device, generator, loss_group,
-                               num_experts, moe_every)
+                               num_experts, moe_every, remat)
     if task_type == "contrastive":
         return _contrastive_task(model_name or "clip_resnet50_bert", seq_len,
                                  vocab_size, augment, device, generator,

@@ -15,6 +15,14 @@ With ``num_experts > 0`` every ``moe_every``-th block (block ``i`` with
 ``i % moe_every == moe_every - 1``) replaces its dense MLP by a
 switch-routed :class:`.moe.MoEMLP`, as the JAX encoder does.
 
+With ``remat`` each block's call goes through
+:func:`torch.utils.checkpoint.checkpoint` (non-reentrant), the
+counterpart of the JAX encoder's ``nn.remat(EncoderBlock)``: the backward
+runs each block's forward again rather than keeping its activations. It
+adds no parameter; the recomputed forward gives the same bits (the
+kernels and the plain ops are deterministic), so the gradients are those
+of the run without it.
+
 Weights initialise as Flax's do (LeCun-normal dense kernels, zero biases,
 ``N(0, 1/vocab)`` embeddings, ``N(0, 0.02)`` positions) from an explicit
 ``torch.Generator``; :mod:`.convert` loads a Flax parameter tree instead.
@@ -29,10 +37,11 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["TransformerEncoder", "SelfAttention", "EncoderBlock",
            "bert_base", "bert_small", "gpt_base", "gpt_small",
-           "dot_product_attention"]
+           "dot_product_attention", "run_blocks"]
 
 LN_EPS = 1e-6
 # Flax's lecun_normal draws a normal truncated to two standard deviations,
@@ -165,6 +174,18 @@ class EncoderBlock(nn.Module):
         return x + self.mlp_out(y)
 
 
+def run_blocks(layers, x, *args, remat: bool = False):
+    """``x`` through each block of ``layers``; with ``remat`` (and a graph
+    being recorded) each block is checkpointed, its forward run again in
+    the backward."""
+    for layer in layers:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, *args, use_reentrant=False)
+        else:
+            x = layer(x, *args)
+    return x
+
+
 class TransformerEncoder(nn.Module):
     """Pre-LN BERT-style encoder with a tied MLM head.
 
@@ -174,17 +195,18 @@ class TransformerEncoder(nn.Module):
     ``segment_ids`` (1-based, 0 = dead) and ``position_ids`` (restarting
     per sequence): positions are gathered from ``pos_embed``; an
     ``attention_fn`` takes the segment ids straight through, the dense path
-    lowers them to a block mask (same live segment). The model is built on
-    ``device`` and initialised from ``generator`` (a fresh
+    lowers them to a block mask (same live segment). ``remat``
+    rematerializes each block (the module's docstring). The model is built
+    on ``device`` and initialised from ``generator`` (a fresh
     ``torch.Generator`` seeded with 0 when none is given)."""
 
     def __init__(self, vocab_size: int, hidden_size: int = 768,
                  num_layers: int = 12, num_heads: int = 12,
                  mlp_dim: int = 3072, max_len: int = 512,
                  dtype=torch.bfloat16, attention_fn: Optional[Callable] = None,
-                 num_experts: int = 0, moe_every: int = 2,
-                 capacity_factor: float = 1.25, causal: bool = False,
-                 head: str = "mlm", device=None,
+                 remat: bool = False, num_experts: int = 0,
+                 moe_every: int = 2, capacity_factor: float = 1.25,
+                 causal: bool = False, head: str = "mlm", device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if head not in ("mlm", "none"):
@@ -195,6 +217,7 @@ class TransformerEncoder(nn.Module):
         self.max_len = max_len
         self.dtype = dtype
         self.attention_fn = attention_fn
+        self.remat = remat
         self.causal = causal
         self.tok_embed = nn.Embedding(vocab_size, hidden_size)
         self.pos_embed = nn.Parameter(torch.empty(max_len, hidden_size))
@@ -243,8 +266,7 @@ class TransformerEncoder(nn.Module):
             mask, segment_ids = segment_attention_mask(segment_ids), None
         elif segment_ids is not None:
             mask = None
-        for layer in self.layers:
-            x = layer(x, mask, segment_ids)
+        x = run_blocks(self.layers, x, mask, segment_ids, remat=self.remat)
         x = self.ln_final(x)
         if self.head == "none":
             return x

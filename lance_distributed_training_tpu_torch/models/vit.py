@@ -8,6 +8,8 @@ classification task hands its model, computing in ``dtype``), an f32
 :class:`~.transformer.EncoderBlock` s run with no mask, the tokens are
 mean-pooled, and an f32 LayerNorm (epsilon 1e-6) and an f32 head give the
 logits. There is no class token, so the sequence is the patch grid.
+``remat`` rematerializes each block, as the JAX module's field does; the
+classification task does not set it, as in JAX.
 
 The position table's rows are the patches of an ``image_size`` image, so
 the model is built for one image size, as the Flax module's parameters
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .transformer import LN_EPS, EncoderBlock, _lecun_normal_
+from .transformer import LN_EPS, EncoderBlock, _lecun_normal_, run_blocks
 
 __all__ = ["ViT", "vit_tiny", "vit_small", "vit_base"]
 
@@ -36,13 +38,15 @@ class ViT(nn.Module):
     def __init__(self, num_classes: int, image_size: int = 224,
                  patch_size: int = 16, hidden_size: int = 384,
                  num_layers: int = 12, num_heads: int = 6,
-                 mlp_dim: int = 1536, dtype=torch.bfloat16, device=None,
+                 mlp_dim: int = 1536, dtype=torch.bfloat16,
+                 remat: bool = False, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self._check_size(image_size, image_size, patch_size)
         self.patch_size = patch_size
         self.hidden_size = hidden_size
         self.dtype = dtype
+        self.remat = remat
         self.patch_embed = nn.Conv2d(3, hidden_size, patch_size,
                                      stride=patch_size)
         seq = (image_size // patch_size) ** 2
@@ -95,8 +99,7 @@ class ViT(nn.Module):
         x = x.permute(0, 2, 3, 1).reshape(b, (h // p) * (w // p),
                                           self.hidden_size)
         x = x + self.pos_embed.to(dt)
-        for layer in self.layers:
-            x = layer(x)
+        x = run_blocks(self.layers, x, remat=self.remat)
         x = F.layer_norm(x.mean(dim=1).float(), (self.hidden_size,),
                          self.ln_final.weight, self.ln_final.bias, LN_EPS)
         return self.head(x)

@@ -118,14 +118,13 @@ from .data.buffers import default_buffer_pool
 from .data.cache import BatchCache, DeviceReplayCache, folder_fingerprint
 from .data.decode import decoder_for_task
 from .data.authoring import _folder_samples
-from .data.folder import FolderDataPipeline, read_sample_batch
+from .data.folder import read_sample_batch
 from .data.format import Dataset
+from .data.graph import (Buffers, Cache, Decode, DevicePut, EvalSource,
+                         FolderSource, InProcess, LanceSource, LoaderGraph,
+                         MapStyleSource, Place, Pool, Prefetch)
 from .data.placement import PlacementPlane
-from .data.pipeline import (
-    make_eval_pipeline,
-    make_map_style_pipeline,
-    make_train_pipeline,
-)
+from .data.pipeline import refuse_empty_plan
 from .data.token_pack import TokenPackConfig, is_ragged_batch, pack_meta
 from .models.pretrained import load_torch_state_dict, load_torchvision_resnet
 from .obs.registry import default_registry
@@ -266,6 +265,7 @@ class TrainConfig:
     resume: bool = True  # restore the newest checkpoint if one exists
     profile_dir: Optional[str] = None  # torch.profiler trace of early steps
     flash_attention: bool = False  # the hand-written CUDA flash kernels
+    remat: bool = False  # rematerialize transformer blocks (long-context)
     num_experts: int = 0  # >0: switch-MoE blocks (masked_lm, causal_lm)
     moe_every: int = 2  # MoE on every Nth block
     seq_parallelism: int = 1  # masked_lm: ring attention over N sequence
@@ -844,12 +844,22 @@ def _make_placement(config: TrainConfig, device: torch.device):
                           buffer_pool=_loader_buffer_pool(config))
 
 
-def _loader_kwargs(config: TrainConfig, device: torch.device, plane) -> dict:
-    """Where a loader places its batches (nowhere behind a plane: it
-    yields host batches), its producers and its pool."""
-    return dict(device=None if plane is not None else device,
-                producers=config.producer_threads,
-                buffer_pool=_loader_buffer_pool(config))
+def _assemble(config: TrainConfig, device: torch.device, plane, source,
+              decode_node, *mid):
+    """One loader of the run as a compiled :class:`~.data.graph.LoaderGraph`
+    (the JAX trainer's ``_assemble``): ``source``, ``decode_node`` and the
+    arm's own nodes, then the run's page pool, where batches are placed
+    (nowhere behind a plane: the engine yields host batches) and the
+    placement plane when there is one."""
+    nodes = [source, decode_node, *mid,
+             Buffers(_loader_buffer_pool(config)),
+             Prefetch(config.prefetch, producers=config.producer_threads),
+             DevicePut(None if plane is not None else device), InProcess()]
+    if plane is not None:
+        nodes.append(Place(plane))
+    graph = LoaderGraph(*nodes)
+    graph.compile()
+    return graph
 
 
 def _make_worker_pool(config: TrainConfig, decode):
@@ -878,25 +888,26 @@ def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
                   data_index: int, data_world: int,
                   index_pool: Optional[np.ndarray] = None, workers=None,
                   batch_cache=None, folder_fp: Optional[str] = None):
-    """This epoch's train loader: the iterable range plans, the map-style
-    loader over the run's pool, or the folder arm in either style, with
-    the JAX trainer's refusals of an empty plan and of a folder with more
-    classes than ``num_classes``; fed by the run's worker pool and cache
-    when there are, and wrapped in the placement plane unless the
-    synchronous arm is chosen."""
+    """This epoch's train loader, one :class:`~.data.graph.LoaderGraph`
+    whatever the arm: the iterable range plans, the map-style loader over
+    the run's pool, or the folder arm in either style (the source node is
+    all that varies), with the JAX trainer's refusals of an empty plan and
+    of a folder with more classes than ``num_classes``; fed by the run's
+    worker pool and cache when there are, and placed by the placement
+    plane unless the synchronous arm is chosen."""
     plane = _make_placement(config, device)
-    kw = _loader_kwargs(config, device, plane)
-    kw.update(workers=workers, batch_cache=batch_cache)
+    columns = getattr(decode, "required_columns", None)
     if config.data_format == "folder":
-        loader = FolderDataPipeline(
-            config.dataset_path, per_process, data_index, data_world, decode,
+        source = FolderSource(
+            config.dataset_path, per_process, data_index, data_world,
             loader_style=config.loader_style,
             # Map-style always reshuffles (DistributedSampler semantics);
             # the iterable arm's batch-order shuffle is opt-in, as on the
             # columnar iterable path.
             shuffle=True if config.loader_style == "map" else config.shuffle,
-            seed=config.seed, epoch=epoch, prefetch=config.prefetch,
-            dataset_fingerprint=folder_fp, **kw)
+            seed=config.seed, epoch=epoch, dataset_fingerprint=folder_fp)
+        loader = _assemble(config, device, plane, source, Decode(decode),
+                           Cache(batch_cache), Pool(workers))
         if len(loader) == 0:
             raise ValueError("folder smaller than one global batch")
         if (config.task_type == "classification"
@@ -906,18 +917,24 @@ def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
                 f"num_classes={config.num_classes}; out-of-range labels "
                 "would be silently clamped by the XLA gather"
             )
-        return plane.wrap(loader) if plane is not None else loader
+        return loader
     if config.loader_style == "map":
         if index_pool is not None and len(index_pool) < config.batch_size:
             raise ValueError(
                 f"filter {config.filter!r} keeps {len(index_pool)} rows — "
                 f"fewer than one global batch ({config.batch_size})"
             )
-        loader = make_map_style_pipeline(
-            dataset, per_process, data_index, data_world, decode,
-            seed=config.seed, epoch=epoch, prefetch=config.prefetch,
-            columns=getattr(decode, "required_columns", None),
-            index_pool=index_pool, **kw)
+        source = MapStyleSource(dataset, per_process, data_index, data_world,
+                                seed=config.seed, epoch=epoch,
+                                index_pool=index_pool)
+    else:
+        source = LanceSource(dataset, config.sampler_type, per_process,
+                             data_index, data_world, shuffle=config.shuffle,
+                             seed=config.seed, epoch=epoch)
+    loader = _assemble(config, device, plane, source,
+                       Decode(decode, columns=columns), Cache(batch_cache),
+                       Pool(workers))
+    if config.loader_style == "map":
         if len(loader) == 0:
             raise ValueError(
                 "empty plan: dataset smaller than one global batch "
@@ -925,12 +942,22 @@ def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
                 f"{config.batch_size})"
             )
     else:
-        loader = make_train_pipeline(
-            dataset, config.sampler_type, per_process, data_index,
-            data_world, decode, prefetch=config.prefetch,
-            shuffle=config.shuffle, seed=config.seed, epoch=epoch,
-            columns=getattr(decode, "required_columns", None), **kw)
-    return plane.wrap(loader) if plane is not None else loader
+        refuse_empty_plan(loader, dataset, per_process, data_world)
+    return loader
+
+
+def _build_eval_loader(config: TrainConfig, device: torch.device, read_fn,
+                       total: int, decode, index_pool=None, batch_cache=None,
+                       dataset_fingerprint: Optional[str] = None):
+    """The eval loader of rank 0, one :class:`~.data.graph.LoaderGraph`
+    over an :class:`~.data.graph.EvalSource`: every row (or pool position)
+    once, the tail padded, placed as the train loaders are."""
+    plane = _make_placement(config, device)
+    source = EvalSource(read_fn, total, config.batch_size, 0, 1,
+                        index_pool=index_pool)
+    return _assemble(config, device, plane, source, Decode(decode),
+                     Cache(batch_cache,
+                           dataset_fingerprint=dataset_fingerprint))
 
 
 def _check_seq_parallelism(config: TrainConfig) -> None:
@@ -1214,7 +1241,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                 causal=config.task_type == "causal_lm")
         task = get_task(config.task_type, model_name=config.model_name,
                         seq_len=config.seq_len, vocab_size=config.vocab_size,
-                        attention_fn=attention_fn,
+                        attention_fn=attention_fn, remat=config.remat,
                         num_experts=config.num_experts,
                         moe_every=config.moe_every, device=device,
                         generator=init_gen, loss_group=loss_group)
@@ -1344,16 +1371,11 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                 total = eval_dataset.count_rows()
                 if config.filter and eval_pool is None:
                     eval_pool = eval_dataset.filter_indices(config.filter)
-            plane = _make_placement(config, device)
-            loader = make_eval_pipeline(
-                read_fn, total, config.batch_size, 0, 1, eval_decode,
-                prefetch=config.prefetch, index_pool=eval_pool,
-                batch_cache=batch_cache,
+            loader = _build_eval_loader(
+                config, device, read_fn, total, eval_decode,
+                index_pool=eval_pool, batch_cache=batch_cache,
                 dataset_fingerprint=(folder_fp if folder else
-                                     eval_dataset.fingerprint()),
-                **_loader_kwargs(config, device, plane))
-            if plane is not None:
-                loader = plane.wrap(loader)
+                                     eval_dataset.fingerprint()))
             eval_step = make_eval_step(task)
             if coeff:
                 eval_step = (lambda b, _step=eval_step: _step(transform(b)))

@@ -45,6 +45,8 @@ from lance_distributed_training_tpu_torch.data import (
     make_train_pipeline,
 )
 from lance_distributed_training_tpu_torch.parallel import make_global_batch
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 SIZE = 32
 

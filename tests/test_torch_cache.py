@@ -36,6 +36,7 @@ from lance_distributed_training_tpu_torch.data import (
     Dataset,
     FolderDataPipeline,
     ImageClassificationDecoder,
+    LoaderGraph,
     ReadRange,
     TokenDecoder,
     TokenPackConfig,
@@ -49,6 +50,8 @@ from lance_distributed_training_tpu_torch.data.authoring import (
     _folder_samples,
 )
 from lance_distributed_training_tpu_torch.obs.registry import MetricsRegistry
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 SIZE = 32
 
@@ -266,7 +269,11 @@ def _two_epochs(make, batch_cache):
     out = []
     for epoch in range(2):
         loader = make(epoch)
-        loader.batch_cache = batch_cache
+        # A factory's loader is a compiled LoaderGraph: the cache binds to
+        # the engine it compiled to.
+        engine = (loader.compile() if isinstance(loader, LoaderGraph)
+                  else loader)
+        engine.batch_cache = batch_cache
         out.append([_plain(dict(b)) for b in loader])
     return out
 

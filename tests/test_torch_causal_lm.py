@@ -47,6 +47,8 @@ from lance_distributed_training_tpu_torch.ops.flash import (
 from lance_distributed_training_tpu_torch.ops.token_device import (
     make_pack_transform,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 VOCAB, SEQ = 97, 32
 DIMS = dict(hidden_size=64, num_layers=2, num_heads=4, mlp_dim=128,

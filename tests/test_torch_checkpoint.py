@@ -32,6 +32,8 @@ from lance_distributed_training_tpu_torch.utils.checkpoint import (
 from lance_distributed_training_tpu_torch.utils.signals import (
     PreemptionHandler,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 PAYLOADS = [
     {"epoch": 2, "step": 7},

@@ -51,6 +51,8 @@ from lance_distributed_training_tpu_torch.models import (
     load_flax_resnet,
     resnet,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(num_classes=10, num_filters=8)

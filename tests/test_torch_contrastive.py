@@ -72,6 +72,8 @@ from lance_distributed_training_tpu_torch.models import (
     contrastive_task,
     load_flax_clip,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 SIZE, SEQ, BATCH = 32, 16, 8

@@ -37,6 +37,8 @@ from lance_distributed_training_tpu_torch.data import (
     numeric_decoder,
 )
 from lance_distributed_training_tpu_torch.data.token_pack import TokenDecoder
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 SEQ = 12
 ROWS = 61  # 5 fragments of 13 rows, the last one short

@@ -40,6 +40,8 @@ from lance_distributed_training_tpu_torch.data import (
 )
 from lance_distributed_training_tpu_torch.native import coeffs
 from lance_distributed_training_tpu_torch.ops import jpeg_device
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 PAGE_KEYS = jpeg_device.COEFF_KEYS
 

@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from lance_distributed_training_tpu_torch.ops import flash
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 B, H, S, D = 2, 3, 24, 16
 SCALE = 1.0 / np.sqrt(D)

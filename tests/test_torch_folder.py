@@ -45,6 +45,8 @@ from lance_distributed_training_tpu_torch.data import (
     read_sample_batch,
 )
 from test_torch_classification import BATCH, RTOL, SIZE, _three_sgd_steps
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -22,6 +22,8 @@ import torch
 
 from lance_distributed_training_tpu_torch import ops
 from lance_distributed_training_tpu_torch.ops import image
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 MAX_ULPS = 0  # bf16 ulps allowed between the port and the JAX function
 

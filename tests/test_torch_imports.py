@@ -71,6 +71,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "lance_distributed_training_tpu_torch.models.vit",
         "lance_distributed_training_tpu_torch.models.clip",
         "lance_distributed_training_tpu_torch.data.decode",
+        "lance_distributed_training_tpu_torch.data.graph",
+        "lance_distributed_training_tpu_torch.data.schedule",
     }
     assert expected <= set(result["imported"])
     assert result["banned"] == []

@@ -60,6 +60,8 @@ from test_torch_resume import (
     _assert_same_params,
     _run,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 ROWS = 45  # fragments of 20, 20, 5
 

@@ -44,6 +44,8 @@ from lance_distributed_training_tpu_torch.models import (
     torch_state_dict_from_flax,
 )
 from lance_distributed_training_tpu_torch.models.moe import moe_aux_loss
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 H, E, M = 16, 4, 32

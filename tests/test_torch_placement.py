@@ -57,6 +57,7 @@ from lance_distributed_training_tpu_torch.data import (
     Dataset,
     FolderDataPipeline,
     ImageClassificationDecoder,
+    LoaderGraph,
     PlacementPlane,
     TokenDecoder,
     TokenPackConfig,
@@ -69,6 +70,8 @@ from lance_distributed_training_tpu_torch.data import (
     make_train_pipeline,
 )
 from lance_distributed_training_tpu_torch.parallel import make_global_batch
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 SIZE, ROWS = 32, 45
 
@@ -355,7 +358,10 @@ def test_producers_propagate_errors(kind, image_path, tree, token_path):
     def bad_decode(table):
         raise RuntimeError("decode exploded")
 
-    loader.decode_fn = bad_decode
+    # A factory's loader is a compiled LoaderGraph: the decode hook is the
+    # engine's it compiled to.
+    engine = loader.compile() if isinstance(loader, LoaderGraph) else loader
+    engine.decode_fn = bad_decode
     with pytest.raises(RuntimeError, match="decode exploded"):
         list(loader)
     assert _loader_threads() == []

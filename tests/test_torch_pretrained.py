@@ -51,6 +51,8 @@ from lance_distributed_training_tpu_torch.models.pretrained import (
 )
 from test_torch_classification import RTOL as TRAIN_RTOL
 from test_torch_resnet import ATOL, RTOL
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 SIZE, BATCH, WIDTH = 32, 8, 8
 

@@ -34,6 +34,8 @@ from lance_distributed_training_tpu_torch.models.convert import (
     load_flax_resnet,
     resnet_state_dict_from_flax,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 SMALL = dict(num_classes=10, num_filters=8)
 SIZE, BATCH = 32, 4

@@ -33,6 +33,8 @@ from lance_distributed_training_tpu_torch.utils import chaos as C
 from lance_distributed_training_tpu_torch.utils.checkpoint import (
     CheckpointManager,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 SEQ = 16
@@ -301,20 +303,53 @@ def _two_processes(tmp_path, path, tag, ck="-", chaos=None):
     return [torch.load(tmp_path / f"{tag}{rank}.pt") for rank in (0, 1)]
 
 
+def _name_the_first_difference(tmp_path, path, pre_update, first, want):
+    """A micro-step 3 loss differs: rerun the uninterrupted two processes,
+    this time saving at micro-step 2, write both runs' parameters after the
+    first update to ``tmp_path`` and name the first tensor that differs.
+    The control itself runs without saves, so that whatever a save does
+    to a run cannot hide the difference."""
+    diag_ck = str(tmp_path / "diag_ck")
+    diag = _two_processes(tmp_path, path, "diag", diag_ck)
+    updates = {"uninterrupted": torch.load(
+        CheckpointManager(diag_ck).state_path(2), map_location="cpu",
+        weights_only=True)["model"], "preempted": pre_update}
+    dump = tmp_path / "params_after_first_update.pt"
+    torch.save(updates, dump)
+    differ = next((name for name, value in updates["uninterrupted"].items()
+                   if not torch.equal(updates["preempted"][name], value)),
+                  None)
+    raise AssertionError(
+        f"micro-step 3 loss {first['losses'][2]!r} (preempted run) != "
+        f"{want['losses'][2]!r} (uninterrupted; "
+        f"{[d['losses'][2] for d in diag]!r} in a rerun that saves); after "
+        f"the first update the first tensor that differs is {differ} (both "
+        f"runs' parameters in {dump})")
+
+
 def test_two_gloo_processes_preempted_and_resumed_match_the_uninterrupted(
         tmp_path, token_path):
     """Two processes, each with its own mask generator: preempted at
     micro-step 3 (mid-window) and resumed, their losses and weights equal
-    the uninterrupted two-process run's, bit for bit."""
+    the uninterrupted two-process run's, bit for bit. A micro-step 3 loss
+    that differs comes with both runs' parameters after the first update
+    and the name of the first tensor that differs."""
     control = _two_processes(tmp_path, token_path, "control")
     ck = str(tmp_path / "ck")
     pre = _two_processes(tmp_path, token_path, "pre", ck, chaos="drain@3")
     assert all(p["preempted"] and p["global_step"] == 3 for p in pre)
     cursor = CheckpointManager(ck).cursor(3)
     assert len(cursor["rng"]) == 2 and cursor["rng"][0] != cursor["rng"][1]
+    # Micro-step 2 closes the first window: read the preempted run's
+    # parameters there before the resumed run's saves rotate ``ck``.
+    pre_update = torch.load(CheckpointManager(ck).state_path(2),
+                            map_location="cpu", weights_only=True)["model"]
     resumed = _two_processes(tmp_path, token_path, "resumed", ck)
     for got, want, first in zip(resumed, control, pre):
         assert got["global_step"] == want["global_step"] == 6
+        if first["losses"][2] != want["losses"][2]:
+            _name_the_first_difference(tmp_path, token_path, pre_update,
+                                       first, want)
         assert first["losses"] + got["losses"] == want["losses"]
         for key, value in want["state"].items():
             assert torch.equal(got["state"][key], value), key

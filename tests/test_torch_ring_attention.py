@@ -37,6 +37,8 @@ from lance_distributed_training_tpu_torch.parallel.ring_attention import (
     make_ring_attention,
     ring_attention,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 ring_module = importlib.import_module(

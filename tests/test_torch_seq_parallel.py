@@ -47,6 +47,8 @@ from lance_distributed_training_tpu_torch.parallel.mesh import seq_topology
 from lance_distributed_training_tpu_torch.parallel.ring_attention import (
     make_ring_attention,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 VOCAB, SEQ, BATCH = 97, 64, 4

@@ -34,6 +34,8 @@ from lance_distributed_training_tpu_torch.data import (
 from lance_distributed_training_tpu_torch.data import token_pack
 from lance_distributed_training_tpu_torch.data.buffers import BufferPool
 from lance_distributed_training_tpu_torch.ops import token_device
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 # (pack_len, rows_multiple, len_bucket_lo, rows_align)
 PLANNER_CONFIGS = [(128, 8, 32, 1), (64, 1, 8, 1), (1024, 8, 32, 1),

@@ -31,6 +31,8 @@ from lance_distributed_training_tpu_torch.models import (
     load_flax_params,
     masked_lm_task,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 VOCAB, SEQ, BATCH = 97, 16, 4
 DIMS = dict(hidden_size=64, num_layers=2, num_heads=4, mlp_dim=128,

@@ -39,6 +39,8 @@ from lance_distributed_training_tpu_torch.tune import (
     replay_trace,
     verify_trace,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 # Every series derive_window reads, with the suffixes a delta carries.
 _DELTA_KEYS = (

@@ -38,6 +38,8 @@ from lance_distributed_training_tpu_torch.models import (
     vit,
     vit_state_dict_from_flax,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 SIZE, BATCH, CLASSES = 32, 6, 10
 ATOL = 1e-5

@@ -56,6 +56,8 @@ from lance_distributed_training_tpu_torch.obs.registry import (
     MetricsRegistry,
     default_registry,
 )
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 SIZE = 32
 COLUMNS = ["image", "label"]
@@ -168,7 +170,9 @@ def test_cached_second_epoch_skips_the_pool(corpora, pools, tmp_path):
         before = results.count
         port, jax = _loaders(corpora, "iterable", decode, jax_decode,
                              workers=pool, epoch=epoch)
-        port.batch_cache = batch_cache
+        # A factory's loader is a compiled LoaderGraph: the cache binds to
+        # the engine it compiled to.
+        port.compile().batch_cache = batch_cache
         _equal(_copies(port), list(jax))
         # Epoch 1 decodes every batch in the pool; epoch 2 none.
         assert results.count - before == (len(port) if epoch == 1 else 0)

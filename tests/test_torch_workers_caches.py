@@ -61,6 +61,8 @@ from lance_distributed_training_tpu_torch.models import (
 )
 from lance_distributed_training_tpu_torch.native import native_available
 from lance_distributed_training_tpu_torch.utils.chaos import batch_digest
+from test_torch_threads import _one_torch_thread  # noqa: F401
+
 
 SIZE, BATCH, BATCHES, ECHO, RTOL, LR = 32, 32, 4, 2, 1e-5, 0.05
 
