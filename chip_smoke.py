@@ -316,7 +316,7 @@ Phases, each printing one JSON line:
              each, bit for bit. Then the scheduled arm: a set of 32
              batches of 512 rows where one batch in each quarter of the
              plan (at a seeded offset) holds an oversized JPEG (1,536-2,048
-             px wide) in one row of 4 (1 row in 32 overall);
+             px wide) in one row of 2 (1 row in 16 overall);
              a second unscheduled in-process epoch, on one producer so
              that each batch's decode time is its own, writes
              ``LDT_COST_PATH`` (the first pays the loader's start-up), and
@@ -340,6 +340,46 @@ Phases, each printing one JSON line:
              forward 24 a step with ``--remat`` against 12 without, dQ and
              dK/dV 12 a step each way; K5's fold likewise on the ring arm;
              prints each run's median step, peak memory and losses.
+23. service — the classification phases' ResNet-50 run behind the
+             data service: ``cli serve-data`` in a subprocess of its own on
+             127.0.0.1 serves the classification set (64 JPEGs over 10,240
+             rows, 224 px) and ``cli train --data_service HOST:PORT
+             --metrics_port 0`` trains at the classification phase's
+             width and flags (20 steps and the eval, which reads the rows
+             here), in two arms: PIL pixels, and ``--device_decode`` on
+             server and trainer (coefficient pages cross the wire; K2, then
+             K1, on the card). Before each run the port's local loader
+             decodes the same 20 batches here; every batch the trainer
+             received (digests on the card of the placed batch, before K2)
+             and every batch a step trained on (after K2) must equal the
+             local ones bit for bit. Checks K1's 40 launches and K2's 40
+             (coeff) or 0, the falling loss, the eval over every row, K1
+             and K2 against their plain versions on the first batch, that
+             the trainer's exporter served ``svc_*`` and ``lineage_*``
+             series and a ``/healthz`` of role ``trainer``, and that the
+             server holds no CUDA context (no ``/dev/nvidia*`` file, not
+             in ``nvidia-smi --query-compute-apps``); prints images/s,
+             step, stall and the wire MB a batch (the server's bytes sent
+             over its batches) beside the classification and
+             device_decode phases'.
+24. fleet   — the causal_lm phase's packed GPT-2 124M run behind a fleet:
+             ``cli coordinator`` and two ``cli serve-data --coordinator``
+             members (``--token_pack``, context 1024) in subprocesses, and
+             ``cli train --coordinator HOST:PORT --job_id smoke`` (batch
+             64, 20 steps, no eval). Member 0 SIGKILLs itself before its
+             4th batch frame (its sender's chaos hook, ``fleet/chaos.py``'s
+             seam, as JAX's ``kill_after`` does in process), so batches of
+             its stripe are left unsent; the loader fails over to the
+             survivor at the cursor. Every batch before K3 and
+             every packed batch a step trained on must equal the local
+             loader's (decoded here first) bit for bit. Checks K3's 20
+             launches and flash's 12 a step, K3 against its plain version
+             on the first batch, the falling loss, that ``cli fleet
+             recommend --json`` shows the survivor alone once the dead
+             member's lease expires and ``cli jobs list --json`` the
+             job and its cursor, at least one failover, and that no server and not
+             the coordinator holds a CUDA context; prints valid tokens/s
+             beside the causal_lm phase's packed arm.
 
 Every phase but 17 trains with ``--no_autotune`` (``FIXED``): each
 compares its runs with another arm's, another phase's or an earlier
@@ -362,8 +402,10 @@ workers_caches phase as ``launches_workers_caches``; K1 and K3's pack add
 the contrastive phase's packed run as ``launches_contrastive``, K1 and K2
 the vit phase's as ``launches_vit``, and the three flash kernels the moe
 phase's as ``launches_moe``; K1, K2 and K3's pack add the graph phase's as
-``launches_graph``, and the flash kernels and K5 the remat phase's
-``--remat`` runs as ``launches_remat``), and ``{"ok": true, "device":
+``launches_graph``, the flash kernels and K5 the remat phase's
+``--remat`` runs as ``launches_remat``, K1 and K2 the service phase's
+two runs as ``launches_service``, and K3's pack and the flash kernels
+the fleet phase's run as ``launches_fleet``), and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -386,7 +428,7 @@ PHASES = ("probe", "build", "kernels", "slice", "trainer", "image_kernels",
           "jpeg_kernels", "classification", "device_decode", "token_kernels",
           "causal_lm", "ring_kernels", "ring_lm", "map_style", "folder",
           "pretrained_placement", "workers_caches", "contrastive", "vit",
-          "moe", "graph", "remat")
+          "moe", "graph", "remat", "service", "fleet")
 SHAPE = (32, 12, 512, 64)  # B, H, S, D at BERT-base, seq 512
 STEPS = 20
 LAYERS = 12
@@ -3669,7 +3711,10 @@ SCHED_BATCHES = 32  # batches of 512 of the scheduled arm's corpus
 # One straggler batch in each quarter of its plan, at a seeded offset: the
 # epoch is 4x the pool's window, so dispatch can pull stragglers forward.
 SCHED_STRAGGLERS = 4
-SCHED_HEAVY_ROWS = 4  # in a straggler batch, one row in 4 is oversized
+SCHED_HEAVY_ROWS = 2  # in a straggler batch, one row in 2 is oversized: at
+# one in 4 a straggler's decode cost about 2.75x a light batch's, the ratio
+# at which the heavy lane's rule (twice the running mean of the submitted
+# predictions, stragglers among them) decides, so routing was a coin toss
 SCHED_OPTS = {"lookahead": 16, "heavy_share": 25}
 # A first, scheduled epoch spawns the pool's workers and its heavy lane;
 # then the two arms alternate.
@@ -3791,7 +3836,7 @@ def _straggler_corpus(path: str, drawn: str) -> dict:
     of rows, where one batch in each of ``SCHED_STRAGGLERS`` equal spans
     of the plan, at a seeded offset, holds an oversized JPEG (1,536-2,048
     px wide, 4:3, a colour grid scaled up plus noise) in one row of
-    ``SCHED_HEAVY_ROWS``: 1 row in 32 over the corpus, and plan items that
+    ``SCHED_HEAVY_ROWS``: 1 row in 16 over the corpus, and plan items that
     cost several times the mean's decode."""
     import io
 
@@ -4229,6 +4274,605 @@ def remat_run() -> dict:
     return {"launches": {**report["flash"], **report["ring"]}}
 
 
+# -------------------------------------------------- the remote input plane
+
+SERVICE_ARMS = ("pil", "coeff")  # the pixel and the coefficient-page arm
+FLEET_KILL_AFTER = 3  # batches member 0 sends before it SIGKILLs itself
+FLEET_HEARTBEAT_S, FLEET_TTL_S = "0.5", "2"
+
+
+_CLI_MAIN = """
+from lance_distributed_training_tpu_torch.cli import main
+main(sys.argv[1:])
+"""
+
+# The fleet's doomed member: ``cli serve-data`` whose sender SIGKILLs its
+# own process before its (N+1)-th batch frame (the chaos hook of
+# ``fleet/chaos.py``), so that the kill always leaves batches unsent, as
+# JAX's ``kill_after`` does in process.
+_KILL_AFTER = """
+import os, signal, sys
+from lance_distributed_training_tpu_torch.service import server
+_sent = [0]
+
+
+def _hook(event, peer, step):
+    if event == "send":
+        _sent[0] += 1
+        if _sent[0] > {n}:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+
+_start = server.DataService.start
+
+
+def _start_armed(self):
+    self.chaos = _hook
+    return _start(self)
+
+
+server.DataService.start = _start_armed
+"""
+
+
+class _HostProcess:
+    """One host process of the port's CLI (``serve-data`` or
+    ``coordinator``), its output drained by a thread; ``addr`` is the
+    HOST:PORT it printed once listening."""
+
+    def __init__(self, args: list, ready: str, preamble: str = ""):
+        import threading
+
+        self.args = args
+        self.lines: list = []
+        self.addr = None
+        self._ready = threading.Event()
+        self._pattern = re.compile(ready + r" on (\S+:\d+)")
+        command = (["-c", preamble + _CLI_MAIN] if preamble else
+                   ["-m", "lance_distributed_training_tpu_torch.cli"])
+        self.proc = subprocess.Popen(
+            [sys.executable, *command, *args], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+            match = self._pattern.search(line)
+            if match and self.addr is None:
+                self.addr = match.group(1)
+                self._ready.set()
+        self._ready.set()  # the process ended: wait_ready stops waiting
+
+    def wait_ready(self, timeout: float = 180.0) -> str:
+        if not self._ready.wait(timeout) or self.addr is None:
+            raise RuntimeError(f"{self.args[0]} did not start: "
+                               f"{self.lines[-20:]}")
+        return self.addr
+
+    def stop(self) -> int:
+        """SIGTERM and reap; SIGKILL after 60 s."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            return self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            return self.proc.wait(timeout=60)
+
+
+def _context_free(procs: dict) -> dict:
+    """Each host process's ``/dev/nvidia*`` files and whether ``nvidia-smi``
+    lists it among the processes holding a CUDA context; raises unless
+    none holds one and ``nvidia-smi`` lists at most this trainer."""
+    apps = _compute_apps()
+    listed = {line.split(",")[0].strip() for line in apps}
+    fds = _worker_fds([p.proc.pid for p in procs.values()])
+    out = {"compute_apps": apps, "trainer_pid": os.getpid(),
+           "processes": {name: {"pid": p.proc.pid,
+                                "nvidia_files": fds[p.proc.pid],
+                                "listed": str(p.proc.pid) in listed}
+                         for name, p in procs.items()}}
+    held = [name for name, row in out["processes"].items()
+            if row["nvidia_files"] or row["listed"]]
+    if held or len(apps) > 1:
+        raise RuntimeError(f"host processes {held} (or more than the "
+                           f"trainer) hold a CUDA context: {out}")
+    return out
+
+
+def _card():
+    """This process's card."""
+    import torch
+
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _leaf_digests(batch: dict) -> list:
+    """``(key, digest)`` of each leaf: the int64 digest on the card (a 0-d
+    tensor, read later: no host sync) for a tensor, SHA-256 for a host
+    leaf (the ``_host_*`` headers)."""
+    import hashlib
+
+    import torch
+
+    out = []
+    for key, value in sorted(batch.items()):
+        if isinstance(value, torch.Tensor):
+            out.append((key, _digest(value, _DIGEST_WEIGHTS)))
+        else:
+            out.append((key, hashlib.sha256(
+                np.ascontiguousarray(value).tobytes()).hexdigest()))
+    return out
+
+
+def _read_digests(rows: list) -> list:
+    return [[(k, d if isinstance(d, str) else int(d)) for k, d in row]
+            for row in rows]
+
+
+class _Recorded:
+    """A callable of the trainer (its device stage, K2's or K3's transform,
+    or its train step) recording the digests of the batch it takes."""
+
+    def __init__(self, fn, sink: list):
+        self._fn, self._sink = fn, sink
+
+    def __call__(self, batch, *args, **kwargs):
+        self._sink.append(_leaf_digests(batch))
+        return self._fn(batch, *args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+
+class _TrainerHooks:
+    """Within the block, the trainer records the digests of each batch its
+    device stage takes (``inputs``: the placed host batch before K2 or
+    K3; eval batches follow the train steps') and of each batch a train
+    step takes (``steps``: after the stage), on the card and without a
+    host sync; its ``/metrics`` exporter is scraped once before it
+    stops."""
+
+    def __init__(self):
+        self.inputs, self.steps, self.scraped = [], [], {}
+
+    def __enter__(self):
+        import urllib.request
+
+        from lance_distributed_training_tpu_torch import trainer
+        from lance_distributed_training_tpu_torch.obs import http
+
+        self._saved = (trainer.make_batch_transform,
+                       trainer.make_pack_transform, trainer.make_train_step,
+                       http.MetricsHTTPServer.stop)
+        batch_t, pack_t, train_step, stop = self._saved
+
+        def recorded(make, sink):
+            return lambda *a, **k: _Recorded(make(*a, **k), sink)
+
+        def scrape_then_stop(server):
+            base = f"http://127.0.0.1:{server.port}"
+            self.scraped["metrics"] = urllib.request.urlopen(
+                base + "/metrics", timeout=30).read().decode()
+            self.scraped["healthz"] = json.loads(urllib.request.urlopen(
+                base + "/healthz", timeout=30).read())
+            stop(server)
+
+        trainer.make_batch_transform = recorded(batch_t, self.inputs)
+        trainer.make_pack_transform = recorded(pack_t, self.inputs)
+        trainer.make_train_step = recorded(train_step, self.steps)
+        http.MetricsHTTPServer.stop = scrape_then_stop
+        return self
+
+    def __exit__(self, *exc):
+        from lance_distributed_training_tpu_torch import trainer
+        from lance_distributed_training_tpu_torch.obs import http
+
+        (trainer.make_batch_transform, trainer.make_pack_transform,
+         trainer.make_train_step, http.MetricsHTTPServer.stop) = self._saved
+        return False
+
+
+def _local_reference(path: str, decoder, batch_size: int, transform,
+                     limit: int = STEPS) -> dict:
+    """The first ``limit`` batches of the port's local iterable loader over
+    ``path`` (4 producers), placed on the card: the digests of each before
+    and after ``transform`` (K2 or K3; ``None``: the batch itself), their
+    host bytes, and the first batch, placed, for the kernel checks."""
+    import torch
+    from lance_distributed_training_tpu_torch.data.format import Dataset
+    from lance_distributed_training_tpu_torch.data.pipeline import (
+        make_train_pipeline,
+    )
+    from lance_distributed_training_tpu_torch.parallel.mesh import (
+        make_global_batch,
+    )
+
+    device = _card()
+    before, after, nbytes, first = [], [], [], None
+    t0 = time.monotonic()
+    for host in make_train_pipeline(Dataset(path), "batch", batch_size, 0,
+                                    1, decoder, None, producers=4):
+        nbytes.append(sum(np.asarray(v).nbytes for v in host.values()))
+        placed = make_global_batch(host, device)
+        before.append(_leaf_digests(placed))
+        after.append(_leaf_digests(transform(placed)) if transform
+                     else before[-1])
+        first = first or placed
+        if len(before) == limit:
+            break
+    return {"before": _read_digests(before), "after": _read_digests(after),
+            "bytes": nbytes, "first": first,
+            "seconds": time.monotonic() - t0}
+
+
+def _final_counters(proc: _HostProcess) -> dict:
+    """The ``final {...}`` counters a ``serve-data`` prints when it stops."""
+    import ast
+
+    for line in reversed(proc.lines):
+        if "] final {" in line:
+            return ast.literal_eval(line.split("] final ", 1)[1])
+    raise RuntimeError(f"{proc.args[0]} printed no final counters: "
+                       f"{proc.lines[-10:]}")
+
+
+def _check_kernels_on(first: dict, coeff: bool) -> dict:
+    """K1 (and K2) on the remote path's first batch against their plain
+    versions, bit for bit (these launches are not the path's)."""
+    import torch
+    from lance_distributed_training_tpu_torch.ops import image, jpeg_device
+
+    pixels = first["image"] if not coeff else None
+    out = {}
+    if coeff:
+        pages = [first[k] for k in ("jpeg_coef_y", "jpeg_coef_cb",
+                                    "jpeg_coef_cr", "jpeg_quant",
+                                    "jpeg_geom")]
+        pixels = jpeg_device.decode_coeff_batch(*pages, out_size=224)
+        plain = jpeg_device.decode_coeff_batch_reference(*pages,
+                                                         out_size=224)
+        out["jpeg_decode_equal"] = bool(torch.equal(pixels, plain))
+    flips = torch.arange(pixels.shape[0], device=pixels.device) % 3 == 0
+    got = image.normalize_flip(pixels, flips)
+    want = image.random_flip_reference(
+        image.normalize_images_reference(pixels), flips)
+    out["image_normalize_max_abs_err"] = float(
+        (got.float() - want.float()).abs().max())
+    out["image_normalize_equal"] = bool(torch.equal(got, want))
+    torch.cuda.synchronize()
+    if not all(v for k, v in out.items() if k.endswith("_equal")):
+        raise RuntimeError(f"kernels disagree on the remote batch: {out}")
+    return out
+
+
+def service_run(paired: dict) -> dict:
+    """ResNet-50 behind ``serve-data`` at full width (the module's
+    docstring, phase 23): per arm a server subprocess on 127.0.0.1 and
+    ``cli train --data_service``."""
+    import torch
+    from lance_distributed_training_tpu_torch import cli, ops
+    from lance_distributed_training_tpu_torch.data.decode import (
+        decoder_for_task,
+    )
+    from lance_distributed_training_tpu_torch.ops.jpeg_device import (
+        make_batch_transform,
+    )
+
+    rows = IMAGE_BATCH * STEPS
+    eval_batches = -(-rows // IMAGE_BATCH)
+    launches_total = {"image_normalize": 0, "jpeg_decode": 0}
+    arms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "food")
+        t0 = time.monotonic()
+        _learnable_dataset(os.path.join(tmp, "drawn"), path, rows)
+        author_s = time.monotonic() - t0
+        for arm in SERVICE_ARMS:
+            coeff = arm == "coeff"
+            dd = ["--device_decode"] if coeff else []
+            server = _HostProcess(
+                ["serve-data", "--dataset_path", path, "--host", "127.0.0.1",
+                 "--port", "0", "--image_size", "224", "--log_every_s", "0",
+                 *dd], ready=r"\[data-service\] serving \S+")
+            try:
+                ref = _local_reference(
+                    path, decoder_for_task("classification", image_size=224,
+                                           device_decode=coeff),
+                    IMAGE_BATCH, make_batch_transform(224) if coeff else None)
+                addr = server.wait_ready()
+                hooks = _TrainerHooks()
+                with hooks:
+                    result, launches, fields = _resnet_run(
+                        path, ["--data_service", addr, "--metrics_port", "0",
+                               *dd], author_s, tmp)
+                contexts = _context_free({"serve-data": server})
+            finally:
+                rc = server.stop()
+            counters = _final_counters(server)
+            got_in = _read_digests(hooks.inputs[:STEPS]) if coeff else None
+            got_steps = _read_digests(hooks.steps)
+            kernels_checked = _check_kernels_on(ref["first"], coeff)
+            metrics, health = hooks.scraped.get("metrics", ""), \
+                hooks.scraped.get("healthz", {})
+            sent = counters.get("svc_batches_sent", 0)
+            fields.update(
+                arm=arm, server_exit=rc, dataset_rows=rows,
+                eval_batches=eval_batches,
+                host_batches_equal_local=(got_in == ref["before"]
+                                          if coeff else
+                                          got_steps == ref["before"]),
+                step_batches_equal_local=got_steps == ref["after"],
+                steps_recorded=len(got_steps),
+                wire_mb_per_batch=(counters.get("svc_bytes_sent", 0) / sent
+                                   / 1e6 if sent else None),
+                host_mb_per_batch=statistics.fmean(ref["bytes"]) / 1e6,
+                server_batches_sent=sent,
+                local_reference_seconds=ref["seconds"],
+                metrics_has=[s for s in ("svc_batches_received",
+                                         "svc_client_stall_s",
+                                         "lineage_batch_age_ms_bucket",
+                                         "lineage_wire_ms_bucket")
+                             if s in metrics],
+                healthz={k: health.get(k) for k in ("status", "role",
+                                                    "steps")},
+                contexts=contexts, kernels_checked=kernels_checked)
+            paired_fields = paired.get(arm) if paired else None
+            _emit_paired("service", fields,
+                         "device_decode" if coeff else "classification",
+                         paired_fields)
+            _check_trained(f"service {arm}", fields)
+            problems = []
+            if fields["eval_rows"] != rows:
+                problems.append(f"eval covered {fields['eval_rows']} rows")
+            if not fields["host_batches_equal_local"]:
+                problems.append("a received batch differs from local decode")
+            if not fields["step_batches_equal_local"]:
+                problems.append("a trained batch differs from local decode's")
+            want = {"image_normalize": STEPS + eval_batches,
+                    "jpeg_decode": STEPS + eval_batches if coeff else 0}
+            wrong = {k: (launches[k], v) for k, v in want.items()
+                     if launches[k] != v}
+            if wrong:
+                problems.append(f"launches (got, expected) {wrong}")
+            if coeff and fields["decoder"] != "coeff":
+                problems.append(f"decoder arm {fields['decoder']!r}")
+            if len(fields["metrics_has"]) != 4 or health.get(
+                    "status") != "ok" or health.get("role") != "trainer":
+                problems.append(f"exporter: {fields['metrics_has']}, "
+                                f"{fields['healthz']}")
+            if sent < STEPS:
+                problems.append(f"server sent {sent} batches")
+            if problems:
+                raise RuntimeError(f"service {arm}: {problems}")
+            for k in launches_total:
+                launches_total[k] += launches[k]
+            arms[arm] = fields
+            torch.cuda.empty_cache()
+    return {"launches": launches_total, "arms": arms}
+
+
+def _fleet_json(addr: str, *argv) -> dict:
+    """``cli fleet recommend --json`` or ``cli jobs list --json`` against
+    the coordinator at ``addr``, in this process (no card)."""
+    import contextlib
+    import io
+
+    from lance_distributed_training_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([*argv, "--coordinator", addr, "--json"])
+    return {"rc": rc, "out": json.loads(buf.getvalue())}
+
+
+def _fleet_marks() -> dict:
+    """The process registry's fleet-loader counters, read now."""
+    from lance_distributed_training_tpu_torch.obs.registry import (
+        default_registry,
+    )
+
+    reg = default_registry()
+    return {k: reg.counter(f"fleet_{k}").value for k in (
+        "failovers_total", "batches_received", "resolves", "restripes")}
+
+
+def _members_when(coord: str, count: int) -> dict:
+    """``cli fleet recommend --json`` once it lists ``count`` members."""
+    def poll():
+        out = _fleet_json(coord, "fleet", "recommend")
+        return out if len(out["out"]["members"]) == count else None
+    return _until(poll, f"{count} fleet member(s)")
+
+
+def _until(fn, what: str, timeout: float = 120.0):
+    """``fn()`` once it returns a true value (polled every 0.2 s; a call
+    that cannot reach its peer yet counts as not yet)."""
+    t0 = time.monotonic()
+    last = None
+    while time.monotonic() - t0 < timeout:
+        try:
+            value = fn()
+        except OSError as exc:  # timeouts and refused connections among them
+            value, last = None, exc
+        if value:
+            return value
+        time.sleep(0.2)
+    raise RuntimeError(f"timed out waiting for {what} (last error: {last!r})")
+
+
+def fleet_run(paired) -> dict:
+    """GPT-2 124M behind a coordinator and two ``serve-data`` members at
+    full width (the module's docstring, phase 24), one member SIGKILLed
+    mid-run."""
+    import torch
+    from lance_distributed_training_tpu_torch import cli, ops
+    from lance_distributed_training_tpu_torch.data.decode import (
+        decoder_for_task,
+    )
+    from lance_distributed_training_tpu_torch.data.token_pack import (
+        TokenPackConfig,
+    )
+    from lance_distributed_training_tpu_torch.ops import token_device
+
+    procs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens")
+        t0 = time.monotonic()
+        _write_corpus(path)
+        author_s = time.monotonic() - t0
+        try:
+            procs["coordinator"] = _HostProcess(
+                ["coordinator", "--host", "127.0.0.1", "--port", "0",
+                 "--heartbeat_interval_s", FLEET_HEARTBEAT_S,
+                 "--lease_ttl_s", FLEET_TTL_S, "--log_every_s", "0"],
+                ready=r"\[coordinator\] coordinating")
+            coord = procs["coordinator"].wait_ready()
+            for i in range(2):
+                procs[f"member{i}"] = _HostProcess(
+                    ["serve-data", "--dataset_path", path, "--host",
+                     "127.0.0.1", "--port", "0", "--task_type", "causal_lm",
+                     "--seq_len", str(GPT_CONTEXT), "--token_pack",
+                     "--pack_rows_multiple", str(PACK_ROWS_MULTIPLE),
+                     "--coordinator", coord, "--log_every_s", "0"],
+                    ready=r"\[data-service\] serving \S+",
+                    preamble=(_KILL_AFTER.format(n=FLEET_KILL_AFTER)
+                              if i == 0 else ""))
+            ref = _local_reference(
+                path, decoder_for_task(
+                    "causal_lm", seq_len=GPT_CONTEXT,
+                    token_pack=TokenPackConfig(
+                        pack_len=GPT_CONTEXT,
+                        rows_multiple=PACK_ROWS_MULTIPLE)),
+                GPT_BATCH, token_device.make_pack_transform())
+            addrs = {name: procs[name].wait_ready()
+                     for name in ("member0", "member1")}
+            before = _members_when(coord, 2)
+            ids = {m["addr"]: m["server_id"] for m in before["out"]["members"]}
+            hooks = _TrainerHooks()
+            marks = _fleet_marks()
+            with hooks:
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launches()
+                os.environ["LDT_METRICS_PATH"] = os.path.join(
+                    tmp, "metrics.jsonl")
+                result = cli.main([
+                    "train", "--dataset_path", path, "--task_type",
+                    "causal_lm", "--model_name", "gpt_base", "--seq_len",
+                    str(GPT_CONTEXT), "--flash_attention", "--batch_size",
+                    str(GPT_BATCH), "--optimizer", "adamw", "--lr", "1e-4",
+                    "--max_steps", str(STEPS), "--epochs", "1",
+                    "--log_every", "5", "--device", "cuda",
+                    "--pack_rows_multiple", str(PACK_ROWS_MULTIPLE),
+                    "--token_pack", "--coordinator", coord, "--job_id",
+                    "smoke", "--no_eval_at_end", *FIXED])
+                launches = dict(ops.LAUNCHES)
+            loader_counts = {k: v - marks[k]
+                             for k, v in _fleet_marks().items()}
+            peak = torch.cuda.max_memory_allocated()
+            member0_exit = procs["member0"].proc.wait(timeout=60)
+            after = _members_when(coord, 1)  # the dead lease expired
+
+            seen = {}
+
+            def job_cursor():
+                # The cursor is the newest step a member read an ACK of
+                # (the last ACKs may go unread as the sessions close).
+                out = seen["jobs"] = _fleet_json(coord, "jobs", "list")
+                return out if any(r.get("job_id") == "smoke"
+                                  and r.get("cursor", -1) >= 0
+                                  for r in out["out"]) else None
+            try:
+                jobs = _until(job_cursor, "the job's cursor on the "
+                              "coordinator", timeout=30.0)
+            except RuntimeError as exc:
+                raise RuntimeError(
+                    f"{exc}: jobs {seen.get('jobs')}, loader "
+                    f"{loader_counts}, members' last lines "
+                    f"{ {n: p.lines[-8:] for n, p in procs.items()} }")
+            contexts = _context_free(
+                {k: v for k, v in procs.items() if k != "member0"})
+        finally:
+            exits = {name: p.stop() for name, p in procs.items()}
+    got_in = _read_digests(hooks.inputs)
+    got_steps = _read_digests(hooks.steps)
+    step_ms = result["step_ms"][4:]
+    device_s = sum(step_ms) / 1e3
+    payload = sum(result["payload_tokens"][4:])
+    grid = sum(result["grid_tokens"][4:])
+    losses = result["losses"]
+    survivor = after["out"]["members"][0]
+    first = ref["first"]
+    args = [first[k] for k in ("input_ids__values", "input_ids__offsets",
+                               "_pack_slot", "_pack_start")]
+    rows_, pack_len = (int(x) for x in first["_host_pack_meta"][:2])
+    got_k3 = token_device.pack_token_batch(*args, rows=rows_,
+                                           pack_len=pack_len)
+    want_k3 = token_device.pack_token_batch_reference(
+        *args, rows=rows_, pack_len=pack_len)
+    k3_equal = all(torch.equal(a, b) for a, b in zip(got_k3, want_k3))
+    fields = {
+        "steps": result["steps"], "first_loss": losses[0],
+        "last5_mean_loss": statistics.fmean(losses[-5:]), "losses": losses,
+        "killed_member": ids.get(addrs["member0"]),
+        "killed_after_sends": FLEET_KILL_AFTER,
+        "member0_exit": member0_exit, "exits": exits,
+        "batches_before_k3_equal_local": got_in == ref["before"],
+        "packed_batches_equal_local": got_steps == ref["after"],
+        "steps_recorded": len(got_steps),
+        "survivor": {k: survivor.get(k) for k in ("server_id", "addr")},
+        "survivor_expected": ids.get(addrs["member1"]),
+        "fleet_recommend_rc": after["rc"],
+        "jobs": [{k: r.get(k) for k in ("job_id", "priority", "cursor",
+                                        "sessions", "batches_sent")}
+                 for r in jobs["out"]],
+        "step_ms_median_5_20": statistics.median(step_ms),
+        "valid_tokens_per_sec": payload / device_s,
+        "grid_tokens_per_sec": grid / device_s,
+        "valid_tokens_per_sec_wall": result["valid_tokens_per_sec"],
+        "loader_stall_pct": result["loader_stall_pct"],
+        "peak_memory_allocated_bytes": peak,
+        "loader": loader_counts,
+        "launches": launches, "token_pack_equal_on_first_batch": k3_equal,
+        "local_reference_seconds": ref["seconds"],
+        "dataset_seconds": author_s, "train_seconds": result["train_time"],
+        "contexts": contexts,
+        "paired_phase": "causal_lm (packed)",
+        "paired": {k: paired.get(k) for k in (
+            "step_ms_median_5_20", "valid_tokens_per_sec",
+            "grid_tokens_per_sec", "valid_tokens_per_sec_wall",
+            "peak_memory_allocated_bytes")} if paired else None,
+    }
+    emit("fleet", **fields)
+    problems = []
+    if fields["steps"] != STEPS or not all(np.isfinite(losses)) or not (
+            fields["last5_mean_loss"] < losses[0]):
+        problems.append("the 20 losses are not finite and falling")
+    if member0_exit != -9 or loader_counts["failovers_total"] < 1:
+        problems.append(f"member 0 exited {member0_exit}, the loader failed "
+                        f"over {loader_counts['failovers_total']} times")
+    if not fields["batches_before_k3_equal_local"]:
+        problems.append("a batch before K3 differs from local decode's")
+    if not fields["packed_batches_equal_local"]:
+        problems.append("a packed batch differs from local decode's")
+    if fields["survivor"]["server_id"] != fields["survivor_expected"]:
+        problems.append(f"fleet shows {fields['survivor']}")
+    if not k3_equal:
+        problems.append("K3 disagrees with its plain version")
+    want = {"token_pack": STEPS, "token_unpack": 0,
+            "fwd": LAYERS * STEPS, "bwd_dq": LAYERS * STEPS,
+            "bwd_dkv": LAYERS * STEPS}
+    wrong = {k: (launches[k], v) for k, v in want.items()
+             if launches[k] != v}
+    if wrong:
+        problems.append(f"launches (got, expected) {wrong}")
+    if problems:
+        raise RuntimeError(f"fleet: {problems}")
+    return {"launches": {k: launches[k] for k in (
+        "token_pack", "fwd", "bwd_dq", "bwd_dkv")}, "fields": fields}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -4260,8 +4904,10 @@ def main(argv=None) -> int:
         coeff = classification_run(device_decode=True)
         launches = {**(launches or {}), **coeff["launches"]}
     k3 = token_kernels() if "token_kernels" in phases else None
+    causal = None  # the causal_lm phase's figures
     if "causal_lm" in phases:
-        launches = {**(launches or {}), **causal_lm_run()["launches"]}
+        causal = causal_lm_run()
+        launches = {**(launches or {}), **causal["launches"]}
     k5 = ring_kernels(ptxas) if "ring_kernels" in phases else None
     if "ring_lm" in phases:
         ring = ring_lm_run(sliced["step_ms"] if sliced else None)
@@ -4292,6 +4938,13 @@ def main(argv=None) -> int:
         loaders["graph"] = graph_run()["launches"]
     if "remat" in phases:
         loaders["remat"] = remat_run()["launches"]
+    if "service" in phases:
+        loaders["service"] = service_run({
+            "pil": pixel["fields"] if pixel else None,
+            "coeff": coeff["fields"] if coeff else None})["launches"]
+    if "fleet" in phases:
+        loaders["fleet"] = fleet_run(
+            causal["arms"]["packed"] if causal else None)["launches"]
     emit("done", phases=phases, seconds=time.monotonic() - t0)
     if set(phases) != set(PHASES):
         return 0  # a partial run prints no result

@@ -19,6 +19,8 @@ imports the data plane it needs and never torch's CUDA libraries.
 
 import importlib
 
+__version__ = "0.1.0"
+
 # Name -> the submodule that defines it. Imported on first use, so that a
 # process that needs one plane (a decode worker: the format, the
 # decoders, the shm ring) does not import torch and the trainer with it.

@@ -1,4 +1,4 @@
-"""CLI — the ``train`` subcommand of the port.
+"""CLI — the port's ``train`` and the subcommands of its input plane.
 
 Counterpart of ``lance_distributed_training_tpu/cli.py`` for the ported
 paths, image classification (its defaults: ResNet-50, 224 px, 101 classes,
@@ -33,11 +33,20 @@ shared-memory slots unless ``--no_shm_workers``), ``--batch_cache`` off
 ``--cache_disk_budget_mb 2048``), ``--device_cache`` off
 (``--device_cache_gb 8``), ``--data_echo 1``, and the autotuner on
 (``--no_autotune``, ``--autotune_interval_s 1.0``).
-The JAX runtime's flags (``--backend``, ``--num_cpu_devices``,
+The disaggregated input plane: ``--data_service HOST:PORT`` streams the
+batches from a ``serve-data`` server, ``--coordinator HOST:PORT`` from a
+fleet of them behind a ``coordinator`` (``--job_id``/``--job_priority``
+declare the run's job there), and ``--metrics_port`` serves ``/metrics``
+and ``/healthz`` for the run (``--metrics_host``). The host processes of
+that plane are subcommands with the JAX CLI's parsers and exit codes:
+``serve-data``, ``coordinator``, ``fleet recommend`` (3 = scale up),
+``jobs list|describe`` (4 = unknown job), ``protocol goldens``, ``trace
+export|critical-path`` and ``costs report``; none touches a card. The JAX
+runtime's flags (``--backend``, ``--num_cpu_devices``,
 ``--no_compile_cache``, ``--compile_cache_dir``) raise: the port picks its
 device with ``--device`` and has no XLA compile cache. Any other flag of
-the JAX CLI raises "not yet ported"; so do the other subcommands. Model
-and vocabulary default per task (``--vocab_size`` unset keeps the model's
+the JAX CLI raises "not yet ported"; so do the ``check`` and ``graph``
+subcommands. Model and vocabulary default per task (``--vocab_size`` unset keeps the model's
 own: 30522 for BERT and CLIP-ResNet-50, 50257 for GPT, 1000 for
 ``clip_tiny``). Usage::
 
@@ -105,6 +114,25 @@ takes an emergency checkpoint of the last completed step)::
         --model_name bert_base --seq_len 512 --flash_attention \
         --batch_size 32 --grad_accum 4 --optimizer adamw --lr 1e-4 \
         --checkpoint_dir /ckpt/bert --checkpoint_every_steps 500
+
+Decode on another host: a server there (no card), the trainer here; or a
+fleet of servers behind a coordinator, each on its own host::
+
+    python -m lance_distributed_training_tpu_torch.cli serve-data \
+        --dataset_path /data/food101 --port 8476 --device_decode
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/food101 --data_service decode-host:8476 \
+        --device_decode --metrics_port 0 --max_steps 20
+    python -m lance_distributed_training_tpu_torch.cli coordinator --port 8470
+    python -m lance_distributed_training_tpu_torch.cli serve-data \
+        --dataset_path /data/web_tokens --task_type causal_lm \
+        --seq_len 1024 --token_pack --coordinator coord-host:8470
+    python -m lance_distributed_training_tpu_torch.cli train \
+        --dataset_path /data/web_tokens --task_type causal_lm \
+        --seq_len 1024 --token_pack --flash_attention --batch_size 64 \
+        --coordinator coord-host:8470 --job_id gpt --max_steps 20
+    python -m lance_distributed_training_tpu_torch.cli jobs list \
+        --coordinator coord-host:8470
 
 Data parallel over N processes: run one per process with
 ``--coordinator_address host:port --num_processes N --process_id i``.
@@ -350,6 +378,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="packed slot-length cap (0 = --seq_len)")
     p.add_argument("--pack_rows_multiple", type=int, default=8,
                    help="packed row-count rounding quantum")
+    p.add_argument("--data_service", type=str, default=None,
+                   metavar="HOST:PORT",
+                   help="stream decoded batches from a running `serve-data` "
+                        "service instead of decoding locally (iterable "
+                        "columnar path)")
+    p.add_argument("--coordinator", type=str, default=None,
+                   metavar="HOST:PORT",
+                   help="stream decoded batches from a fleet of `serve-data` "
+                        "servers behind this `coordinator` (striped over "
+                        "the live members, failover at the resume cursor); "
+                        "exclusive with --data_service; not the "
+                        "torch.distributed rendezvous (--coordinator_address)")
+    p.add_argument("--job_id", type=str, default=None,
+                   help="this run's job on a shared service or fleet: its "
+                        "resume cursor, fair share and admission there "
+                        "(needs --data_service or --coordinator)")
+    p.add_argument("--job_priority", type=str, default=None,
+                   choices=["inference", "training", "bulk"],
+                   help="priority class for --job_id")
+    p.add_argument("--metrics_port", type=int, default=None,
+                   help="process 0 serves /metrics (Prometheus text) and "
+                        "/healthz on this port for the run (0 = ephemeral, "
+                        "in the progress log; default off)")
+    p.add_argument("--metrics_host", type=str, default="127.0.0.1",
+                   help="exporter bind address (default loopback; the "
+                        "endpoint has no auth)")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="cuda (default) raises without a card; cpu runs the "
@@ -369,13 +423,431 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> dict:
+def build_serve_parser() -> argparse.ArgumentParser:
+    """``ldt serve-data`` — run a DataService on this (CPU) host. Plan
+    parameters (sampler/batch/shard/seed/epoch) come from each trainer's
+    handshake; this parser only configures the decode plane."""
+    p = argparse.ArgumentParser(
+        prog="ldt serve-data",
+        description="Serve decoded, plan-ordered training batches over TCP "
+                    "(disaggregated input-data service)",
+    )
+    p.add_argument("--dataset_path", type=str, required=True)
+    p.add_argument("--host", type=str, default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8476,
+                   help="0 = pick an ephemeral port (printed at startup)")
+    p.add_argument("--task_type", type=str, default="classification",
+                   choices=["classification", "masked_lm", "causal_lm",
+                            "contrastive"],
+                   help="selects the decode hook; must match the trainer's")
+    p.add_argument("--image_size", type=int, default=224)
+    p.add_argument("--num_workers", type=int, default=0,
+                   help=">0: decode in N spawned worker processes (size to "
+                        "this host's cores)")
+    p.add_argument("--no_shm_workers", action="store_true",
+                   help="worker-pool IPC falls back to pickling decoded "
+                        "batches instead of shared-memory ring slots")
+    p.add_argument("--sched_lookahead", type=int, default=0,
+                   help=">0: straggler-aware dispatch — reorder worker "
+                        "dispatch predicted-heaviest-first within this many "
+                        "buffered plan items (needs --num_workers > 0; the "
+                        "yielded stream stays in plan order, bit-identical)")
+    p.add_argument("--sched_heavy_share", type=int, default=0,
+                   help="percent of decode workers reserved as a dedicated "
+                        "heavy lane for items predicted far above the "
+                        "running mean (0 = single lane)")
+    p.add_argument("--no_buffer_pool", action="store_true",
+                   help="disable the recycled decode-buffer pool (every "
+                        "batch faults a fresh allocation)")
+    p.add_argument("--device_decode", action="store_true",
+                   help="serve half-decoded JPEG coefficient pages "
+                        "(entropy-only host decode) instead of finished "
+                        "pixels — trainers must also run --device_decode "
+                        "(the HELLO is skew-checked); classification only")
+    p.add_argument("--token_pack", action="store_true",
+                   help="serve packed variable-length token batches "
+                        "(values/offsets pages + pack plan; text tasks) to "
+                        "v4 clients that request --token_pack; every other "
+                        "peer still streams the bit-identical padded arm")
+    p.add_argument("--seq_len", type=int, default=128,
+                   help="padded sequence length for text tasks (must match "
+                        "the trainer's --seq_len; decode config, like "
+                        "--image_size)")
+    p.add_argument("--pack_len", type=int, default=0,
+                   help="packed slot-length cap (0 = --seq_len)")
+    p.add_argument("--pack_rows_multiple", type=int, default=8,
+                   help="packed row-count rounding quantum")
+    p.add_argument("--batch_cache", action="store_true",
+                   help="epoch-coherent decoded-batch cache (tiered "
+                        "RAM/disk): a second epoch, a reconnected "
+                        "trainer, or a second client streaming the same "
+                        "plan is served from cache — no fragment read, "
+                        "no decode; content-keyed, stream bit-identical")
+    p.add_argument("--cache_ram_budget_mb", type=int, default=512,
+                   help="batch-cache RAM ring budget (MiB)")
+    p.add_argument("--cache_disk_budget_mb", type=int, default=2048,
+                   help="batch-cache disk-spill budget (MiB)")
+    p.add_argument("--cache_dir", type=str, default=None,
+                   help="batch-cache spill directory (default "
+                        "~/.cache/<pkg>/batch-cache)")
+    p.add_argument("--queue_depth", type=int, default=4,
+                   help="bounded per-client batch queue (backpressure)")
+    p.add_argument("--admission_max_jobs", type=int, default=0,
+                   help=">0: refuse a NEW job's first session once this "
+                        "many non-read-only jobs are admitted (diagnosable "
+                        "MSG_ERROR at HELLO; read-only/inference jobs and "
+                        "reconnects of admitted jobs always pass); 0 = "
+                        "unlimited (pre-r20 behavior)")
+    p.add_argument("--admission_max_stall_pct", type=float, default=0.0,
+                   help=">0: refuse a NEW job while this server's windowed "
+                        "decode stall is above this percentage — admitting "
+                        "another tenant would burn the existing jobs' "
+                        "stall SLO budget; 0 = no stall gate")
+    p.add_argument("--handshake_timeout_s", type=float, default=30.0,
+                   help="per-connection HELLO deadline; a peer that "
+                        "connects and stays silent is dropped after this "
+                        "(0 = wait forever)")
+    p.add_argument("--read_retries", type=int, default=3,
+                   help="dataset-read attempts (exponential backoff) before "
+                        "erroring a client stream")
+    p.add_argument("--log_every_s", type=float, default=30.0,
+                   help="periodic service-stats line; 0 = off")
+    p.add_argument("--metrics_port", type=int, default=None,
+                   help="serve /metrics (Prometheus text: svc_* counters, "
+                        "decode/queue-wait histograms) and /healthz (queue "
+                        "depths, client liveness) on this port "
+                        "(0 = ephemeral, printed at startup; default off)")
+    p.add_argument("--metrics_host", type=str, default="127.0.0.1",
+                   help="exporter bind address (default loopback; the "
+                        "endpoint is unauthenticated — 0.0.0.0 is an "
+                        "explicit opt-in)")
+    p.add_argument("--coordinator", type=str, default=None,
+                   metavar="HOST:PORT",
+                   help="register with this fleet coordinator (`ldt "
+                        "coordinator`) and serve as one elastic member: "
+                        "heartbeats, shard lease, deregister on stop")
+    p.add_argument("--advertise_addr", type=str, default=None,
+                   metavar="HOST:PORT",
+                   help="the address CLIENTS dial, as registered with the "
+                        "coordinator (default: bind host + bound port, "
+                        "hostname when binding a wildcard — set explicitly "
+                        "behind NAT/containers)")
+    p.add_argument("--server_id", type=str, default=None,
+                   help="stable fleet identity (default: advertise addr + "
+                        "random suffix)")
+    p.add_argument("--heartbeat_interval_s", type=float, default=0.0,
+                   help="heartbeat period; 0 = use the coordinator's "
+                        "advertised interval")
+    return p
+
+
+def build_coordinator_parser() -> argparse.ArgumentParser:
+    """``ldt coordinator`` — the fleet control plane: membership,
+    generation-numbered shard leases, heartbeat expiry. Carries no data."""
+    p = argparse.ArgumentParser(
+        prog="ldt coordinator",
+        description="Coordinate an elastic fleet of `ldt serve-data` "
+                    "servers: registration, heartbeats, shard leases, "
+                    "membership resolution for trainers",
+    )
+    p.add_argument("--host", type=str, default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8470,
+                   help="0 = pick an ephemeral port (printed at startup)")
+    p.add_argument("--heartbeat_interval_s", type=float, default=2.0,
+                   help="heartbeat period advertised to members")
+    p.add_argument("--lease_ttl_s", type=float, default=6.0,
+                   help="heartbeat silence after which a member is expired "
+                        "and its lease reassigned (keep >= 2-3 heartbeat "
+                        "intervals)")
+    p.add_argument("--handshake_timeout_s", type=float, default=10.0,
+                   help="per-connection request deadline (a silent peer is "
+                        "dropped after this)")
+    p.add_argument("--log_every_s", type=float, default=30.0,
+                   help="periodic membership line; 0 = off")
+    p.add_argument("--metrics_port", type=int, default=None,
+                   help="serve /metrics (fleet_members, "
+                        "fleet_lease_generation, fleet_rebalance_ms, ...) "
+                        "and /healthz (member table, heartbeat ages) on "
+                        "this port (0 = ephemeral; default off)")
+    p.add_argument("--metrics_host", type=str, default="127.0.0.1",
+                   help="exporter bind address (default loopback)")
+    p.add_argument("--scale_up_stall_pct", type=float, default=50.0,
+                   help="a member heartbeat reporting windowed stall above "
+                        "this flips the fleet recommendation to scale_up "
+                        "(/healthz, fleet_scale_recommendation gauge, "
+                        "`ldt fleet recommend`)")
+    p.add_argument("--scale_down_stall_pct", type=float, default=5.0,
+                   help="every member below this (with clients attached, "
+                        ">1 members) marks the fleet a drain candidate")
+    return p
+
+
+def build_fleet_parser() -> argparse.ArgumentParser:
+    """``ldt fleet`` — operator queries against a running coordinator."""
+    p = argparse.ArgumentParser(
+        prog="ldt fleet",
+        description="Query a running `ldt coordinator`: membership, "
+                    "per-member heartbeat pressure, and the scale "
+                    "recommendation the autotune fleet half derives",
+    )
+    p.add_argument("action", choices=["recommend"],
+                   help="recommend: print the member table with each "
+                        "member's windowed stall pressure and the "
+                        "coordinator's scale-up/ok/drain recommendation")
+    p.add_argument("--coordinator", type=str, required=True,
+                   metavar="HOST:PORT")
+    p.add_argument("--timeout_s", type=float, default=10.0)
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="print the raw RESOLVE payload as JSON (scripting)")
+    return p
+
+
+def build_jobs_parser() -> argparse.ArgumentParser:
+    """``ldt jobs`` — the job plane's operator view: every job the
+    coordinator's registry knows, aggregated across member heartbeats."""
+    p = argparse.ArgumentParser(
+        prog="ldt jobs",
+        description="Query a running `ldt coordinator` for the v6 job "
+                    "plane: per-job priority class, session count, resume "
+                    "cursor, cache hit rate and SLO burn-down",
+    )
+    p.add_argument("action", choices=["list", "describe"],
+                   help="list: one row per registered job; describe: full "
+                        "detail (per-objective burn windows) for one job")
+    p.add_argument("job_id", nargs="?", default=None,
+                   help="the job to describe (describe only)")
+    p.add_argument("--coordinator", type=str, required=True,
+                   metavar="HOST:PORT")
+    p.add_argument("--timeout_s", type=float, default=10.0)
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="print the raw per-job rows as JSON (scripting)")
+    return p
+
+
+def _job_row_line(row: dict) -> str:
+    rate = row.get("cache_hit_rate")
+    return (
+        f"  {row.get('job_id')} [{row.get('priority')}] "
+        f"sessions {row.get('sessions', 0)} "
+        f"cursor {row.get('cursor', -1)} "
+        f"batches {row.get('batches_sent', 0)} "
+        f"cache_hit_rate {'-' if rate is None else rate}"
+    )
+
+
+def jobs_main(argv=None) -> int:
+    """``jobs`` subcommand body. Exit status: 0 on success, 4 when
+    ``describe`` names a job the registry does not know (scripting can
+    distinguish 'no such tenant' from transport failure)."""
+    import json
+
+    args = build_jobs_parser().parse_args(argv)
+    if args.action == "describe" and not args.job_id:
+        build_jobs_parser().error("describe needs a job_id")
+    from .fleet.balancer import resolve_fleet
+
+    payload = resolve_fleet(args.coordinator, timeout_s=args.timeout_s)
+    rows = payload.get("jobs") or []
+    if args.action == "describe":
+        rows = [r for r in rows if r.get("job_id") == args.job_id]
+        if not rows:
+            print(f"job {args.job_id!r} not registered with "
+                  f"{args.coordinator}")
+            return 4
+    if args.as_json:
+        print(json.dumps(rows, indent=2, sort_keys=True))
+        return 0
+    if args.action == "list":
+        print(f"{len(rows)} job(s), generation {payload.get('generation')}")
+        for row in rows:
+            print(_job_row_line(row))
+        return 0
+    row = rows[0]
+    print(f"job {row.get('job_id')}")
+    print(f"  priority:       {row.get('priority')}")
+    print(f"  sessions:       {row.get('sessions', 0)}")
+    print(f"  resume cursor:  {row.get('cursor', -1)}")
+    print(f"  batches sent:   {row.get('batches_sent', 0)}")
+    rate = row.get("cache_hit_rate")
+    print(f"  cache hit rate: {'-' if rate is None else rate} "
+          f"(hit {row.get('cache_hit', 0)} / "
+          f"miss {row.get('cache_miss', 0)})")
+    burn = row.get("slo_burn") or {}
+    for name in sorted(burn):
+        windows = burn[name]
+        line = " ".join(
+            f"{label}={windows[label]}" for label in sorted(windows)
+        )
+        print(f"  slo {name}: burn {line}")
+    return 0
+
+
+def fleet_main(argv=None) -> int:
+    """``fleet`` subcommand body. Exit status encodes the recommendation
+    for scripting: 0 = ok/drain_candidate, 3 = scale_up (so an operator
+    cron can `ldt fleet recommend … || page`)."""
+    import json
+
+    args = build_fleet_parser().parse_args(argv)
+    from .fleet.balancer import resolve_fleet
+
+    payload = resolve_fleet(args.coordinator, timeout_s=args.timeout_s)
+    recommendation = payload.get("recommendation") or {"action": "ok"}
+    if args.as_json:
+        print(json.dumps(payload, indent=2, sort_keys=True))
+    else:
+        print(
+            f"generation {payload.get('generation')}, "
+            f"{payload.get('stripe_count')} members"
+        )
+        for m in payload.get("members", []):
+            pressure = m.get("pressure") or {}
+            print(
+                f"  {m.get('server_id')} @ {m.get('addr')} "
+                f"stripe {m.get('stripe_index')} "
+                f"stall {pressure.get('stall_pct', '-')}% "
+                f"clients {pressure.get('active_clients', '-')} "
+                f"(heartbeat {m.get('heartbeat_age_s')}s ago)"
+            )
+        for entry in payload.get("stale_members", []) or []:
+            # Expired members whose last pressure window is retained (v6):
+            # evidence that went stale, not absent — the reason a drain
+            # recommendation may be withheld right after a blip.
+            pressure = entry.get("pressure") or {}
+            print(
+                f"  {entry.get('server_id')} EXPIRED "
+                f"{entry.get('stale_age_s')}s ago, last stall "
+                f"{pressure.get('stall_pct', '-')}%"
+            )
+        jobs = payload.get("jobs") or []
+        if jobs:
+            print(f"{len(jobs)} job(s):")
+            for row in jobs:
+                print(_job_row_line(row))
+        queue_wait = payload.get("queue_wait_ms")
+        if isinstance(queue_wait, dict):
+            # Fleet-wide percentiles merged from the members' heartbeat
+            # histograms (protocol v5) — exact, not a mean of p99s.
+            print(
+                "fleet queue_wait: "
+                f"p50 {queue_wait.get('p50_ms')}ms "
+                f"p95 {queue_wait.get('p95_ms')}ms "
+                f"p99 {queue_wait.get('p99_ms')}ms "
+                f"({queue_wait.get('count')} waits, "
+                f"{queue_wait.get('members')} members reporting)"
+            )
+        print(
+            f"recommendation: {recommendation.get('action')} — "
+            f"{recommendation.get('reason', '')}"
+        )
+    return 3 if recommendation.get("action") == "scale_up" else 0
+
+
+def coordinator_main(argv=None) -> dict:
+    """``coordinator`` subcommand body — blocks until interrupted."""
+    args = build_coordinator_parser().parse_args(argv)
+    from .fleet.coordinator import Coordinator, CoordinatorConfig
+
+    coordinator = Coordinator(CoordinatorConfig(
+        host=args.host,
+        port=args.port,
+        heartbeat_interval_s=args.heartbeat_interval_s,
+        lease_ttl_s=args.lease_ttl_s,
+        handshake_timeout_s=args.handshake_timeout_s,
+        log_every_s=args.log_every_s,
+        metrics_port=args.metrics_port,
+        metrics_host=args.metrics_host,
+        scale_up_stall_pct=args.scale_up_stall_pct,
+        scale_down_stall_pct=args.scale_down_stall_pct,
+    ))
+    coordinator.serve_forever()
+    return coordinator.registry.snapshot()
+
+
+def serve_main(argv=None) -> dict:
+    """``serve-data`` subcommand body — blocks until interrupted."""
+    args = build_serve_parser().parse_args(argv)
+    from .service.server import DataService, ServeConfig
+
+    service = DataService(ServeConfig(
+        dataset_path=args.dataset_path,
+        host=args.host,
+        port=args.port,
+        task_type=args.task_type,
+        image_size=args.image_size,
+        num_workers=args.num_workers,
+        shm_workers=not args.no_shm_workers,
+        sched_lookahead=args.sched_lookahead,
+        sched_heavy_share=args.sched_heavy_share,
+        buffer_pool=not args.no_buffer_pool,
+        device_decode=args.device_decode,
+        token_pack=args.token_pack,
+        seq_len=args.seq_len,
+        pack_len=args.pack_len,
+        pack_rows_multiple=args.pack_rows_multiple,
+        batch_cache=args.batch_cache,
+        cache_ram_budget_mb=args.cache_ram_budget_mb,
+        cache_disk_budget_mb=args.cache_disk_budget_mb,
+        cache_dir=args.cache_dir,
+        queue_depth=args.queue_depth,
+        admission_max_jobs=args.admission_max_jobs,
+        admission_max_stall_pct=args.admission_max_stall_pct,
+        handshake_timeout_s=args.handshake_timeout_s,
+        read_retries=args.read_retries,
+        log_every_s=args.log_every_s,
+        metrics_port=args.metrics_port,
+        metrics_host=args.metrics_host,
+        coordinator_addr=args.coordinator,
+        advertise_addr=args.advertise_addr,
+        server_id=args.server_id,
+        heartbeat_interval_s=args.heartbeat_interval_s,
+    ))
+    service.serve_forever()
+    return service.counters.snapshot()
+
+
+def _trace_main(argv):
+    from .obs.spans import trace_main
+
+    return trace_main(argv)
+
+
+def _costs_main(argv):
+    from .obs.costs import costs_main
+
+    return costs_main(argv)
+
+
+def _protocol_main(argv):
+    from .service.goldens import goldens_main
+
+    return goldens_main(argv)
+
+
+# Subcommands of the host processes: none loads the trainer or touches a
+# card. ``fleet``, ``jobs``, ``protocol``, ``trace`` and ``costs`` return an
+# exit status.
+_SUBCOMMANDS = {
+    "serve-data": serve_main,
+    "coordinator": coordinator_main,
+    "fleet": fleet_main,
+    "jobs": jobs_main,
+    "protocol": _protocol_main,
+    "trace": _trace_main,
+    "costs": _costs_main,
+}
+
+
+def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in _SUBCOMMANDS:
+        return _SUBCOMMANDS[argv[0]](argv[1:])
     if argv and argv[0] == "train":
         argv = argv[1:]
     elif argv and not argv[0].startswith("-"):
         raise NotImplementedError(
-            f"subcommand {argv[0]!r} is not yet ported (train only)"
+            f"subcommand {argv[0]!r} is not yet ported (train, "
+            f"{', '.join(_SUBCOMMANDS)})"
         )
     args = vars(build_parser().parse_args(argv))
     for name in _XLA_FLAGS:
@@ -384,6 +856,8 @@ def main(argv=None) -> dict:
                 f"--{name} configures the JAX package's XLA runtime; the "
                 "PyTorch port picks its device with --device {cuda,cpu} and "
                 "has no XLA compile cache")
+    args["data_service_addr"] = args.pop("data_service")
+    args["coordinator_addr"] = args.pop("coordinator")
     args["resume"] = not args.pop("no_resume")
     args["augment"] = not args.pop("no_augment")
     args["eval_at_end"] = not args.pop("no_eval_at_end")
@@ -404,4 +878,6 @@ def main(argv=None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    _result = main()
+    if isinstance(_result, int) and _result != 0:
+        raise SystemExit(_result)

@@ -26,7 +26,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.ipc as ipc
 
-__all__ = ["Dataset", "Fragment", "write_dataset"]
+__all__ = ["Dataset", "Fragment", "read_ranges", "write_dataset"]
 
 _MANIFEST = "manifest.json"
 _VERSIONS_DIR = "_versions"
@@ -383,3 +383,13 @@ def write_dataset(
         json.dump(manifest, f)
     os.replace(tmp, manifest_path)
     return Dataset(uri)
+
+
+def read_ranges(dataset: Dataset, ranges, columns: Optional[Sequence[str]]
+                = None) -> pa.Table:
+    """Concatenate one step's row ranges (``samplers.ReadRange``s),
+    projected to ``columns``: the iterable path's read, shared by the
+    loaders and the data service's server (which loads no torch)."""
+    tables = [dataset.read_range(r.fragment, r.start, r.stop,
+                                 columns=columns) for r in ranges]
+    return pa.concat_tables(tables) if len(tables) > 1 else tables[0]

@@ -26,9 +26,9 @@ Vocabulary, one node per concern:
   the producer thread count.
 * **Transport**: where the stream crosses a process boundary.
   :class:`InProcess` (none), :class:`ServiceTransport` (one data service),
-  :class:`FleetTransport` (a coordinator-striped fleet). The two remote
-  transports validate and describe; compiling one raises "not yet ported"
-  until the port has the data service.
+  :class:`FleetTransport` (a coordinator-striped fleet), which compile to
+  the service's :class:`~..service.client.RemoteLoader` and the fleet's
+  :class:`~..fleet.balancer.FleetLoader`.
 * **DevicePut** / **Place**: the synchronous placement on the consumer
   thread (``parallel.mesh.make_global_batch``, the ``--no_global_batch``
   arm) or the placement plane (``data/placement.py``) owning H2D on its
@@ -482,8 +482,8 @@ class ServiceTransport(Transport):
     """One remote data service: plan and decode run server-side, this
     process streams host batches. Network knobs pass through to the
     service's client verbatim; ``job_id``/``job_priority`` declare the
-    stream's tenancy. Validates and describes; compiling raises until the
-    port has the data service."""
+    stream's tenancy. Compiles to a
+    :class:`~..service.client.RemoteLoader`."""
 
     def __init__(self, addr: str, job_id: Optional[str] = None,
                  job_priority: Optional[str] = None, **opts):
@@ -503,8 +503,7 @@ class ServiceTransport(Transport):
 class FleetTransport(Transport):
     """A coordinator-striped fleet of data services: batches round-robin
     across the member stripe, merged back into plan order client-side.
-    Validates and describes; compiling raises until the port has the
-    fleet."""
+    Compiles to a :class:`~..fleet.balancer.FleetLoader`."""
 
     tunable_names = ("stripe_width",)
 
@@ -805,9 +804,42 @@ class LoaderGraph:
         )
 
     def _build_remote(self, transport: Transport):
-        raise NotImplementedError(
-            f"{type(transport).__name__} is not yet ported: the port has "
-            "no data service or fleet client yet"
+        """The service's or the fleet's client, declaring the decode knobs
+        the server checks at connect time; it places each batch on the
+        :class:`DevicePut` node's device, or yields host batches."""
+        src = self.source
+        decode = self.node("decode") or Decode()
+        prefetch = self.node("prefetch") or Prefetch()
+        buffers = self.node("buffers") or Buffers()
+        put = self.node("device_put") or DevicePut()
+        common = dict(
+            sampler_type=src.sampler_type,
+            shuffle=src.shuffle,
+            seed=src.seed,
+            epoch=src.epoch,
+            prefetch=prefetch.depth,
+            columns=decode.columns,
+            task_type=decode.task_type,
+            image_size=decode.image_size,
+            seq_len=decode.seq_len,
+            device_decode=decode.device_decode,
+            token_pack=decode.token_pack,
+            dataset_fingerprint=src.dataset_fingerprint,
+            buffer_pool=buffers.pool,
+        )
+        common.update(transport.opts)
+        if isinstance(transport, FleetTransport):
+            from ..fleet.balancer import FleetLoader
+
+            return FleetLoader(
+                transport.coordinator_addr, src.batch_size,
+                src.process_index, src.process_count, put.device, **common,
+            )
+        from ..service.client import RemoteLoader
+
+        return RemoteLoader(
+            transport.addr, src.batch_size, src.process_index,
+            src.process_count, put.device, **common,
         )
 
     # -- describe (no compile) ---------------------------------------------

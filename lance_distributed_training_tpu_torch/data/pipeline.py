@@ -91,8 +91,8 @@ from .cache import (
     item_fingerprint,
     plan_fingerprint,
 )
-from .format import Dataset
-from .samplers import ReadRange, distributed_index_batches, slice_plan
+from .format import Dataset, read_ranges
+from .samplers import distributed_index_batches, slice_plan
 from ..parallel.mesh import PinnedStager, indexed_device, make_global_batch
 
 __all__ = ["EvalLoader", "MapStylePipeline", "TrainLoader",
@@ -100,12 +100,6 @@ __all__ = ["EvalLoader", "MapStylePipeline", "TrainLoader",
            "make_train_pipeline", "refuse_empty_plan"]
 
 
-def _range_read(dataset: Dataset, ranges: Sequence[ReadRange],
-                columns: Optional[Sequence[str]] = None) -> pa.Table:
-    """Concatenate one step's row ranges, projected to ``columns``."""
-    tables = [dataset.read_range(r.fragment, r.start, r.stop,
-                                 columns=columns) for r in ranges]
-    return pa.concat_tables(tables) if len(tables) > 1 else tables[0]
 
 
 class _Failure:
@@ -166,7 +160,7 @@ class TrainLoader:
 
     def _read(self, item):
         """One plan item's rows (an Arrow table)."""
-        return _range_read(self.dataset, item, self.columns)
+        return read_ranges(self.dataset, item, self.columns)
 
     def _decode(self, item, table) -> dict:
         """One plan item's rows decoded into a host numpy batch."""

@@ -1,7 +1,7 @@
 """Per-item cost ledger — what each plan item actually cost to decode.
 
-A copy of ``lance_distributed_training_tpu/obs/costs.py`` up to the
-``ldt costs`` subcommand (which waits for the port's data service).
+A copy of ``lance_distributed_training_tpu/obs/costs.py`` with its ``ldt
+costs`` subcommand (:func:`costs_main`).
 
 The straggler problem (MinatoLoader, PAPERS.md 2509.10712) is per-ITEM:
 one oversized JPEG on the re-encode path, one long token tail, and batch
@@ -57,6 +57,7 @@ __all__ = [
     "default_ledger",
     "cost_context",
     "note_cost",
+    "costs_main",
 ]
 
 # Numeric fields where the historical MAX is the straggler signal (the
@@ -223,3 +224,106 @@ def note_cost(**fields) -> None:
     current = getattr(_TLS, "fields", None)
     if current is not None:
         current.update(fields)
+
+
+# -- `ldt costs` CLI ---------------------------------------------------------
+
+
+def costs_main(argv=None, out=None) -> int:
+    """``ldt costs report`` — aggregate cost-ledger JSONL (written under
+    ``LDT_COST_PATH``) into a straggler table. Returns exit status."""
+    import argparse
+    import sys
+
+    out = out if out is not None else sys.stdout
+    p = argparse.ArgumentParser(
+        prog="ldt costs",
+        description="Report per-item decode costs from cost-ledger JSONL",
+    )
+    sub = p.add_subparsers(dest="command")
+    rep = sub.add_parser("report", help="aggregate cost JSONL → table")
+    rep.add_argument(
+        "--costs", action="append", default=None, metavar="JSONL",
+        help="cost JSONL file(s) written under LDT_COST_PATH (repeatable; "
+             "default: $LDT_COST_PATH or ldt-costs.jsonl)",
+    )
+    rep.add_argument("--top", type=int, default=10,
+                     help="straggler rows to show (default 10)")
+    args = p.parse_args(list(argv) if argv is not None else None)
+    if args.command != "report":
+        p.print_help(out)
+        return 2
+    paths = args.costs or [os.environ.get("LDT_COST_PATH", "ldt-costs.jsonl")]
+    ledger = CostLedger(capacity=1 << 20, jsonl_path=None,
+                        registry=MetricsRegistry())
+    lines = 0
+    parsed = []  # (key, fields) in file order, for the prediction replay
+    for path in paths:
+        if not os.path.exists(path):
+            out.write(f"ldt costs: missing cost file {path}\n")
+            continue
+        with open(path, encoding="utf-8") as f:
+            for lineno, line in enumerate(f, start=1):
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    out.write(
+                        f"ldt costs: skipping undecodable line "
+                        f"{path}:{lineno}\n"
+                    )
+                    continue
+                if isinstance(rec, dict) and isinstance(rec.get("key"), str):
+                    fields = {
+                        k: v for k, v in rec.items() if k not in ("key", "ns")
+                    }
+                    ledger.record(rec["key"], **fields)
+                    parsed.append((rec["key"], fields))
+                    lines += 1
+    # Predicted-vs-actual replay (data/schedule.py CostModel): walk the
+    # ledger in recorded order, predicting each observation BEFORE folding
+    # it in — exactly the error the straggler scheduler would have run
+    # with. The per-key mean lands in the pred_err_ms column, so a
+    # mispredicted straggler is diagnosable straight from this table.
+    from ..data.schedule import CostModel
+
+    model = CostModel()
+    pred_err: dict = {}  # key -> [err_sum, n]
+    for key, fields in parsed:
+        ms = fields.get("decode_ms")
+        if not isinstance(ms, (int, float)):
+            continue
+        err = abs(model.predict(key, fields) - float(ms))
+        acc = pred_err.setdefault(key, [0.0, 0])
+        acc[0] += err
+        acc[1] += 1
+        model.observe(key, float(ms), fields)
+    recs = ledger.records()
+    for rec in recs:
+        acc = pred_err.get(rec["key"])
+        if acc is not None:
+            rec["pred_err_ms"] = round(acc[0] / acc[1], 3)
+    if not recs:
+        out.write(
+            "ldt costs: no records — run with LDT_COST_PATH=<file> to "
+            "record per-item costs\n"
+        )
+        return 2
+    total_n = sum(r["n"] for r in recs)
+    out.write(
+        f"ldt costs: {len(recs)} items, {total_n} observations "
+        f"({lines} lines)\n"
+    )
+    cols = ("n", "decode_ms_max", "decode_ms", "pred_err_ms", "entropy_ms",
+            "device_ms", "bytes", "token_len", "reencode", "cache_hit")
+    out.write("  " + " ".join(f"{c:>13}" for c in cols) + "  key\n")
+    # Same straggler ordering as CostLedger.top(), over the annotated
+    # records (top() re-copies and would drop the pred_err_ms join).
+    recs.sort(key=lambda r: r.get("decode_ms_max", r.get("decode_ms", 0.0)),
+              reverse=True)
+    for rec in recs[:args.top]:
+        row = " ".join(f"{rec.get(c, ''):>13}" for c in cols)
+        out.write(f"  {row}  {rec['key'][:20]}\n")
+    return 0

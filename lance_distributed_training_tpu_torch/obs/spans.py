@@ -1,8 +1,8 @@
 """Lightweight span tracing with a Chrome-trace / Perfetto export surface.
 
-A copy of ``lance_distributed_training_tpu/obs/spans.py`` up to the
-``ldt trace`` subcommand (which waits for the port's data service). The
-profiler passthrough is ``torch.profiler.record_function`` instead of
+A copy of ``lance_distributed_training_tpu/obs/spans.py`` with its ``ldt
+trace`` subcommand (:func:`trace_main`). The profiler passthrough is
+``torch.profiler.record_function`` instead of
 ``jax.profiler.TraceAnnotation``: spans appear on the host timeline of a
 ``torch.profiler`` trace (``utils/profiling.py``).
 
@@ -13,11 +13,12 @@ surfaces:
 
 * **Perfetto / chrome://tracing** — :func:`chrome_trace` converts completed
   spans to Chrome trace-event JSON (``ph: "X"`` complete events), written by
-  :meth:`SpanTracer.write_chrome_trace` (the JAX package's ``ldt trace
-  export`` reads the same JSONL).
-* **profiler passthrough** — every span also enters a
-  ``torch.profiler.record_function``, so the same regions appear on the
-  host timeline of a ``torch.profiler`` trace (``utils/profiling.py``).
+  :meth:`SpanTracer.write_chrome_trace` or the ``ldt trace export`` CLI
+  (:func:`trace_main`), which reads either package's JSONL.
+* **profiler passthrough** — in a process that has loaded torch, every
+  span also enters a ``torch.profiler.record_function``, so the same
+  regions appear on the host timeline of a ``torch.profiler`` trace
+  (``utils/profiling.py``); a span never imports torch itself.
 * **cross-process JSONL** — set ``LDT_TRACE_PATH`` (or pass ``jsonl_path``)
   and completed spans append to a JSONL file one event per line; ``ldt
   trace export --spans that-file`` stitches any number of processes'
@@ -44,6 +45,7 @@ import dataclasses
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -56,6 +58,7 @@ __all__ = [
     "default_tracer",
     "span",
     "chrome_trace",
+    "trace_main",
 ]
 
 
@@ -94,17 +97,23 @@ class Span:
 
 
 def _annotation(name: str):
-    """``torch.profiler.record_function`` when torch is importable, else
-    None — the tracer must work in processes without torch."""
+    """``torch.profiler.record_function`` once this process has loaded
+    torch, else None. A span never imports torch: the host processes
+    (``serve-data``, ``coordinator``) do not load it, and an import on a
+    first span stalls every thread of the process for seconds (the JAX
+    tracer imports jax when it can; a profiler trace exists only in a
+    process that loaded torch, so nothing is lost here)."""
     global _ANNOTATION_CLS
     if _ANNOTATION_CLS is False:
         return None
     if _ANNOTATION_CLS is None:
+        if "torch" not in sys.modules:
+            return None  # unresolved: torch may load later
         try:
             from torch.profiler import record_function
 
             _ANNOTATION_CLS = record_function
-        except Exception:  # torch absent/broken: tracer still works
+        except Exception:  # torch broken: the tracer still works
             _ANNOTATION_CLS = False
             return None
     return _ANNOTATION_CLS(name)
@@ -300,3 +309,120 @@ def span(name: str, **attrs):
     """Record a region on the process-wide tracer — the one-liner the
     instrumented modules use: ``with span("svc.decode", step=n): …``."""
     return default_tracer().span(name, **attrs)
+
+
+# -- `ldt trace` CLI ---------------------------------------------------------
+
+
+def _load_span_events(paths: List[str], out) -> List[dict]:
+    """Merge span JSONL files into one event list (undecodable lines are
+    reported and skipped; missing files are reported — a silently dropped
+    host's spans read as "that host did nothing" in Perfetto)."""
+    events: List[dict] = []
+    missing = []
+    for path in paths:
+        if not os.path.exists(path):
+            missing.append(path)
+            continue
+        with open(path, encoding="utf-8") as f:
+            for lineno, line in enumerate(f, start=1):
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    events.append(json.loads(line))
+                except ValueError:
+                    out.write(
+                        f"ldt trace: skipping undecodable line "
+                        f"{path}:{lineno}\n"
+                    )
+    if missing:
+        out.write(
+            f"ldt trace: missing span file(s): {', '.join(missing)}\n"
+        )
+    return events
+
+
+def trace_main(argv=None, out=None) -> int:
+    """``ldt trace export`` / ``ldt trace critical-path``.
+
+    * ``export`` merges span JSONLs (written by any process running with
+      ``LDT_TRACE_PATH``) into ONE Perfetto-loadable Chrome-trace JSON:
+      per-process clocks rebased onto the wall timeline via the
+      ``ldt.clock_sync`` anchors, cross-process batch chains stitched
+      with flow arrows (``obs/critpath.py``), ring-buffer drop counts
+      reported.
+    * ``critical-path`` analyzes the same merged events into per-batch
+      segment attribution + a straggler table.
+
+    Returns the process exit status."""
+    import argparse
+    import sys
+
+    out = out if out is not None else sys.stdout
+    p = argparse.ArgumentParser(
+        prog="ldt trace",
+        description="Merge and analyze recorded span JSONLs",
+    )
+    sub = p.add_subparsers(dest="command")
+    exp = sub.add_parser("export", help="convert span JSONL → Chrome trace")
+    cp = sub.add_parser(
+        "critical-path",
+        help="per-batch segment attribution + straggler table",
+    )
+    for sp in (exp, cp):
+        sp.add_argument(
+            "--spans", action="append", default=None, metavar="JSONL",
+            help="span JSONL file(s) written under LDT_TRACE_PATH "
+                 "(repeatable; default: $LDT_TRACE_PATH or "
+                 "ldt-spans.jsonl)",
+        )
+    exp.add_argument("--out", default="ldt-trace.json",
+                     help="output Chrome-trace JSON path")
+    cp.add_argument("--costs", default=None, metavar="JSONL",
+                    help="cost-ledger JSONL (LDT_COST_PATH) to join the "
+                         "straggler table against")
+    cp.add_argument("--top", type=int, default=10,
+                    help="slowest chains to show (default 10)")
+    args = p.parse_args(list(argv) if argv is not None else None)
+    if args.command not in ("export", "critical-path"):
+        p.print_help(out)
+        return 2
+    from .critpath import (
+        critical_path_main,
+        dropped_spans,
+        flow_events,
+        rebase_events,
+    )
+
+    spans_paths = args.spans or [
+        os.environ.get("LDT_TRACE_PATH", "ldt-spans.jsonl")
+    ]
+    events = _load_span_events(spans_paths, out)
+    if not events:
+        out.write(
+            "ldt trace: no events collected — run with "
+            "LDT_TRACE_PATH=<file> to record spans\n"
+        )
+        return 2
+    if args.command == "critical-path":
+        return critical_path_main(events, out, costs_path=args.costs,
+                                  top=args.top)
+    rebased, offsets = rebase_events(events)
+    flows = flow_events(rebased)
+    dropped = dropped_spans(events)
+    with open(args.out, "w") as f:
+        json.dump(chrome_trace(rebased + flows), f)
+        f.write("\n")
+    out.write(
+        f"ldt trace: wrote {len(rebased)} events (+{len(flows)} flow "
+        f"arrows, {len(offsets)} process clocks aligned) to {args.out} — "
+        "open it at https://ui.perfetto.dev or chrome://tracing\n"
+    )
+    if dropped:
+        out.write(
+            f"ldt trace: source ring buffers dropped ~{dropped} spans — "
+            "the merged trace is truncated (raise SpanTracer capacity "
+            "or rely on the JSONL, which never drops)\n"
+        )
+    return 0

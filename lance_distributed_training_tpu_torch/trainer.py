@@ -94,6 +94,15 @@ epoch's loader, the pool, the buffer pool and the cache; replay epochs
 register none. The tuner stops before the pool shuts down, the pool before
 the cache closes.
 
+The remote arm, as the JAX trainer's: with ``data_service_addr`` (one
+``serve-data`` server) or ``coordinator_addr`` (a fleet behind a
+coordinator; ``job_id``/``job_priority`` name the run's job there) decode
+runs in those host processes and this process only receives the batches,
+equal to local decode's bit for bit, and places them; the dataset need be
+readable here only for the eval and the schedule horizon.
+``metrics_port`` serves ``/metrics`` and ``/healthz`` for the run
+(``obs/http.py``) with the SLO tracker's burn rates.
+
 The device is the caller's choice: ``device="cuda"`` (the default) raises
 when no card is present rather than falling back to the CPU.
 """
@@ -121,8 +130,9 @@ from .data.authoring import _folder_samples
 from .data.folder import read_sample_batch
 from .data.format import Dataset
 from .data.graph import (Buffers, Cache, Decode, DevicePut, EvalSource,
-                         FolderSource, InProcess, LanceSource, LoaderGraph,
-                         MapStyleSource, Place, Pool, Prefetch)
+                         FleetTransport, FolderSource, InProcess, LanceSource,
+                         LoaderGraph, MapStyleSource, Place, Pool, Prefetch,
+                         ServiceTransport)
 from .data.placement import PlacementPlane
 from .data.pipeline import refuse_empty_plan
 from .data.token_pack import TokenPackConfig, is_ragged_batch, pack_meta
@@ -252,6 +262,11 @@ class TrainConfig:
     eval_every: int = 0  # >0: eval every N epochs (val_acc in the history)
     seed: int = 0
     log_every: int = 50
+    metrics_port: Optional[int] = None  # process 0 serves /metrics
+    # (Prometheus text: trainer_*, svc_* and lineage_* series) and /healthz
+    # for the run; None = off, 0 = an ephemeral port (in the progress log)
+    metrics_host: str = "127.0.0.1"  # the exporter's bind address
+    # (non-loopback is an explicit opt-in: the endpoint has no auth)
     log_grad_norm: bool = False  # the micro-batch gradient's global norm in
     # the progress lines (under grad_accum the update clips the mean)
     run_name: Optional[str] = None  # default
@@ -276,6 +291,21 @@ class TrainConfig:
     # host, K3 packs them into [rows, pack_len] grids on the device
     pack_len: int = 0  # packed slot-length cap; 0 = seq_len
     pack_rows_multiple: int = 8  # packed row-count rounding quantum
+    data_service_addr: Optional[str] = None  # host:port of a running
+    # `serve-data` DataService: decode runs there and this process streams
+    # the plan-ordered batches (service/client.RemoteLoader), identical to
+    # local training's on the same seed. Iterable columnar path only; the
+    # decode knobs must match the server's.
+    coordinator_addr: Optional[str] = None  # host:port of a running
+    # `coordinator`: the FleetLoader stripes this shard's plan over its
+    # members and restripes at the cursor when one is lost (same batches).
+    # Exclusive with data_service_addr; not the torch.distributed
+    # rendezvous (coordinator_address)
+    job_id: Optional[str] = None  # this run's job on a shared service or
+    # fleet: its resume cursor, fair share and admission there. None = the
+    # implicit default job
+    job_priority: Optional[str] = None  # inference | training | bulk for
+    # job_id; None = the server's default (training)
     device: str = "cuda"  # cuda | cpu: where the model and the step run
     coordinator_address: Optional[str] = None  # host:port of process 0
     num_processes: Optional[int] = None  # world size
@@ -735,6 +765,9 @@ def train(config: TrainConfig) -> dict:
                 "and multi-host global-batch assembly needs identical "
                 "per-process shapes"
             )
+        # JAX also refuses token_pack over a data service on a mesh of
+        # several devices; a port process drives one card, so the refusal
+        # above covers it.
     _check_seq_parallelism(config)
     if (config.device_decode and (config.num_processes or 1) > 1
             and not config.no_ddp):
@@ -781,6 +814,46 @@ def _check_loader_config(config: TrainConfig) -> None:
                 "val_fraction needs the map-style columnar path (the split "
                 "is an index pool); pass loader_style='map'"
             )
+    if config.data_service_addr and config.coordinator_addr:
+        raise ValueError(
+            "data_service_addr and coordinator_addr are mutually exclusive "
+            "(one names a single server, the other a fleet's coordinator)"
+        )
+    if config.job_id and not _remote(config):
+        raise ValueError(
+            "job_id declares tenancy on a shared data service/fleet — it "
+            "needs data_service_addr or coordinator_addr (local decode has "
+            "no job plane)"
+        )
+    if config.job_priority and not config.job_id:
+        raise ValueError(
+            "job_priority needs an explicit job_id (the implicit default "
+            "job always runs at the server's default class)"
+        )
+    if _remote(config):
+        remote_knob = (
+            "data_service_addr" if config.data_service_addr
+            else "coordinator_addr"
+        )
+        if (config.data_format != "columnar"
+                or config.loader_style != "iterable"):
+            raise ValueError(
+                f"{remote_knob} needs the iterable columnar path (the "
+                "service streams sampler-plan ranges); pass "
+                "loader_style='iterable', data_format='columnar'"
+            )
+        if config.filter or config.val_fraction:
+            raise ValueError(
+                "filter/val_fraction resolve index pools locally and cannot "
+                f"combine with {remote_knob}"
+            )
+        if config.num_workers > 0:
+            warnings.warn(
+                "num_workers>0 has no effect with data_service_addr: decode "
+                "runs in the remote DataService (size ITS pool with "
+                "`ldt serve-data --num_workers N`)",
+                stacklevel=3,
+            )
     if config.filter and config.data_format != "columnar":
         raise ValueError("filter= needs the columnar store (data_format="
                          "'columnar'); folder trees have no row predicates")
@@ -790,6 +863,11 @@ def _check_loader_config(config: TrainConfig) -> None:
             "an index pool; iterable range plans read contiguous rows); pass "
             "loader_style='map'"
         )
+
+
+def _remote(config: TrainConfig) -> bool:
+    """Whether the run streams from a data service or a fleet."""
+    return bool(config.data_service_addr or config.coordinator_addr)
 
 
 def _split_val_pool(config: TrainConfig, dataset: Dataset,
@@ -897,6 +975,10 @@ def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
     plane unless the synchronous arm is chosen."""
     plane = _make_placement(config, device)
     columns = getattr(decode, "required_columns", None)
+    if _remote(config):
+        return _build_remote_loader(config, dataset, device, plane, epoch,
+                                    per_process, data_index, data_world,
+                                    columns)
     if config.data_format == "folder":
         source = FolderSource(
             config.dataset_path, per_process, data_index, data_world,
@@ -943,6 +1025,86 @@ def _build_loader(config: TrainConfig, dataset: Optional[Dataset], decode,
             )
     else:
         refuse_empty_plan(loader, dataset, per_process, data_world)
+    return loader
+
+
+def _start_exporter(config: TrainConfig, timer: StepTimer, logger):
+    """Process 0's ``/metrics`` and ``/healthz`` for the run (the JAX
+    trainer's ``--metrics_port``): the process registry (``trainer_*``, a
+    remote loader's ``svc_*`` and ``lineage_*``) and the SLO tracker's
+    burn rates over the lineage percentiles. Returns ``(exporter,
+    tracker)``; the bound port goes to the progress log."""
+    from .obs.http import MetricsHTTPServer
+    from .obs.slo import SLOTracker
+
+    def _lineage_p99(name: str):
+        def probe() -> float:
+            hist = default_registry().get(name)
+            if hist is None:
+                return float("nan")  # no traffic yet: skipped
+            return hist.percentile(99)
+        return probe
+
+    tracker = SLOTracker(probes={
+        "batch_age_p99_ms": _lineage_p99("lineage_batch_age_ms"),
+        "queue_wait_p99_ms": _lineage_p99("lineage_queue_wait_ms"),
+    }).start()
+    try:
+        exporter = MetricsHTTPServer(
+            default_registry(), port=config.metrics_port,
+            host=config.metrics_host,
+            healthz_fn=lambda: {"role": "trainer",
+                                "run_name": config.run_name,
+                                "steps": timer.steps,
+                                "slo": tracker.status()},
+        ).start()
+    except BaseException:
+        tracker.stop()
+        raise
+    logger.log({"metrics_port": exporter.port})
+    return exporter, tracker
+
+
+def _build_remote_loader(config: TrainConfig, dataset: Optional[Dataset],
+                         device: torch.device, plane, epoch: int,
+                         per_process: int, data_index: int, data_world: int,
+                         columns):
+    """The remote arm (the JAX trainer's): decode runs in a data service
+    (:class:`~.data.graph.ServiceTransport`) or a coordinator's fleet
+    (:class:`~.data.graph.FleetTransport`), which build the same plan from
+    the same source, so the batches equal local decode's on the same seed.
+    This process declares its decode knobs (the server refuses a mismatch)
+    and, when it can read the dataset too, the dataset's fingerprint (a
+    server reading another copy is refused); it only receives batches and
+    places them."""
+    source = LanceSource(
+        None, config.sampler_type, per_process, data_index, data_world,
+        shuffle=config.shuffle, seed=config.seed, epoch=epoch,
+        dataset_fingerprint=(dataset.fingerprint() if dataset is not None
+                             else None))
+    decode_node = Decode(
+        columns=columns, task_type=config.task_type,
+        image_size=config.image_size,
+        seq_len=config.seq_len if config.task_type in _TEXT_TASKS else None,
+        device_decode=config.device_decode, token_pack=config.token_pack)
+    transport = (
+        FleetTransport(config.coordinator_addr, job_id=config.job_id,
+                       job_priority=config.job_priority)
+        if config.coordinator_addr
+        else ServiceTransport(config.data_service_addr, job_id=config.job_id,
+                              job_priority=config.job_priority))
+    nodes = [source, decode_node, Prefetch(config.prefetch), transport,
+             Buffers(_loader_buffer_pool(config)),
+             DevicePut(None if plane is not None else device)]
+    if plane is not None:
+        nodes.append(Place(plane))
+    loader = LoaderGraph(*nodes)
+    loader.compile()
+    if len(loader) == 0:
+        raise ValueError(
+            "empty plan from data service: dataset smaller than one "
+            f"global batch ({config.batch_size})"
+        )
     return loader
 
 
@@ -1212,7 +1374,28 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                          f"{data_world} processes")
     image = config.task_type in _IMAGE_TASKS
     folder = config.data_format == "folder"
-    dataset = None if folder else Dataset(config.dataset_path)
+    remote = _remote(config)
+    if folder:
+        dataset = None
+    elif remote:
+        # The training host may not mount the dataset at all: the reads
+        # run on the service host. Opened when present, for the eval and
+        # the schedule horizon.
+        try:
+            dataset = Dataset(config.dataset_path)
+        except FileNotFoundError:
+            dataset = None
+    else:
+        dataset = Dataset(config.dataset_path)
+    if (dataset is None and remote
+            and (config.eval_at_end or config.eval_every)
+            and not config.val_dataset_path):
+        raise ValueError(
+            "eval needs the dataset readable on this host (eval reads rows "
+            f"directly, not through the data service): {config.dataset_path} "
+            "is absent — mount it, pass val_dataset_path, or disable eval "
+            "(eval_at_end=False, eval_every=0)"
+        )
     # The folder arm evaluates its own tree: a val dataset is columnar.
     val_dataset = (Dataset(config.val_dataset_path)
                    if config.val_dataset_path and not folder else None)
@@ -1280,6 +1463,12 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     if total_steps is None and config.lr_schedule != "constant":
         # Steps an epoch times epochs; a filter pool or a val split
         # shortens the horizon with it.
+        if dataset is None and remote:
+            raise ValueError(
+                "lr_schedule needs a horizon, and the dataset is not "
+                "readable on this host to derive one — pass total_steps "
+                "explicitly with data_service_addr"
+            )
         rows = (len(index_pool) if index_pool is not None
                 else len(samples) if folder else dataset.count_rows())
         # Echoes are real optimizer steps.
@@ -1473,14 +1662,18 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                                   budget_gb=config.device_cache_gb,
                                   seed=config.seed)
     dev_refused = None
-    worker_pool = batch_cache = tuner = None
+    worker_pool = batch_cache = tuner = exporter = slo_tracker = None
     folder_fp = None
     registry_start = _registry_marks()
     t_start = time.perf_counter()
     warm = None  # (steps, time) at the first log point: warm-up ends there
     try:
-        worker_pool = _make_worker_pool(config, decode)
-        if config.batch_cache:
+        if config.metrics_port is not None and rank == 0:
+            exporter, slo_tracker = _start_exporter(config, timer, logger)
+        # A remote arm decodes on the server, where its pool and its cache
+        # live (serve-data --num_workers, --batch_cache).
+        worker_pool = None if remote else _make_worker_pool(config, decode)
+        if config.batch_cache and not remote:
             # One cache a run: the epoch loop rebuilds the loaders, the
             # cache outlives them (epoch 2 hits what epoch 1 filled).
             batch_cache = BatchCache(
@@ -1717,6 +1910,10 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             # back once no loader reads it; its disk tier stays.
             if tuner is not None:
                 tuner.stop()
+            if exporter is not None:
+                exporter.stop()
+            if slo_tracker is not None:
+                slo_tracker.stop()
             if worker_pool is not None:
                 worker_pool.shutdown()
             if batch_cache is not None:

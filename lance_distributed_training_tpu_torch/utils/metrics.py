@@ -22,18 +22,20 @@ import threading
 import time
 from typing import Optional
 
-from ..obs.registry import MetricsRegistry, default_registry
+from ..obs.registry import Histogram, MetricsRegistry, default_registry
 
 __all__ = ["MetricLogger", "ServiceCounters", "StepTimer"]
 
 
 class ServiceCounters:
-    """Thread-safe counters and gauges of one loader stage, keyed
-    ``<prefix>_<key>`` in :meth:`snapshot` and :meth:`window`. The
+    """Thread-safe counters, gauges and histograms of one loader stage,
+    keyed ``<prefix>_<key>`` in :meth:`snapshot` and :meth:`window`. The
     placement plane counts ``placement_h2d_s`` and
     ``placement_batches_placed`` here and gauges
-    ``placement_buffer_depth``; attached to a :class:`StepTimer`, their
-    window deltas land in the progress lines."""
+    ``placement_buffer_depth``; the data service's server and clients keep
+    their ``svc_*`` series here. Attached to a :class:`StepTimer`, the
+    window deltas land in the progress lines. :meth:`percentiles` reads
+    this instance's own observations, never another's in the registry."""
 
     def __init__(self, prefix: str = "svc",
                  registry: Optional[MetricsRegistry] = None):
@@ -43,6 +45,7 @@ class ServiceCounters:
         self._counts: dict[str, float] = {}
         self._gauges: dict[str, float] = {}
         self._window: dict[str, float] = {}
+        self._local_hists: dict[str, Histogram] = {}
 
     def add(self, key: str, value: float = 1.0) -> None:
         """Accumulate a monotonically growing counter."""
@@ -55,6 +58,24 @@ class ServiceCounters:
         with self._lock:
             self._gauges[key] = float(value)
         self.registry.gauge(f"{self.prefix}_{key}").set(value)
+
+    def observe(self, key: str, value: float) -> None:
+        """Record one observation into the ``<prefix>_<key>`` histogram
+        (fixed ms buckets), this instance's and the registry's."""
+        with self._lock:
+            local = self._local_hists.get(key)
+            if local is None:
+                local = self._local_hists[key] = Histogram(
+                    f"{self.prefix}_{key}")
+        local.observe(value)
+        self.registry.histogram(f"{self.prefix}_{key}").observe(value)
+
+    def percentiles(self, key: str) -> dict:
+        """``{"p50": …, "p95": …, "p99": …}`` of this instance's
+        observations of ``key`` (empty before the first)."""
+        with self._lock:
+            hist = self._local_hists.get(key)
+        return hist.percentiles() if hist is not None else {}
 
     def snapshot(self) -> dict:
         """Current totals and gauges, keys prefixed."""

@@ -9,14 +9,36 @@ The previous signal disposition is restored on :meth:`uninstall` (a
 ``train()`` inside pytest or a notebook must not keep SIGTERM). The JAX
 handler also counts ``trainer_preemptions_total`` on its metrics registry,
 which the port does not have yet; :attr:`requests` counts here.
+:func:`install_sigterm_handler` is the host processes' (``serve-data``,
+``coordinator``) hook: SIGTERM sets their stop flag and their own
+``finally`` drains them, as Ctrl-C does.
 """
 
 from __future__ import annotations
 
 import signal
 import threading
+from typing import Callable
 
-__all__ = ["PreemptionHandler"]
+__all__ = ["PreemptionHandler", "install_sigterm_handler"]
+
+
+def install_sigterm_handler(callback: Callable[[], None]) -> bool:
+    """Run ``callback`` (idempotent and cheap, typically ``Event.set``) on
+    SIGTERM. ``False`` where that cannot be installed (off the main
+    thread, as a service embedded in a test is; or no SIGTERM on the
+    platform): the caller keeps stopping on KeyboardInterrupt alone. A
+    copy of the JAX package's function of the same name."""
+    if threading.current_thread() is not threading.main_thread():
+        return False
+    try:
+        def _handler(signum, frame):  # noqa: ARG001 — signal signature
+            callback()
+
+        signal.signal(signal.SIGTERM, _handler)
+        return True
+    except (ValueError, OSError, AttributeError):
+        return False
 
 
 class PreemptionHandler:

@@ -11,7 +11,8 @@ engine, bit for bit (uint8 pixels, int16 coefficient pages, integer
 tokens and plans; the eval's f32 ``_weight`` is 0 or 1), with the resume
 tail after two batches. The factories and every arm of the trainer return
 compiled graphs whose engine surface reaches through ``Place``; the remote
-transports validate and describe and raise "not yet ported" at compile.
+transports describe as JAX's and compile against a live server to the
+service's and the fleet's loaders.
 """
 
 import numpy as np
@@ -175,17 +176,64 @@ def test_scheduled_decode_describes_as_jax():
         assert "sched_lookahead" in got["tunables"]
 
 
+@pytest.fixture()
+def live_service(image_dataset):
+    """A port data service on ``image_dataset`` (32 px) and a coordinator
+    with that service as its one member: ``(service addr, coordinator
+    addr)``."""
+    from lance_distributed_training_tpu_torch.fleet import (
+        Coordinator, CoordinatorConfig)
+    from lance_distributed_training_tpu_torch.service import (
+        DataService, ServeConfig)
+
+    coord = Coordinator(CoordinatorConfig(
+        host="127.0.0.1", port=0, heartbeat_interval_s=0.05,
+        lease_ttl_s=2.0)).start()
+    svc = DataService(ServeConfig(
+        dataset_path=image_dataset.uri, host="127.0.0.1", port=0,
+        image_size=SIZE, queue_depth=2,
+        coordinator_addr=f"127.0.0.1:{coord.port}")).start()
+    try:
+        yield f"127.0.0.1:{svc.port}", f"127.0.0.1:{coord.port}"
+    finally:
+        svc.stop()
+        coord.stop()
+
+
 @pytest.mark.parametrize("transport", ["service", "fleet"])
 def test_remote_transports_validate_describe_and_refuse_to_compile(
-        transport):
-    graph = G.canonical_graphs()[transport]
-    assert graph.describe() == JG.canonical_graphs()[transport].describe()
-    graph.load_state_dict({"step": 3})  # staged: nothing dialed
-    assert graph.state_dict() == {"step": 3}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        graph.compile()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        len(graph)
+        transport, image_dataset, live_service):
+    """Both remote transports describe as JAX's and compile against a live
+    port server to the service's and the fleet's loaders, whose host
+    batches equal local decode's (the name is kept from when they
+    refused to compile)."""
+    from lance_distributed_training_tpu_torch.fleet import FleetLoader
+    from lance_distributed_training_tpu_torch.service import RemoteLoader
+
+    addr = live_service[0] if transport == "service" else live_service[1]
+
+    def build(m):
+        kind = (m.ServiceTransport if transport == "service"
+                else m.FleetTransport)
+        return m.LoaderGraph(
+            m.LanceSource(None, "batch", 16, 0, 1),
+            m.Decode(task_type="classification", image_size=SIZE),
+            m.Prefetch(2), kind(addr, job_id="graph"), m.Buffers(None),
+            m.DevicePut(None))
+
+    graph = build(G)
+    assert graph.describe() == build(JG).describe()
+    graph.load_state_dict({"step": 3})  # staged: nothing dialed yet
+    assert graph.state_dict() == {"step": 3} and graph._runtime is None
+    engine = graph.compile()
+    assert isinstance(engine, RemoteLoader if transport == "service"
+                      else FleetLoader)
+    assert len(graph) == 240 // 16
+    got = [batch_digest(b) for b in graph]
+    local = G.LoaderGraph(
+        G.LanceSource(Dataset(image_dataset.uri), "batch", 16, 0, 1),
+        G.Decode(ImageClassificationDecoder(SIZE)), G.InProcess())
+    assert got == [batch_digest(b) for b in local][3:]
 
 
 def test_cursor_reads_never_compile():

@@ -73,6 +73,22 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "lance_distributed_training_tpu_torch.data.decode",
         "lance_distributed_training_tpu_torch.data.graph",
         "lance_distributed_training_tpu_torch.data.schedule",
+        "lance_distributed_training_tpu_torch.utils.wiretrack",
+        "lance_distributed_training_tpu_torch.utils.retry",
+        "lance_distributed_training_tpu_torch.obs.tracectx",
+        "lance_distributed_training_tpu_torch.obs.lineage",
+        "lance_distributed_training_tpu_torch.obs.slo",
+        "lance_distributed_training_tpu_torch.obs.http",
+        "lance_distributed_training_tpu_torch.obs.critpath",
+        "lance_distributed_training_tpu_torch.service.protocol",
+        "lance_distributed_training_tpu_torch.service.goldens",
+        "lance_distributed_training_tpu_torch.service.server",
+        "lance_distributed_training_tpu_torch.service.client",
+        "lance_distributed_training_tpu_torch.fleet.jobs",
+        "lance_distributed_training_tpu_torch.fleet.coordinator",
+        "lance_distributed_training_tpu_torch.fleet.agent",
+        "lance_distributed_training_tpu_torch.fleet.balancer",
+        "lance_distributed_training_tpu_torch.fleet.chaos",
     }
     assert expected <= set(result["imported"])
     assert result["banned"] == []
