@@ -380,6 +380,48 @@ Phases, each printing one JSON line:
              job and its cursor, at least one failover, and that no server and not
              the coordinator holds a CUDA context; prints valid tokens/s
              beside the causal_lm phase's packed arm.
+25. parallel — the layouts beyond data parallelism, BERT-base masked-LM at
+             full width (768/12/12/3072, vocabulary 30522, sequence 512,
+             global batch 32, the slice phase's corpus, 8 steps, the eval
+             at the end) through ``cli train`` as two ranks sharing the one
+             card: ``tp`` (``--model_parallelism 2 --flash_attention``),
+             ``fsdp`` (``--fsdp --flash_attention``), ``zero2`` (``--zero 2
+             --grad_accum 2 --flash_attention``), ``ep`` (``--num_experts 8
+             --model_parallelism 2 --flash_attention``) and ``pp``
+             (``--pipeline_parallelism 2 --pp_microbatches 4``). First a
+             probe, each collective in a pair of processes of its own
+             (restarted past one that aborts): which of ``all_reduce``,
+             ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+             ``all_to_all_single`` and ``batch_isend_irecv`` gloo runs on
+             CUDA tensors on the card, and whether NCCL takes two ranks on
+             one card. Then flash at the tensor-parallel shard's shape
+             [32, 6, 512, 64] against its plain version. Each rank starts
+             from the same seeded weights and runs with
+             ``--log_grad_norm``; a rank's first train step first gathers
+             the whole parameters (rank 0 keeps them), and it records its
+             first three micro-batches and masks, its first micro-step's
+             global gradient norm and the whole parameters after the first
+             update. The reference is a data-parallel step in this
+             process: the whole model on those weights, AdamW as the
+             trainer builds it, the global batches and masks (the data
+             shares' rows in order). Checks, per layout: the transport the
+             trainer chose (``gloo-host-staged``: the ranks share a card),
+             the falling loss, the same losses on both ranks, the eval over
+             every row, the first loss and the loss after the first update
+             (``losses[grad_accum]``) within PARALLEL_LOSS_TOL relative of
+             the reference's, the first micro-step's global gradient norm
+             within PARALLEL_NORM_TOL relative, the first update of each
+             parameter of PARALLEL_COS_NUMEL elements or more at a cosine
+             of at least PARALLEL_COS_MIN with the reference's (the
+             smaller ones printed), flash's launches on each rank (12
+             fwd, 12 dQ and 12 dK/dV a micro-step, at 6 heads under tp and
+             ep; plus the eval's forwards on rank 0; none under pp) and
+             each rank's bytes of parameters, optimizer moments and
+             accumulator equal to its plan's, below the replicated state's.
+             Every layout is
+             printed before any is checked. Prints the step (the median of
+             steps 4-8), the valid tokens/s and each rank's peak memory:
+             times of two ranks on one card over gloo, not of the layouts.
 
 Every phase but 17 trains with ``--no_autotune`` (``FIXED``): each
 compares its runs with another arm's, another phase's or an earlier
@@ -405,8 +447,10 @@ phase's as ``launches_moe``; K1, K2 and K3's pack add the graph phase's as
 ``launches_graph``, the flash kernels and K5 the remat phase's
 ``--remat`` runs as ``launches_remat``, K1 and K2 the service phase's
 two runs as ``launches_service``, and K3's pack and the flash kernels
-the fleet phase's run as ``launches_fleet``), and ``{"ok": true, "device":
-{...}}``.
+the fleet phase's run as ``launches_fleet``; the flash kernels add each
+layout's rank 0 of the parallel phase as ``launches_parallel_<layout>``
+and their error at the tensor-parallel shape as ``max_abs_err_tp_shard``),
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -428,7 +472,7 @@ PHASES = ("probe", "build", "kernels", "slice", "trainer", "image_kernels",
           "jpeg_kernels", "classification", "device_decode", "token_kernels",
           "causal_lm", "ring_kernels", "ring_lm", "map_style", "folder",
           "pretrained_placement", "workers_caches", "contrastive", "vit",
-          "moe", "graph", "remat", "service", "fleet")
+          "moe", "graph", "remat", "service", "fleet", "parallel")
 SHAPE = (32, 12, 512, 64)  # B, H, S, D at BERT-base, seq 512
 STEPS = 20
 LAYERS = 12
@@ -480,8 +524,15 @@ REPLACES = {
 }
 
 
+_STARTED = time.monotonic()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of ``phase``, with the seconds since the script
+    started (``at_s``: the phases' spans in a whole run)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.monotonic() - _STARTED, 2)}),
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -1383,12 +1434,12 @@ def _resnet_run(source: str, flags: list, author_s: float,
     return result, launches, fields
 
 
-def _check_trained(phase: str, fields: dict) -> None:
-    """STEPS finite losses whose last five average below the first."""
+def _check_trained(phase: str, fields: dict, steps: int = STEPS) -> None:
+    """``steps`` finite losses whose last five average below the first."""
     losses = fields["losses"]
-    if fields["steps"] != STEPS or len(losses) != STEPS:
+    if fields["steps"] != steps or len(losses) != steps:
         raise RuntimeError(f"{phase}: ran {fields['steps']} steps, expected "
-                           f"{STEPS}")
+                           f"{steps}")
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"{phase}: non-finite loss")
     if not fields["last5_mean_loss"] < losses[0]:
@@ -4873,6 +4924,551 @@ def fleet_run(paired) -> dict:
         "token_pack", "fwd", "bwd_dq", "bwd_dkv")}, "fields": fields}
 
 
+# ------------------------------------------ parallelism beyond data parallel
+
+PARALLEL_LAYOUTS = {
+    "tp": ["--model_parallelism", "2", "--flash_attention"],
+    "fsdp": ["--fsdp", "--flash_attention"],
+    "zero2": ["--zero", "2", "--grad_accum", "2", "--flash_attention"],
+    "ep": ["--num_experts", str(MOE_EXPERTS), "--model_parallelism", "2",
+           "--flash_attention"],
+    "pp": ["--pipeline_parallelism", "2", "--pp_microbatches", "4"],
+}
+PARALLEL_RANKS = 2
+PARALLEL_MODEL, PARALLEL_DEVICE = "bert_base", "cuda"
+PARALLEL_STEPS = 8  # micro-steps a layout; its times are the staging's
+PARALLEL_FIRST = 3  # micro-batches recorded: up to one update and a step
+# Relative limits against the in-process data-parallel step (the module's
+# docstring): the losses before and after the first update, the first
+# micro-step's global gradient norm. On the H100 the layouts read at most
+# 4.9e-5 (losses) and 8.1e-5 (norm): bf16 GEMMs round differently on
+# another split of the work.
+PARALLEL_LOSS_TOL = 2e-4
+PARALLEL_NORM_TOL = 1e-3
+# The least cosine, over the parameters of at least PARALLEL_COS_NUMEL
+# elements, between a layout's first update and the data-parallel step's
+# (_update_cosines). On the CPU (scripts/torch_parallel_mutations.py:
+# bert_small, sequence 256) the layouts read 0.978 or more, and copies of
+# the code broken on purpose read 0.17 (tp's backward all-reduce
+# dropped), 0.71 (ZeRO's blocks not gathered after the update) and 0.010
+# (each rank running the other rank's experts, which no loss or norm
+# limit catches), each with its first loss inside the limit. On the H100
+# the sound layouts read 0.930 or more (ep; the last layers' query and
+# key weights, whose gradients at init are small beside bf16's rounding);
+# a leaf whose update is half missing reads 1/sqrt(2) = 0.707. Smaller
+# leaves (biases, LayerNorms, an expert's bias row fed by few tokens) read
+# as low as 0.91 there, so they are printed, not held.
+PARALLEL_COS_MIN = 0.8
+PARALLEL_COS_NUMEL = 16384  # JAX's fsdp_min_size
+TP_SHAPE = (32, 6, 512, 64)  # flash's shape under --model_parallelism 2
+PROBE_OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "all_to_all_single", "batch_isend_irecv")
+
+# Each collective on CUDA tensors of two ranks on the card, one after the
+# other from the op named by argv[4]; "try <op>" before and "ok <op>" or
+# "refused <op>: ..." after each, so that a process that aborts names the
+# op in flight.
+_PROBE_CHILD = r"""
+import sys
+import torch
+import torch.distributed as dist
+rank, port, backend, first = (int(sys.argv[1]), int(sys.argv[2]),
+                              sys.argv[3], sys.argv[4])
+ops = sys.argv[5].split(",")
+torch.cuda.set_device(0)
+store = dist.TCPStore("127.0.0.1", port, 2, rank == 0)
+dist.init_process_group(backend, store=store, world_size=2, rank=rank)
+dev = "cuda"
+peer = 1 - rank
+
+
+def p2p():
+    send, recv = torch.ones(4, device=dev), torch.empty(4, device=dev)
+    for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, peer),
+                                        dist.P2POp(dist.irecv, recv, peer)]):
+        work.wait()
+
+
+run = {
+    "all_reduce": lambda: dist.all_reduce(torch.ones(4, device=dev)),
+    "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+        torch.empty(8, device=dev), torch.ones(4, device=dev)),
+    "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+        torch.empty(2, device=dev), torch.ones(4, device=dev)),
+    "all_to_all_single": lambda: dist.all_to_all_single(
+        torch.empty(4, device=dev), torch.ones(4, device=dev)),
+    "batch_isend_irecv": p2p,
+}
+for op in ops[ops.index(first):]:
+    print("try", op, flush=True)
+    try:
+        run[op]()
+        torch.cuda.synchronize()
+        print("ok", op, flush=True)
+    except Exception as exc:  # noqa: BLE001 - recorded, the probe's point
+        print("refused", op + ":", str(exc).splitlines()[0][:200],
+              flush=True)
+    dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def _start_pair(backend: str, first: str, ops: tuple) -> list:
+    """A probe pair's two ranks, started (from op ``first``)."""
+    port = _free_port()
+    return [subprocess.Popen(
+        [sys.executable, "-c", _PROBE_CHILD, str(rank), str(port), backend,
+         first, ",".join(ops)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+
+
+def _collect_pair(procs: list) -> list:
+    """Both ranks' ``(exit code, output lines)``; a rank still running
+    after 60 s is killed."""
+    outs = []
+    for proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        outs.append((proc.returncode, out.splitlines()))
+    return outs
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def probe_collectives() -> dict:
+    """Which collectives gloo runs on CUDA tensors of two ranks on this
+    card (an op whose process aborts is recorded so, and the pair restarts
+    at the next op), and what NCCL says to two ranks on one card (its
+    pair runs beside the first gloo pair)."""
+    nccl_pair = _start_pair("nccl", "all_reduce", ("all_reduce",))
+    gloo: dict = {}
+    remaining = list(PROBE_OPS)
+    while remaining:
+        outs = _collect_pair(_start_pair("gloo", remaining[0], PROBE_OPS))
+        before = len(remaining)
+        for op in list(remaining):
+            lines = [line for _, out in outs for line in out
+                     if line.split(":")[0].split(" ")[-1] == op
+                     and line.split(" ")[0] in ("ok", "refused", "try")]
+            if any(line.startswith("refused") for line in lines):
+                gloo[op] = next(line for line in lines
+                                if line.startswith("refused")).split(
+                                    ": ", 1)[-1]
+            elif sum(line.startswith("ok") for line in lines) == 2:
+                gloo[op] = "ok"
+            elif any(line.startswith("try") for line in lines):
+                codes = [rc for rc, _ in outs]
+                gloo[op] = f"process ended (exit {codes})"
+            else:
+                continue
+            remaining.remove(op)
+        if len(remaining) == before:  # the pair ended before its first op
+            codes = [rc for rc, _ in outs]
+            gloo[remaining.pop(0)] = f"process ended first (exit {codes})"
+    outs = _collect_pair(nccl_pair)
+    nccl = next((line.split(": ", 1)[-1] for _, out in outs for line in out
+                 if line.startswith("refused")), None)
+    if nccl is None:
+        nccl = ("ok" if all(any(line == "ok all_reduce" for line in out)
+                            for _, out in outs)
+                else f"process ended (exit {[rc for rc, _ in outs]})")
+    fields = {"gloo_on_cuda": gloo, "nccl_two_ranks_one_card": nccl}
+    emit("parallel", probe=fields)
+    return fields
+
+
+_RANK_MAIN = r"""
+import gc
+import json
+import sys
+import time
+import torch
+from lance_distributed_training_tpu_torch import cli, ops, trainer
+from lance_distributed_training_tpu_torch.models import tasks
+
+rank = int(sys.argv[1])
+runs = json.loads(sys.argv[2])  # [[layout, dump path, argv], ...]
+keep = int(sys.argv[3])  # micro-batches and masks to record
+first = {}
+_draw = tasks.draw_mlm_mask
+
+
+def draw(batch, generator):
+    mask = _draw(batch, generator)
+    if len(first["masks"]) < keep:
+        first["masks"].append(mask.cpu().clone())
+    return mask
+
+
+_call = trainer.TrainStep.__call__
+
+
+def call(self, batch, *args, **kwargs):
+    # Before the first step the whole parameters (collective: both ranks
+    # take their first step together); the first micro-batches; the first
+    # micro-step's global gradient norm (--log_grad_norm); after the first
+    # update the whole parameters again.
+    if "state" not in first:
+        state = self.sharded.full_params()
+        first["state"] = ({k: v.cpu().clone() for k, v in state.items()}
+                          if rank == 0 else None)
+        del state
+    if len(first["batches"]) < keep:
+        first["batches"].append({k: v.cpu().clone() for k, v in batch.items()
+                                 if torch.is_tensor(v)})
+    loss = _call(self, batch, *args, **kwargs)
+    if "grad_norm" not in first:
+        first["grad_norm"] = float(self.last_grad_norm)
+    if self.updates == 1 and "updated" not in first:
+        # The whole parameters after the first update (collective too).
+        state = self.sharded.full_params()
+        first["updated"] = ({k: v.cpu().clone() for k, v in state.items()}
+                            if rank == 0 else None)
+        del state
+    return loss
+
+
+tasks.draw_mlm_mask = draw
+trainer.TrainStep.__call__ = call
+cuda = torch.cuda.is_available()
+for name, dump, argv in runs:
+    first.clear()
+    first.update(masks=[], batches=[])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.monotonic()
+    result = cli.main(argv + ["--process_id", str(rank)])
+    seconds = time.monotonic() - t0
+    launches = {k: ops.LAUNCHES[k] for k in ops.LAUNCHES}
+    torch.save(first, dump)
+    fields = {k: result.get(k) for k in (
+        "losses", "step_ms", "steps", "eval_accuracy", "eval_rows",
+        "valid_tokens_per_sec", "tokens_per_sec", "parallel", "train_time",
+        "world_size")}
+    fields.update(layout=name, launches=launches, seconds=seconds,
+                  grad_norm=first["grad_norm"],
+                  peak=torch.cuda.max_memory_allocated() if cuda else None)
+    print("RESULT " + json.dumps(fields), flush=True)
+    del result
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+"""
+
+
+def _parallel_ranks(path: str, tmp: str) -> dict:
+    """Every layout's ``cli train`` as PARALLEL_RANKS ranks on the card, one
+    run after another in the same rank processes (each run its own process
+    group): ``{layout: [each rank's result fields]}``; each rank's first
+    step record is in ``tmp/<layout>.<rank>.pt``."""
+    b, _, s, _ = SHAPE
+    runs = []
+    for name, flags in PARALLEL_LAYOUTS.items():
+        runs.append([name, os.path.join(tmp, f"{name}.{{rank}}.pt"), [
+            "train", "--dataset_path", path, "--task_type", "masked_lm",
+            "--model_name", PARALLEL_MODEL, "--seq_len", str(s),
+            "--batch_size", str(b), "--optimizer", "adamw", "--lr", "1e-4",
+            "--max_steps", str(PARALLEL_STEPS), "--epochs", "1",
+            "--log_every", "4", "--log_grad_norm",
+            "--device", PARALLEL_DEVICE, *FIXED, *flags,
+            "--coordinator_address", f"127.0.0.1:{_free_port()}",
+            "--num_processes", str(PARALLEL_RANKS)]])
+    env = dict(os.environ,
+               LDT_METRICS_PATH=os.path.join(tmp, "parallel.jsonl"))
+    procs = []
+    for rank in range(PARALLEL_RANKS):
+        mine = [[n, d.format(rank=rank), a] for n, d, a in runs]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RANK_MAIN, str(rank), json.dumps(mine),
+             str(PARALLEL_FIRST)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env))
+    results = {name: [] for name in PARALLEL_LAYOUTS}
+    try:
+        for rank, proc in enumerate(procs):
+            out, _ = proc.communicate(timeout=1800)
+            lines = out.splitlines()
+            found = [json.loads(line[len("RESULT "):]) for line in lines
+                     if line.startswith("RESULT ")]
+            if proc.returncode or len(found) != len(PARALLEL_LAYOUTS):
+                raise RuntimeError(f"parallel: rank {rank} exited "
+                                   f"{proc.returncode} after {len(found)} "
+                                   f"runs: {lines[-30:]}")
+            for fields in found:
+                results[fields["layout"]].append(fields)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
+def _grad_accum(name: str) -> int:
+    flags = PARALLEL_LAYOUTS[name]
+    return (int(flags[flags.index("--grad_accum") + 1])
+            if "--grad_accum" in flags else 1)
+
+
+def _dp_reference(name: str, tmp: str) -> dict:
+    """The data-parallel run of the layout's first update in this process:
+    the whole model on rank 0's gathered weights, AdamW as the trainer
+    builds it (``trainer.make_optimizer``, ``make_train_step``), the
+    global micro-batches (the data shares' rows in order, or the one share
+    the ranks hold alike) and the ranks' masks; ``{"losses": the
+    grad_accum + 1 micro-steps' losses (the last after the update),
+    "grad_norm": the first micro-step's global norm}``."""
+    import torch
+    from lance_distributed_training_tpu_torch import trainer
+    from lance_distributed_training_tpu_torch.models import tasks
+    from lance_distributed_training_tpu_torch.ops.flash import (
+        make_flash_attention,
+    )
+
+    _, _, s, _ = SHAPE
+    firsts = [torch.load(os.path.join(tmp, f"{name}.{r}.pt"))
+              for r in range(PARALLEL_RANKS)]
+    flags = PARALLEL_LAYOUTS[name]
+    accum = _grad_accum(name)
+    shares = firsts if name in ("fsdp", "zero2") else firsts[:1]
+    dev = torch.device(PARALLEL_DEVICE)
+    task = tasks.get_task(
+        "masked_lm", model_name=PARALLEL_MODEL, seq_len=s,
+        attention_fn=(make_flash_attention()
+                      if "--flash_attention" in flags else None),
+        num_experts=MOE_EXPERTS if name == "ep" else 0,
+        pipeline_parallelism=2 if name == "pp" else 1, pp_microbatches=4,
+        device=dev)
+    task.model.load_state_dict(firsts[0]["state"])
+    config = trainer.TrainConfig(dataset_path="", optimizer="adamw",
+                                 lr=1e-4, grad_accum=accum)
+    optimizer, lr = trainer.make_optimizer(config, task.model.parameters())
+    step = trainer.make_train_step(task, optimizer, lr, grad_accum=accum,
+                                   grad_norm=True)
+    losses, norm, cosines = [], None, None
+    for i in range(accum + 1):
+        batch = {k: torch.cat([f["batches"][i][k] for f in shares]).to(dev)
+                 for k in shares[0]["batches"][i]}
+        mask = torch.cat([f["masks"][i] for f in shares]).to(dev)
+        losses.append(float(step(batch, mlm_mask=mask)))
+        if norm is None:
+            norm = float(step.last_grad_norm)
+        if step.updates == 1 and cosines is None:
+            cosines = _update_cosines(task.model, firsts[0]["state"],
+                                      firsts[0]["updated"])
+    del task, step, optimizer, firsts
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norm": norm, "cosines": cosines}
+
+
+def _update_cosines(model, before: dict, layout_after: dict) -> dict:
+    """Per parameter, ``(cosine, elements)``: the cosine between the
+    layout's first update (its
+    gathered parameters after it less before it) and ``model``'s own
+    (``model`` has just taken it from the same weights). An update that
+    is zero on both sides counts 1; zero on one side only, 0. The first
+    AdamW update moves each element by about lr·sign(gradient), so a
+    leaf fed the wrong gradient (another expert's tokens, a dropped
+    collective, a block left stale) reads far below 1. The key biases are
+    left out: a key bias adds the same q·b to every score of a row, which
+    the softmax cancels, so their gradient is rounding noise and its
+    signs agree by chance."""
+    import torch
+
+    out = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("key.bias"):
+                continue
+            start = before[name].to(p.device)
+            ours = (p.detach() - start).double().flatten()
+            theirs = (layout_after[name].to(p.device) - start).double(
+            ).flatten()
+            norms = float(ours.norm()) * float(theirs.norm())
+            if norms == 0:
+                cosine = 1.0 if not (ours.any() or theirs.any()) else 0.0
+            else:
+                cosine = float(ours @ theirs) / norms
+            out[name] = (cosine, p.numel())
+    return out
+
+
+def _cosine_fields(cosines: dict) -> dict:
+    """The least update cosines, of the large leaves (held) and the small
+    (printed), with their leaves."""
+    out = {}
+    for key, large in (("update_cosine_min", True),
+                       ("update_cosine_min_small", False)):
+        part = {n: c for n, (c, size) in cosines.items()
+                if (size >= PARALLEL_COS_NUMEL) == large}
+        leaf = min(part, key=part.get)
+        out[key], out[key + "_leaf"] = part[leaf], leaf
+    low = sorted((c, n) for n, (c, size) in cosines.items()
+                 if size >= PARALLEL_COS_NUMEL)[:5]
+    out["update_cosine_lowest_large"] = [[n, c] for c, n in low]
+    return out
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def _tp_shard_flash() -> dict:
+    """fwd, dQ and dK/dV at the tensor-parallel shard's shape (6 of the 12
+    heads) against their plain versions, as the kernels phase checks the
+    whole shape."""
+    import torch
+
+    b, h, s, d = TP_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn():
+        return torch.randn(TP_SHAPE, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    lengths = np.random.default_rng(6).integers(128, s + 1, b)
+    valid = np.arange(s)[None, :] < lengths[:, None]
+    seg = torch.from_numpy(valid.astype(np.int32)).to(dev)
+    errors = {"fwd": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
+    q, k, v, do = randn(), randn(), randn(), randn()
+    _check_flash_case("tp_shard_6_heads", q, k, v, do, seg, False,
+                      1.0 / d ** 0.5, errors)
+    return errors
+
+
+def parallel_run() -> dict:
+    """The layouts beyond data parallelism (the module's docstring, phase
+    25)."""
+    from lance_distributed_training_tpu_torch.data import (
+        create_text_token_dataset,
+    )
+    from lance_distributed_training_tpu_torch.ops import flash
+
+    start = time.monotonic()
+    probed = probe_collectives()
+    tp_errors = _tp_shard_flash()
+    b, _, s, _ = SHAPE
+    lengths, docs = _slice_docs()
+    rows = len(docs)
+    valid_tokens = int(sum(min(int(n), s) for n in lengths))
+    eval_batches = -(-rows // b)
+    launches, report = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens")
+        create_text_token_dataset(path, docs, seq_len=s, pack=False)
+        every = _parallel_ranks(path, tmp)
+        for name in PARALLEL_LAYOUTS:
+            ranks = every[name]
+            ref = _dp_reference(name, tmp)
+            r0 = ranks[0]
+            losses = r0["losses"]
+            after = _grad_accum(name)  # the first loss after an update
+            step_ms = statistics.median(r0["step_ms"][3:])
+            fields = {
+                "layout": name, "flags": PARALLEL_LAYOUTS[name],
+                "ranks": PARALLEL_RANKS,
+                "timing": "two ranks on one card over gloo (host-staged)",
+                "transport": [r["parallel"]["transport"] for r in ranks],
+                "mesh": r0["parallel"]["mesh"], "steps": r0["steps"],
+                "first_loss": losses[0], "dp_first_loss": ref["losses"][0],
+                "first_loss_rel_diff": _rel(losses[0], ref["losses"][0]),
+                "updated_loss": losses[after],
+                "dp_updated_loss": ref["losses"][after],
+                "updated_loss_rel_diff": _rel(losses[after],
+                                              ref["losses"][after]),
+                "grad_norm": [r["grad_norm"] for r in ranks],
+                "dp_grad_norm": ref["grad_norm"],
+                "grad_norm_rel_diff": max(_rel(r["grad_norm"],
+                                               ref["grad_norm"])
+                                          for r in ranks),
+                **_cosine_fields(ref["cosines"]),
+                "last5_mean_loss": statistics.fmean(losses[-5:]),
+                "losses": losses, "step_ms_median_4_8": step_ms,
+                "valid_tokens_per_sec": valid_tokens / STEPS
+                / (step_ms / 1e3),
+                "eval_masked_token_accuracy": r0["eval_accuracy"],
+                "eval_rows": r0["eval_rows"], "dataset_rows": rows,
+                "launches": [{k: v for k, v in r["launches"].items() if v}
+                             for r in ranks],
+                "peak_memory_allocated_bytes": [r["peak"] for r in ranks],
+                "held_bytes": [r["parallel"]["held_bytes"] for r in ranks],
+                "plan_bytes": [r["parallel"]["plan_bytes"] for r in ranks],
+                "replicated_bytes": r0["parallel"]["replicated_bytes"],
+                "seconds": r0["seconds"],
+            }
+            emit("parallel", **fields)
+            launches[f"parallel_{name}"] = {
+                k: r0["launches"][k] for k in flash.LAUNCHES}
+            report[name] = fields
+    # Every layout is printed before any is checked, so that a failure
+    # leaves the others' readings.
+    problems = []
+    for name, fields in report.items():
+        try:
+            _check_parallel(name, every[name], fields, eval_batches)
+        except RuntimeError as exc:
+            problems.append(str(exc))
+    if problems:
+        raise RuntimeError("; ".join(problems))
+    return {"launches": launches, "tp_errors": tp_errors, "probe": probed,
+            "layouts": report, "seconds": time.monotonic() - start}
+
+
+def _check_parallel(name: str, ranks: list, fields: dict,
+                    eval_batches: int) -> None:
+    """The phase's checks of one layout (the module's docstring)."""
+    phase = f"parallel {name}"
+    if any(t != "gloo-host-staged" for t in fields["transport"]):
+        raise RuntimeError(f"{phase}: transport {fields['transport']}")
+    _check_trained(phase, fields, PARALLEL_STEPS)
+    if any(r["losses"] != fields["losses"] for r in ranks):
+        raise RuntimeError(f"{phase}: the ranks logged different losses")
+    if fields["eval_rows"] != fields["dataset_rows"]:
+        raise RuntimeError(f"{phase}: eval covered {fields['eval_rows']} of "
+                           f"{fields['dataset_rows']} rows")
+    for key, tol in (("first_loss", PARALLEL_LOSS_TOL),
+                     ("updated_loss", PARALLEL_LOSS_TOL),
+                     ("grad_norm", PARALLEL_NORM_TOL)):
+        if not fields[f"{key}_rel_diff"] <= tol:
+            raise RuntimeError(f"{phase}: {key} {fields[key]} vs the "
+                               f"data-parallel step's {fields['dp_' + key]}"
+                               f" (limit {tol} relative)")
+    if not fields["update_cosine_min"] >= PARALLEL_COS_MIN:
+        raise RuntimeError(f"{phase}: the first update of "
+                           f"{fields['update_cosine_min_leaf']} has cosine "
+                           f"{fields['update_cosine_min']} with the "
+                           f"data-parallel step's (limit {PARALLEL_COS_MIN})")
+    flash_on = "--flash_attention" in PARALLEL_LAYOUTS[name]
+    per_step = LAYERS * PARALLEL_STEPS if flash_on else 0
+    for rank, r in enumerate(ranks):
+        evals = LAYERS * eval_batches if flash_on and rank == 0 else 0
+        want = {"fwd": per_step + evals, "bwd_dq": per_step,
+                "bwd_dkv": per_step}
+        got = {k: r["launches"][k] for k in want}
+        if got != want:
+            raise RuntimeError(f"{phase}: rank {rank} flash launches {got}, "
+                               f"expected {want}")
+        held, plan = r["parallel"]["held_bytes"], r["parallel"]["plan_bytes"]
+        if held != plan:
+            raise RuntimeError(f"{phase}: rank {rank} holds {held}, its plan "
+                               f"{plan}")
+        if not held["total"] < fields["replicated_bytes"]["total"]:
+            raise RuntimeError(f"{phase}: rank {rank} holds no less than the "
+                               f"replicated state")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -4945,7 +5541,12 @@ def main(argv=None) -> int:
     if "fleet" in phases:
         loaders["fleet"] = fleet_run(
             causal["arms"]["packed"] if causal else None)["launches"]
-    emit("done", phases=phases, seconds=time.monotonic() - t0)
+    parallel = None
+    if "parallel" in phases:
+        parallel = parallel_run()
+        loaders.update(parallel["launches"])
+    emit("done", phases=phases, seconds=time.monotonic() - t0,
+         parallel_seconds=parallel["seconds"] if parallel else None)
     if set(phases) != set(PHASES):
         return 0  # a partial run prints no result
     print(card["smi"], flush=True)
@@ -4959,7 +5560,9 @@ def main(argv=None) -> int:
         "name": f"flash_attention_{name}", "route": "cuda",
         "source": SOURCE, "replaces": REPLACES[name],
         "launches": launches[name], **phase_launches(name),
-        "max_abs_err": timing["errors"][name], **timing["table"][name],
+        "max_abs_err": timing["errors"][name],
+        "max_abs_err_tp_shard": parallel["tp_errors"][name],
+        **timing["table"][name],
     } for name in ("fwd", "bwd_dq", "bwd_dkv")]
     table.append({
         "name": "image_normalize", "route": "cuda", "source": IMAGE_SOURCE,

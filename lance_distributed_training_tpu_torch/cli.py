@@ -144,6 +144,14 @@ N > 1 (N divisible by K)::
         --dataset_path /data/c4_tokens --task_type masked_lm \
         --model_name bert_base --seq_len 512 --batch_size 32 \
         --seq_parallelism 4 --optimizer adamw --lr 1e-4 --max_steps 20
+
+Beyond DP, as the JAX CLI: ``--model_parallelism M`` (tensor parallelism
+of the transformer blocks, the vocabulary and, with ``--num_experts``,
+the experts), ``--fsdp``, ``--zero [1|2]`` and ``--pipeline_parallelism P
+--pp_microbatches K`` (the GPipe masked-LM), the ranks laid out as JAX's
+``(data, model, seq, pipe)`` mesh (``parallel/comm.py``) by the plan of
+``parallel/sharding.py``. Ranks that share a card run gloo with their
+CUDA tensors staged through the host.
 """
 
 from __future__ import annotations
@@ -347,9 +355,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels (the plain version on the CPU)")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize transformer blocks (long-context)")
+    p.add_argument("--model_parallelism", type=int, default=1,
+                   help="tensor-parallel degree (the 'model' mesh axis)")
+    p.add_argument("--pipeline_parallelism", type=int, default=1,
+                   help="GPipe pipeline stages (the 'pipe' mesh axis)")
+    p.add_argument("--pp_microbatches", type=int, default=4,
+                   help="microbatches per pipeline round")
+    p.add_argument("--fsdp", action="store_true",
+                   help="fully shard params + optimizer state over the "
+                        "'data' axis (ZeRO-3 equivalent)")
+    p.add_argument("--zero", nargs="?", type=int, const=1, default=0,
+                   choices=[1, 2], metavar="LEVEL",
+                   help="ZeRO gradient/optimizer sharding over the 'data' "
+                        "axis, params replicated. Bare --zero (or "
+                        "--zero 1) = ZeRO-1: shard only the optimizer "
+                        "moments; --zero 2 = ZeRO-2: additionally shard "
+                        "the gradient-accumulation buffer (--grad_accum) "
+                        "and reduce-scatter the step's gradients into the "
+                        "shards. Both are mutually exclusive with --fsdp, "
+                        "which already shards everything")
     p.add_argument("--num_experts", type=int, default=0,
-                   help=">0: switch-MoE transformer blocks (masked_lm, "
-                        "causal_lm; every expert on each card)")
+                   help=">0: switch-MoE transformer blocks; experts shard "
+                        "over the 'model' mesh axis (expert parallelism)")
     p.add_argument("--moe_every", type=int, default=2,
                    help="MoE MLP on every Nth block")
     p.add_argument("--seq_parallelism", type=int, default=1,
@@ -856,6 +883,7 @@ def main(argv=None):
                 f"--{name} configures the JAX package's XLA runtime; the "
                 "PyTorch port picks its device with --device {cuda,cpu} and "
                 "has no XLA compile cache")
+    args["zero_opt"] = args.pop("zero")
     args["data_service_addr"] = args.pop("data_service")
     args["coordinator_addr"] = args.pop("coordinator")
     args["resume"] = not args.pop("no_resume")

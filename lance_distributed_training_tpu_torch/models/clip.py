@@ -33,6 +33,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import comm
 from .resnet import BasicBlock, BottleneckBlock, ResNet
 from .transformer import TransformerEncoder, _lecun_normal_
 
@@ -98,14 +99,11 @@ class _GatherWithGrad(torch.autograd.Function):
         ctx.group = group
         ctx.rank = dist.get_rank(group)
         ctx.rows = x.shape[0]
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts)
+        return comm.all_gather(x, group)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous()
-        dist.all_reduce(grad, group=ctx.group)
+        grad = comm.all_reduce(grad, ctx.group)
         lo = ctx.rank * ctx.rows
         return grad[lo:lo + ctx.rows], None
 

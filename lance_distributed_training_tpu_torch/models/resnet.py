@@ -36,9 +36,10 @@ from functools import partial
 from typing import Optional, Sequence
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import comm
 
 __all__ = ["BatchNorm2d", "BasicBlock", "BottleneckBlock", "ResNet",
            "RESNETS", "resnet18", "resnet34", "resnet50", "resnet101",
@@ -73,7 +74,7 @@ class _SyncBatchNormFn(torch.autograd.Function):
             torch.full((1,), xf.numel() // c, dtype=torch.float32,
                        device=x.device),
         ])
-        dist.all_reduce(stats, group=group)
+        stats = comm.all_reduce(stats, group)
         n = stats[-1]
         mean = stats[:c] / n
         var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
@@ -95,8 +96,7 @@ class _SyncBatchNormFn(torch.autograd.Function):
         sum_dy_xhat = (dyf * xhat).sum(dims)
         # The parameters' gradients stay local: DDP averages them.
         grad_weight, grad_bias = sum_dy_xhat.clone(), sum_dy.clone()
-        sums = torch.cat([sum_dy, sum_dy_xhat])
-        dist.all_reduce(sums, group=ctx.group)
+        sums = comm.all_reduce(torch.cat([sum_dy, sum_dy_xhat]), ctx.group)
         c = sum_dy.shape[0]
         g_dy, g_dy_xhat = sums[:c], sums[c:]
         dx = (weight * invstd / n)[:, None, None] * (

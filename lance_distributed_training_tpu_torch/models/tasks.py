@@ -4,7 +4,10 @@ Counterpart of ``lance_distributed_training_tpu/models/tasks.py``:
 ``classification`` (the ResNets and the ViTs), ``masked_lm`` and
 ``causal_lm`` (with switch-MoE blocks when ``num_experts > 0``: in
 training their load-balance terms, weighted 0.01, join the loss) and
-``contrastive`` (CLIP). The text tasks take packed batches too:
+``contrastive`` (CLIP), and ``masked_lm_pp``, the masked-LM whose
+encoder stack runs through the GPipe pipeline
+(:class:`PipelinedMaskedLM`, ``parallel/pipeline_parallel.py``). The text
+tasks take packed batches too:
 ``segment_ids`` and ``position_ids`` (from K3, :mod:`..ops.token_device`)
 go to the model when the batch carries them; a contrastive batch's
 captions may come bucketed by K3 (one caption a row). The JAX tasks draw
@@ -41,12 +44,15 @@ from .clip import (
 )
 from .moe import moe_aux_loss, set_moe_group
 from .resnet import RESNETS
-from .transformer import bert_base, bert_small, gpt_base, gpt_small
+from ..parallel import comm
+from .transformer import (EncoderBlock, _Dense, bert_base, bert_small,
+                          gpt_base, gpt_small, vocab_argmax,
+                          vocab_cross_entropy)
 from .vit import vit_base, vit_small, vit_tiny
 
 __all__ = ["Task", "get_task", "classification_task", "masked_lm_task",
            "causal_lm_task", "contrastive_task", "draw_mlm_mask",
-           "TASK_REGISTRY"]
+           "pipelined_masked_lm_task", "PipelinedMaskedLM", "TASK_REGISTRY"]
 
 TASK_REGISTRY = ("classification", "masked_lm", "causal_lm", "contrastive")
 AUX_LOSS_WEIGHT = 0.01  # the MoE load-balance term's weight in the loss
@@ -138,8 +144,7 @@ def _weighted_mean(raw, w, group) -> torch.Tensor:
     module's docstring)."""
     total, scale = w.sum(), 1
     if group is not None:
-        total = total.detach().clone()
-        dist.all_reduce(total, group=group)
+        total = comm.all_reduce(total.detach(), group)
         scale = dist.get_world_size(group)
     return (raw * w).sum() / torch.clamp(total, min=1.0) * scale
 
@@ -192,15 +197,20 @@ def masked_lm_task(model, loss_group=None) -> Task:
     def loss(outputs, batch):
         logits, mlm_mask = outputs
         targets = batch["input_ids"].long()
-        raw = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
-                              targets.reshape(-1), reduction="none")
+        # Under tensor parallelism the logits are this rank's vocabulary
+        # block: the cross-entropy reduces over the blocks, no rank holds
+        # the whole [B, S, vocab] tensor.
+        raw = vocab_cross_entropy(
+            logits.reshape(-1, logits.shape[-1]).float(),
+            targets.reshape(-1), model)
         return _with_aux(
             _weighted_mean(raw, mlm_mask.reshape(-1).float(), loss_group),
             model)
 
     def metric(outputs, batch):
         logits, mlm_mask = outputs
-        hit = (logits.argmax(-1) == batch["input_ids"].long()).float()
+        hit = (vocab_argmax(logits, model)
+               == batch["input_ids"].long()).float()
         w = mlm_mask.float()
         return (hit * w).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
 
@@ -227,6 +237,127 @@ def _masked_lm_task(vocab_size: Optional[int], model_name: str, seq_len: int,
                  num_experts=num_experts, moe_every=moe_every, device=device,
                  generator=generator)
     return masked_lm_task(model, loss_group)
+
+
+# The pipelined encoder's widths: (hidden, layers, heads, mlp_dim).
+_BERT_DIMS = {"bert_base": (768, 12, 12, 3072), "bert_small": (256, 4, 4, 1024)}
+
+
+class PipelinedMaskedLM(torch.nn.Module):
+    """The masked-LM of JAX ``_pipelined_masked_lm_task``: ``tok_embed
+    [vocab, H]`` and ``pos_embed [seq_len, H]`` (both ``N(0, 0.02)``), the
+    ``layers`` encoder blocks with their parameters stacked ``[L, ...]``
+    under ``blocks`` (each block initialised as an :class:`EncoderBlock`),
+    a final LayerNorm (``ln_scale``, ``ln_bias``, statistics in f32,
+    epsilon 1e-6) and the head tied to ``tok_embed`` in f32.
+
+    ``forward(input_ids)`` embeds, runs the blocks through
+    :func:`..parallel.pipeline_parallel.pipeline_apply` in
+    ``n_microbatches`` microbatches, with attention unmasked (the task is
+    meant for packed rows; the loss still respects the attention mask),
+    and returns f32 logits. Outside a pipeline (``pipe_ranks`` unset) the
+    one stage is this model's, which applies every block in turn;
+    ``parallel/layout.shard_model_`` keeps a stage's slice of
+    ``blocks`` and sets ``pipe_group``, ``pipe_ranks``, ``stage`` and
+    ``data``."""
+
+    def __init__(self, vocab_size: int, hidden: int, layers: int, heads: int,
+                 mlp_dim: int, seq_len: int, n_microbatches: int = 4,
+                 dtype=torch.bfloat16, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.dtype = dtype
+        self.n_microbatches = n_microbatches
+        self.pipe_group, self.pipe_ranks, self.stage, self.data = (
+            None, None, 0, 1)
+        blocks = [EncoderBlock(hidden, heads, mlp_dim, dtype)
+                  for _ in range(layers)]
+        for block in blocks:
+            for module in block.modules():
+                if isinstance(module, _Dense):
+                    module.reset_from(generator)
+        # One block's module tree holds the stacked parameters; its
+        # forward runs through functional_call on one layer's slice.
+        self.blocks = blocks[0]
+        with torch.no_grad():
+            for name, _ in list(blocks[0].named_parameters()):
+                stacked = torch.stack([b.get_parameter(name) for b in blocks])
+                owner, leaf = _owner(self.blocks, name)
+                setattr(owner, leaf, torch.nn.Parameter(stacked))
+        self.tok_embed = torch.nn.Parameter(torch.empty(vocab_size, hidden))
+        self.pos_embed = torch.nn.Parameter(torch.empty(seq_len, hidden))
+        with torch.no_grad():
+            self.tok_embed.normal_(0.0, 0.02, generator=generator)
+            self.pos_embed.normal_(0.0, 0.02, generator=generator)
+        self.ln_scale = torch.nn.Parameter(torch.ones(hidden))
+        self.ln_bias = torch.nn.Parameter(torch.zeros(hidden))
+        if device is not None:
+            self.to(device)
+
+    def _stage(self, stacked: dict, h: torch.Tensor) -> torch.Tensor:
+        from torch.func import functional_call
+
+        for i in range(len(next(iter(stacked.values())))):
+            h = functional_call(self.blocks,
+                                {n: v[i] for n, v in stacked.items()},
+                                (h, None))
+        return h
+
+    def forward(self, input_ids, attention_mask=None, segment_ids=None,
+                position_ids=None):
+        from ..parallel.pipeline_parallel import pipeline_apply
+
+        s = input_ids.shape[1]
+        x = F.embedding(input_ids, self.tok_embed).to(self.dtype)
+        x = x + self.pos_embed[None, :s].to(self.dtype)
+        stacked = {n: p.unbind(0) for n, p in self.blocks.named_parameters()}
+        x = pipeline_apply(self._stage, stacked, x, self.n_microbatches,
+                           pipe_group=self.pipe_group,
+                           pipe_ranks=self.pipe_ranks, stage=self.stage,
+                           data=self.data)
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = ((x32 - mean) ** 2).mean(-1, keepdim=True)
+        x32 = (x32 - mean) / torch.sqrt(var + 1e-6) * self.ln_scale \
+            + self.ln_bias
+        return x32 @ self.tok_embed.t()
+
+
+def _owner(module: torch.nn.Module, name: str):
+    *path, leaf = name.split(".")
+    for part in path:
+        module = getattr(module, part)
+    return module, leaf
+
+
+def pipelined_masked_lm_task(model: PipelinedMaskedLM, loss_group=None) -> Task:
+    """Masked-LM over :class:`PipelinedMaskedLM` (task ``masked_lm_pp``):
+    the masked-LM task's masking, loss (no load-balance term) and metric."""
+    base = masked_lm_task(model, loss_group)
+    return dataclasses.replace(
+        base, name="masked_lm_pp",
+        with_model=lambda module: pipelined_masked_lm_task(module,
+                                                           loss_group))
+
+
+def _pipelined_masked_lm_task(vocab_size: Optional[int], model_name: str,
+                              seq_len: int, pipeline_parallelism: int,
+                              n_microbatches: int, device=None,
+                              generator: Optional[torch.Generator] = None,
+                              loss_group=None) -> Task:
+    if model_name not in _BERT_DIMS:
+        raise ValueError(f"Invalid model name: {model_name} "
+                         f"(have {sorted(_BERT_DIMS)})")
+    hidden, layers, heads, mlp_dim = _BERT_DIMS[model_name]
+    if layers % pipeline_parallelism:
+        raise ValueError(f"{layers} layers not divisible by "
+                         f"pipe={pipeline_parallelism}")
+    model = PipelinedMaskedLM(vocab_size or 30522, hidden, layers, heads,
+                              mlp_dim, seq_len, n_microbatches,
+                              device=device, generator=generator)
+    return pipelined_masked_lm_task(model, loss_group)
 
 
 def causal_lm_task(model, loss_group=None) -> Task:
@@ -350,6 +481,7 @@ def get_task(task_type: str, *, num_classes: int = 101,
              seq_len: int = 128, vocab_size: Optional[int] = None,
              augment: bool = True, attention_fn: Optional[Callable] = None,
              remat: bool = False, num_experts: int = 0, moe_every: int = 2,
+             pipeline_parallelism: int = 1, pp_microbatches: int = 4,
              device=None, generator: Optional[torch.Generator] = None,
              loss_group=None) -> Task:
     """The task for ``task_type``: ``classification`` (a ResNet or a ViT,
@@ -366,10 +498,24 @@ def get_task(task_type: str, *, num_classes: int = 101,
                                     augment, device, generator,
                                     image_size=image_size)
     if task_type == "masked_lm":
+        if pipeline_parallelism > 1:
+            if attention_fn is not None or num_experts:
+                raise ValueError(
+                    "pipeline_parallelism composes with dp only "
+                    "(not seq/flash/moe) in this release"
+                )
+            return _pipelined_masked_lm_task(
+                vocab_size, model_name or "bert_base", seq_len,
+                pipeline_parallelism, pp_microbatches, device, generator,
+                loss_group)
         return _masked_lm_task(vocab_size, model_name or "bert_base", seq_len,
                                attention_fn, device, generator, loss_group,
                                num_experts, moe_every, remat)
     if task_type == "causal_lm":
+        if pipeline_parallelism > 1:
+            raise ValueError(
+                "pipeline_parallelism supports masked_lm only in this release"
+            )
         return _causal_lm_task(vocab_size, model_name or "gpt_base", seq_len,
                                attention_fn, device, generator, loss_group,
                                num_experts, moe_every, remat)

@@ -23,6 +23,20 @@ adds no parameter; the recomputed forward gives the same bits (the
 kernels and the plain ops are deterministic), so the gradients are those
 of the run without it.
 
+Tensor parallelism (``parallel/layout.shard_model_`` sets it up
+from the layout plan): with ``tp_group`` set, a block's attention holds
+``heads / tp`` local heads (column-parallel query, key and value, a
+row-parallel output projection whose partial products are summed in f32
+over the group and rounded once) and its MLP a column-parallel
+``mlp_in`` and a row-parallel ``mlp_out``; with ``vocab_group`` set the
+encoder's token embedding holds a contiguous block of the vocabulary
+(the lookup masked to it and summed over the group) and the tied head
+returns the logits of that block only (``vocab_cross_entropy`` and
+``vocab_argmax`` reduce them over the group). The regions follow
+Megatron-LM: :func:`..parallel.comm.copy_to` where a replicated tensor
+enters a split computation, :func:`..parallel.comm.reduce_from` where it
+leaves.
+
 Weights initialise as Flax's do (LeCun-normal dense kernels, zero biases,
 ``N(0, 1/vocab)`` embeddings, ``N(0, 0.02)`` positions) from an explicit
 ``torch.Generator``; :mod:`.convert` loads a Flax parameter tree instead.
@@ -39,9 +53,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import comm
+
 __all__ = ["TransformerEncoder", "SelfAttention", "EncoderBlock",
            "bert_base", "bert_small", "gpt_base", "gpt_small",
-           "dot_product_attention", "run_blocks"]
+           "dot_product_attention", "run_blocks", "vocab_cross_entropy",
+           "vocab_argmax"]
 
 LN_EPS = 1e-6
 # Flax's lecun_normal draws a normal truncated to two standard deviations,
@@ -92,6 +109,16 @@ class _Dense(nn.Linear):
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
+    def row_parallel(self, x, group):
+        """The layer over an input split along its features over
+        ``group`` (this rank's block of the weight's columns): the partial
+        products summed in f32 over the group, the bias added, rounded to
+        ``dtype`` once."""
+        dt = self.compute_dtype
+        partial = F.linear(x.to(dt), self.weight.to(dt))
+        return (comm.reduce_from(partial.float(), group)
+                + self.bias).to(dt)
+
 
 class _LayerNorm(nn.LayerNorm):
     """LayerNorm with epsilon 1e-6, statistics in f32, output in ``dtype``."""
@@ -114,20 +141,23 @@ class SelfAttention(nn.Module):
         super().__init__()
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} not divisible by {num_heads} heads")
-        self.num_heads = num_heads
+        self.num_heads = num_heads  # this rank's heads under tp_group
+        self.head_dim = hidden // num_heads
         self.dtype = dtype
         self.attention_fn = attention_fn
         self.causal = causal
+        self.tp_group = None  # set: the heads are split over this group
         self.query = _Dense(hidden, hidden, dtype)
         self.key = _Dense(hidden, hidden, dtype)
         self.value = _Dense(hidden, hidden, dtype)
         self.out = _Dense(hidden, hidden, dtype)
 
     def forward(self, x, mask=None, segment_ids=None):
-        b, s, h = x.shape
-        hd = h // self.num_heads
+        b, s, _ = x.shape
+        hd = self.head_dim
+        x = comm.copy_to(x, self.tp_group)
 
-        def heads(t):  # [B, S, H] -> [B, nh, S, hd]
+        def heads(t):  # [B, S, nh*hd] -> [B, nh, S, hd]
             return t.view(b, s, self.num_heads, hd).transpose(1, 2)
 
         q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
@@ -140,7 +170,9 @@ class SelfAttention(nn.Module):
         else:
             out = dot_product_attention(q, k, v, mask=mask, dtype=self.dtype,
                                         causal=self.causal)
-        out = out.transpose(1, 2).reshape(b, s, h)
+        out = out.transpose(1, 2).reshape(b, s, self.num_heads * hd)
+        if self.tp_group is not None:
+            return self.out.row_parallel(out, self.tp_group)
         return self.out(out)
 
 
@@ -156,6 +188,7 @@ class EncoderBlock(nn.Module):
         self.ln_attn = _LayerNorm(hidden, dtype)
         self.attn = SelfAttention(hidden, num_heads, dtype, attention_fn, causal)
         self.ln_mlp = _LayerNorm(hidden, dtype)
+        self.tp_group = None  # set: the MLP's hidden units are split
         self.moe = None
         if num_experts > 0:
             from .moe import MoEMLP
@@ -170,7 +203,10 @@ class EncoderBlock(nn.Module):
         x = x + self.attn(self.ln_attn(x), mask, segment_ids)
         if self.moe is not None:
             return x + self.moe(self.ln_mlp(x))
-        y = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
+        y = comm.copy_to(self.ln_mlp(x), self.tp_group)
+        y = F.gelu(self.mlp_in(y), approximate="tanh")
+        if self.tp_group is not None:
+            return x + self.mlp_out.row_parallel(y, self.tp_group)
         return x + self.mlp_out(y)
 
 
@@ -220,6 +256,8 @@ class TransformerEncoder(nn.Module):
         self.remat = remat
         self.causal = causal
         self.tok_embed = nn.Embedding(vocab_size, hidden_size)
+        self.vocab_group = None  # set: tok_embed holds a vocabulary block
+        self.vocab_start = 0  # its first token id
         self.pos_embed = nn.Parameter(torch.empty(max_len, hidden_size))
         self.layers = nn.ModuleList(
             EncoderBlock(hidden_size, num_heads, mlp_dim, dtype, attention_fn,
@@ -252,7 +290,7 @@ class TransformerEncoder(nn.Module):
     def forward(self, input_ids, attention_mask=None, segment_ids=None,
                 position_ids=None):
         b, s = input_ids.shape
-        x = self.tok_embed(input_ids).to(self.dtype)
+        x = self.embed_tokens(input_ids).to(self.dtype)
         if position_ids is not None:
             x = x + self.pos_embed[position_ids.long()].to(self.dtype)
         else:
@@ -270,7 +308,80 @@ class TransformerEncoder(nn.Module):
         x = self.ln_final(x)
         if self.head == "none":
             return x
-        return torch.matmul(x.float(), self.tok_embed.weight.t())
+        x = comm.copy_to(x.float(), self.vocab_group)
+        return torch.matmul(x, self.tok_embed.weight.t())
+
+    def embed_tokens(self, ids):
+        """The f32 embeddings of ``ids``; under ``vocab_group`` each rank
+        looks up the ids of its block (the others give zero rows) and the
+        rows are summed over the group, which adds zeros only."""
+        return vocab_embedding(ids, self.tok_embed.weight, self.vocab_group,
+                               self.vocab_start)
+
+
+def vocab_embedding(ids, weight, group, start: int):
+    """``weight[ids]``; with ``group``, ``weight`` is the block of rows from
+    ``start`` of a table split over the group."""
+    if group is None:
+        return F.embedding(ids, weight)
+    rows = weight.shape[0]
+    mine = (ids >= start) & (ids < start + rows)
+    local = F.embedding((ids - start).clamp(0, rows - 1), weight)
+    return comm.reduce_from(local * mine[..., None].to(local.dtype), group)
+
+
+class _VocabCrossEntropy(torch.autograd.Function):
+    """Megatron-LM's cross-entropy over logits split along the vocabulary:
+    the max, the target's logit and the sum of exponentials reduced over
+    the group, the gradient (softmax minus the one-hot) formed locally."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, group, start):
+        rows = logits.shape[-1]
+        top = comm.all_reduce(logits.max(-1).values, group, op="max")
+        shifted = logits - top[:, None]
+        mine = (targets >= start) & (targets < start + rows)
+        local = (targets - start).clamp(0, rows - 1)
+        picked = shifted.gather(1, local[:, None])[:, 0] * mine
+        picked = comm.all_reduce(picked, group)
+        exp = shifted.exp()
+        total = comm.all_reduce(exp.sum(-1), group)
+        ctx.save_for_backward(exp, total, local, mine)
+        return total.log() - picked
+
+    @staticmethod
+    def backward(ctx, grad):
+        exp, total, local, mine = ctx.saved_tensors
+        g = exp / total[:, None]
+        g.scatter_add_(1, local[:, None], -mine[:, None].to(g.dtype))
+        return g * grad[:, None], None, None, None
+
+
+def vocab_cross_entropy(logits, targets, model):
+    """Per-position cross-entropy of f32 ``logits [N, V]`` (this rank's
+    vocabulary block under ``model.vocab_group``) against ``targets
+    [N]``."""
+    group = getattr(model, "vocab_group", None)
+    if group is None:
+        return F.cross_entropy(logits, targets, reduction="none")
+    return _VocabCrossEntropy.apply(logits, targets, group,
+                                    model.vocab_start)
+
+
+def vocab_argmax(logits, model):
+    """``logits.argmax(-1)`` over the whole vocabulary: under
+    ``model.vocab_group`` each rank's block maximum and its global id are
+    gathered, and the first block holding the largest value wins, as
+    ``argmax`` picks the first maximum."""
+    group = getattr(model, "vocab_group", None)
+    if group is None:
+        return logits.argmax(-1)
+    index = logits.argmax(-1)
+    values = logits.gather(-1, index[..., None])[..., 0]
+    values = comm.all_gather(values.float()[None], group)
+    ids = comm.all_gather((index + model.vocab_start)[None], group)
+    best = values.argmax(0, keepdim=True)
+    return ids.gather(0, best)[0]
 
 
 bert_base = partial(TransformerEncoder, hidden_size=768, num_layers=12,

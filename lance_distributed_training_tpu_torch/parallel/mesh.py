@@ -8,12 +8,14 @@ model is wrapped in DDP and BatchNorm all-reduces its statistics
 (``models/resnet.py``). The rendezvous is explicit: a ``tcp://`` address,
 the world size and this process's rank, as the JAX CLI's
 ``--coordinator_address/--num_processes/--process_id`` give them. The
-backend is NCCL on CUDA and gloo on the CPU.
+backend is NCCL on CUDA and gloo on the CPU; ranks that share a card run
+gloo and stage their CUDA tensors through the host (``parallel/comm.py``
+chooses, from the cards the ranks publish in the rendezvous store).
 
 Sequence parallelism lays the ranks out as JAX's ``('data', 'seq')`` mesh
 does its devices, data outermost: rank ``data_index * seq + seq_index``
-(:func:`seq_topology`); :func:`new_seq_groups` creates one process group
-per data index for its ring.
+(:func:`seq_topology`, :func:`new_seq_groups`: the seq axis of
+:class:`.comm.Topology`, which lays out all four axes).
 
 :func:`make_global_batch` is the synchronous placement primitive (the
 ``--no_global_batch`` arm and the placement plane's bit-parity reference):
@@ -24,6 +26,7 @@ rows, as the DDP replica reads them.
 
 from __future__ import annotations
 
+from datetime import timedelta
 from typing import Optional
 
 import numpy as np
@@ -31,6 +34,8 @@ import torch
 import torch.distributed as dist
 
 from ..data.token_pack import is_host_meta_key
+from .comm import (Topology, choose_transport, device_identity,
+                   reset_transport)
 
 __all__ = ["maybe_initialize_distributed", "process_topology",
            "sync_global_devices", "shutdown_distributed", "seq_topology",
@@ -143,20 +148,29 @@ def maybe_initialize_distributed(coordinator_address: Optional[str] = None,
                                  ) -> None:
     """Join the process group at ``coordinator_address`` (``host:port`` or
     ``tcp://host:port``) as rank ``process_id`` of ``num_processes``. A
-    no-op without an address, and when a group already exists."""
+    no-op without an address, and when a group already exists. On CUDA the
+    backend is NCCL unless two ranks would share a card (gloo, staged
+    through the host: :func:`.comm.choose_transport`)."""
     global _initialized_here
     if coordinator_address is None or dist.is_initialized():
         return
     if num_processes is None or process_id is None:
         raise ValueError("coordinator_address needs num_processes and "
                          "process_id (no launcher injects them)")
-    address = coordinator_address
-    if not address.startswith("tcp://"):
-        address = f"tcp://{address}"
+    host, _, port = coordinator_address.removeprefix("tcp://").rpartition(":")
     cuda = device is not None and torch.device(device).type == "cuda"
-    dist.init_process_group(backend="nccl" if cuda else "gloo",
-                            init_method=address, world_size=num_processes,
-                            rank=process_id)
+    # The rendezvous store first: each rank publishes the card it will
+    # take, and the backend follows from the set (parallel/comm.py).
+    store = dist.TCPStore(host, int(port), num_processes, process_id == 0,
+                          timeout=timedelta(seconds=300))
+    identities = None
+    if cuda:
+        store.set(f"ldt/device/{process_id}", device_identity(process_id))
+        identities = [store.get(f"ldt/device/{r}").decode()
+                      for r in range(num_processes)]
+    backend = choose_transport(identities or [], cuda)
+    dist.init_process_group(backend=backend, store=store,
+                            world_size=num_processes, rank=process_id)
     _initialized_here = True
 
 
@@ -181,33 +195,22 @@ def shutdown_distributed() -> None:
     if _initialized_here and dist.is_initialized():
         dist.destroy_process_group()
     _initialized_here = False
+    reset_transport()
 
 
 def seq_topology(rank: int, world: int,
                  seq_parallelism: int) -> tuple[int, int, int]:
     """``(data_index, data_world, seq_index)`` of ``rank`` in a world of
-    ``world`` processes laid out as ``(data, seq)``, data outermost. Raises
-    as the JAX package's ``get_mesh`` does when the world does not divide."""
-    if seq_parallelism < 1:
-        raise ValueError(f"parallelism degrees must be >=1, got "
-                         f"sp={seq_parallelism}")
-    if world % seq_parallelism:
-        raise ValueError(f"{world} devices not divisible by "
-                         f"model*seq*pipe parallelism={seq_parallelism}")
-    return (rank // seq_parallelism, world // seq_parallelism,
-            rank % seq_parallelism)
+    ``world`` processes laid out as ``(data, seq)``, data outermost
+    (:class:`.comm.Topology`, whose errors are the JAX package's
+    ``get_mesh``'s)."""
+    topo = Topology(rank, world, seq=seq_parallelism, create_groups=False)
+    return topo.index["data"], topo.size["data"], topo.index["seq"]
 
 
 def new_seq_groups(seq_parallelism: int):
-    """``(group, ranks)`` of this rank's sequence ring. Every rank creates
-    every ring's group, in data-index order, as ``new_group`` requires."""
+    """``(group, ranks)`` of this rank's sequence ring (every rank creates
+    every group, :class:`.comm.Topology`)."""
     rank, world = process_topology()
-    data_index = seq_topology(rank, world, seq_parallelism)[0]
-    mine = None
-    for index in range(world // seq_parallelism):
-        ranks = list(range(index * seq_parallelism,
-                           (index + 1) * seq_parallelism))
-        group = dist.new_group(ranks)
-        if index == data_index:
-            mine = (group, ranks)
-    return mine
+    topo = Topology(rank, world, seq=seq_parallelism)
+    return topo.group["seq"], topo.ranks["seq"]

@@ -39,6 +39,8 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from . import comm
+
 from ..ops.ring_attention import (
     finalize,
     ring_fold_bwd_dkv,
@@ -92,7 +94,12 @@ class ProcessRing:
 
     def pass_on(self, tensors):
         """Post the sends of ``tensors`` to the next rank and the receives
-        of the previous rank's; returns what :meth:`receive` waits on."""
+        of the previous rank's; returns what :meth:`receive` waits on.
+        Ranks that share a card exchange through the host, at once
+        (``parallel/comm.py``)."""
+        if comm.host_staged() and tensors and tensors[0].is_cuda:
+            return [], [comm.send_recv(t, self.next, self.prev, self.group)
+                        for t in tensors]
         recv = [torch.empty_like(t) for t in tensors]
         ops = [dist.P2POp(dist.isend, t, self.next, self.group)
                for t in tensors]

@@ -47,6 +47,17 @@ trains on its sequence block with its global ``position_ids``, the key and
 value blocks passing between them; DDP spans the world. Rank 0 evaluates
 alone, folding whole sequences in its process.
 
+Beyond DP, as the JAX trainer (``model_parallelism``, ``fsdp``,
+``zero_opt`` 1/2, ``pipeline_parallelism`` with ``pp_microbatches``, and
+``num_experts`` under the model axis or on a ring of processes): the ranks
+form JAX's ``(data, model, seq, pipe)`` mesh (``parallel/comm.Topology``),
+a rank reads its data index's share, the plan of ``parallel/sharding.py``
+lays out the whole model built alike on every rank, and the sharded state
+of ``parallel/layout.py`` replaces DDP. The eval at the end gathers the
+whole parameters (not the optimizer's state) into a whole model on rank
+0, which evaluates it alone; a checkpoint holds the whole state in the
+data-parallel format, gathered on every rank.
+
 Beyond the main path, as the JAX trainer: gradient accumulation
 (``grad_accum``, ``optax.MultiSteps``' semantics in :class:`TrainStep`),
 crash-consistent step checkpoints with the data-plane cursor and resume
@@ -145,13 +156,16 @@ from .ops.jpeg_device import make_batch_transform
 from .ops.token_device import make_pack_transform
 from .parallel.mesh import (
     maybe_initialize_distributed,
-    new_seq_groups,
     process_topology,
-    seq_topology,
     shutdown_distributed,
     sync_global_devices,
 )
+from .parallel.comm import Topology, all_reduce, transport_name
+from .parallel.layout import ShardedState, shard_model_
 from .parallel.ring_attention import ProcessRing, make_ring_attention
+from .parallel.sharding import plan_bytes, plan_model, rules_for_task
+from .models.convert import flax_named_shapes
+from .models.moe import set_moe_group
 from .tune import AutoTuner, collect_tunables
 from .utils.chaos import StepTrace, TrainerChaos, batch_digest
 from .utils.checkpoint import CheckpointManager, pack_rng_key, unpack_rng_key
@@ -285,6 +299,16 @@ class TrainConfig:
     moe_every: int = 2  # MoE on every Nth block
     seq_parallelism: int = 1  # masked_lm: ring attention over N sequence
     # blocks (K5), in this process or across N processes a ring
+    # -- parallelism beyond DP (parallel/sharding.py, parallel/layout.py) --
+    model_parallelism: int = 1  # tensor-parallel degree ('model' mesh axis)
+    pipeline_parallelism: int = 1  # GPipe stages over a 'pipe' mesh axis
+    pp_microbatches: int = 4  # microbatches per pipeline round
+    fsdp: bool = False  # ZeRO-3-style: fully shard params + optimizer state
+    # over the 'data' axis (each large leaf's largest divisible dimension)
+    zero_opt: int = 0  # ZeRO over the 'data' axis, params replicated. 1:
+    # shard the optimizer moments only; 2: also the gradient accumulator
+    # (grad_accum), the step's gradients reduce-scattered into it.
+    # Mutually exclusive with fsdp (which already shards both)
     device_decode: bool = False  # classification: the host stops at the
     # JPEG entropy boundary and K2 decodes the coefficient pages on the device
     token_pack: bool = False  # text tasks: ragged pages + FFD plan on the
@@ -404,12 +428,15 @@ def _global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([n.float() for n in norms]))
 
 
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scale gradients in place by ``max_norm / norm`` when their global
     norm exceeds ``max_norm`` (``optax.clip_by_global_norm``); returns the
-    norm as a device scalar, without a host sync."""
+    norm as a device scalar, without a host sync. ``norm`` is the global
+    norm when the gradients are blocks of a sharded state."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = _global_norm(grads)
+    if norm is None:
+        norm = _global_norm(grads)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     for g in grads:
@@ -444,12 +471,19 @@ class TrainStep:
     :class:`_DeviceTimes`) times each fold on the card.
 
     :meth:`state_dict` / :meth:`load_state_dict` carry the accumulator, its
-    micro-step count and the update count through a checkpoint."""
+    micro-step count and the update count through a checkpoint.
+
+    Under a layout beyond DP, ``sharded`` (a
+    :class:`~.parallel.layout.ShardedState`) replaces DDP: it gathers the
+    parameters a step needs, averages each micro-step's gradients over the
+    batch group into the accumulator's layout, hands each master (what the
+    optimizer updates) its gradient, takes the global norm over the
+    groups, and after the update spreads the updated blocks."""
 
     def __init__(self, task: Task, optimizer: torch.optim.Optimizer,
                  lr: Union[float, Callable[[int], float], None] = None,
                  grad_clip: float = 0.0, grad_accum: int = 1,
-                 grad_norm: bool = False, fold_times=None):
+                 grad_norm: bool = False, fold_times=None, sharded=None):
         self.task = task
         self.optimizer = optimizer
         self.lr = lr
@@ -457,12 +491,14 @@ class TrainStep:
         self.grad_accum = max(int(grad_accum), 1)
         self.grad_norm = grad_norm
         self.fold_times = fold_times or _DeviceTimes(False)
+        self.sharded = sharded
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
         self.updates = 0
         self.micro_step = 0  # micro-steps folded into the open window
         self.accum = None
         if self.grad_accum > 1:
-            self.accum = [torch.zeros_like(p) for p in self.params]
+            self.accum = (sharded.new_accum() if sharded is not None else
+                          [torch.zeros_like(p) for p in self.params])
         self.last_grad_norm: Optional[torch.Tensor] = None
 
     def _fold(self, grads) -> None:
@@ -470,6 +506,9 @@ class TrainStep:
 
     def __call__(self, batch, generator=None, mlm_mask=None, flip_mask=None):
         self.optimizer.zero_grad(set_to_none=True)
+        sharded = self.sharded
+        if sharded is not None:
+            sharded.gather_params()
         draws = {name: value for name, value in
                  (("mlm_mask", mlm_mask), ("flip_mask", flip_mask))
                  if value is not None}
@@ -479,26 +518,42 @@ class TrainStep:
         # needed by the backward: dropping them here lowers its peak.
         del outputs
         loss.backward()
-        if self.grad_norm:
-            self.last_grad_norm = _global_norm(
-                [p.grad for p in self.params if p.grad is not None])
-        if self.accum is not None:
+        if sharded is not None:
+            grads = sharded.reduce_grads()
+            if self.grad_norm:
+                self.last_grad_norm = sharded.global_norm(grads)
+        else:
+            if self.grad_norm:
+                self.last_grad_norm = _global_norm(
+                    [p.grad for p in self.params if p.grad is not None])
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in self.params]
+        layouts = "reduce"
+        if self.accum is not None:
             self.fold_times.run(self._fold, grads)
             self.micro_step += 1
             if self.micro_step < self.grad_accum:
                 return loss.detach()
             self.micro_step = 0
-            for p, acc in zip(self.params, self.accum):
-                p.grad = acc
+            grads, layouts = self.accum, "accum"
+            if sharded is None:
+                for p, acc in zip(self.params, self.accum):
+                    p.grad = acc
+        if sharded is not None:
+            sharded.set_master_grads(grads, layouts)
         if self.grad_clip > 0:
-            clip_by_global_norm_(self.params, self.grad_clip)
+            clip_by_global_norm_(
+                self.params, self.grad_clip,
+                norm=(sharded.global_norm([p.grad for p in self.params],
+                                          "master")
+                      if sharded is not None else None))
         if callable(self.lr):
             for group in self.optimizer.param_groups:
                 group["lr"] = self.lr(self.updates)
         self.optimizer.step()
         self.updates += 1
+        if sharded is not None:
+            sharded.after_update()
         if self.accum is not None:
             self.optimizer.zero_grad(set_to_none=True)
             torch._foreach_zero_(self.accum)
@@ -515,7 +570,7 @@ class TrainStep:
                 f", this run has {self.grad_accum}")
         self.updates = int(state["updates"])
         self.micro_step = int(state["micro_step"])
-        if self.accum is not None:
+        if self.accum is not None and state["accum"] is not None:
             with torch.no_grad():
                 for acc, saved in zip(self.accum, state["accum"]):
                     acc.copy_(saved)
@@ -524,11 +579,12 @@ class TrainStep:
 def make_train_step(task: Task, optimizer: torch.optim.Optimizer,
                     lr: Union[float, Callable[[int], float], None] = None,
                     grad_clip: float = 0.0, grad_accum: int = 1,
-                    grad_norm: bool = False, fold_times=None) -> TrainStep:
+                    grad_norm: bool = False, fold_times=None,
+                    sharded=None) -> TrainStep:
     """The train step (:class:`TrainStep`) of ``task`` under
     ``optimizer``."""
     return TrainStep(task, optimizer, lr, grad_clip, grad_accum, grad_norm,
-                     fold_times)
+                     fold_times, sharded)
 
 
 def make_eval_step(task: Task):
@@ -645,8 +701,7 @@ class _StepLog:
         if self._losses:
             losses = torch.stack(self._losses).float()
             if self.world > 1:
-                dist.all_reduce(losses)
-                losses /= self.world
+                losses = all_reduce(losses, None) / self.world
             self.losses.extend(losses.tolist())
             self._losses.clear()
         for start, end in self._events:
@@ -718,7 +773,10 @@ def train(config: TrainConfig) -> dict:
     when the guard refused it) and ``device_cache_refused`` (the
     projection and the budget, or None). With ``num_workers``:
     ``worker_transport`` (``shm`` or ``pickle``) and ``shm_fallbacks``.
-    With ``autotune``: ``autotune_ticks`` and ``autotune_decisions``."""
+    With ``autotune``: ``autotune_ticks`` and ``autotune_decisions``.
+    Under a sharded layout: ``parallel`` (the mesh, this rank's index on
+    it, the transport, and the bytes of parameters, optimizer moments and
+    accumulator this rank holds, its plan's and the replicated state's)."""
     _check_loader_config(config)
     if config.placement_depth < 1:
         raise ValueError(
@@ -751,7 +809,7 @@ def train(config: TrainConfig) -> dict:
                 "token_pack packs token columns and needs a text task "
                 f"({'/'.join(_TEXT_TASKS)}), got {config.task_type!r}"
             )
-        if config.seq_parallelism > 1:
+        if config.seq_parallelism > 1 or config.pipeline_parallelism > 1:
             raise ValueError(
                 "token_pack is incompatible with seq_parallelism/"
                 "pipeline_parallelism: packed batches re-enter the data "
@@ -1123,24 +1181,25 @@ def _build_eval_loader(config: TrainConfig, device: torch.device, read_fn,
 
 
 def _check_seq_parallelism(config: TrainConfig) -> None:
-    """The JAX trainer's refusals of an attention path it cannot take
-    (``_task_from_config``), with its messages, and the port's refusal of
-    MoE blocks on a ring of processes."""
-    if config.flash_attention and config.seq_parallelism > 1:
+    """The JAX trainer's refusals of an attention path or a layout it
+    cannot take (``_task_from_config``, the fsdp/zero checks), with its
+    messages."""
+    if config.fsdp and config.zero_opt:
+        raise ValueError(
+            "fsdp and zero_opt are mutually exclusive: fsdp (ZeRO-3) "
+            "already shards the optimizer state along with the params"
+        )
+    if int(config.zero_opt) not in (0, 1, 2):
+        raise ValueError(
+            f"zero_opt must be 0, 1 (shard optimizer state) or 2 (also "
+            f"shard gradient accumulation), got {config.zero_opt!r}"
+        )
+    if config.flash_attention and (config.seq_parallelism > 1
+                                   or config.pipeline_parallelism > 1):
         raise ValueError(
             "flash_attention cannot combine with seq_parallelism or "
             "pipeline_parallelism (they select their own attention path)"
         )
-    if config.flash_attention and config.task_type not in ("masked_lm",
-                                                           "causal_lm"):
-        raise ValueError("flash_attention requires a sequence model")
-    if (config.num_experts > 0 and config.seq_parallelism > 1
-            and (config.num_processes or 1) > 1 and not config.no_ddp):
-        # The JAX routing counts the global batch's tokens in row order;
-        # a process ring holds a sequence block of every row.
-        raise NotImplementedError(
-            "num_experts with seq_parallelism across processes is not yet "
-            "ported")
     if config.seq_parallelism > 1:
         if config.task_type != "masked_lm":
             raise ValueError(
@@ -1151,6 +1210,20 @@ def _check_seq_parallelism(config: TrainConfig) -> None:
                 f"seq_len {config.seq_len} not divisible by "
                 f"seq_parallelism {config.seq_parallelism}"
             )
+    elif config.pipeline_parallelism > 1:
+        if config.task_type != "masked_lm":
+            raise ValueError(
+                "pipeline_parallelism>1 requires a sequence model (masked_lm)"
+            )
+    elif config.flash_attention and config.task_type not in ("masked_lm",
+                                                             "causal_lm"):
+        raise ValueError("flash_attention requires a sequence model")
+    if config.pipeline_parallelism > 1 and config.seq_parallelism > 1:
+        # get_task's refusal: the ring is the attention path it refuses.
+        raise ValueError(
+            "pipeline_parallelism composes with dp only "
+            "(not seq/flash/moe) in this release"
+        )
 
 
 def _share_seed(seed: int, data_index: int) -> int:
@@ -1304,33 +1377,42 @@ class _CkptJournal:
 
 def _save_checkpoint(ckpt: CheckpointManager, journal: _CkptJournal,
                      model, optimizer, train_step, mask_gen, rank: int,
-                     world: int, wait: bool = False) -> None:
+                     world: int, wait: bool = False, sharded=None) -> None:
     """Every process's mask generator state, gathered to rank 0, goes into
-    the cursor; rank 0 writes the pair (the replicas are equal); every rank
-    passes a barrier after the save."""
+    the cursor; rank 0 writes the pair (the replicas are equal, or under a
+    sharded layout the whole state every rank gathers, in the
+    data-parallel format); every rank passes a barrier after the save."""
     states = [pack_rng_key(mask_gen)]
     if world > 1:
         states = [None] * world
         dist.all_gather_object(states, pack_rng_key(mask_gen))
+    if sharded is not None:
+        model_state, opt_state, accum = sharded.full_state(
+            optimizer, train_step.accum)
+        step_state = dict(train_step.state_dict(), accum=accum)
+    else:
+        model_state, opt_state = model.state_dict(), optimizer.state_dict()
+        step_state = train_step.state_dict()
     if rank == 0:
         cursor = dict(journal.cursor_base)
         cursor.update(global_step=journal.abs_step, rng=states)
         ckpt.save(journal.abs_step,
-                  {"model": model.state_dict(),
-                   "optimizer": optimizer.state_dict(),
-                   "train_step": train_step.state_dict()},
+                  {"model": model_state, "optimizer": opt_state,
+                   "train_step": step_state},
                   cursor=cursor, wait=wait)
+    del model_state, opt_state, step_state
     sync_global_devices()
     # An intact duplicate (save returned False) holds this step as well.
     journal.saved_step = journal.abs_step
 
 
 def _restore_checkpoint(ckpt: CheckpointManager, model, optimizer,
-                        train_step, mask_gen, rank: int, world: int,
+                        train_step, sharded, mask_gen, rank: int, world: int,
                         epochs: int):
     """Restore the newest intact checkpoint into the live objects:
     ``(start_epoch, epoch_step, global_step)``, or ``None`` when there is
-    none. Resuming under a different world size raises."""
+    none. Resuming under a different world size raises. A sharded state
+    takes its blocks of the whole state the file holds."""
     restored = ckpt.restore_latest()
     if restored is None:
         return None
@@ -1340,13 +1422,26 @@ def _restore_checkpoint(ckpt: CheckpointManager, model, optimizer,
         raise ValueError(
             f"checkpoint step {step} was taken by {len(rngs)} processes; "
             f"this run has {world}")
-    model.load_state_dict(state["model"])
-    optimizer.load_state_dict(state["optimizer"])
-    train_step.load_state_dict(state["train_step"])
+    if sharded is not None:
+        sharded.load_full_state(state["model"], optimizer, state["optimizer"],
+                                train_step.accum,
+                                state["train_step"].get("accum"))
+        train_step.load_state_dict(dict(state["train_step"], accum=None))
+    else:
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state["optimizer"])
+        train_step.load_state_dict(state["train_step"])
     unpack_rng_key(rngs[rank], mask_gen)
     start_epoch = min(int(cursor.get("epoch", 0)), epochs)
     epoch_step = int(cursor.get("step", 0)) if start_epoch < epochs else 0
     return start_epoch, epoch_step, int(cursor.get("global_step", step))
+
+
+def _sharded_layout(config: TrainConfig) -> bool:
+    """Whether the run's state is laid out by the plan (parallel/layout.py)
+    rather than replicated under DDP: a layout beyond DP was asked for."""
+    return (config.model_parallelism > 1 or config.pipeline_parallelism > 1
+            or config.fsdp or int(config.zero_opt) > 0)
 
 
 def _train(config: TrainConfig, device: torch.device) -> dict:
@@ -1362,12 +1457,19 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     cuda = device.type == "cuda"
     sp = config.seq_parallelism
     # The data share this process reads: its rank's, or with a process ring
-    # its data index's, which the ring's members share.
+    # or a layout beyond DP its data index's, which the ranks of its model
+    # shards, ring positions and pipeline stages share.
     data_index, data_world, seq_index = rank, world, 0
-    ring = None
-    if sp > 1 and world > 1:
-        data_index, data_world, seq_index = seq_topology(rank, world, sp)
-        ring = ProcessRing(*new_seq_groups(sp))
+    ring = topo = None
+    loss_group = dist.group.WORLD if world > 1 else None
+    if _sharded_layout(config) or (sp > 1 and world > 1):
+        topo = Topology(rank, world, config.model_parallelism,
+                        sp if world > 1 else 1, config.pipeline_parallelism)
+        data_index, data_world = topo.index["data"], topo.size["data"]
+        seq_index = topo.index["seq"]
+        loss_group = topo.batch_group
+        if sp > 1 and world > 1:
+            ring = ProcessRing(topo.group["seq"], topo.ranks["seq"])
     per_process, rem = divmod(config.batch_size, data_world)
     if rem:
         raise ValueError(f"global batch {config.batch_size} not divisible by "
@@ -1401,7 +1503,6 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                    if config.val_dataset_path and not folder else None)
     init_gen = torch.Generator().manual_seed(config.seed)
     attention_fn = None
-    loss_group = dist.group.WORLD if world > 1 else None
     if image and cuda:
         torch.backends.cudnn.benchmark = True  # conv autotuning, as XLA
     if config.task_type == "classification":
@@ -1426,8 +1527,28 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                         seq_len=config.seq_len, vocab_size=config.vocab_size,
                         attention_fn=attention_fn, remat=config.remat,
                         num_experts=config.num_experts,
-                        moe_every=config.moe_every, device=device,
-                        generator=init_gen, loss_group=loss_group)
+                        moe_every=config.moe_every,
+                        pipeline_parallelism=config.pipeline_parallelism,
+                        pp_microbatches=config.pp_microbatches,
+                        device=device, generator=init_gen,
+                        loss_group=loss_group)
+        if ring is not None:
+            # A ring's members hold sequence blocks of the same rows: the
+            # MoE layers count the queues in the global row-major order.
+            set_moe_group(task.model, loss_group, sp)
+
+    def unsharded_task():
+        """The task with a whole model (its weights to be loaded): the
+        eval at the end runs it in one process."""
+        return get_task(config.task_type, num_classes=config.num_classes,
+                        model_name=config.model_name,
+                        image_size=config.image_size, seq_len=config.seq_len,
+                        vocab_size=config.vocab_size, augment=config.augment,
+                        attention_fn=attention_fn, num_experts=config.num_experts,
+                        moe_every=config.moe_every,
+                        pipeline_parallelism=config.pipeline_parallelism,
+                        pp_microbatches=config.pp_microbatches,
+                        device=device)
     if config.pretrained:
         # Transfer learning, the reference's training task: the backbone
         # (and a head of the same shape) from the checkpoint, before the
@@ -1438,8 +1559,26 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                                 config.model_name or "resnet50")
     decode = _decoder_for(config)
     train_task = task
-    if world > 1:
-        set_sync_group(task.model, dist.group.WORLD)
+    sharded = plan = None
+    if _sharded_layout(config):
+        # The layout plan on the whole model (built alike on every rank),
+        # then this rank's blocks; the sharded state replaces DDP.
+        rules = (rules_for_task(task.name, config.model_name)
+                 if config.model_parallelism > 1
+                 or config.pipeline_parallelism > 1 else ())
+        plan = plan_model(flax_named_shapes(task.model), rules, topo.size,
+                          fsdp=config.fsdp, zero_level=int(config.zero_opt))
+        shard_model_(task.model, plan, topo)
+        sharded = ShardedState(task.model, plan, topo,
+                               max(config.grad_accum, 1))
+        set_sync_group(task.model, loss_group)
+        if rank == 0:
+            print(f"[parallel] mesh={ {a: n for a, n in topo.size.items()} } "
+                  f"transport={transport_name()} "
+                  f"fsdp={config.fsdp} zero={int(config.zero_opt)}",
+                  flush=True)
+    elif world > 1:
+        set_sync_group(task.model, loss_group)
         ddp = DistributedDataParallel(
             task.model, device_ids=[device.index] if cuda else None,
             broadcast_buffers=False)
@@ -1474,13 +1613,14 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         # Echoes are real optimizer steps.
         total_steps = (max(rows // config.batch_size, 1) * config.epochs
                        * config.data_echo)
-    optimizer, lr = make_optimizer(config, task.model.parameters(),
-                                   total_steps)
+    optimizer, lr = make_optimizer(
+        config, sharded.masters if sharded is not None
+        else task.model.parameters(), total_steps)
     accum = max(config.grad_accum, 1)
     fold_times = _DeviceTimes(cuda)
     step = make_train_step(train_task, optimizer, lr, config.grad_clip,
                            grad_accum=accum, grad_norm=config.log_grad_norm,
-                           fold_times=fold_times)
+                           fold_times=fold_times, sharded=sharded)
 
     # Checkpoint/resume: the newest INTACT step restores the model, the
     # optimizer, the accumulator and the generators together with the
@@ -1494,6 +1634,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     if ckpt is not None and config.resume:
         t0 = time.perf_counter()
         resumed = _restore_checkpoint(ckpt, task.model, optimizer, step,
+                                      sharded,
                                       mask_gen, rank, world, config.epochs)
         if resumed is not None:
             start_epoch, resume_epoch_step, resume_global_step = resumed
@@ -1542,9 +1683,18 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     def run_eval():
         """Rank 0 evaluates every row (or pool position) of the eval data
         once; ``(accuracy, rows)`` there, ``None`` elsewhere, after a
-        barrier."""
+        barrier. Under a sharded layout every rank first gathers the whole
+        parameters (not the optimizer's state), and rank 0 evaluates them
+        in a whole model."""
         nonlocal eval_pool
         out = None
+        eval_task = task
+        if sharded is not None:
+            whole = sharded.full_params()
+            if rank == 0:
+                eval_task = unsharded_task()
+                eval_task.model.load_state_dict(whole)
+            del whole
         if rank == 0:
             eval_decode = (decode if config.task_type == "classification"
                            else _decoder_for(config, for_eval=True))
@@ -1565,7 +1715,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                 index_pool=eval_pool, batch_cache=batch_cache,
                 dataset_fingerprint=(folder_fp if folder else
                                      eval_dataset.fingerprint()))
-            eval_step = make_eval_step(task)
+            eval_step = make_eval_step(eval_task)
             if coeff:
                 eval_step = (lambda b, _step=eval_step: _step(transform(b)))
             # Rank 0 folds whole sequences in its process: the other ranks
@@ -1589,7 +1739,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
 
     def save(wait: bool = False) -> None:
         _save_checkpoint(ckpt, journal, task.model, optimizer, step,
-                         mask_gen, rank, world, wait=wait)
+                         mask_gen, rank, world, wait=wait, sharded=sharded)
 
     pool = _loader_buffer_pool(config)
     pool_start = pool.counters() if pool is not None else None
@@ -1598,7 +1748,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     global_step = 0  # this run's micro-steps
     stop = False
     history = []
-    lo, hi = rank * per_process, (rank + 1) * per_process
+    lo, hi = data_index * per_process, (data_index + 1) * per_process
     def log_progress(epoch: int, global_step: int) -> None:
         """One progress line: the window since the last one, after the
         window's one host sync."""
@@ -1988,6 +2138,22 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                                     if fold_times.ms else None)
     if profile is not None:
         results["profile_trace"] = profile.path
+    if sharded is not None:
+        held = sharded.held_bytes(optimizer, step.accum)
+        moments = 2 if config.optimizer == "adamw" else int(
+            config.momentum != 0)
+        results["parallel"] = {
+            "mesh": dict(topo.size), "index": dict(topo.index),
+            "transport": transport_name(), "fsdp": config.fsdp,
+            "zero": int(config.zero_opt), "held_bytes": held,
+            "plan_bytes": plan_bytes(plan, topo.size, moments=moments,
+                                     accum=accum > 1),
+            "replicated_bytes": plan_bytes(
+                {k: dataclasses.replace(v, param=None, moment=None,
+                                        accum=None)
+                 for k, v in plan.items()}, topo.size, moments=moments,
+                accum=accum > 1)}
+        sharded.materialize()
     return {
         "steps": global_step,
         "global_step": journal.abs_step,

@@ -89,6 +89,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "lance_distributed_training_tpu_torch.fleet.agent",
         "lance_distributed_training_tpu_torch.fleet.balancer",
         "lance_distributed_training_tpu_torch.fleet.chaos",
+        "lance_distributed_training_tpu_torch.parallel.comm",
+        "lance_distributed_training_tpu_torch.parallel.sharding",
+        "lance_distributed_training_tpu_torch.parallel.layout",
+        "lance_distributed_training_tpu_torch.parallel.pipeline_parallel",
     }
     assert expected <= set(result["imported"])
     assert result["banned"] == []

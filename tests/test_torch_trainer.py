@@ -171,11 +171,11 @@ def test_cli_without_device_cpu_raises_without_a_card(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     ["check"],
-    ["--model_parallelism", "2"],
+    ["graph"],
 ])
 def test_cli_unported_surface_raises(tmp_path, argv):
     path = _token_dataset(tmp_path)
-    if argv[0] == "check":
+    if argv[0] in ("check", "graph"):
         args = argv + ["--dataset_path", path]
     else:
         args = _cli_args(path, "--device", "cpu", *argv)
