@@ -18,8 +18,34 @@ imports the data plane it needs and never torch's CUDA libraries.
 """
 
 import importlib
+import os
+import sys
 
 __version__ = "0.1.0"
+
+
+def _install_lock_sanitizer() -> None:
+    """Under ``LDT_LOCK_SANITIZER=1``, install the lock-order shim
+    (``utils/lockorder.py``) before any module of the port makes a lock.
+    The module is loaded from its file, not through ``utils/__init__``
+    (which imports modules that make locks), under its dotted name, so a
+    later import shares its recorder."""
+    name = f"{__name__}.utils.lockorder"
+    module = sys.modules.get(name)
+    if module is None:
+        import importlib.util
+
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "utils", "lockorder.py")
+        spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    module.install_from_env()
+
+
+if os.environ.get("LDT_LOCK_SANITIZER") == "1":
+    _install_lock_sanitizer()
 
 # Name -> the submodule that defines it. Imported on first use, so that a
 # process that needs one plane (a decode worker: the format, the

@@ -41,12 +41,17 @@ and ``/healthz`` for the run (``--metrics_host``). The host processes of
 that plane are subcommands with the JAX CLI's parsers and exit codes:
 ``serve-data``, ``coordinator``, ``fleet recommend`` (3 = scale up),
 ``jobs list|describe`` (4 = unknown job), ``protocol goldens``, ``trace
-export|critical-path`` and ``costs report``; none touches a card. The JAX
+export|critical-path`` and ``costs report``; none touches a card. The
+static checker is ``check`` (exit 0 = no new findings against the port's
+empty baseline; ``--lock-witness``, ``--leak-witness``, ``--wire-witness``
+and ``--compile-witness`` join a sanitized run's evidence) and ``graph``
+(``--dot --ownership --protocol --loader --mesh``), over the port with
+its own ``analysis/ldt-check.toml``, or over a ``--root`` whose
+``pyproject.toml`` has a ``[tool.ldt-check]`` table. The JAX
 runtime's flags (``--backend``, ``--num_cpu_devices``,
 ``--no_compile_cache``, ``--compile_cache_dir``) raise: the port picks its
 device with ``--device`` and has no XLA compile cache. Any other flag of
-the JAX CLI raises "not yet ported"; so do the ``check`` and ``graph``
-subcommands. Model and vocabulary default per task (``--vocab_size`` unset keeps the model's
+the JAX CLI raises "not yet ported". Model and vocabulary default per task (``--vocab_size`` unset keeps the model's
 own: 30522 for BERT and CLIP-ResNet-50, 50257 for GPT, 1000 for
 ``clip_tiny``). Usage::
 
@@ -851,9 +856,21 @@ def _protocol_main(argv):
     return goldens_main(argv)
 
 
-# Subcommands of the host processes: none loads the trainer or touches a
-# card. ``fleet``, ``jobs``, ``protocol``, ``trace`` and ``costs`` return an
-# exit status.
+def _check_main(argv):
+    from .analysis.cli import check_main
+
+    return check_main(argv)
+
+
+def _graph_main(argv):
+    from .analysis.cli import graph_main
+
+    return graph_main(argv)
+
+
+# Subcommands of the host processes and the static checker: none loads the
+# trainer or touches a card. ``fleet``, ``jobs``, ``protocol``, ``trace``,
+# ``costs``, ``check`` and ``graph`` return an exit status.
 _SUBCOMMANDS = {
     "serve-data": serve_main,
     "coordinator": coordinator_main,
@@ -862,6 +879,8 @@ _SUBCOMMANDS = {
     "protocol": _protocol_main,
     "trace": _trace_main,
     "costs": _costs_main,
+    "check": _check_main,
+    "graph": _graph_main,
 }
 
 
@@ -871,11 +890,6 @@ def main(argv=None):
         return _SUBCOMMANDS[argv[0]](argv[1:])
     if argv and argv[0] == "train":
         argv = argv[1:]
-    elif argv and not argv[0].startswith("-"):
-        raise NotImplementedError(
-            f"subcommand {argv[0]!r} is not yet ported (train, "
-            f"{', '.join(_SUBCOMMANDS)})"
-        )
     args = vars(build_parser().parse_args(argv))
     for name in _XLA_FLAGS:
         if args.pop(name) not in (None, False):

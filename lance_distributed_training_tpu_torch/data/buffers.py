@@ -233,12 +233,19 @@ class BufferPool:
             # The pair is leased whole or not at all.
             self.release(values)
             raise
-        slack = (cap - int(total)) * np.dtype(values_dtype).itemsize
-        with self._lock:
-            self.ragged_leases += 1
-            self.ragged_slack_bytes += slack
-        self._ragged_leases.inc()
-        self._ragged_slack.inc(slack)
+        try:
+            # Counted once both pages are held; a failure here must not
+            # strand the pair either.
+            slack = (cap - int(total)) * np.dtype(values_dtype).itemsize
+            with self._lock:
+                self.ragged_leases += 1
+                self.ragged_slack_bytes += slack
+            self._ragged_leases.inc()
+            self._ragged_slack.inc(slack)
+        except BaseException:
+            self.release(values)
+            self.release(offsets)
+            raise
         return RaggedPage(values, offsets, cap)
 
     def owns(self, arr) -> bool:

@@ -64,6 +64,7 @@ from ..obs.registry import MetricsRegistry, default_registry
 from ..obs.spans import span
 from ..parallel.mesh import PinnedStager, indexed_device, make_global_batch
 from ..tune.tunable import AdjustableQueue, Tunable, _LiveQueues
+from ..utils import compiletrack
 from ..utils.metrics import ServiceCounters
 
 __all__ = ["PlacementPlane", "PlacedLoader"]
@@ -135,6 +136,10 @@ class PlacementPlane:
                                        buffer_pool=self.buffer_pool)
         event = self._stager.last_event
         event.synchronize()
+        if compiletrack.enabled():
+            compiletrack.track_transfer("h2d", sum(
+                v.numel() * v.element_size() for v in placed.values()
+                if isinstance(v, torch.Tensor) and v.is_cuda))
         return placed, event
 
     def _adopt(self, placed: dict, event) -> dict:

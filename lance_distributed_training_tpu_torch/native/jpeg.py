@@ -57,7 +57,7 @@ def build_library(src: Path, target: Path, flags: list,
     name of this process, then renamed over the target. Raises
     ``OSError`` with the compiler's error."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
+    tmp = target.with_suffix(f".{os.getpid()}.tmp.so")  # ldt: ignore[LDT1301] -- a per-process temp name for the build's output, renamed into place; no decoded value depends on it
     cmd = ["g++", *flags, str(src), "-o", str(tmp), *libs]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,

@@ -69,9 +69,10 @@ def build_info() -> dict:
         pass
     sanitizers = []
     try:
-        from ..utils import leaktrack, wiretrack
+        from ..utils import compiletrack, leaktrack, wiretrack
 
-        for name, mod in (("leak", leaktrack), ("wire", wiretrack)):
+        for name, mod in (("leak", leaktrack), ("wire", wiretrack),
+                          ("compile", compiletrack)):
             if mod.enabled():
                 sanitizers.append(name)
     except Exception:  # noqa: BLE001

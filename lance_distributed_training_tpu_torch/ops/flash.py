@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ..utils import compiletrack
 
 __all__ = [
     "LAUNCHES",
@@ -221,6 +222,8 @@ def flash_attention_fwd(q, k, v, segment_ids=None, causal=False,
                         sm_scale=1.0):
     """Forward pass: ``(o, lse)``. CUDA: the ``fwd`` kernel (bf16 in, bf16
     ``o`` and f32 ``lse`` out). CPU: :func:`flash_attention_reference`."""
+    if compiletrack.enabled():
+        compiletrack.track_launch(q, k, v, segment_ids, causal, sm_scale)
     if _device_kind(q) == "cpu":
         return flash_attention_reference(q, k, v, segment_ids, causal, sm_scale)
     _check("fwd", q, k, v, segment_ids)
@@ -239,6 +242,9 @@ def flash_attention_bwd_dq(q, k, v, segment_ids, lse, do, di, causal=False,
                            sm_scale=1.0):
     """dQ. CUDA: the ``bwd_dq`` kernel. CPU:
     :func:`flash_attention_bwd_dq_reference`."""
+    if compiletrack.enabled():
+        compiletrack.track_launch(
+            q, k, v, segment_ids, lse, do, di, causal, sm_scale)
     if _device_kind(q) == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, segment_ids, lse, do,
                                                 di, causal, sm_scale)
@@ -258,6 +264,9 @@ def flash_attention_bwd_dkv(q, k, v, segment_ids, lse, do, di, causal=False,
                             sm_scale=1.0):
     """``(dK, dV)``. CUDA: the ``bwd_dkv`` kernel. CPU:
     :func:`flash_attention_bwd_dkv_reference`."""
+    if compiletrack.enabled():
+        compiletrack.track_launch(
+            q, k, v, segment_ids, lse, do, di, causal, sm_scale)
     if _device_kind(q) == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, segment_ids, lse,
                                                  do, di, causal, sm_scale)

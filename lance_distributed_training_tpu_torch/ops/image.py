@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ..utils import compiletrack
 
 __all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "LAUNCHES", "normalize_flip",
            "normalize_images_reference", "random_flip_reference",
@@ -120,6 +121,8 @@ def normalize_flip(images_u8: torch.Tensor,
     """uint8 ``[B, H, W, 3]`` → bf16 ``[B, H, W, 3]``, normalised and, where
     ``flip_mask`` (``[B]``, bool or uint8) is set, mirrored along W. CUDA:
     the K1 kernel. CPU: the plain versions."""
+    if compiletrack.enabled():
+        compiletrack.track_launch(images_u8, flip_mask)
     if images_u8.device.type == "cpu":
         out = normalize_images_reference(images_u8)
         return out if flip_mask is None else random_flip_reference(out,

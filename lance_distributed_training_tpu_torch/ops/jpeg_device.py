@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..utils import compiletrack
 
 __all__ = [
     "COEFF_KEYS",
@@ -103,7 +104,7 @@ def _idct_plane(coef: torch.Tensor, quant: torch.Tensor) -> torch.Tensor:
     pass ``s1[u, y] = Σ_v C[u, v]·B[y, v]``, round-half-up ``>> 11``, the
     rows pass ``p[x, y] = Σ_u B[x, u]·s1[u, y]``, ``>> 11``, +128, clip."""
     n, bh, bw = coef.shape[:3]
-    b = torch.from_numpy(IDCT_BASIS_FIX).to(device=coef.device,
+    b = torch.from_numpy(IDCT_BASIS_FIX).to(device=coef.device,  # ldt: ignore[LDT802] -- the plain version's constant IDCT table, not batch data
                                             dtype=torch.int64)
     c = _wrap32(coef.long() * quant.long()[:, None, None, :])
     c = c.reshape(n, bh, bw, 8, 8)  # [.., u, v]
@@ -257,6 +258,9 @@ def decode_coeff_batch(coef_y: torch.Tensor, coef_cb: torch.Tensor,
                        ) -> torch.Tensor:
     """Coefficient pages → ``uint8 [N, S, S, 3]`` RGB. CUDA: the K2 kernel
     (bit-identical to the plain version). CPU: the plain version."""
+    if compiletrack.enabled():
+        compiletrack.track_launch(
+            coef_y, coef_cb, coef_cr, quant, geom, out_size)
     if coef_y.device.type == "cpu":
         return decode_coeff_batch_reference(coef_y, coef_cb, coef_cr, quant,
                                             geom, out_size)

@@ -50,6 +50,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ..utils import compiletrack
 
 __all__ = [
     "HEAD_DIM",
@@ -336,6 +337,11 @@ def ring_fold_fwd(q, k, v, mask, m, l, acc, positions: int = 1,
     written. ``out`` (``q``'s type), when given, takes the output after the
     last step. ``mask`` is the uint8 key validity ``[B, S]``. CUDA: one
     launch of the ``ring_fwd`` kernel. CPU: :func:`ring_fold_fwd_reference`."""
+    if compiletrack.enabled():
+        # The ring step (shift) is a kernel argument, not a launch
+        # configuration: it is left out of the signature.
+        compiletrack.track_launch(q, k, v, mask, m, l, acc, positions, out,
+                                  steps=steps)
     if _on_cpu(q):
         _check_steps("ring_fwd", positions, shift, steps)
         ring_fold_fwd_reference(q, k, v, mask, m, l, acc, positions, shift,
@@ -355,6 +361,9 @@ def ring_fold_bwd_dq(q, k, v, mask, lse, delta, do, dq, positions: int = 1,
     zeros when it is None; ``out`` (``q``'s type) takes the final totals.
     CUDA: one launch of the ``ring_bwd_dq`` kernel. CPU:
     :func:`ring_fold_bwd_dq_reference`."""
+    if compiletrack.enabled():
+        compiletrack.track_launch(q, k, v, mask, lse, delta, do, dq,
+                                  positions, steps=steps, out=out)
     if dq is None and out is None:
         raise ValueError("ring_bwd_dq: give dq, or out, or both")
     if _on_cpu(q):
@@ -379,6 +388,9 @@ def ring_fold_bwd_dkv(q, k, v, mask, lse, delta, do, dk, dv,
     or to zeros when both are None; ``out = (dk_out, dv_out)`` (``q``'s
     type) takes the final totals. CUDA: one launch of the ``ring_bwd_dkv``
     kernel. CPU: :func:`ring_fold_bwd_dkv_reference`."""
+    if compiletrack.enabled():
+        compiletrack.track_launch(q, k, v, mask, lse, delta, do, dk, dv,
+                                  positions, steps=steps, out=out)
     if (dk is None) != (dv is None) or (dk is None and out is None):
         raise ValueError("ring_bwd_dkv: give dk and dv, or out, or both")
     if _on_cpu(q):

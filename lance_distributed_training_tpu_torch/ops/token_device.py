@@ -44,6 +44,7 @@ from ..data.token_pack import (
     ragged_bases,
 )
 from . import _build
+from ..utils import compiletrack
 
 __all__ = [
     "LAUNCHES",
@@ -197,6 +198,9 @@ def pack_token_batch(values, offsets, slot, start, *, rows: int,
     each ``[rows, pack_len]``. CUDA: the ``token_pack`` kernel, one launch
     that writes every cell (int32 in; the four outputs are views of one
     buffer). CPU: :func:`pack_token_batch_reference`."""
+    if compiletrack.enabled():
+        compiletrack.track_launch(
+            values, offsets, slot, start, rows=rows, pack_len=pack_len)
     device = values.device
     if device.type == "cpu":
         return pack_token_batch_reference(values, offsets, slot, start,
@@ -240,6 +244,9 @@ def unpack_token_batch(grid, offsets, slot, start, *, capacity: int):
     """The inverse gather: packed ``[rows, pack_len]`` grid → the flat page
     ``[capacity]`` (zero tail). CUDA: the ``token_unpack`` kernel. CPU:
     :func:`unpack_token_batch_reference`."""
+    if compiletrack.enabled():
+        compiletrack.track_launch(
+            grid, offsets, slot, start, capacity=capacity)
     if grid.device.type == "cpu":
         return unpack_token_batch_reference(grid, offsets, slot, start,
                                             capacity=capacity)

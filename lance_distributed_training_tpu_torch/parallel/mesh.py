@@ -105,7 +105,7 @@ class PinnedStager:
                     src.copy_(torch.from_numpy(arr))
                 else:  # a read-only Arrow view (a label column)
                     src.numpy()[...] = arr
-            out[name] = src.to(self.device, non_blocking=True)
+            out[name] = src.to(self.device, non_blocking=True)  # ldt: ignore[LDT802] -- the placement plane's own staging copy (data/placement.py drives this stager)
         event = torch.cuda.Event(blocking=True)
         event.record(torch.cuda.current_stream(self.device))
         self._events[i] = self.last_event = event

@@ -167,6 +167,7 @@ from .parallel.sharding import plan_bytes, plan_model, rules_for_task
 from .models.convert import flax_named_shapes
 from .models.moe import set_moe_group
 from .tune import AutoTuner, collect_tunables
+from .utils import compiletrack
 from .utils.chaos import StepTrace, TrainerChaos, batch_digest
 from .utils.checkpoint import CheckpointManager, pack_rng_key, unpack_rng_key
 from .utils.metrics import MetricLogger, StepTimer
@@ -512,6 +513,8 @@ class TrainStep:
         draws = {name: value for name, value in
                  (("mlm_mask", mlm_mask), ("flip_mask", flip_mask))
                  if value is not None}
+        if compiletrack.enabled():
+            compiletrack.track_forward(self.task.model, batch, **draws)
         outputs = self.task.forward(batch, True, generator, **draws)
         loss = self.task.loss(outputs, batch)
         # The outputs (a text model's [B, S, vocab] f32 logits) are not
@@ -594,6 +597,8 @@ def make_eval_step(task: Task):
     zero; otherwise the count is the batch size."""
 
     def step(batch):
+        if compiletrack.enabled():
+            compiletrack.track_launch(batch)
         batch = dict(batch)
         w = batch.pop("_weight", None)
         with torch.no_grad():
@@ -614,16 +619,19 @@ def evaluate(loader, eval_step) -> tuple[float, float]:
     num = den = None
     it = iter(loader)
     try:
-        for batch in it:
-            part, count = eval_step(batch)
-            num = part if num is None else num + part
-            den = count if den is None else den + count
+        with compiletrack.phase("eval"):
+            for batch in it:
+                part, count = eval_step(batch)
+                num = part if num is None else num + part
+                den = count if den is None else den + count
     finally:
         close = getattr(it, "close", None)
         if close is not None:
             close()
     if den is None:
         return 0.0, 0.0
+    if compiletrack.enabled():
+        compiletrack.track_transfer("d2h", 8)
     total = float(den)
     return (float(num) / total if total else 0.0), total
 
@@ -702,6 +710,8 @@ class _StepLog:
             losses = torch.stack(self._losses).float()
             if self.world > 1:
                 losses = all_reduce(losses, None) / self.world
+            if compiletrack.enabled():
+                compiletrack.track_transfer("d2h", losses.numel() * 4)
             self.losses.extend(losses.tolist())
             self._losses.clear()
         for start, end in self._events:
@@ -1306,6 +1316,8 @@ class _TokenCounts:
         if not self._pending:
             return
         index, counts = zip(*self._pending)
+        if compiletrack.enabled():
+            compiletrack.track_transfer("d2h", len(counts) * 8)
         for i, count in zip(index, torch.stack(counts).tolist()):
             self.payload[i] = int(count)
         self._pending.clear()
@@ -1639,7 +1651,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         if resumed is not None:
             start_epoch, resume_epoch_step, resume_global_step = resumed
             if cuda:
-                torch.cuda.synchronize(device)
+                torch.cuda.synchronize(device)  # ldt: ignore[LDT1714] -- once, before the first step: times the restore's copies to the card
             restore_ms = (time.perf_counter() - t0) * 1e3
 
     logger = MetricLogger(

@@ -166,7 +166,7 @@ class CheckpointManager:
     def all_steps(self) -> list:
         """Steps whose state file committed, ascending (numeric order)."""
         try:
-            names = os.listdir(self.directory)
+            names = os.listdir(self.directory)  # ldt: ignore[LDT003] -- the step numbers are sorted below, numerically
         except OSError:
             return []
         return sorted(int(n) for n in names if n.isdigit()
@@ -206,7 +206,7 @@ class CheckpointManager:
             self._writer.join()
             self._writer = None
         if self._write_error is not None:
-            exc, self._write_error = self._write_error, None
+            exc, self._write_error = self._write_error, None  # ldt: ignore[LDT1002] -- read and cleared only after join() of the writer thread, which orders its write before this
             raise RuntimeError(f"checkpoint write failed: {exc}") from exc
 
     def _snapshot(self, obj: Any, place: tuple = ()) -> Any:
@@ -312,7 +312,7 @@ class CheckpointManager:
             self.last_success_step = step
             self._collect()
         except BaseException as exc:  # handed to the caller's next wait
-            self._write_error = exc
+            self._write_error = exc  # ldt: ignore[LDT1002] -- the writer's last act; the main thread reads it only after join()
 
     def _collect(self) -> None:
         """Keep the newest ``max_to_keep`` committed steps; drop sidecars

@@ -3,8 +3,12 @@
 A copy of ``lance_distributed_training_tpu/utils/leaktrack.py`` for the
 port (which imports nothing of the JAX package): the same hooks, keys and
 witness format, called by the port's buffer pool, shm ring, workers and
-batch cache. The static analyzer the text below names belongs to the JAX
-package.
+batch cache. The analyzer the text below names is the port's copy
+(``analysis/ownermodel.py``, ``python -m lance_distributed_training_tpu_torch.cli
+check --leak-witness``). Under the flag this module dumps its own witness
+at interpreter exit (``atexit``), to ``leak-witness-torch.json`` unless
+``LDT_LEAK_WITNESS_PATH`` says otherwise, so that it never overwrites the
+JAX package's ``leak-witness.json``.
 
 The static ownership model (``analysis/ownermodel.py``) infers "this
 acquire site has an exit path that never releases" from the AST. Like the
@@ -15,9 +19,9 @@ recorder the buffer plane calls on every :class:`BufferPool` page lease /
 release and every shm slot-token handoff, keyed by the *acquire call
 site* (``abspath:lineno`` of the caller — the join key the static acquire
 records map onto) with a creation-site traceback per outstanding handle.
-At process exit the test harness dumps a witness JSON
-(``tests/conftest.py``, mirroring the lock witness) that ``ldt check
---leak-witness <path>`` cross-checks:
+At process exit the recorder dumps a witness JSON (its own ``atexit``
+hook, mirroring the lock witness) that ``ldt check --leak-witness <path>``
+cross-checks:
 
 * a static LDT1201 leak whose acquire site shows leaked handles at exit
   is *reproduced* — the finding says so, with the count;
@@ -51,11 +55,12 @@ import.
 Knobs::
 
     LDT_LEAK_SANITIZER=1      # the data plane's hooks start recording
-    LDT_LEAK_WITNESS_PATH=…   # dump target (default ./leak-witness.json)
+    LDT_LEAK_WITNESS_PATH=…   # dump target (default ./leak-witness-torch.json)
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import sys
@@ -82,7 +87,7 @@ __all__ = [
 
 ENV_FLAG = "LDT_LEAK_SANITIZER"
 ENV_PATH = "LDT_LEAK_WITNESS_PATH"
-DEFAULT_WITNESS_PATH = "leak-witness.json"
+DEFAULT_WITNESS_PATH = "leak-witness-torch.json"
 
 # Recorder state. A RAW lock (the sanitizer must never observe itself
 # through the lock sanitizer's shim); critical sections are dict updates
@@ -247,3 +252,16 @@ def dump(path: Optional[str] = None) -> str:
             pass
         raise
     return path
+
+
+def _dump_at_exit() -> None:
+    try:
+        path = dump()
+    except OSError as exc:
+        sys.stderr.write(f"[leaktrack] witness not written: {exc}\n")
+        return
+    sys.stderr.write(f"[leaktrack] witness written to {path}\n")
+
+
+if _enabled:
+    atexit.register(_dump_at_exit)

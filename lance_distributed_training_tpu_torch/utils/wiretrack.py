@@ -1,7 +1,11 @@
 """Runtime wire-traffic sanitizer — the witness half of LDT1403.
 
 A copy of ``lance_distributed_training_tpu/utils/wiretrack.py`` for the
-port; its witness files read the same under either package.
+port; its witness files read the same under either package. Under the flag
+this module dumps its own witness at interpreter exit (``atexit``), to
+``wire-witness-torch.json`` unless ``LDT_WIRE_WITNESS_PATH`` says
+otherwise, so that it never overwrites the JAX package's
+``wire-witness.json``.
 
 The static protocol model (``analysis/protomodel.py``) infers each
 message's payload schema from the AST: who writes a field, who reads it.
@@ -11,8 +15,8 @@ This module closes the gap with evidence: an opt-in
 (``LDT_WIRE_SANITIZER=1``) recorder the protocol module calls on every
 control frame sent or received, counting which ``(msg_type, field)``
 tuples — and which negotiated versions — actually crossed the loopback
-wire. At process exit the test harness dumps a witness JSON
-(``tests/conftest.py``, mirroring the lock/leak witnesses) that
+wire. At process exit the recorder dumps a witness JSON (its own ``atexit``
+hook, mirroring the lock/leak witnesses) that
 ``ldt check --wire-witness <path>`` cross-checks:
 
 * a static LDT1403 orphan-read whose ``(msg, field)`` tuple the run
@@ -39,13 +43,15 @@ import.
 Knobs::
 
     LDT_WIRE_SANITIZER=1      # the protocol hooks start recording
-    LDT_WIRE_WITNESS_PATH=…   # dump target (default ./wire-witness.json)
+    LDT_WIRE_WITNESS_PATH=…   # dump target (default ./wire-witness-torch.json)
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import sys
 import _thread
 from typing import Dict, Optional, Set
 
@@ -66,7 +72,7 @@ __all__ = [
 
 ENV_FLAG = "LDT_WIRE_SANITIZER"
 ENV_PATH = "LDT_WIRE_WITNESS_PATH"
-DEFAULT_WITNESS_PATH = "wire-witness.json"
+DEFAULT_WITNESS_PATH = "wire-witness-torch.json"
 
 # Recorder state under a RAW lock (never the lock sanitizer's shim);
 # critical sections are counter bumps only, never I/O.
@@ -194,3 +200,16 @@ def dump(path: Optional[str] = None) -> str:
             pass
         raise
     return path
+
+
+def _dump_at_exit() -> None:
+    try:
+        path = dump()
+    except OSError as exc:
+        sys.stderr.write(f"[wiretrack] witness not written: {exc}\n")
+        return
+    sys.stderr.write(f"[wiretrack] witness written to {path}\n")
+
+
+if _enabled:
+    atexit.register(_dump_at_exit)

@@ -93,6 +93,39 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "lance_distributed_training_tpu_torch.parallel.sharding",
         "lance_distributed_training_tpu_torch.parallel.layout",
         "lance_distributed_training_tpu_torch.parallel.pipeline_parallel",
-    }
+        "lance_distributed_training_tpu_torch.utils.lockorder",
+        "lance_distributed_training_tpu_torch.utils.compiletrack",
+        "lance_distributed_training_tpu_torch.analysis",
+        "lance_distributed_training_tpu_torch.analysis.cli",
+        "lance_distributed_training_tpu_torch.analysis.concmodel",
+        "lance_distributed_training_tpu_torch.analysis.config",
+        "lance_distributed_training_tpu_torch.analysis.core",
+        "lance_distributed_training_tpu_torch.analysis.meshmodel",
+        "lance_distributed_training_tpu_torch.analysis.ownermodel",
+        "lance_distributed_training_tpu_torch.analysis.protomodel",
+        "lance_distributed_training_tpu_torch.analysis.reporters",
+        "lance_distributed_training_tpu_torch.analysis.rules",
+    } | {f"lance_distributed_training_tpu_torch.analysis.rules.{name}"
+         for name in _RULE_FILES}
     assert expected <= set(result["imported"])
     assert result["banned"] == []
+
+
+_RULE_FILES = ("compat", "concurrency", "copies", "determinism", "dispatch",
+               "graph", "jit_purity", "lockorder", "meshrules", "obs",
+               "ownership", "padding", "persistence", "placement",
+               "protocol", "purity", "resources", "sharedstate", "tunables",
+               "wireproto")
+
+
+def test_every_jax_module_has_a_counterpart_in_the_port():
+    """The two package trees hold the same modules, but for JAX's version
+    shim (``parallel/_compat.py``), which has nothing to port."""
+    def modules(package):
+        root = ROOT / package
+        return {p.relative_to(root).as_posix() for p in root.rglob("*.py")
+                if "__pycache__" not in p.parts}
+
+    missing = modules("lance_distributed_training_tpu") - modules(
+        "lance_distributed_training_tpu_torch")
+    assert missing == {"parallel/_compat.py"}

@@ -243,7 +243,17 @@ def test_first_step_from_the_checkpoint_equals_the_jax_task(
     """Both sides compute the trunk in float64, as
     ``tests/test_torch_classification.py`` does for its ``RTOL``: in f32,
     BatchNorm over the 8 values a channel sees in the last stage amplifies
-    the two sides' summation orders."""
+    the two sides' summation orders. Both decode with their native
+    decoders: the JAX one is built privately for this test, since its own
+    build links every process into one shared temp file, and a worker that
+    loses that race decodes with PIL (8.0e-3 off the port's first loss)."""
+    from lance_distributed_training_tpu.native import jpeg as jax_jpeg
+
+    monkeypatch.setattr(jax_jpeg, "_LIB_PATH", str(tmp_path / "jax_ldt.so"))
+    monkeypatch.setattr(jax_jpeg, "_lib", None)
+    monkeypatch.setattr(jax_jpeg, "_load_failed", False)
+    monkeypatch.delenv("LDT_DISABLE_NATIVE", raising=False)
+
     def resnet18_f64(**kw):
         model = resnet.resnet18(dtype=torch.float64, num_filters=WIDTH, **kw)
         model.to(torch.float64).fc.float()  # the head stays f32, as Flax's
@@ -254,6 +264,7 @@ def test_first_step_from_the_checkpoint_equals_the_jax_task(
     ckpt = _save(tmp_path / "ckpt.pt", _torchvision_state(), "state_dict",
                  "module.")
     result = trainer.train(_config(path, ckpt))
+    assert result["decoder_arm"] == "native" and jax_jpeg.native_available()
     # The JAX task on the imported variables and the same first batch.
     batch = next(iter(jax_make_train_pipeline(
         JaxDataset(path), "batch", BATCH, 0, 1,

@@ -173,14 +173,26 @@ def test_cli_without_device_cpu_raises_without_a_card(tmp_path, monkeypatch):
     ["check"],
     ["graph"],
 ])
-def test_cli_unported_surface_raises(tmp_path, argv):
-    path = _token_dataset(tmp_path)
-    if argv[0] in ("check", "graph"):
-        args = argv + ["--dataset_path", path]
-    else:
-        args = _cli_args(path, "--device", "cpu", *argv)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(args)
+def test_cli_unported_surface_raises(tmp_path, argv, capsys):
+    """``check`` and ``graph`` are ported: over a tree they return an exit
+    status (0: clean, a graph drawn). No subcommand is left unported: a
+    name neither CLI knows is a usage error of the train parser in both
+    (exit 2), as in JAX."""
+    from lance_distributed_training_tpu import cli as jax_cli
+
+    (tmp_path / "m.py").write_text(
+        "import threading\n\nLOCK = threading.Lock()\n")
+    assert cli.main(argv + ["--root", str(tmp_path), "m.py"]) == 0
+    out = capsys.readouterr().out
+    assert ("ldt check: clean [1 files]" if argv[0] == "check"
+            else "concurrency model over 1 files") in out
+    errors = []
+    for main in (cli.main, jax_cli.main):
+        with pytest.raises(SystemExit) as got:
+            main([f"{argv[0]}-all", "--root", str(tmp_path)])
+        assert got.value.code == 2
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errors[0] == errors[1] and "error:" in errors[0]
 
 
 def _imported_modules(path: Path):
