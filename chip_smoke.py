@@ -384,9 +384,9 @@ Phases, each printing one JSON line:
              beside the causal_lm phase's packed arm.
 25. parallel — the layouts beyond data parallelism, BERT-base masked-LM at
              full width (768/12/12/3072, vocabulary 30522, sequence 512,
-             global batch 32, the slice phase's corpus, 8 steps, the eval
-             at the end) through ``cli train`` as two ranks sharing the one
-             card: ``tp`` (``--model_parallelism 2 --flash_attention``),
+             global batch 32, the slice phase's first 192 rows, 6 steps,
+             the eval at the end) through ``cli train`` as two ranks
+             sharing the one card: ``tp`` (``--model_parallelism 2 --flash_attention``),
              ``fsdp`` (``--fsdp --flash_attention``), ``zero2`` (``--zero 2
              --grad_accum 2 --flash_attention``), ``ep`` (``--num_experts 8
              --model_parallelism 2 --flash_attention``) and ``pp``
@@ -417,12 +417,20 @@ Phases, each printing one JSON line:
              of at least PARALLEL_COS_MIN with the reference's (the
              smaller ones printed), flash's launches on each rank (12
              fwd, 12 dQ and 12 dK/dV a micro-step, at 6 heads under tp and
-             ep; plus the eval's forwards on rank 0; none under pp) and
-             each rank's bytes of parameters, optimizer moments and
-             accumulator equal to its plan's, below the replicated state's.
-             Every layout is
+             ep; plus 12 eval forwards for each global eval batch on every
+             rank, since every rank evaluates its data share's slice of
+             each; none under pp) and each rank's bytes of parameters,
+             optimizer moments and accumulator equal to its plan's, below
+             the replicated state's. The eval runs on both ranks under the
+             layout: both report the dataset's rows and the same accuracy,
+             within PARALLEL_EVAL_TOL relative of this process's eval of
+             the whole model on the layout's weights at the eval (gathered
+             there, collectively, by both ranks). Under ``fsdp`` each
+             rank's peaks of gathered parameters and of whole gradients
+             (``ShardedState.peaks``) are printed beside its peak memory
+             and held to the root unit plus two units. Every layout is
              printed before any is checked. Prints the step (the median of
-             steps 4-8), the valid tokens/s and each rank's peak memory:
+             steps 4-6), the valid tokens/s and each rank's peak memory:
              times of two ranks on one card over gloo, not of the layouts.
 
 26. analysis — the port's static checker and its runtime witnesses. In
@@ -4972,7 +4980,7 @@ PARALLEL_LAYOUTS = {
 }
 PARALLEL_RANKS = 2
 PARALLEL_MODEL, PARALLEL_DEVICE = "bert_base", "cuda"
-PARALLEL_STEPS = 8  # micro-steps a layout; its times are the staging's
+PARALLEL_STEPS = 6  # micro-steps a layout; its times are the staging's
 PARALLEL_FIRST = 3  # micro-batches recorded: up to one update and a step
 # Relative limits against the in-process data-parallel step (the module's
 # docstring): the losses before and after the first update, the first
@@ -4995,6 +5003,15 @@ PARALLEL_NORM_TOL = 1e-3
 # leaves (biases, LayerNorms, an expert's bias row fed by few tokens) read
 # as low as 0.91 there, so they are printed, not held.
 PARALLEL_COS_MIN = 0.8
+# The largest relative distance between a layout's eval accuracy (both
+# ranks') and this process's eval of the whole model on the same weights:
+# bf16 GEMMs split another way may flip the argmax of a masked position
+# whose two largest logits lie within rounding; one flip moves the
+# accuracy (about 0.17 over 192 rows of 18-73 masked positions) by at most
+# 2.9e-4, about 1.7e-3 of it, and the limit allows about three. On the
+# H100 the layouts read it within 1.2e-7 (the data shares' sums added in
+# another order).
+PARALLEL_EVAL_TOL = 5e-3
 PARALLEL_COS_NUMEL = 16384  # JAX's fsdp_min_size
 TP_SHAPE = (32, 6, 512, 64)  # flash's shape under --model_parallelism 2
 PROBE_OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
@@ -5153,6 +5170,7 @@ def call(self, batch, *args, **kwargs):
     # take their first step together); the first micro-batches; the first
     # micro-step's global gradient norm (--log_grad_norm); after the first
     # update the whole parameters again.
+    first["sharded"] = self.sharded
     if "state" not in first:
         state = self.sharded.full_params()
         first["state"] = ({k: v.cpu().clone() for k, v in state.items()}
@@ -5173,8 +5191,22 @@ def call(self, batch, *args, **kwargs):
     return loss
 
 
+_evaluate = trainer.evaluate
+
+
+def evaluate(*args, **kwargs):
+    # The whole parameters the eval reads (collective: every rank
+    # evaluates).
+    state = first["sharded"].full_params()
+    first["final"] = ({k: v.cpu().clone() for k, v in state.items()}
+                      if rank == 0 else None)
+    del state
+    return _evaluate(*args, **kwargs)
+
+
 tasks.draw_mlm_mask = draw
 trainer.TrainStep.__call__ = call
+trainer.evaluate = evaluate
 cuda = torch.cuda.is_available()
 for name, dump, argv in runs:
     first.clear()
@@ -5186,6 +5218,7 @@ for name, dump, argv in runs:
     result = cli.main(argv + ["--process_id", str(rank)])
     seconds = time.monotonic() - t0
     launches = {k: ops.LAUNCHES[k] for k in ops.LAUNCHES}
+    first.pop("sharded", None)
     torch.save(first, dump)
     fields = {k: result.get(k) for k in (
         "losses", "step_ms", "steps", "eval_accuracy", "eval_rows",
@@ -5263,9 +5296,12 @@ def _dp_reference(name: str, tmp: str) -> dict:
     global micro-batches (the data shares' rows in order, or the one share
     the ranks hold alike) and the ranks' masks; ``{"losses": the
     grad_accum + 1 micro-steps' losses (the last after the update),
-    "grad_norm": the first micro-step's global norm}``."""
+    "grad_norm": the first micro-step's global norm, "eval_accuracy" and
+    "eval_rows": the whole model's eval on the layout's weights at its
+    eval}``."""
     import torch
     from lance_distributed_training_tpu_torch import trainer
+    from lance_distributed_training_tpu_torch.data import Dataset
     from lance_distributed_training_tpu_torch.models import tasks
     from lance_distributed_training_tpu_torch.ops.flash import (
         make_flash_attention,
@@ -5302,10 +5338,26 @@ def _dp_reference(name: str, tmp: str) -> dict:
         if step.updates == 1 and cosines is None:
             cosines = _update_cosines(task.model, firsts[0]["state"],
                                       firsts[0]["updated"])
-    del task, step, optimizer, firsts
+    del step, optimizer
+    # The eval of the whole model on the layout's weights at its eval, over
+    # every row in this process.
+    task.model.load_state_dict(firsts[0]["final"])
+    config = trainer.TrainConfig(
+        dataset_path=os.path.join(tmp, "tokens"), task_type="masked_lm",
+        model_name=PARALLEL_MODEL, seq_len=s, batch_size=SHAPE[0],
+        device=PARALLEL_DEVICE)
+    decode = trainer._decoder_for(config, for_eval=True)
+    dataset = Dataset(config.dataset_path)
+    columns = getattr(decode, "required_columns", None)
+    loader = trainer._build_eval_loader(
+        config, dev, lambda idx: dataset.take(idx, columns=columns),
+        dataset.count_rows(), decode)
+    accuracy, rows = trainer.evaluate(loader, trainer.make_eval_step(task))
+    del task, firsts
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return {"losses": losses, "grad_norm": norm, "cosines": cosines}
+    return {"losses": losses, "grad_norm": norm, "cosines": cosines,
+            "eval_accuracy": accuracy, "eval_rows": rows}
 
 
 def _update_cosines(model, before: dict, layout_after: dict) -> dict:
@@ -5396,7 +5448,9 @@ def parallel_run() -> dict:
     probed = probe_collectives()
     tp_errors = _tp_shard_flash()
     b, _, s, _ = SHAPE
-    lengths, docs = _slice_docs()
+    # The slice corpus's first PARALLEL_STEPS batches: the rows the runs
+    # train on, and those their eval reads (every rank evaluates now).
+    lengths, docs = (part[:b * PARALLEL_STEPS] for part in _slice_docs())
     rows = len(docs)
     valid_tokens = int(sum(min(int(n), s) for n in lengths))
     eval_batches = -(-rows // b)
@@ -5431,15 +5485,23 @@ def parallel_run() -> dict:
                                           for r in ranks),
                 **_cosine_fields(ref["cosines"]),
                 "last5_mean_loss": statistics.fmean(losses[-5:]),
-                "losses": losses, "step_ms_median_4_8": step_ms,
-                "valid_tokens_per_sec": valid_tokens / STEPS
+                "losses": losses, "step_ms_median_4_6": step_ms,
+                "valid_tokens_per_sec": valid_tokens / PARALLEL_STEPS
                 / (step_ms / 1e3),
-                "eval_masked_token_accuracy": r0["eval_accuracy"],
-                "eval_rows": r0["eval_rows"], "dataset_rows": rows,
+                "eval_masked_token_accuracy": [r["eval_accuracy"]
+                                               for r in ranks],
+                "dp_eval_masked_token_accuracy": ref["eval_accuracy"],
+                "eval_rel_diff": max(_rel(r["eval_accuracy"],
+                                          ref["eval_accuracy"])
+                                     for r in ranks),
+                "eval_rows": [r["eval_rows"] for r in ranks],
+                "dp_eval_rows": ref["eval_rows"], "dataset_rows": rows,
                 "launches": [{k: v for k, v in r["launches"].items() if v}
                              for r in ranks],
                 "peak_memory_allocated_bytes": [r["peak"] for r in ranks],
                 "held_bytes": [r["parallel"]["held_bytes"] for r in ranks],
+                "peak_bytes": [r["parallel"]["peak_bytes"] for r in ranks],
+                "fsdp_unit_bytes": r0["parallel"]["fsdp_unit_bytes"],
                 "plan_bytes": [r["parallel"]["plan_bytes"] for r in ranks],
                 "replicated_bytes": r0["parallel"]["replicated_bytes"],
                 "seconds": r0["seconds"],
@@ -5471,9 +5533,30 @@ def _check_parallel(name: str, ranks: list, fields: dict,
     _check_trained(phase, fields, PARALLEL_STEPS)
     if any(r["losses"] != fields["losses"] for r in ranks):
         raise RuntimeError(f"{phase}: the ranks logged different losses")
-    if fields["eval_rows"] != fields["dataset_rows"]:
-        raise RuntimeError(f"{phase}: eval covered {fields['eval_rows']} of "
+    if any(n != fields["dataset_rows"] for n in fields["eval_rows"]
+           + [fields["dp_eval_rows"]]):
+        raise RuntimeError(f"{phase}: eval covered {fields['eval_rows']} "
+                           f"(whole model: {fields['dp_eval_rows']}) of "
                            f"{fields['dataset_rows']} rows")
+    accuracy = fields["eval_masked_token_accuracy"]
+    if len(set(accuracy)) != 1:
+        raise RuntimeError(f"{phase}: the ranks' eval accuracies differ: "
+                           f"{accuracy}")
+    if not fields["eval_rel_diff"] <= PARALLEL_EVAL_TOL:
+        raise RuntimeError(f"{phase}: eval accuracy {accuracy[0]} vs the "
+                           f"whole model's "
+                           f"{fields['dp_eval_masked_token_accuracy']} "
+                           f"(limit {PARALLEL_EVAL_TOL} relative)")
+    if "--fsdp" in PARALLEL_LAYOUTS[name]:
+        units = fields["fsdp_unit_bytes"]
+        bound = units["root"] + 2 * units["largest"]
+        for rank, peaks in enumerate(fields["peak_bytes"]):
+            for key in ("gathered_params", "whole_grads"):
+                if not 0 < peaks[key] <= bound:
+                    raise RuntimeError(
+                        f"{phase}: rank {rank} {key} peak {peaks[key]} "
+                        f"bytes, bound {bound} (root {units['root']} + 2 x "
+                        f"unit {units['largest']})")
     for key, tol in (("first_loss", PARALLEL_LOSS_TOL),
                      ("updated_loss", PARALLEL_LOSS_TOL),
                      ("grad_norm", PARALLEL_NORM_TOL)):
@@ -5489,7 +5572,9 @@ def _check_parallel(name: str, ranks: list, fields: dict,
     flash_on = "--flash_attention" in PARALLEL_LAYOUTS[name]
     per_step = LAYERS * PARALLEL_STEPS if flash_on else 0
     for rank, r in enumerate(ranks):
-        evals = LAYERS * eval_batches if flash_on and rank == 0 else 0
+        # Every rank evaluates its data share's slice of each global eval
+        # batch: LAYERS forwards a batch on each.
+        evals = LAYERS * eval_batches if flash_on else 0
         want = {"fwd": per_step + evals, "bwd_dq": per_step,
                 "bwd_dkv": per_step}
         got = {k: r["launches"][k] for k in want}

@@ -24,8 +24,8 @@ per-expert counts, offsets its queue positions by the counts of the lower
 ranks, takes the capacity from the global token count and the load-balance
 fractions from the global counts. Its share of the term is scaled by the
 group's size, so that the mean over processes is the global term and DDP's
-mean of the gradients is its gradient. In eval mode (one process evaluates
-the whole global batch) the module routes alone.
+mean of the gradients is its gradient. The eval routes alike: every
+process evaluates its share of each global eval batch.
 
 On a ring of processes (``seq_parts > 1``: the group's ranks, in order,
 are ``data_index * seq_parts + seq_index`` and each holds sequence block
@@ -115,7 +115,7 @@ class MoEMLP(nn.Module):
         """``(queue offset [E, T] of each local token, global counts [E],
         processes)`` for the local running counts ``running [E, T]`` of
         ``rows`` rows (the local tokens in row-major order)."""
-        group = self.process_group if self.training else None
+        group = self.process_group
         if group is None:
             return torch.zeros_like(running[:, :1]), running[:, -1], 1
         e, t = running.shape
@@ -190,8 +190,8 @@ class MoEMLP(nn.Module):
 
 
 def set_moe_group(model: nn.Module, group, seq_parts: int = 1) -> None:
-    """Route ``model``'s MoE layers over ``group``'s global batch in
-    training (``None``: this process's batch); ``seq_parts`` ring
+    """Route ``model``'s MoE layers over ``group``'s global batch
+    (``None``: this process's batch); ``seq_parts`` ring
     positions split each row of a data share (the module's docstring)."""
     for module in model.modules():
         if isinstance(module, MoEMLP):

@@ -52,6 +52,7 @@ from .vit import vit_base, vit_small, vit_tiny
 
 __all__ = ["Task", "get_task", "classification_task", "masked_lm_task",
            "causal_lm_task", "contrastive_task", "draw_mlm_mask",
+           "eval_mlm_mask",
            "pipelined_masked_lm_task", "PipelinedMaskedLM", "TASK_REGISTRY"]
 
 TASK_REGISTRY = ("classification", "masked_lm", "causal_lm", "contrastive")
@@ -157,6 +158,15 @@ def draw_mlm_mask(batch, generator: torch.Generator) -> torch.Tensor:
     return (draw < MASK_PROB) & (batch["attention_mask"] > 0)
 
 
+def eval_mlm_mask(batch) -> torch.Tensor:
+    """The eval MLM mask of a batch: every ~1/MASK_PROB-th column of the
+    valid positions, deterministically."""
+    ids = batch["input_ids"]
+    stride = max(int(round(1.0 / MASK_PROB)), 1)
+    positions = torch.arange(ids.shape[1], device=ids.device)
+    return ((positions % stride) == 0)[None, :] & (batch["attention_mask"] > 0)
+
+
 def _with_aux(loss: torch.Tensor, model) -> torch.Tensor:
     """The loss plus the weighted load-balance terms of ``model``'s MoE
     layers from their last forward, in training only (the JAX task collects
@@ -177,15 +187,11 @@ def masked_lm_task(model, loss_group=None) -> Task:
     def forward(batch, train: bool, generator: Optional[torch.Generator] = None,
                 mlm_mask: Optional[torch.Tensor] = None):
         ids = batch["input_ids"].long()
-        valid = batch["attention_mask"] > 0
         if mlm_mask is None:
             if train and generator is not None:
                 mlm_mask = draw_mlm_mask(batch, generator)
             else:
-                # Eval: every ~1/MASK_PROB-th position, deterministically.
-                stride = max(int(round(1.0 / MASK_PROB)), 1)
-                positions = torch.arange(ids.shape[1], device=ids.device)
-                mlm_mask = ((positions % stride) == 0)[None, :] & valid
+                mlm_mask = eval_mlm_mask(batch)
         mlm_mask = mlm_mask.to(device=ids.device, dtype=torch.bool)
         corrupted = torch.where(mlm_mask, torch.full_like(ids, MASK_ID), ids)
         model.train(train)
@@ -207,12 +213,18 @@ def masked_lm_task(model, loss_group=None) -> Task:
             _weighted_mean(raw, mlm_mask.reshape(-1).float(), loss_group),
             model)
 
-    def metric(outputs, batch):
+    def metric(outputs, batch, seq_group=None):
+        # On a ring of processes (``seq_group``) each holds a sequence
+        # block of the rows: the per-row sums are the ring's.
         logits, mlm_mask = outputs
         hit = (vocab_argmax(logits, model)
                == batch["input_ids"].long()).float()
         w = mlm_mask.float()
-        return (hit * w).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
+        hits, count = (hit * w).sum(-1), w.sum(-1)
+        if seq_group is not None:
+            hits, count = comm.all_reduce(torch.stack([hits, count]),
+                                          seq_group).unbind()
+        return hits / torch.clamp(count, min=1.0)
 
     return Task("masked_lm", model, forward, loss, metric,
                 metric_name="masked_token_accuracy",
@@ -436,7 +448,9 @@ def contrastive_task(model, augment: bool = True, loss_group=None) -> Task:
     images as for classification, the model gives both unit embeddings
     and the scale; the loss is :func:`~.clip.clip_contrastive_loss` over
     ``loss_group``'s global batch, the metric ``retrieval_top1`` (per
-    image, over the batch's captions)."""
+    image, over the global batch's captions: under ``loss_group`` both
+    embeddings are gathered first and each process keeps its own
+    images' hits)."""
 
     def forward(batch, train: bool, generator: Optional[torch.Generator] = None,
                 flip_mask: Optional[torch.Tensor] = None):
@@ -449,7 +463,13 @@ def contrastive_task(model, augment: bool = True, loss_group=None) -> Task:
 
     def metric(outputs, batch):
         img_emb, txt_emb, _scale = outputs
-        return retrieval_top1(img_emb, txt_emb)
+        if loss_group is None:
+            return retrieval_top1(img_emb, txt_emb)
+        rows = img_emb.shape[0]
+        lo = dist.get_rank(loss_group) * rows
+        hits = retrieval_top1(comm.all_gather(img_emb, loss_group),
+                              comm.all_gather(txt_emb, loss_group))
+        return hits[lo:lo + rows]
 
     return Task("contrastive", model, forward, loss, metric,
                 metric_name="retrieval_top1",

@@ -15,13 +15,21 @@ values, and the losses track the data-parallel run's.
 * ``'data'`` under ``fsdp``: :class:`ShardedState` keeps each large
   parameter's block (a leaf of at least 16384 elements, its largest
   divisible dimension, as JAX ``_fsdp_spec``) as the persistent tensor the
-  optimizer updates. Before a micro-step's forward the blocks are
-  all-gathered into the module's parameters; after its backward the
-  gradients are reduce-scattered into the blocks' layout and the gathered
-  parameters are freed. (The gather is one per parameter a micro-step,
-  not per layer in the forward and again in the backward as FSDP2's
-  hooks do: the peak holds the whole model, the state between steps only
-  the blocks.)
+  optimizer updates, and gathers the whole parameters unit by unit, as
+  FSDP2 does: a unit is an encoder block, a ResNet block or a ViT block
+  (:func:`fsdp_units`), and the root unit is every other large leaf (the
+  embeddings, the tied head, the final norms and projections). The root
+  is gathered for the whole micro-step. A unit's leaves are all-gathered
+  into the module's parameters before its forward and freed after it
+  (the storage resized to nothing, so that what autograd saved of them
+  refills with them); they are gathered again before its backward (a
+  hook on its output's gradient), which also covers ``--remat``'s
+  recomputation, and once its gradients are complete they are
+  reduce-scattered into the blocks' layout and freed. The root's
+  gradients, the tied ``tok_embed``'s two contributions among them, are
+  reduce-scattered after the whole backward. A rank thus holds at most
+  the root and two units whole, of the parameters and of the unscattered
+  gradients; :attr:`ShardedState.peaks` counts both.
 * ``'data'`` under ZeRO: the parameters stay whole in the module; the
   optimizer updates a view of this rank's block of each large parameter,
   so its moments are blocks. Level 1 keeps the accumulator whole (each
@@ -37,21 +45,27 @@ of clipping is the norm of the whole logical gradient: each split leaf's
 squared norm is summed over its group first. :meth:`ShardedState.full_state`
 gathers the whole state in the data-parallel format (the module's
 ``state_dict`` names, the optimizer's ``state_dict``, the accumulator
-list), which checkpoints hold and a data-parallel run restores;
-:meth:`ShardedState.load_full_state` takes a rank's blocks from it.
+list) on every rank; :meth:`ShardedState.host_state` gathers the same
+format to rank 0's host one leaf at a time (a checkpoint: no rank's
+device holds more than its blocks and one gathered leaf), and
+:meth:`ShardedState.load_full_state` cuts a rank's blocks from it on the
+host and moves only the blocks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
+from functools import partial
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from . import comm
 
-__all__ = ["shard_model_", "ShardedState", "block_of"]
+__all__ = ["shard_model_", "ShardedState", "block_of", "fsdp_units"]
 
 
 def block_of(t: torch.Tensor, dim: int, index: int, parts: int):
@@ -133,7 +147,43 @@ def shard_model_(model: nn.Module, plan: dict, topo) -> None:
             module.data = topo.size["data"]
 
 
-@dataclasses.dataclass
+def fsdp_units(model: nn.Module) -> list:
+    """``[(prefix, module)]``: the modules whose large leaves ``fsdp``
+    gathers together, in the model's module order: each encoder block
+    (the text encoders' and the ViTs') and each ResNet block (a CLIP's
+    towers included). Everything else is the root unit."""
+    from ..models.resnet import BasicBlock, BottleneckBlock
+    from ..models.transformer import EncoderBlock
+
+    return [(f"{name}.", module) for name, module in model.named_modules()
+            if isinstance(module, (EncoderBlock, BasicBlock,
+                                   BottleneckBlock))]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _hook(ref, method: str, *args):
+    """A :class:`ShardedState` hook, through the weak reference ``ref``
+    (a no-op once the state is gone)."""
+    state = ref()
+    return None if state is None else getattr(state, method)(*args)
+
+
+@dataclasses.dataclass(eq=False)
+class _Unit:
+    """The fsdp leaves gathered together (``module`` ``None``: the
+    root), with their indices among the state's entries."""
+    module: Optional[nn.Module]
+    entries: list
+    indices: list
+    nbytes: int
+    gathered: bool = False
+    ready: int = 0  # leaves whose gradient of this backward is complete
+
+
+@dataclasses.dataclass(eq=False)
 class _Entry:
     name: str
     param: nn.Parameter  # the module's (a local block under model/pipe)
@@ -166,7 +216,7 @@ class ShardedState:
                     and moment[0] == "data")
             if shard:
                 master = nn.Parameter(self._block(p.data, layout).clone())
-                p.data = p.data.new_empty(0)
+                p.untyped_storage().resize_(0)
                 master_layout = layout
             elif view:
                 master = self._block(p.data, moment)
@@ -181,6 +231,16 @@ class ShardedState:
             self.entries.append(_Entry(name, p, master, master_layout, shard,
                                        view, reduce_layout, accum))
         self.masters = [e.master for e in self.entries]
+        self.peaks = {"gathered_params": 0, "whole_grads": 0,
+                      "checkpoint_leaf": 0}
+        self._live = {"gathered_params": 0, "whole_grads": 0}
+        self._reduced: dict = {}  # entry index -> its reduced gradient
+        self._counted: set = set()  # entries whose whole gradient is live
+        self.units: list = []
+        self.root: Optional[_Unit] = None
+        self._active = False
+        if any(e.shard for e in self.entries):
+            self._build_units()
 
     # ----------------------------------------------------------- layouts
 
@@ -215,40 +275,167 @@ class ShardedState:
 
     # ------------------------------------------------------------ a step
 
-    def gather_params(self) -> None:
-        """fsdp: every parameter whole in the module for the forward."""
-        for e in self.entries:
+    # ------------------------------------------------------ fsdp units
+
+    def _build_units(self) -> None:
+        """The units of :func:`fsdp_units` that hold fsdp leaves, with
+        their hooks, and the root of the rest."""
+        index = {e.name: i for i, e in enumerate(self.entries)}
+        taken = set()
+        # The hooks reach this state through a weak reference and name
+        # units by index: a parameter's hook lives in the tensor's C++
+        # autograd metadata, where a strong reference back to the model
+        # would make a cycle the garbage collector cannot see.
+        ref = weakref.ref(self)
+        for prefix, module in fsdp_units(self.model):
+            mine = [index[prefix + n] for n, _ in module.named_parameters()
+                    if self.entries[index[prefix + n]].shard]
+            if not mine:
+                continue
+            taken.update(mine)
+            u = len(self.units)
+            module.register_forward_pre_hook(
+                partial(_hook, ref, "_pre_forward", u))
+            module.register_forward_hook(
+                partial(_hook, ref, "_post_forward", u))
+            self.units.append(self._unit(module, mine))
+        self.root = self._unit(None, [i for i, e in enumerate(self.entries)
+                                      if e.shard and i not in taken])
+        owner = {i: u for u, unit in enumerate(self.units)
+                 for i in unit.indices}
+        for i, e in enumerate(self.entries):
             if e.shard:
-                e.param.data = self._gather(e.master.data, e.master_layout)
+                e.param.register_post_accumulate_grad_hook(
+                    partial(_hook, ref, "_grad_ready", owner.get(i), i))
+
+    def _unit(self, module, indices: list) -> _Unit:
+        entries = [self.entries[i] for i in indices]
+        return _Unit(module, entries, indices,
+                     sum(_nbytes(e.param) for e in entries))
+
+    def _count(self, key: str, delta: int) -> None:
+        self._live[key] += delta
+        self.peaks[key] = max(self.peaks[key], self._live[key])
+
+    def _fill(self, unit: _Unit) -> None:
+        """The unit's whole leaves back in the module's parameters: each
+        block all-gathered into the parameter's own storage, so that the
+        tensors autograd saved of it hold the values again."""
+        if unit.gathered:
+            return
+        for e in unit.entries:
+            full = self._gather(e.master.data, e.master_layout)
+            storage = e.param.untyped_storage()
+            if storage.nbytes() != _nbytes(full):
+                storage.resize_(_nbytes(full))
+            e.param.data.copy_(full)
+            del full
+        unit.gathered = True
+        self._count("gathered_params", unit.nbytes)
+
+    def _free(self, unit: _Unit) -> None:
+        if not unit.gathered:
+            return
+        for e in unit.entries:
+            e.param.untyped_storage().resize_(0)
+        unit.gathered = False
+        self._count("gathered_params", -unit.nbytes)
+
+    def _pre_forward(self, u: int, module, args) -> None:
+        if self._active:
+            self._fill(self.units[u])
+
+    def _post_forward(self, u: int, module, args, output) -> None:
+        """Free the unit after its forward, and gather it again before its
+        backward. A forward inside the backward is ``--remat``'s
+        recomputation: its leaves stay for the backward that follows."""
+        if not self._active or torch._C._current_graph_task_id() != -1:
+            return
+        self._free(self.units[u])
+        if (torch.is_grad_enabled() and isinstance(output, torch.Tensor)
+                and output.requires_grad):
+            output.register_hook(partial(_hook, weakref.ref(self),
+                                         "_pre_backward", u))
+
+    def _pre_backward(self, u: int, grad) -> None:
+        self._fill(self.units[u])
+
+    def _grad_ready(self, u: Optional[int], i: int, param) -> None:
+        """A leaf's gradient of this backward is complete: counted whole;
+        the unit's last one reduce-scatters them all, in parameter order,
+        and frees the unit (the root's wait for :meth:`reduce_grads`)."""
+        if i not in self._counted:
+            self._counted.add(i)
+            self._count("whole_grads", _nbytes(param.grad))
+        if u is None:
+            return
+        unit = self.units[u]
+        unit.ready += 1
+        if unit.ready < len(unit.entries):
+            return
+        unit.ready = 0
+        for j, e in zip(unit.indices, unit.entries):
+            self._reduced[j] = self._reduce(e, e.param.grad)
+            self._count("whole_grads", -_nbytes(e.param.grad))
+            self._counted.discard(j)
+            e.param.grad = None
+        self._free(unit)
+
+    # ------------------------------------------------------------ a step
+
+    def gather_params(self) -> None:
+        """fsdp: the root unit whole in the module for the micro-step (the
+        units gather at their own forwards)."""
+        if self.root is not None:
+            self._active = True
+            self._fill(self.root)
+
+    def release_params(self) -> None:
+        """fsdp: every gathered leaf freed (after an eval)."""
+        if self.root is not None:
+            for unit in self.units + [self.root]:
+                self._free(unit)
+
+    def _reduce(self, e: _Entry, g: torch.Tensor) -> torch.Tensor:
+        """One micro-step gradient averaged over the batch group, in the
+        entry's reduce layout."""
+        topo = self.topo
+        n = topo.batch_size
+        data = (e.reduce_layout is not None
+                and e.reduce_layout[0] == "data")
+        if n > 1:
+            if data:
+                if topo.group["seq"] is not None:
+                    g = comm.all_reduce(g, topo.group["seq"])
+                return comm.reduce_scatter(g, topo.group["data"],
+                                           e.reduce_layout[1]) / n
+            return comm.all_reduce(g, topo.batch_group) / n
+        return self._block(g, e.reduce_layout) if data else g
 
     def reduce_grads(self) -> list:
         """The micro-step's gradients averaged over the batch group, each
         in its reduce layout (a block along the data axis where the
         accumulator, or without one the master, is a block); the module's
-        gradients and fsdp's gathered parameters are freed."""
-        topo = self.topo
-        n = topo.batch_size
-        seq = topo.group["seq"]
+        gradients and fsdp's gathered parameters are freed. The units'
+        fsdp gradients were reduced as each unit's backward ended; the
+        rest are reduced here, in parameter order."""
         out = []
-        for e in self.entries:
+        for i, e in enumerate(self.entries):
+            if i in self._reduced:
+                out.append(self._reduced.pop(i))
+                continue
             g = e.param.grad
             if g is None:
                 g = torch.zeros(e.param.shape, dtype=e.param.dtype,
                                 device=e.param.device)
-            if n > 1:
-                if e.reduce_layout is not None and e.reduce_layout[0] == "data":
-                    if seq is not None:
-                        g = comm.all_reduce(g, seq)
-                    g = comm.reduce_scatter(g, topo.group["data"],
-                                            e.reduce_layout[1]) / n
-                else:
-                    g = comm.all_reduce(g, topo.batch_group) / n
-            elif e.reduce_layout is not None and e.reduce_layout[0] == "data":
-                g = self._block(g, e.reduce_layout)
-            out.append(g)
+            out.append(self._reduce(e, g))
             e.param.grad = None
-            if e.shard:
-                e.param.data = e.param.data.new_empty(0)
+        if self.root is not None:
+            self.release_params()
+            self._counted.clear()
+            self._live["whole_grads"] = 0
+            for unit in self.units:
+                unit.ready = 0
         return out
 
     def set_master_grads(self, grads: list, layouts: str = "reduce") -> None:
@@ -289,25 +476,21 @@ class ShardedState:
 
     # --------------------------------------------------- whole state
 
-    def full_params(self) -> dict:
-        """The whole model's ``state_dict`` (the parameters gathered, the
-        buffers as they are). Collective: every rank calls it; every rank
-        gets it."""
-        state = {}
-        for e in self.entries:
-            if e.shard:
-                state[e.name] = self._gather(e.master.data, e.master_layout)
-            else:
-                state[e.name] = self._gather(e.param.data, self.plan[
-                    e.name].param)
-        return {key: state.get(key, value)
-                for key, value in self.model.state_dict().items()}
-
-    def full_state(self, optimizer, accum: Optional[list]) -> tuple:
-        """``(model state_dict, optimizer state_dict, accumulator list)``
-        of the whole state in the data-parallel format. Collective: every
-        rank calls it; every rank gets it."""
-        full_sd = self.full_params()
+    def _whole(self, leaf, optimizer=None, accum: Optional[list] = None):
+        """The whole state in the data-parallel format, each leaf through
+        ``leaf(tensor, layout)`` (its block and the layout it is a block
+        of, or ``None``), in one fixed order on every rank: the
+        parameters, the buffers, each optimizer tensor, the accumulator.
+        The model's ``state_dict`` alone without ``optimizer``, else
+        ``(model state_dict, optimizer state_dict, accumulator list)``."""
+        params = {e.name: (leaf(e.master.data, e.master_layout) if e.shard
+                           else leaf(e.param.data,
+                                     self.plan[e.name].param))
+                  for e in self.entries}
+        model = {key: params[key] if key in params else leaf(value, None)
+                 for key, value in self.model.state_dict().items()}
+        if optimizer is None:
+            return model
         opt = optimizer.state_dict()
         opt_state = {}
         for i, e in enumerate(self.entries):
@@ -315,23 +498,64 @@ class ShardedState:
             if saved is None:
                 continue
             opt_state[i] = {
-                k: (self._gather(v, e.master_layout)
-                    if torch.is_tensor(v) and v.dim() > 0 else v)
+                k: (leaf(v, e.master_layout if v.dim() > 0 else None)
+                    if torch.is_tensor(v) else v)
                 for k, v in saved.items()}
-        full_opt = {"state": opt_state, "param_groups": opt["param_groups"]}
         full_accum = None
         if accum is not None:
-            full_accum = [self._gather(a, self._accum_held(e))
+            full_accum = [leaf(a, self._accum_held(e))
                           for e, a in zip(self.entries, accum)]
-        return full_sd, full_opt, full_accum
+        return (model, {"state": opt_state,
+                        "param_groups": opt["param_groups"]}, full_accum)
+
+    def full_params(self) -> dict:
+        """The whole model's ``state_dict`` (the parameters gathered, the
+        buffers as they are). Collective: every rank calls it; every rank
+        gets it."""
+        return self._whole(self._gather)
+
+    def full_state(self, optimizer, accum: Optional[list]) -> tuple:
+        """``(model state_dict, optimizer state_dict, accumulator list)``
+        of the whole state in the data-parallel format. Collective: every
+        rank calls it; every rank gets it."""
+        return self._whole(self._gather, optimizer, accum)
+
+    def _leaf_to_host(self, t: torch.Tensor, layout) -> Optional[torch.Tensor]:
+        """The whole leaf whose block under ``layout`` is ``t``, on rank
+        0's host (``None`` elsewhere): gathered over the group of rank 0
+        along the layout's axis (the other groups hold replicas and send
+        nothing), or rank 0's own copy of a replicated leaf."""
+        me = dist.get_rank() if dist.is_initialized() else 0
+        if layout is None or self.topo.size[layout[0]] == 1:
+            return t.detach().cpu() if me == 0 else None  # ldt: ignore[LDT1714] -- a checkpoint's leaf, bound for the host
+        axis, dim = layout
+        if 0 not in self.topo.ranks[axis]:
+            return None
+        whole = comm.gather_to_host(t.detach(), self.topo.group[axis], 0,
+                                    dim)
+        if whole is not None:
+            self.peaks["checkpoint_leaf"] = max(
+                self.peaks["checkpoint_leaf"], _nbytes(whole))
+        return whole
+
+    def host_state(self, optimizer, accum: Optional[list]):
+        """:meth:`full_state` on rank 0's host, ``None`` on the other
+        ranks, gathered one leaf at a time: rank 0 copies each whole leaf
+        to its host before the next is gathered, so that no rank's device
+        holds more than its blocks and one gathered leaf. Collective:
+        every rank calls it."""
+        whole = self._whole(self._leaf_to_host, optimizer, accum)
+        me = dist.get_rank() if dist.is_initialized() else 0
+        return whole if me == 0 else None
 
     def load_full_state(self, model_state: dict, optimizer, opt_state: dict,
                         accum: Optional[list], saved_accum) -> None:
         """This rank's blocks of a whole state (:meth:`full_state`'s
-        format) into the model, the optimizer and ``accum``."""
+        format, on the host) into the model, the optimizer and ``accum``:
+        each block is cut on the host and only the block moves."""
         with torch.no_grad():
             for e in self.entries:
-                full = model_state[e.name].to(e.master.device)
+                full = model_state[e.name]
                 leaf = self.plan[e.name].param
                 if e.shard:
                     e.master.data.copy_(self._block(full, e.master_layout))
@@ -356,16 +580,28 @@ class ShardedState:
             with torch.no_grad():
                 for e, acc, full in zip(self.entries, accum, saved_accum):
                     layout = self._accum_held(e)
-                    full = full.to(acc.device)
                     acc.copy_(full if layout is None or self.topo.size[
                         layout[0]] == 1 else self._block(full, layout))
 
     def materialize(self) -> None:
-        """fsdp: the whole parameters back in the module (after training,
-        so that the returned model holds them)."""
-        for e in self.entries:
-            if e.shard:
-                e.param.data = self._gather(e.master.data, e.master_layout)
+        """fsdp: the whole parameters back in the module for good (after
+        training, so that the returned model holds them; the units' hooks
+        stop gathering and freeing)."""
+        if self.root is not None:
+            for unit in self.units + [self.root]:
+                self._fill(unit)
+            self._active = False
+
+    def unit_bytes(self) -> dict:
+        """fsdp: the whole bytes of the root unit and of the largest
+        unit, and the number of units; the bound of :attr:`peaks`'
+        gathered parameters and whole gradients is ``root + 2 *
+        largest``."""
+        if self.root is None:
+            return {"root": 0, "largest": 0, "units": 0}
+        return {"root": self.root.nbytes,
+                "largest": max((u.nbytes for u in self.units), default=0),
+                "units": len(self.units)}
 
     def held_bytes(self, optimizer, accum: Optional[list]) -> dict:
         """The bytes this rank holds between steps: its parameters (fsdp:

@@ -33,7 +33,6 @@ agree bit for bit.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -216,9 +215,8 @@ class RingAttention:
     """``attention_fn(q, k, v, mask=None, dtype=None)`` for
     :class:`..models.transformer.SelfAttention`, the counterpart of what
     JAX's ``make_ring_attention`` returns. With a :class:`ProcessRing`, q/k/v
-    are this process's sequence block; otherwise (and inside
-    :meth:`whole_sequence`) they are the whole sequence, folded by an
-    :class:`InProcessRing` of ``size``. On the CPU a sequence that does
+    are this process's sequence block; otherwise they are the whole
+    sequence, folded by an :class:`InProcessRing` of ``size``. On the CPU a sequence that does
     not split into ``size`` blocks takes exact dense attention, as JAX's
     does; on the card it raises, since the trainer never makes one and K5
     is the only attention this path may run there."""
@@ -229,20 +227,9 @@ class RingAttention:
                              f"seq_parallelism {size}")
         self.size = size
         self.ring = ring
-        self._whole = False
-
-    @contextlib.contextmanager
-    def whole_sequence(self):
-        """Fold whole sequences in this process while the block is open
-        (rank 0's eval), whatever the process ring."""
-        saved, self._whole = self._whole, True
-        try:
-            yield self
-        finally:
-            self._whole = saved
 
     def __call__(self, q, k, v, mask=None, dtype=None):
-        ring = None if self._whole else self.ring
+        ring = self.ring
         if ring is None:
             if q.shape[2] % self.size:
                 if q.device.type != "cpu":

@@ -44,8 +44,9 @@ device. Across processes the ranks form JAX's ``('data', 'seq')`` mesh,
 data outermost: the members of one ring read the same rows (sampler rank =
 data index), share one MLM mask draw (seeded by the data index), and each
 trains on its sequence block with its global ``position_ids``, the key and
-value blocks passing between them; DDP spans the world. Rank 0 evaluates
-alone, folding whole sequences in its process.
+value blocks passing between them; DDP spans the world. The eval runs on
+the ring too: each member folds its block of the rows under the whole
+rows' eval mask.
 
 Beyond DP, as the JAX trainer (``model_parallelism``, ``fsdp``,
 ``zero_opt`` 1/2, ``pipeline_parallelism`` with ``pp_microbatches``, and
@@ -53,10 +54,15 @@ Beyond DP, as the JAX trainer (``model_parallelism``, ``fsdp``,
 form JAX's ``(data, model, seq, pipe)`` mesh (``parallel/comm.Topology``),
 a rank reads its data index's share, the plan of ``parallel/sharding.py``
 lays out the whole model built alike on every rank, and the sharded state
-of ``parallel/layout.py`` replaces DDP. The eval at the end gathers the
-whole parameters (not the optimizer's state) into a whole model on rank
-0, which evaluates it alone; a checkpoint holds the whole state in the
-data-parallel format, gathered on every rank.
+of ``parallel/layout.py`` replaces DDP; under ``fsdp`` it gathers the
+parameters block by block (encoder, ResNet and ViT blocks) in the forward
+and again in the backward. The eval runs on every rank, DDP included,
+under the run's layout, as JAX's sharded eval step: each data share reads
+its slice of every global eval batch (the ranks of one model group, ring
+or pipeline the same slice) and the ``(sum, count)`` pairs are summed over
+the data shares, so that every rank returns the whole eval's accuracy. A
+checkpoint holds the whole state in the data-parallel format, gathered
+to rank 0's host one leaf at a time.
 
 Beyond the main path, as the JAX trainer: gradient accumulation
 (``grad_accum``, ``optax.MultiSteps``' semantics in :class:`TrainStep`),
@@ -120,7 +126,6 @@ when no card is present rather than falling back to the CPU.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import os
@@ -150,7 +155,7 @@ from .data.token_pack import TokenPackConfig, is_ragged_batch, pack_meta
 from .models.pretrained import load_torch_state_dict, load_torchvision_resnet
 from .obs.registry import default_registry
 from .models.resnet import set_sync_group
-from .models.tasks import Task, draw_mlm_mask, get_task
+from .models.tasks import Task, draw_mlm_mask, eval_mlm_mask, get_task
 from .ops.flash import make_flash_attention
 from .ops.jpeg_device import make_batch_transform
 from .ops.token_device import make_pack_transform
@@ -271,9 +276,9 @@ class TrainConfig:
     shuffle: bool = False  # epoch batch-order reshuffle (batch sampler and
     # the iterable folder arm; the map-style loader always reshuffles rows)
     augment: bool = True  # per-image horizontal flip, p = 0.5 (image tasks)
-    eval_at_end: bool = True  # process 0 evaluates every row of the eval
-    # data once after training: the val split, else the train pool, else
-    # the val dataset (make_eval_pipeline; text: the padded arm)
+    eval_at_end: bool = True  # every row of the eval data once after
+    # training, split over the data shares: the val split, else the train
+    # pool, else the val dataset (make_eval_pipeline; text: the padded arm)
     eval_every: int = 0  # >0: eval every N epochs (val_acc in the history)
     seed: int = 0
     log_every: int = 50
@@ -590,11 +595,14 @@ def make_train_step(task: Task, optimizer: torch.optim.Optimizer,
                      fold_times, sharded)
 
 
-def make_eval_step(task: Task):
+def make_eval_step(task: Task, seq: Optional[tuple] = None):
     """``step(batch) -> (metric_sum, example_count)``, both device
     scalars. A batch carrying ``_weight`` (the eval loader's pad mask)
     contributes ``(metric·w).sum(), w.sum()``, so wrap-around pad rows count
-    zero; otherwise the count is the batch size."""
+    zero; otherwise the count is the batch size. ``seq = (index, parts,
+    group)`` evaluates on a ring of processes, as training does there:
+    this rank's sequence block of the rows, under the whole rows' eval
+    mask, with the masked-LM metric's per-row sums taken over the ring."""
 
     def step(batch):
         if compiletrack.enabled():
@@ -602,7 +610,15 @@ def make_eval_step(task: Task):
         batch = dict(batch)
         w = batch.pop("_weight", None)
         with torch.no_grad():
-            m = task.metric(task.forward(batch, False), batch).float()
+            if seq is None:
+                m = task.metric(task.forward(batch, False), batch)
+            else:
+                index, parts, group = seq
+                block, mask = _sequence_block(batch, eval_mlm_mask(batch),
+                                              index, parts)
+                m = task.metric(task.forward(block, False, mlm_mask=mask),
+                                block, seq_group=group)
+            m = m.float()
         if w is None:
             return m.sum(), torch.tensor(float(m.shape[0]), device=m.device)
         w = w.to(device=m.device, dtype=torch.float32)
@@ -611,11 +627,13 @@ def make_eval_step(task: Task):
     return step
 
 
-def evaluate(loader, eval_step) -> tuple[float, float]:
+def evaluate(loader, eval_step, group=None) -> tuple[float, float]:
     """``(mean metric, weighted example count)`` over a loader. The
     per-batch sums accumulate on the device; the only host sync is the
-    fetch at the end. The loader's iterator is closed on every path, so
-    that its threads end with the eval."""
+    fetch at the end. With ``group`` (the ranks that read different eval
+    rows) the two sums are summed over it first, so that every rank
+    returns the whole eval's. The loader's iterator is closed on every
+    path, so that its threads end with the eval."""
     num = den = None
     it = iter(loader)
     try:
@@ -628,6 +646,10 @@ def evaluate(loader, eval_step) -> tuple[float, float]:
         close = getattr(it, "close", None)
         if close is not None:
             close()
+    if group is not None:
+        sums = (torch.stack([num, den]) if den is not None
+                else torch.zeros(2, dtype=torch.float32))
+        num, den = all_reduce(sums, group).unbind()
     if den is None:
         return 0.0, 0.0
     if compiletrack.enabled():
@@ -1178,13 +1200,17 @@ def _build_remote_loader(config: TrainConfig, dataset: Optional[Dataset],
 
 def _build_eval_loader(config: TrainConfig, device: torch.device, read_fn,
                        total: int, decode, index_pool=None, batch_cache=None,
-                       dataset_fingerprint: Optional[str] = None):
-    """The eval loader of rank 0, one :class:`~.data.graph.LoaderGraph`
-    over an :class:`~.data.graph.EvalSource`: every row (or pool position)
-    once, the tail padded, placed as the train loaders are."""
+                       dataset_fingerprint: Optional[str] = None,
+                       data_index: int = 0, data_world: int = 1):
+    """The eval loader of data share ``data_index`` of ``data_world``, one
+    :class:`~.data.graph.LoaderGraph` over an
+    :class:`~.data.graph.EvalSource`: its slice of each global eval batch,
+    so that the shares read every row (or pool position) once, the tail
+    padded, placed as the train loaders are. The ranks of one model
+    group, ring or pipeline share a data index and read the same rows."""
     plane = _make_placement(config, device)
-    source = EvalSource(read_fn, total, config.batch_size, 0, 1,
-                        index_pool=index_pool)
+    source = EvalSource(read_fn, total, config.batch_size, data_index,
+                        data_world, index_pool=index_pool)
     return _assemble(config, device, plane, source, Decode(decode),
                      Cache(batch_cache,
                            dataset_fingerprint=dataset_fingerprint))
@@ -1392,17 +1418,19 @@ def _save_checkpoint(ckpt: CheckpointManager, journal: _CkptJournal,
                      world: int, wait: bool = False, sharded=None) -> None:
     """Every process's mask generator state, gathered to rank 0, goes into
     the cursor; rank 0 writes the pair (the replicas are equal, or under a
-    sharded layout the whole state every rank gathers, in the
-    data-parallel format); every rank passes a barrier after the save."""
+    sharded layout the whole state, gathered to rank 0's host one leaf at
+    a time, in the data-parallel format); every rank passes a barrier
+    after the save."""
     states = [pack_rng_key(mask_gen)]
     if world > 1:
         states = [None] * world
         dist.all_gather_object(states, pack_rng_key(mask_gen))
     if sharded is not None:
-        model_state, opt_state, accum = sharded.full_state(
-            optimizer, train_step.accum)
-        step_state = dict(train_step.state_dict(), accum=accum)
-    else:
+        gathered = sharded.host_state(optimizer, train_step.accum)
+        if gathered is not None:
+            model_state, opt_state, accum = gathered
+            step_state = dict(train_step.state_dict(), accum=accum)
+    elif rank == 0:
         model_state, opt_state = model.state_dict(), optimizer.state_dict()
         step_state = train_step.state_dict()
     if rank == 0:
@@ -1412,7 +1440,7 @@ def _save_checkpoint(ckpt: CheckpointManager, journal: _CkptJournal,
                   {"model": model_state, "optimizer": opt_state,
                    "train_step": step_state},
                   cursor=cursor, wait=wait)
-    del model_state, opt_state, step_state
+        del model_state, opt_state, step_state
     sync_global_devices()
     # An intact duplicate (save returned False) holds this step as well.
     journal.saved_step = journal.abs_step
@@ -1456,6 +1484,16 @@ def _sharded_layout(config: TrainConfig) -> bool:
             or config.fsdp or int(config.zero_opt) > 0)
 
 
+def _warm_vector_math() -> None:
+    """One vector-math call on this thread before any on two. torch's
+    ``sqrt`` reaches MKL's vector math, and a process's first AdamW step
+    splits its first parameter's ``sqrt`` between the intra-op threads: on
+    two threads one half came back with relative errors up to 2.6e-4 in
+    about 4% of fresh processes, and in none with this call first (ROADMAP
+    Queue 3; ``tests/test_torch_resume.py``)."""
+    torch.ones(1).sqrt()
+
+
 def _train(config: TrainConfig, device: torch.device) -> dict:
     rank, world = process_topology()
     if config.no_ddp:
@@ -1466,6 +1504,8 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                      else torch.cuda.current_device())
             device = torch.device("cuda", index)
         torch.cuda.set_device(device)
+    else:
+        _warm_vector_math()
     cuda = device.type == "cuda"
     sp = config.seq_parallelism
     # The data share this process reads: its rank's, or with a process ring
@@ -1549,18 +1589,6 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             # MoE layers count the queues in the global row-major order.
             set_moe_group(task.model, loss_group, sp)
 
-    def unsharded_task():
-        """The task with a whole model (its weights to be loaded): the
-        eval at the end runs it in one process."""
-        return get_task(config.task_type, num_classes=config.num_classes,
-                        model_name=config.model_name,
-                        image_size=config.image_size, seq_len=config.seq_len,
-                        vocab_size=config.vocab_size, augment=config.augment,
-                        attention_fn=attention_fn, num_experts=config.num_experts,
-                        moe_every=config.moe_every,
-                        pipeline_parallelism=config.pipeline_parallelism,
-                        pp_microbatches=config.pp_microbatches,
-                        device=device)
     if config.pretrained:
         # Transfer learning, the reference's training task: the backbone
         # (and a head of the same shape) from the checkpoint, before the
@@ -1692,51 +1720,51 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     eval_pool = (val_pool if val_pool is not None
                  else index_pool if val_dataset is None else None)
 
-    def run_eval():
-        """Rank 0 evaluates every row (or pool position) of the eval data
-        once; ``(accuracy, rows)`` there, ``None`` elsewhere, after a
-        barrier. Under a sharded layout every rank first gathers the whole
-        parameters (not the optimizer's state), and rank 0 evaluates them
-        in a whole model."""
-        nonlocal eval_pool
-        out = None
-        eval_task = task
-        if sharded is not None:
-            whole = sharded.full_params()
-            if rank == 0:
-                eval_task = unsharded_task()
-                eval_task.model.load_state_dict(whole)
-            del whole
-        if rank == 0:
-            eval_decode = (decode if config.task_type == "classification"
-                           else _decoder_for(config, for_eval=True))
-            if folder:
-                def read_fn(idx):
-                    return read_sample_batch(samples, idx)
-                total = len(samples)
-            else:
-                columns = getattr(eval_decode, "required_columns", None)
+    # The eval runs on every rank under the run's layout, as JAX's sharded
+    # eval step does: each data share reads its slice of each global eval
+    # batch (the ranks of one model group, ring or pipeline the same
+    # slice), and the (sum, count) pairs are summed over the data shares.
+    if topo is not None:
+        eval_group = topo.group["data"]
+    else:
+        eval_group = dist.group.WORLD if world > 1 else None
+    eval_seq = ((seq_index, sp, topo.group["seq"]) if ring is not None
+                else None)
 
-                def read_fn(idx):
-                    return eval_dataset.take(idx, columns=columns)
-                total = eval_dataset.count_rows()
-                if config.filter and eval_pool is None:
-                    eval_pool = eval_dataset.filter_indices(config.filter)
-            loader = _build_eval_loader(
-                config, device, read_fn, total, eval_decode,
-                index_pool=eval_pool, batch_cache=batch_cache,
-                dataset_fingerprint=(folder_fp if folder else
-                                     eval_dataset.fingerprint()))
-            eval_step = make_eval_step(eval_task)
-            if coeff:
-                eval_step = (lambda b, _step=eval_step: _step(transform(b)))
-            # Rank 0 folds whole sequences in its process: the other ranks
-            # do not join a ring during the eval.
-            with (attention_fn.whole_sequence() if ring is not None
-                  else contextlib.nullcontext()):
-                out = evaluate(loader, eval_step)
-        sync_global_devices()
-        return out
+    def run_eval():
+        """Every row (or pool position) of the eval data once, split over
+        the data shares: ``(accuracy, rows)``, the same on every rank."""
+        nonlocal eval_pool
+        eval_decode = (decode if config.task_type == "classification"
+                       else _decoder_for(config, for_eval=True))
+        if folder:
+            def read_fn(idx):
+                return read_sample_batch(samples, idx)
+            total = len(samples)
+        else:
+            columns = getattr(eval_decode, "required_columns", None)
+
+            def read_fn(idx):
+                return eval_dataset.take(idx, columns=columns)
+            total = eval_dataset.count_rows()
+            if config.filter and eval_pool is None:
+                eval_pool = eval_dataset.filter_indices(config.filter)
+        loader = _build_eval_loader(
+            config, device, read_fn, total, eval_decode,
+            index_pool=eval_pool, batch_cache=batch_cache,
+            dataset_fingerprint=(folder_fp if folder else
+                                 eval_dataset.fingerprint()),
+            data_index=data_index, data_world=data_world)
+        eval_step = make_eval_step(task, eval_seq)
+        if coeff:
+            eval_step = (lambda b, _step=eval_step: _step(transform(b)))
+        if sharded is not None:
+            sharded.gather_params()
+        try:
+            return evaluate(loader, eval_step, eval_group)
+        finally:
+            if sharded is not None:
+                sharded.release_params()
 
     # Parse the chaos spec BEFORE installing the handler: a malformed
     # LDT_CHAOS raises, and must not leave SIGTERM hijacked behind it.
@@ -2158,6 +2186,8 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             "mesh": dict(topo.size), "index": dict(topo.index),
             "transport": transport_name(), "fsdp": config.fsdp,
             "zero": int(config.zero_opt), "held_bytes": held,
+            "peak_bytes": dict(sharded.peaks),
+            "fsdp_unit_bytes": sharded.unit_bytes(),
             "plan_bytes": plan_bytes(plan, topo.size, moments=moments,
                                      accum=accum > 1),
             "replicated_bytes": plan_bytes(

@@ -247,10 +247,23 @@ def test_resume_under_another_world_size_raises(tmp_path, monkeypatch,
              **_text_config(token_path))
 
 
+# The children run torch on one intra-op thread, the bound every port
+# test's ``_one_torch_thread`` sets (a spawned child does not inherit it).
+# With two, the uninterrupted run's loss at micro-step 3 (the first after
+# the first update) read 9.8593731 instead of 9.8598471 in about 4% of runs
+# under load: the first AdamW step's ``exp_avg_sq.sqrt()`` of the first
+# parameter (``pos_embed``, 4096 elements) runs as two MKL vector-math
+# calls of 2048 elements, one on each thread (ATen's vectorised-math
+# kernels split at a grain of 2048), and one half came back with relative
+# errors up to 2.6e-4 while the same step rerun on copies of its inputs
+# gave the expected bits. On one thread it never did (0 of 227 runs under
+# load, against 3 of 82 on two at the same time; ROADMAP Queue 3). The
+# trainer's CPU path now makes one vector-math call before any on two
+# threads, after which two threads gave it in none of 198 runs.
 _CHILD = textwrap.dedent(r'''
     import sys
     import torch
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     from lance_distributed_training_tpu_torch import trainer
     path, out, ck, world, rank, address = sys.argv[1:7]
     kw = dict(dataset_path=path, task_type="masked_lm",
@@ -265,7 +278,8 @@ _CHILD = textwrap.dedent(r'''
     torch.save({"losses": result["losses"],
                 "preempted": result.get("preempted", False),
                 "global_step": result["global_step"],
-                "state": result["model"].state_dict()}, out)
+                "state": result["model"].state_dict(),
+                "threads": torch.get_num_threads()}, out)
 ''')
 
 
@@ -353,6 +367,69 @@ def test_two_gloo_processes_preempted_and_resumed_match_the_uninterrupted(
         assert first["losses"] + got["losses"] == want["losses"]
         for key, value in want["state"].items():
             assert torch.equal(got["state"][key], value), key
+
+
+def test_the_resume_children_step_on_one_torch_thread(tmp_path, token_path):
+    """The two-process runs train on one intra-op thread a process, so no
+    elementwise kernel of the first optimizer step is split between
+    threads (the cause of the micro-step 3 mismatch, above ``_CHILD``), and
+    two uninterrupted runs give the same losses and weights, bit for
+    bit."""
+    first = _two_processes(tmp_path, token_path, "one")
+    again = _two_processes(tmp_path, token_path, "two")
+    assert [r["threads"] for r in first + again] == [1, 1, 1, 1]
+    for a, b in zip(first, again):
+        assert a["losses"] == b["losses"]
+        for key, value in a["state"].items():
+            assert torch.equal(b["state"][key], value), key
+
+
+# The fault without the trainer: a fresh process on two intra-op threads
+# runs BERT-small's forward and backward, then its first AdamW step, and
+# reruns that step on copies of its inputs. Without the trainer's warm-up
+# ``pos_embed``'s update differed from the rerun in 16 of 400 processes
+# (one half of it, as in the trainer), with it in none of 100, and on one
+# thread in none of 100 (my CPU runs).
+_FIRST_ADAMW_STEP = textwrap.dedent(r'''
+    import sys
+    import torch
+    torch.set_num_threads(2)
+    from lance_distributed_training_tpu_torch import trainer
+    from lance_distributed_training_tpu_torch.models import tasks
+    if sys.argv[1] == "warm":
+        trainer._warm_vector_math()
+    task = tasks.get_task("masked_lm", model_name="bert_small", seq_len=16,
+                          vocab_size=128,
+                          generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"input_ids": torch.randint(2, 128, (8, 16), generator=gen),
+             "attention_mask": torch.ones(8, 16, dtype=torch.int32)}
+    mask = torch.rand(8, 16, generator=gen) < 0.15
+    task.loss(task.forward(batch, True, mlm_mask=mask), batch).backward()
+    params = list(task.model.parameters())
+    again = [torch.nn.Parameter(p.detach().clone()) for p in params]
+    for p, q in zip(params, again):
+        q.grad = p.grad.clone()
+    torch.optim.AdamW(params, lr=1e-2).step()
+    torch.optim.AdamW(again, lr=1e-2).step()
+    print(sum(not torch.equal(p, q) for p, q in zip(params, again)))
+''')
+
+
+def test_a_first_adamw_step_after_the_warm_up_equals_its_rerun():
+    """The minimal form of the fault (above): after the trainer's
+    ``_warm_vector_math``, a fresh process's first AdamW step on two
+    threads equals its rerun, in each of eight processes."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get(
+        "PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _FIRST_ADAMW_STEP, "warm"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for _ in range(8)]
+    outs = [p.communicate(timeout=180)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+        assert out.splitlines()[-1] == "0", out[-3000:]
 
 
 def test_eval_every_over_the_val_dataset(tmp_path, monkeypatch, token_path):

@@ -8,7 +8,7 @@ loss across processes, against the JAX trainer.
 * Two gloo processes equal one: masked-LM data parallel with unequal
   masked counts per process (the loss is the global batch's weighted mean,
   as the JAX loss over the global batch is), and a two-process sequence
-  ring with the one-process ring, eval on rank 0 included.
+  ring with the one-process ring, the eval on both ranks included.
 * The refusals carry the JAX trainer's messages.
 """
 
@@ -307,9 +307,10 @@ def test_two_process_masked_lm_loss_is_the_global_weighted_mean(tmp_path):
 def test_two_process_sequence_ring_matches_one_process(tmp_path):
     """Two gloo processes, one ring of two, against one process holding
     both ring positions: the same rows, the same mask draw, the same
-    losses (atol 1e-5) and weights; rank 0's eval covers every row."""
+    losses (atol 1e-5) and weights; the eval runs on the ring too, and
+    both ranks return the one process's eval over every row."""
     one, two = _two_against_one(tmp_path, sp=2, inject=False)
+    assert two[0]["eval"] == two[1]["eval"]
     assert two[0]["eval"][1] == one["eval"][1] == 24
     np.testing.assert_allclose(two[0]["eval"][0], one["eval"][0], rtol=0,
                                atol=1e-6)
-    assert two[1]["eval"] == (None, None)
