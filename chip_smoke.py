@@ -25,7 +25,9 @@ Phases, each printing one JSON line:
              same inputs gives the same bits; then (c) causal with packed
              segments from a real first-fit-decreasing plan of the
              causal-LM corpus, at [rows, 12, 1024, 64] and at S = 64, the
-             same way; and times them (mode a) beside the
+             same way (before each check, a line says whether q, k, v and
+             dO are finite and counts the non-finite elements of the plain
+             and the kernels' outputs); and times them (mode a) beside the
              plain versions and ``scaled_dot_product_attention``; the
              backward's sum (dQ + dK/dV + the plain di op) is printed beside
              SDPA's backward alone (its fwd+bwd less its fwd, one call),
@@ -332,7 +334,11 @@ Phases, each printing one JSON line:
              reorder its dispatch and route a batch to the heavy lane;
              prints each run's images/s, the
              consumer's p50/p95 wait a batch, the reorders, heavy-lane
-             routes and the p95 of ``sched_predicted_error_ms``.
+             routes and the p95 of ``sched_predicted_error_ms``; a
+             scheduled run that routed no batch to the heavy lane first
+             prints each straggler batch's predicted ms, the lane's
+             threshold at its dispatch and its measured ms, beside the
+             light batches' medians.
 22. remat   — BERT-base masked-LM (768/12/12/3072, sequence 512, batch
              32, AdamW lr 1e-4, 20 steps, no eval) through ``cli train
              --flash_attention`` without and with ``--remat`` from one seed,
@@ -384,26 +390,37 @@ Phases, each printing one JSON line:
              beside the causal_lm phase's packed arm.
 25. parallel — the layouts beyond data parallelism, BERT-base masked-LM at
              full width (768/12/12/3072, vocabulary 30522, sequence 512,
-             global batch 32, the slice phase's first 192 rows, 6 steps,
+             global batch 32, the slice phase's first 128 rows, 4 steps,
              the eval at the end) through ``cli train`` as two ranks
              sharing the one card: ``tp`` (``--model_parallelism 2 --flash_attention``),
              ``fsdp`` (``--fsdp --flash_attention``), ``zero2`` (``--zero 2
              --grad_accum 2 --flash_attention``), ``ep`` (``--num_experts 8
              --model_parallelism 2 --flash_attention``) and ``pp``
-             (``--pipeline_parallelism 2 --pp_microbatches 4``). First a
+             (``--pipeline_parallelism 2 --pp_microbatches 4``); and
+             ``tp8`` (``--model_parallelism 8 --flash_attention``: 8 does
+             not divide the 12 heads, so the heads stay whole on every
+             rank and only the attention's ``out`` is split, JAX's plan)
+             as eight ranks at global batch 16 over its first 64 rows
+             (PARALLEL_BATCH: eight at batch 32 exceed the card), held
+             against a reference at batch 16. First a
              probe, each collective in a pair of processes of its own
              (restarted past one that aborts): which of ``all_reduce``,
              ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
              ``all_to_all_single`` and ``batch_isend_irecv`` gloo runs on
              CUDA tensors on the card, and whether NCCL takes two ranks on
              one card. Then flash at the tensor-parallel shard's shape
-             [32, 6, 512, 64] against its plain version. Each rank starts
+             [32, 6, 512, 64] and at tp8's [16, 12, 512, 64] against its
+             plain version. Before each rank count's runs this process
+             frees its cached blocks and prints its bytes and the card's
+             free bytes. Each rank starts
              from the same seeded weights and runs with
              ``--log_grad_norm``; a rank's first train step first gathers
              the whole parameters (rank 0 keeps them), and it records its
              first three micro-batches and masks, its first micro-step's
              global gradient norm and the whole parameters after the first
-             update. The reference is a data-parallel step in this
+             update. A rank that fails prints its errors beside every
+             other failed rank's. The reference is a data-parallel step in
+             this
              process: the whole model on those weights, AdamW as the
              trainer builds it, the global batches and masks (the data
              shares' rows in order). Checks, per layout: the transport the
@@ -417,7 +434,8 @@ Phases, each printing one JSON line:
              of at least PARALLEL_COS_MIN with the reference's (the
              smaller ones printed), flash's launches on each rank (12
              fwd, 12 dQ and 12 dK/dV a micro-step, at 6 heads under tp and
-             ep; plus 12 eval forwards for each global eval batch on every
+             ep, at 12 under tp8; plus 12 eval forwards for each global
+             eval batch on every
              rank, since every rank evaluates its data share's slice of
              each; none under pp) and each rank's bytes of parameters,
              optimizer moments and accumulator equal to its plan's, below
@@ -430,8 +448,9 @@ Phases, each printing one JSON line:
              (``ShardedState.peaks``) are printed beside its peak memory
              and held to the root unit plus two units. Every layout is
              printed before any is checked. Prints the step (the median of
-             steps 4-6), the valid tokens/s and each rank's peak memory:
-             times of two ranks on one card over gloo, not of the layouts.
+             the later half of the steps, rank 0's and each rank's), the
+             valid tokens/s and each rank's peak memory: times of two (or
+             eight) ranks on one card over gloo, not of the layouts.
 
 26. analysis — the port's static checker and its runtime witnesses. In
              the background while the rest runs: ``cli check`` over the
@@ -482,7 +501,8 @@ the fleet phase's run as ``launches_fleet``, the flash kernels, K1 and
 K2 the analysis phase's two sanitized runs as ``launches_analysis``; the
 flash kernels add each
 layout's rank 0 of the parallel phase as ``launches_parallel_<layout>``
-and their error at the tensor-parallel shape as ``max_abs_err_tp_shard``),
+and their largest error at the model-parallel shapes, tp's shard and
+tp8's whole heads, as ``max_abs_err_tp_shard``),
 and ``{"ok": true, "device": {...}}``.
 """
 
@@ -860,6 +880,20 @@ def _check_flash_case(mode, q, k, v, do, seg, causal, scale, errors) -> None:
     dk_ref, dv_ref = flash.flash_attention_bwd_dkv_reference(
         qf, kf, vf, seg, lse_ref, dof, di, causal, scale)
     torch.cuda.synchronize()
+
+    def nonfinite(t) -> int:
+        return int((~torch.isfinite(t)).sum().item())
+
+    # What a NaN comes from, on a line before the check: the inputs, the
+    # plain outputs, the kernels' outputs.
+    emit("kernels", mode=mode, finite_inputs={
+        n: nonfinite(t) == 0 for n, t in (("q", q), ("k", k), ("v", v),
+                                           ("do", do))},
+        nonfinite_plain={n: nonfinite(t) for n, t in (
+            ("o", o_ref), ("lse", lse_ref), ("dq", dq_ref), ("dk", dk_ref),
+            ("dv", dv_ref))},
+        nonfinite_kernel={n: nonfinite(t) for n, t in (
+            ("o", o), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv))})
     err = {
         "o": (o.float() - o_ref).abs().max().item(),
         "lse": (lse - lse_ref).abs().max().item(),
@@ -4047,14 +4081,18 @@ def _scheduled_arm(tmp: str) -> dict:
     with open(ledger_path) as f:
         ledger_lines = sum(1 for _ in f)
 
-    runs = []
+    runs, traces = [], []
     pool = WorkerPool(columnar_spec(path), decode, WC_WORKERS, columns=cols)
+    submit_lane = pool.submit_lane
     try:
         for arm in SCHED_ORDER:
             reg = MetricsRegistry()
             sched = (DecodeScheduler(CostModel.from_env(), registry=reg,
                                      **SCHED_OPTS)
                      if arm != "plain" else None)
+            pool.submit_lane = submit_lane
+            if sched is not None:
+                traces.append(_trace_schedule(sched, pool, submit_lane))
             loader = make_train_pipeline(ds, "batch", IMAGE_BATCH, 0, 1,
                                          decode, None, workers=pool,
                                          columns=cols, schedule=sched)
@@ -4086,6 +4124,7 @@ def _scheduled_arm(tmp: str) -> dict:
                 "bit_identical": digests == ledger_digests,
             })
     finally:
+        pool.submit_lane = submit_lane
         pool.shutdown()
         del os.environ["LDT_COST_PATH"]
         shutil.rmtree(base, ignore_errors=True)
@@ -4104,9 +4143,76 @@ def _scheduled_arm(tmp: str) -> dict:
         raise RuntimeError("graph: a scheduled run reordered no dispatch")
     if not all(r["heavy_lane_batches"] > 0 for r in runs
                if r["arm"] == "scheduled"):
+        # Why: each scheduled run's predictions for the straggler batches
+        # against the lane's threshold at their dispatch, and the decode
+        # times measured.
+        emit("graph", check="heavy_lane_missed", runs=[
+            _heavy_lane_reading(t, corpus["heavy_batches"]) for t in traces])
         raise RuntimeError("graph: a scheduled run routed no batch to the "
                            "heavy lane")
     return fields
+
+
+def _trace_schedule(sched, pool, submit_lane) -> dict:
+    """Records of one scheduled run, for :func:`_heavy_lane_reading`: each
+    plan item's predicted cost (in plan order), the lane and the
+    heavy-lane threshold at its dispatch (``_HEAVY_RATIO`` times the
+    running mean of the earlier predictions, ``None`` in the warm-up),
+    and each item's measured decode ms. Wraps the scheduler's cost model
+    and ``pool.submit_lane``; the caller restores the pool's."""
+    from lance_distributed_training_tpu_torch.data.cache import (
+        item_fingerprint,
+    )
+
+    trace = {"keys": [], "pred": {}, "lane": {}, "threshold": {},
+             "ms": {}}
+    model = sched.model
+    predict, observe = model.predict, model.observe
+
+    def traced_predict(key, hints=None, row_ms=None):
+        pred = predict(key, hints, row_ms)
+        trace["keys"].append(key)
+        trace["pred"][key] = pred
+        return pred
+
+    def traced_observe(key, ms, hints=None):
+        trace["ms"][key] = ms
+        return observe(key, ms, hints)
+
+    def traced_submit(item, lane="default"):
+        key = item_fingerprint(item)
+        n = sched._pred_n - 1  # the predictions before this one
+        pred = trace["pred"].get(key)
+        trace["lane"][key] = lane
+        trace["threshold"][key] = (
+            sched._HEAVY_RATIO * (sched._pred_sum - pred) / n
+            if n >= sched._HEAVY_WARMUP and pred is not None else None)
+        return submit_lane(item, lane)
+
+    model.predict, model.observe = traced_predict, traced_observe
+    pool.submit_lane = traced_submit
+    return trace
+
+
+def _heavy_lane_reading(trace: dict, heavy: list) -> dict:
+    """One scheduled run's straggler batches (plan positions ``heavy``):
+    predicted ms, threshold ms and lane at dispatch, measured ms; and the
+    light batches' median predicted and measured ms."""
+    keys = trace["keys"]
+    light = [k for i, k in enumerate(keys) if i not in heavy]
+    return {
+        "stragglers": [{
+            "batch": i, "predicted_ms": trace["pred"].get(keys[i]),
+            "threshold_ms": trace["threshold"].get(keys[i]),
+            "lane": trace["lane"].get(keys[i]),
+            "measured_ms": trace["ms"].get(keys[i])}
+            for i in heavy if i < len(keys)],
+        "light_predicted_ms_median": float(np.median(
+            [trace["pred"][k] for k in light])) if light else None,
+        "light_measured_ms_median": float(np.median(
+            [trace["ms"][k] for k in light if k in trace["ms"]]))
+        if light else None,
+    }
 
 
 def graph_run() -> dict:
@@ -4977,11 +5083,21 @@ PARALLEL_LAYOUTS = {
     "ep": ["--num_experts", str(MOE_EXPERTS), "--model_parallelism", "2",
            "--flash_attention"],
     "pp": ["--pipeline_parallelism", "2", "--pp_microbatches", "4"],
+    # A degree that divides the width but not BERT-base's 12 heads: the
+    # heads stay whole on every rank, only the attention's out is split.
+    "tp8": ["--model_parallelism", "8", "--flash_attention"],
 }
-PARALLEL_RANKS = 2
+# The ranks of each layout, all sharing the one card.
+PARALLEL_RANKS = {"tp": 2, "fsdp": 2, "zero2": 2, "ep": 2, "pp": 2, "tp8": 8}
 PARALLEL_MODEL, PARALLEL_DEVICE = "bert_base", "cuda"
-PARALLEL_STEPS = 6  # micro-steps a layout; its times are the staging's
+PARALLEL_STEPS = 4  # micro-steps a layout; its times are the staging's
 PARALLEL_FIRST = 3  # micro-batches recorded: up to one update and a step
+# A layout's global batch where it is smaller than the others': tp8's
+# eight ranks each hold the whole attention's activations and the whole
+# vocabulary's logits, 5.54 GB a rank at batch 16 on the H100, which at
+# batch 32 would be about 10.2 GB, 82 GB for the eight; its reference
+# takes the same batch. Its eval reads its own steps' rows.
+PARALLEL_BATCH = {"tp8": 16}
 # Relative limits against the in-process data-parallel step (the module's
 # docstring): the losses before and after the first update, the first
 # micro-step's global gradient norm. On the H100 the layouts read at most
@@ -5007,13 +5123,15 @@ PARALLEL_COS_MIN = 0.8
 # ranks') and this process's eval of the whole model on the same weights:
 # bf16 GEMMs split another way may flip the argmax of a masked position
 # whose two largest logits lie within rounding; one flip moves the
-# accuracy (about 0.17 over 192 rows of 18-73 masked positions) by at most
-# 2.9e-4, about 1.7e-3 of it, and the limit allows about three. On the
-# H100 the layouts read it within 1.2e-7 (the data shares' sums added in
-# another order).
+# accuracy (about 0.17 over 128 rows of 18-73 masked positions) by at most
+# 4.3e-4, about 2.5e-3 of it, and the limit allows one or two (none over
+# tp8's 64 rows, where one moves it by up to 5.2e-3 of it). On the H100
+# the layouts read it within 1.2e-7 (the data shares' sums added in
+# another order), tp8 exactly.
 PARALLEL_EVAL_TOL = 5e-3
 PARALLEL_COS_NUMEL = 16384  # JAX's fsdp_min_size
 TP_SHAPE = (32, 6, 512, 64)  # flash's shape under --model_parallelism 2
+TP8_SHAPE = (16, 12, 512, 64)  # under tp8: whole heads, tp8's batch
 PROBE_OPS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
              "all_to_all_single", "batch_isend_irecv")
 
@@ -5226,7 +5344,9 @@ for name, dump, argv in runs:
         "world_size")}
     fields.update(layout=name, launches=launches, seconds=seconds,
                   grad_norm=first["grad_norm"],
-                  peak=torch.cuda.max_memory_allocated() if cuda else None)
+                  peak=torch.cuda.max_memory_allocated() if cuda else None,
+                  peak_reserved=(torch.cuda.max_memory_reserved() if cuda
+                                 else None))
     print("RESULT " + json.dumps(fields), flush=True)
     del result
     gc.collect()
@@ -5235,52 +5355,101 @@ for name, dump, argv in runs:
 """
 
 
-def _parallel_ranks(path: str, tmp: str) -> dict:
-    """Every layout's ``cli train`` as PARALLEL_RANKS ranks on the card, one
-    run after another in the same rank processes (each run its own process
-    group): ``{layout: [each rank's result fields]}``; each rank's first
+def _layout_batch(name: str) -> int:
+    return PARALLEL_BATCH.get(name, SHAPE[0])
+
+
+def _layout_data(tmp: str, name: str) -> str:
+    """The corpus a layout trains on and evaluates (its first
+    ``PARALLEL_STEPS x batch`` rows): ``tmp/tokens``, or
+    ``tmp/tokens_<layout>`` for a layout of PARALLEL_BATCH."""
+    return os.path.join(tmp, f"tokens_{name}" if name in PARALLEL_BATCH
+                        else "tokens")
+
+
+def _parallel_ranks(tmp: str) -> dict:
+    """Every layout's ``cli train`` as its PARALLEL_RANKS ranks on the card:
+    the layouts of one rank count one run after another in the same rank
+    processes (each run its own process group), the counts one after the
+    other; ``{layout: [each rank's result fields]}``; each rank's first
     step record is in ``tmp/<layout>.<rank>.pt``."""
-    b, _, s, _ = SHAPE
-    runs = []
+    _, _, s, _ = SHAPE
+    groups: dict = {}
     for name, flags in PARALLEL_LAYOUTS.items():
-        runs.append([name, os.path.join(tmp, f"{name}.{{rank}}.pt"), [
-            "train", "--dataset_path", path, "--task_type", "masked_lm",
-            "--model_name", PARALLEL_MODEL, "--seq_len", str(s),
-            "--batch_size", str(b), "--optimizer", "adamw", "--lr", "1e-4",
-            "--max_steps", str(PARALLEL_STEPS), "--epochs", "1",
-            "--log_every", "4", "--log_grad_norm",
-            "--device", PARALLEL_DEVICE, *FIXED, *flags,
-            "--coordinator_address", f"127.0.0.1:{_free_port()}",
-            "--num_processes", str(PARALLEL_RANKS)]])
+        world = PARALLEL_RANKS[name]
+        groups.setdefault(world, []).append([
+            name, os.path.join(tmp, f"{name}.{{rank}}.pt"), [
+                "train", "--dataset_path", _layout_data(tmp, name),
+                "--task_type", "masked_lm",
+                "--model_name", PARALLEL_MODEL, "--seq_len", str(s),
+                "--batch_size", str(_layout_batch(name)), "--optimizer",
+                "adamw", "--lr", "1e-4",
+                "--max_steps", str(PARALLEL_STEPS), "--epochs", "1",
+                "--log_every", "4", "--log_grad_norm",
+                "--device", PARALLEL_DEVICE, *FIXED, *flags,
+                "--coordinator_address", f"127.0.0.1:{_free_port()}",
+                "--num_processes", str(world)]])
     env = dict(os.environ,
                LDT_METRICS_PATH=os.path.join(tmp, "parallel.jsonl"))
-    procs = []
-    for rank in range(PARALLEL_RANKS):
-        mine = [[n, d.format(rank=rank), a] for n, d, a in runs]
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", _RANK_MAIN, str(rank), json.dumps(mine),
-             str(PARALLEL_FIRST)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=env))
     results = {name: [] for name in PARALLEL_LAYOUTS}
-    try:
-        for rank, proc in enumerate(procs):
-            out, _ = proc.communicate(timeout=1800)
-            lines = out.splitlines()
-            found = [json.loads(line[len("RESULT "):]) for line in lines
-                     if line.startswith("RESULT ")]
-            if proc.returncode or len(found) != len(PARALLEL_LAYOUTS):
-                raise RuntimeError(f"parallel: rank {rank} exited "
-                                   f"{proc.returncode} after {len(found)} "
-                                   f"runs: {lines[-30:]}")
-            for fields in found:
-                results[fields["layout"]].append(fields)
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    for world, runs in groups.items():
+        _card_memory(f"before the {world}-rank runs")
+        procs, failed = [], []
+        try:
+            for rank in range(world):
+                mine = [[n, d.format(rank=rank), a] for n, d, a in runs]
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _RANK_MAIN, str(rank),
+                     json.dumps(mine), str(PARALLEL_FIRST)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True, env=env))
+            for rank, proc in enumerate(procs):
+                out, _ = proc.communicate(timeout=1800)
+                lines = out.splitlines()
+                found = [json.loads(line[len("RESULT "):]) for line in lines
+                         if line.startswith("RESULT ")]
+                if proc.returncode or len(found) != len(runs):
+                    # Every failed rank's errors: the first to fail takes
+                    # the others' collectives down with it.
+                    errors = [line for line in lines if "Error" in line]
+                    failed.append(f"rank {rank} of {world} exited "
+                                  f"{proc.returncode} after {len(found)} "
+                                  f"runs: {errors[-3:] + lines[-4:]}")
+                for fields in found:
+                    results[fields["layout"]].append(fields)
+            if failed:
+                raise RuntimeError("parallel: " + "; ".join(failed))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     return results
+
+
+def _card_memory(when: str) -> None:
+    """This process's cached blocks released, then its allocated and
+    reserved bytes, the card's free bytes (every process's use) and the
+    host's available bytes printed: the rank processes share the card
+    and the host with this one."""
+    import gc
+
+    import torch
+
+    if not torch.cuda.is_available():
+        return
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    with open("/proc/meminfo") as f:
+        host = {k: int(v.split()[0]) * 1024 for k, v in
+                (line.split(":", 1) for line in f)
+                if k in ("MemTotal", "MemAvailable")}
+    emit("parallel", card_memory=when,
+         allocated_bytes=torch.cuda.memory_allocated(),
+         reserved_bytes=torch.cuda.memory_reserved(), free_bytes=free,
+         total_bytes=total, host_available_bytes=host.get("MemAvailable"),
+         host_total_bytes=host.get("MemTotal"))
 
 
 def _grad_accum(name: str) -> int:
@@ -5308,11 +5477,12 @@ def _dp_reference(name: str, tmp: str) -> dict:
     )
 
     _, _, s, _ = SHAPE
+    shared = name not in ("fsdp", "zero2")  # the ranks hold one data share
     firsts = [torch.load(os.path.join(tmp, f"{name}.{r}.pt"))
-              for r in range(PARALLEL_RANKS)]
+              for r in range(1 if shared else PARALLEL_RANKS[name])]
     flags = PARALLEL_LAYOUTS[name]
     accum = _grad_accum(name)
-    shares = firsts if name in ("fsdp", "zero2") else firsts[:1]
+    shares = firsts
     dev = torch.device(PARALLEL_DEVICE)
     task = tasks.get_task(
         "masked_lm", model_name=PARALLEL_MODEL, seq_len=s,
@@ -5343,8 +5513,8 @@ def _dp_reference(name: str, tmp: str) -> dict:
     # every row in this process.
     task.model.load_state_dict(firsts[0]["final"])
     config = trainer.TrainConfig(
-        dataset_path=os.path.join(tmp, "tokens"), task_type="masked_lm",
-        model_name=PARALLEL_MODEL, seq_len=s, batch_size=SHAPE[0],
+        dataset_path=_layout_data(tmp, name), task_type="masked_lm",
+        model_name=PARALLEL_MODEL, seq_len=s, batch_size=_layout_batch(name),
         device=PARALLEL_DEVICE)
     decode = trainer._decoder_for(config, for_eval=True)
     dataset = Dataset(config.dataset_path)
@@ -5413,26 +5583,30 @@ def _rel(a: float, b: float) -> float:
 
 
 def _tp_shard_flash() -> dict:
-    """fwd, dQ and dK/dV at the tensor-parallel shard's shape (6 of the 12
-    heads) against their plain versions, as the kernels phase checks the
-    whole shape."""
+    """fwd, dQ and dK/dV at the shapes the model-parallel layouts give
+    them (tp's shard of 6 of the 12 heads; tp8's whole heads at its
+    batch) against their plain versions, as the kernels phase checks the
+    whole shape; each kernel's largest error over the two."""
     import torch
 
-    b, h, s, d = TP_SHAPE
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
-
-    def randn():
-        return torch.randn(TP_SHAPE, generator=gen, device=dev).to(
-            torch.bfloat16)
-
-    lengths = np.random.default_rng(6).integers(128, s + 1, b)
-    valid = np.arange(s)[None, :] < lengths[:, None]
-    seg = torch.from_numpy(valid.astype(np.int32)).to(dev)
     errors = {"fwd": 0.0, "bwd_dq": 0.0, "bwd_dkv": 0.0}
-    q, k, v, do = randn(), randn(), randn(), randn()
-    _check_flash_case("tp_shard_6_heads", q, k, v, do, seg, False,
-                      1.0 / d ** 0.5, errors)
+    for mode, shape in (("tp_shard_6_heads", TP_SHAPE),
+                        ("tp8_whole_heads", TP8_SHAPE)):
+        b, h, s, d = shape
+
+        def randn():
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+
+        lengths = np.random.default_rng(6).integers(128, s + 1, b)
+        valid = np.arange(s)[None, :] < lengths[:, None]
+        seg = torch.from_numpy(valid.astype(np.int32)).to(dev)
+        q, k, v, do = randn(), randn(), randn(), randn()
+        _check_flash_case(mode, q, k, v, do, seg, False, 1.0 / d ** 0.5,
+                          errors)
+        del q, k, v, do
     return errors
 
 
@@ -5447,29 +5621,38 @@ def parallel_run() -> dict:
     start = time.monotonic()
     probed = probe_collectives()
     tp_errors = _tp_shard_flash()
-    b, _, s, _ = SHAPE
-    # The slice corpus's first PARALLEL_STEPS batches: the rows the runs
-    # train on, and those their eval reads (every rank evaluates now).
-    lengths, docs = (part[:b * PARALLEL_STEPS] for part in _slice_docs())
-    rows = len(docs)
-    valid_tokens = int(sum(min(int(n), s) for n in lengths))
-    eval_batches = -(-rows // b)
+    _, _, s, _ = SHAPE
     launches, report = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "tokens")
-        create_text_token_dataset(path, docs, seq_len=s, pack=False)
-        every = _parallel_ranks(path, tmp)
+        # Each layout's corpus: the slice corpus's first PARALLEL_STEPS
+        # batches, the rows the runs train on and those their eval reads
+        # (every rank evaluates).
+        lengths, docs = _slice_docs()
+        corpus = {}
+        for name in PARALLEL_LAYOUTS:
+            path = _layout_data(tmp, name)
+            rows = PARALLEL_STEPS * _layout_batch(name)
+            if path not in corpus:
+                create_text_token_dataset(path, docs[:rows], seq_len=s,
+                                          pack=False)
+                corpus[path] = (rows, int(sum(
+                    min(int(n), s) for n in lengths[:rows])))
+        every = _parallel_ranks(tmp)
         for name in PARALLEL_LAYOUTS:
             ranks = every[name]
             ref = _dp_reference(name, tmp)
             r0 = ranks[0]
             losses = r0["losses"]
             after = _grad_accum(name)  # the first loss after an update
-            step_ms = statistics.median(r0["step_ms"][3:])
+            rows, valid_tokens = corpus[_layout_data(tmp, name)]
+            timed = PARALLEL_STEPS // 2  # timed: the later half
+            step_ms = statistics.median(r0["step_ms"][timed:])
             fields = {
                 "layout": name, "flags": PARALLEL_LAYOUTS[name],
-                "ranks": PARALLEL_RANKS,
-                "timing": "two ranks on one card over gloo (host-staged)",
+                "ranks": PARALLEL_RANKS[name],
+                "batch": _layout_batch(name),
+                "timing": f"{PARALLEL_RANKS[name]} ranks on one card over "
+                          "gloo (host-staged)",
                 "transport": [r["parallel"]["transport"] for r in ranks],
                 "mesh": r0["parallel"]["mesh"], "steps": r0["steps"],
                 "first_loss": losses[0], "dp_first_loss": ref["losses"][0],
@@ -5485,7 +5668,10 @@ def parallel_run() -> dict:
                                           for r in ranks),
                 **_cosine_fields(ref["cosines"]),
                 "last5_mean_loss": statistics.fmean(losses[-5:]),
-                "losses": losses, "step_ms_median_4_6": step_ms,
+                "losses": losses,
+                f"step_ms_median_{timed + 1}_{PARALLEL_STEPS}": step_ms,
+                "step_ms_median_each_rank": [
+                    statistics.median(r["step_ms"][timed:]) for r in ranks],
                 "valid_tokens_per_sec": valid_tokens / PARALLEL_STEPS
                 / (step_ms / 1e3),
                 "eval_masked_token_accuracy": [r["eval_accuracy"]
@@ -5496,9 +5682,12 @@ def parallel_run() -> dict:
                                      for r in ranks),
                 "eval_rows": [r["eval_rows"] for r in ranks],
                 "dp_eval_rows": ref["eval_rows"], "dataset_rows": rows,
+                "eval_batches": -(-rows // _layout_batch(name)),
                 "launches": [{k: v for k, v in r["launches"].items() if v}
                              for r in ranks],
                 "peak_memory_allocated_bytes": [r["peak"] for r in ranks],
+                "peak_memory_reserved_bytes": [r["peak_reserved"]
+                                               for r in ranks],
                 "held_bytes": [r["parallel"]["held_bytes"] for r in ranks],
                 "peak_bytes": [r["parallel"]["peak_bytes"] for r in ranks],
                 "fsdp_unit_bytes": r0["parallel"]["fsdp_unit_bytes"],
@@ -5515,7 +5704,7 @@ def parallel_run() -> dict:
     problems = []
     for name, fields in report.items():
         try:
-            _check_parallel(name, every[name], fields, eval_batches)
+            _check_parallel(name, every[name], fields)
         except RuntimeError as exc:
             problems.append(str(exc))
     if problems:
@@ -5524,12 +5713,13 @@ def parallel_run() -> dict:
             "layouts": report, "seconds": time.monotonic() - start}
 
 
-def _check_parallel(name: str, ranks: list, fields: dict,
-                    eval_batches: int) -> None:
+def _check_parallel(name: str, ranks: list, fields: dict) -> None:
     """The phase's checks of one layout (the module's docstring)."""
     phase = f"parallel {name}"
     if any(t != "gloo-host-staged" for t in fields["transport"]):
         raise RuntimeError(f"{phase}: transport {fields['transport']}")
+    if len(ranks) != PARALLEL_RANKS[name]:
+        raise RuntimeError(f"{phase}: {len(ranks)} ranks reported")
     _check_trained(phase, fields, PARALLEL_STEPS)
     if any(r["losses"] != fields["losses"] for r in ranks):
         raise RuntimeError(f"{phase}: the ranks logged different losses")
@@ -5574,7 +5764,7 @@ def _check_parallel(name: str, ranks: list, fields: dict,
     for rank, r in enumerate(ranks):
         # Every rank evaluates its data share's slice of each global eval
         # batch: LAYERS forwards a batch on each.
-        evals = LAYERS * eval_batches if flash_on else 0
+        evals = LAYERS * fields["eval_batches"] if flash_on else 0
         want = {"fwd": per_step + evals, "bwd_dq": per_step,
                 "bwd_dkv": per_step}
         got = {k: r["launches"][k] for k in want}

@@ -32,10 +32,16 @@ over the group and rounded once) and its MLP a column-parallel
 encoder's token embedding holds a contiguous block of the vocabulary
 (the lookup masked to it and summed over the group) and the tied head
 returns the logits of that block only (``vocab_cross_entropy`` and
-``vocab_argmax`` reduce them over the group). The regions follow
-Megatron-LM: :func:`..parallel.comm.copy_to` where a replicated tensor
-enters a split computation, :func:`..parallel.comm.reduce_from` where it
-leaves.
+``vocab_argmax`` reduce them over the group). Where the degree does not
+divide the heads but divides the width (JAX's rules then keep ``query``,
+``key`` and ``value`` whole and split ``out`` on its input), ``out_group``
+is set instead: every rank of the group computes the whole attention
+alike and the row-parallel ``out`` takes this rank's block of its input
+features. The regions follow Megatron-LM:
+:func:`..parallel.comm.copy_to` where a replicated tensor enters a split
+computation, :func:`..parallel.comm.scatter_to` where a tensor every rank
+holds whole enters it as blocks, :func:`..parallel.comm.reduce_from`
+where it leaves.
 
 Weights initialise as Flax's do (LeCun-normal dense kernels, zero biases,
 ``N(0, 1/vocab)`` embeddings, ``N(0, 0.02)`` positions) from an explicit
@@ -134,7 +140,9 @@ class _LayerNorm(nn.LayerNorm):
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention; ``attention_fn`` (e.g. the flash kernels
-    of :func:`..ops.flash.make_flash_attention`) replaces the dense core."""
+    of :func:`..ops.flash.make_flash_attention`) replaces the dense core.
+    Under ``tp_group`` the heads are split; under ``out_group`` they stay
+    whole and only ``out`` is split (the module's docstring)."""
 
     def __init__(self, hidden: int, num_heads: int, dtype=torch.bfloat16,
                  attention_fn: Optional[Callable] = None, causal: bool = False):
@@ -147,6 +155,7 @@ class SelfAttention(nn.Module):
         self.attention_fn = attention_fn
         self.causal = causal
         self.tp_group = None  # set: the heads are split over this group
+        self.out_group = None  # set: only out's input is split over it
         self.query = _Dense(hidden, hidden, dtype)
         self.key = _Dense(hidden, hidden, dtype)
         self.value = _Dense(hidden, hidden, dtype)
@@ -173,6 +182,9 @@ class SelfAttention(nn.Module):
         out = out.transpose(1, 2).reshape(b, s, self.num_heads * hd)
         if self.tp_group is not None:
             return self.out.row_parallel(out, self.tp_group)
+        if self.out_group is not None:
+            return self.out.row_parallel(
+                comm.scatter_to(out, self.out_group), self.out_group)
         return self.out(out)
 
 

@@ -26,9 +26,10 @@ type once. Every backend runs the same collectives (a gather is
 so the CPU's gloo runs the code that NCCL runs. The autograd functions
 are Megatron-LM's region markers: :func:`copy_to` (identity forward, sum
 of the gradients over the group backward), :func:`reduce_from` (sum
-forward, identity backward) and :func:`shift` (a ring step of a pipeline:
-send to the next rank, receive from the previous one; the gradient
-travels the other way).
+forward, identity backward), :func:`scatter_to` (this rank's block of the
+last dimension forward, the blocks' gradients all-gathered backward) and
+:func:`shift` (a ring step of a pipeline: send to the next rank, receive
+from the previous one; the gradient travels the other way).
 
 :class:`Topology` is JAX ``get_mesh``'s layout of ranks over the axes
 ``(data, model, seq, pipe)``, data outermost: rank ``((d·mp + m)·sp +
@@ -47,8 +48,7 @@ import torch.distributed as dist
 __all__ = ["AXES", "Topology", "mesh_shape", "choose_transport",
            "host_staged", "transport_name", "all_reduce", "all_gather",
            "reduce_scatter", "gather_to_host", "broadcast", "send_recv",
-           "copy_to",
-           "reduce_from", "shift"]
+           "copy_to", "reduce_from", "scatter_to", "shift"]
 
 AXES = ("data", "model", "seq", "pipe")
 
@@ -222,6 +222,19 @@ class _ReduceFrom(torch.autograd.Function):
         return grad, None
 
 
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        size, index = dist.get_world_size(group), dist.get_rank(group)
+        n = x.shape[-1] // size
+        return x.narrow(-1, index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.group, grad.dim() - 1), None
+
+
 class _Shift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, nxt, prev):
@@ -243,6 +256,14 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     """Leave such a region: the parts summed (in f32) forward, identity
     backward."""
     return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def scatter_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Enter a region that ``group`` computes in parts from a tensor every
+    rank of it holds whole: this rank's contiguous block of the last
+    dimension forward (in group rank order), the blocks' gradients
+    all-gathered into the whole gradient backward."""
+    return x if group is None else _ScatterTo.apply(x, group)
 
 
 def shift(x: torch.Tensor, group, nxt: int, prev: int) -> torch.Tensor:

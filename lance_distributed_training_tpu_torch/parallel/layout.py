@@ -11,7 +11,11 @@ values, and the losses track the data-parallel run's.
   contiguous block of the parameter in the module and tells the modules
   (attention heads, MLP units, the vocabulary, the experts, the pipeline
   stage) which group computes the rest. The optimizer updates the local
-  block, whose moments and accumulator are local too.
+  block, whose moments and accumulator are local too. A degree that
+  divides the width but not the heads splits an attention's ``out``
+  alone (JAX's ``_fit_spec`` keeps the heads whole): its ``query``,
+  ``key`` and ``value`` are replicated over ``'model'`` like a
+  LayerNorm, their gradients alike on every model rank.
 * ``'data'`` under ``fsdp``: :class:`ShardedState` keeps each large
   parameter's block (a leaf of at least 16384 elements, its largest
   divisible dimension, as JAX ``_fsdp_spec``) as the persistent tensor the
@@ -94,6 +98,27 @@ def _split(plan: dict, names, axis: str) -> bool:
     return all(hits)
 
 
+def _attention_split(plan: dict, prefix: str) -> Optional[str]:
+    """How the plan splits an attention's projections over ``'model'``:
+    ``"heads"`` (all four: ``query``, ``key`` and ``value`` by heads,
+    ``out`` on its input), ``"out"`` (``out`` alone, on its input: JAX's
+    rules at a degree that divides the width but not the heads) or
+    ``None``. Any other partial plan raises, naming the leaves it splits;
+    no rule of JAX's produces one."""
+    names = [f"{prefix}{p}.weight" for p in ("query", "key", "value", "out")]
+    split = [n for n in names if plan[n].param is not None
+             and plan[n].param[0] == "model"]
+    if not split:
+        return None
+    if split == names:
+        return "heads"
+    if split == names[3:] and plan[names[3]].param == ("model", 1):
+        return "out"
+    raise NotImplementedError(
+        f"the plan splits {split} of {names} over 'model'; the port splits "
+        "all four (by heads) or out alone (on its input)")
+
+
 def shard_model_(model: nn.Module, plan: dict, topo) -> None:
     """Keep this rank's block of every parameter ``plan`` splits over
     ``'model'`` or ``'pipe'`` (``model`` is the FULL model, built alike on
@@ -118,10 +143,12 @@ def shard_model_(model: nn.Module, plan: dict, topo) -> None:
     for mname, module in model.named_modules():
         prefix = f"{mname}." if mname else ""
         if isinstance(module, SelfAttention):
-            if _split(plan, [f"{prefix}{p}.weight" for p in
-                             ("query", "key", "value", "out")], "model"):
+            split = _attention_split(plan, prefix)
+            if split == "heads":
                 module.tp_group = group
                 module.num_heads //= mp
+            elif split == "out":
+                module.out_group = group
         elif isinstance(module, EncoderBlock) and module.moe is None:
             if _split(plan, [f"{prefix}mlp_in.weight",
                              f"{prefix}mlp_out.weight"], "model"):

@@ -3,7 +3,8 @@
 
 Copies the port and ``chip_smoke.py`` into a work directory and runs the
 phase's layouts there at a small size (``bert_small``, sequence 256,
-global batch 4, two gloo ranks on the CPU) through the phase's own
+global batch 4, two gloo ranks on the CPU, eight for ``tp8``) through the
+phase's own
 functions: ``_parallel_ranks`` (the ranks' ``cli train`` runs),
 ``_dp_reference`` (the in-process data-parallel step) and
 ``_cosine_fields``. It runs the tree as it is (every layout), then one
@@ -14,7 +15,7 @@ gradient norm against the data-parallel step (relative), the least update
 cosine over the parameters of ``PARALLEL_COS_NUMEL`` elements or more,
 and which of the phase's limits the layout breaks. A sound tree breaks
 none; a mutation should break at least one. Run from the root of a
-checkout (no card needed; about six minutes):
+checkout (no card needed; about fifteen minutes):
 
     python3 scripts/torch_parallel_mutations.py [--workdir DIR]
 """
@@ -46,6 +47,13 @@ MUTATIONS = {
         "ep", f"{PACKAGE}/parallel/layout.py",
         '                module.expert_start = (topo.index["model"]\n',
         '                module.expert_start = ((1 - topo.index["model"])\n'),
+    # tp8's whole attention: each rank's gradient of the attention output
+    # is its own block's, repeated, instead of the blocks all-gathered.
+    "tp8_scatter_backward_not_gathered": (
+        "tp8", f"{PACKAGE}/parallel/comm.py",
+        "        return all_gather(grad, ctx.group, grad.dim() - 1), None\n",
+        "        return torch.cat([grad] * dist.get_world_size(ctx.group), "
+        "-1), None\n"),
 }
 
 # Runs in the copy: the phase's functions at the small size.
@@ -59,11 +67,16 @@ cs.SHAPE = (4, 4, 256, 64)
 cs.PARALLEL_MODEL, cs.PARALLEL_DEVICE = "bert_small", "cpu"
 names = sys.argv[1].split(",")
 cs.PARALLEL_LAYOUTS = {k: cs.PARALLEL_LAYOUTS[k] for k in names}
+cs.PARALLEL_BATCH = {k: cs.SHAPE[0] for k in cs.PARALLEL_BATCH}
 _, docs = cs._slice_docs()
 with tempfile.TemporaryDirectory() as tmp:
-    path = os.path.join(tmp, "tokens")
-    create_text_token_dataset(path, docs, seq_len=cs.SHAPE[2], pack=False)
-    every = cs._parallel_ranks(path, tmp)
+    for name in names:
+        path = cs._layout_data(tmp, name)
+        if not os.path.exists(path):
+            rows = cs.PARALLEL_STEPS * cs._layout_batch(name)
+            create_text_token_dataset(path, docs[:rows],
+                                      seq_len=cs.SHAPE[2], pack=False)
+    every = cs._parallel_ranks(tmp)
     for name in names:
         ranks, ref = every[name], cs._dp_reference(name, tmp)
         after = cs._grad_accum(name)
@@ -110,8 +123,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     with tempfile.TemporaryDirectory(dir=args.workdir) as work:
         work = Path(work)
-        runs = [("sound", ",".join(("tp", "fsdp", "zero2", "ep", "pp")),
-                 None)]
+        runs = [("sound", ",".join(("tp", "fsdp", "zero2", "ep", "pp",
+                                    "tp8")), None)]
         runs += [(name, layout, (path, old, new))
                  for name, (layout, path, old, new) in MUTATIONS.items()]
         failed = []

@@ -1,6 +1,8 @@
 """The eval on every rank under the run's layout, against JAX's eval.
 
-Each layout's ``train`` runs as two gloo ranks on the CPU (BERT-small,
+Each layout's ``train`` runs as two gloo ranks on the CPU (eight for
+``tp8``, whose degree splits BERT-small's width but not its four heads:
+the heads stay whole and only ``out`` is row-parallel; BERT-small,
 vocabulary 16, sequence 32, global batch 4) from the JAX package's
 initial weights (carried over by ``models/convert``; the trainer's
 ``get_task`` is wrapped to load them) with a learning rate of 0, so that
@@ -67,7 +69,9 @@ LAYOUTS = {
            "moe"),
     "pp": ({"pipeline_parallelism": 2, "pp_microbatches": 2}, "pp"),
     "ring": ({"seq_parallelism": 2}, "dense"),
+    "tp8": ({"model_parallelism": 8}, "dense"),
 }
+WORLDS = {"tp8": 8}  # the ranks of a layout (else two)
 
 _EVAL_CHILD = r'''
 import json
@@ -137,8 +141,8 @@ def _jax_setup(model: str):
 
 @pytest.fixture(scope="module")
 def evals(tmp_path_factory):
-    """Each layout's two ranks' results (one gloo job runs them all while
-    JAX evaluates) and JAX's accuracy of each model."""
+    """Each layout's ranks' results (one gloo job a world runs them all
+    while JAX evaluates) and JAX's accuracy of each model."""
     tmp = tmp_path_factory.mktemp("eval_layouts")
     path = str(tmp / "tokens")
     create_text_token_dataset(path, _docs(), seq_len=SEQ, pack=False,
@@ -147,10 +151,13 @@ def evals(tmp_path_factory):
     for model in ("dense", "moe", "pp"):
         setups[model] = _jax_setup(model)
         torch.save(setups[model][4], tmp / f"{model}.pt")
-    runs = [[name, str(tmp / f"{model}.pt"), free_port(), fields]
-            for name, (fields, model) in LAYOUTS.items()]
-    job = start_gloo(_EVAL_CHILD, 2, path, json.dumps(runs),
-                     json.dumps(COMMON), init=False)
+    runs: dict = {}
+    for name, (fields, model) in LAYOUTS.items():
+        runs.setdefault(WORLDS.get(name, 2), []).append(
+            [name, str(tmp / f"{model}.pt"), free_port(), fields])
+    jobs = [start_gloo(_EVAL_CHILD, world, path, json.dumps(mine),
+                       json.dumps(COMMON), init=False)
+            for world, mine in runs.items()]
     dataset = Dataset(path)
     jax_acc = {}
     for model, (config, mesh, task, params, _) in setups.items():
@@ -162,7 +169,7 @@ def evals(tmp_path_factory):
         jax_acc[model] = jax_trainer.evaluate(
             state, loader, jax_trainer.make_eval_step(task, mesh))
     results = {name: [] for name in LAYOUTS}
-    for out in job.wait(600):
+    for out in [out for job in jobs for out in job.wait(600)]:
         for line in out.splitlines():
             if line.startswith("RESULT "):
                 got = json.loads(line[len("RESULT "):])
@@ -173,9 +180,9 @@ def evals(tmp_path_factory):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_every_rank_evaluates_every_row_once(evals, layout):
     ranks = evals[0][layout]
-    assert len(ranks) == 2
+    assert len(ranks) == WORLDS.get(layout, 2)
     assert all(r["rows"] == ROWS for r in ranks)
-    assert ranks[0]["accuracy"] == ranks[1]["accuracy"]
+    assert all(r["accuracy"] == ranks[0]["accuracy"] for r in ranks)
     # The rows split by data index: the shares' weighted rows are every
     # row once, and ranks of one share read the same rows.
     world = ranks[0]["share"][1]

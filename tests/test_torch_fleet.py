@@ -29,15 +29,17 @@ from lance_distributed_training_tpu.fleet import chaos as jax_chaos
 from lance_distributed_training_tpu_torch import cli, fleet
 from lance_distributed_training_tpu_torch.data.buffers import BufferPool
 from lance_distributed_training_tpu_torch.fleet import chaos
-from test_torch_service import (
+from test_torch_service import (  # noqa: F401 (the fixtures)
     BATCH,
     CASES,
     client_knobs,
     dataset_for,
     digests,
     local_batches,
+    _private_jax_decoder,
+    jax_native,
     serve,
-    token_dataset,  # noqa: F401 (fixture)
+    token_dataset,
 )
 from test_torch_threads import _one_torch_thread  # noqa: F401
 

@@ -64,6 +64,7 @@ from lance_distributed_training_tpu_torch.data.token_pack import (
 from lance_distributed_training_tpu_torch.obs.registry import MetricsRegistry
 from lance_distributed_training_tpu_torch.utils.chaos import batch_digest
 from test_torch_threads import _one_torch_thread  # noqa: F401
+from torch_jax_native import jax_native  # noqa: F401 (fixture)
 
 
 SIZE = 32
@@ -400,12 +401,11 @@ KINDS = ["iterable", "map-style", "folder", "eval", "device-decode",
                          ids=["cache-off", "cache-on"])
 @pytest.mark.parametrize("kind", KINDS)
 def test_parity_matrix(kind, caches, image_dataset, image_folder,
-                       token_dataset):
+                       token_dataset, request):
     if kind == "device-decode":
-        from lance_distributed_training_tpu.native import native_available
-
-        if not native_available():
-            pytest.skip("the JAX coefficient extractor is unavailable")
+        # The JAX coefficient extractor, built for this module alone
+        # (tests/torch_jax_native.py).
+        assert request.getfixturevalue("jax_native").native_available()
     data = {"folder": image_folder,
             "token-pack": token_dataset.uri}.get(kind, image_dataset.uri)
     port_cache, jax_cache_, registry = caches

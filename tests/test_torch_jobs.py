@@ -36,7 +36,14 @@ from test_torch_fleet import (
     start_coordinator,
     watch,
 )
-from test_torch_service import BATCH, digests, local_batches, serve
+from test_torch_service import (  # noqa: F401 (the fixtures)
+    BATCH,
+    _private_jax_decoder,
+    digests,
+    jax_native,
+    local_batches,
+    serve,
+)
 from test_torch_threads import _one_torch_thread  # noqa: F401
 
 SIDES = {

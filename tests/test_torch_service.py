@@ -16,7 +16,12 @@ losses as its local run, and serves ``/metrics`` with the ``svc_*`` and
 ``lineage_*`` series. The subcommands' parsers equal JAX's.
 
 The harness functions here (``serve``, ``local_batches``, ``CASES``) are
-shared by ``test_torch_fleet.py`` and ``test_torch_jobs.py``.
+shared by ``test_torch_fleet.py`` and ``test_torch_jobs.py``, and so is
+the module fixture ``_private_jax_decoder``: the JAX servers decode with
+the JAX package's native decoder built for the module
+(``tests/torch_jax_native.py``), whichever test process won the JAX
+package's shared build, and a test shows the streams match when that
+build had failed in the process.
 """
 
 import json
@@ -56,6 +61,7 @@ from lance_distributed_training_tpu_torch.parallel.mesh import (
 from lance_distributed_training_tpu_torch.service import protocol as P
 from lance_distributed_training_tpu_torch.utils.chaos import batch_digest
 from test_torch_threads import _one_torch_thread  # noqa: F401
+from torch_jax_native import jax_native, private_jax_native  # noqa: F401
 
 SIZE, SEQ, BATCH = 32, 48, 16
 PACKAGES = {"port": service, "jax": jax_service}
@@ -68,6 +74,14 @@ CASES = {
                   device_decode=True),
     "ragged": dict(task_type="causal_lm", seq_len=SEQ, token_pack=True),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _private_jax_decoder(jax_native):  # noqa: F811 (fixture)
+    """The JAX package's native decoder, built for this module: a JAX
+    server's pixels and coefficient pages are then the port's native
+    decode's, as the tests hold them."""
+    return jax_native
 
 
 @pytest.fixture()
@@ -201,6 +215,28 @@ def test_two_shards_of_a_jax_server_are_the_local_shards(image_dataset):
                 image_dataset.uri, process_index=rank, process_count=2))
     finally:
         svc.stop()
+
+
+@pytest.mark.parametrize("case", ["pixels", "coeff"])
+def test_jax_server_streams_match_after_the_shared_build_failed(
+        case, image_dataset, jax_native, monkeypatch):  # noqa: F811
+    """A test process whose JAX build lost the race keeps ``_load_failed``
+    (its JAX decoder would take PIL, or refuse coefficient pages); the
+    module's private build restores the JAX server's native decode."""
+    from pathlib import Path
+
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_load_failed", True)
+    assert not jax_native.native_available()
+    with private_jax_native(Path(jax_native._LIB_PATH).parent):
+        svc = serve("jax", image_dataset.uri, case)
+        try:
+            loader = remote_loader("port", f"127.0.0.1:{svc.port}", case)
+            assert digests(loader) == digests(local_batches(
+                image_dataset.uri, case))
+        finally:
+            svc.stop()
+    assert not jax_native.native_available()
 
 
 # -- the client's cursor, pool and placement ---------------------------------

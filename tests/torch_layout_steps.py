@@ -1,9 +1,12 @@
 """One train step of each layout beyond data parallelism, in the port over
-two gloo processes and in the JAX package on a 2-device sub-mesh, for
+the layout's gloo processes (two; eight for ``tp8``) and in the JAX
+package on a sub-mesh of as many devices, for
 ``tests/test_torch_sharding.py`` (TP, FSDP, ZeRO-1, ZeRO-2),
-``tests/test_torch_expert_parallel.py`` (EP) and
-``tests/test_torch_pipeline_parallel.py`` (PP); the tolerances and why are
-in ``tests/test_torch_sharding.py``'s docstring.
+``tests/test_torch_expert_parallel.py`` (EP),
+``tests/test_torch_pipeline_parallel.py`` (PP) and
+``tests/test_torch_partial_tp.py`` (TP at degree 8, which splits the
+width but not BERT-small's four heads); the tolerances and why are in
+``tests/test_torch_sharding.py``'s docstring.
 
 BERT-small (vocabulary 128, sequence 32, batch 8, SGD with momentum, bf16
 compute) from the JAX package's initial weights carried over by
@@ -27,13 +30,15 @@ from torch_gloo_jobs import start_gloo
 
 VOCAB, SEQ, BATCH = 128, 32, 8
 
-LAYOUTS = {  # name: (model degree, pipe degree, fsdp, zero, accum, experts)
-    "tp": (2, 1, False, 0, 1, 0),
-    "fsdp": (1, 1, True, 0, 1, 0),
-    "zero1": (1, 1, False, 1, 1, 0),
-    "zero2": (1, 1, False, 2, 2, 0),
-    "ep": (2, 1, False, 0, 1, 4),
-    "pp": (1, 2, False, 0, 1, 0),
+LAYOUTS = {  # name: (model degree, pipe degree, fsdp, zero, accum, experts,
+    #                world)
+    "tp": (2, 1, False, 0, 1, 0, 2),
+    "fsdp": (1, 1, True, 0, 1, 0, 2),
+    "zero1": (1, 1, False, 1, 1, 0, 2),
+    "zero2": (1, 1, False, 2, 2, 0, 2),
+    "ep": (2, 1, False, 0, 1, 4, 2),
+    "pp": (1, 2, False, 0, 1, 0, 2),
+    "tp8": (8, 1, False, 0, 1, 0, 8),
 }
 PROBES = ("layers.1.attn.query.weight", "tok_embed.weight")
 PP_PROBES = ("blocks.attn.query.weight", "tok_embed")
@@ -51,7 +56,7 @@ def _batch(seed=0):
 
 
 def _jax_config(layout: str):
-    mp, pp, fsdp, zero, accum, experts = LAYOUTS[layout]
+    mp, pp, fsdp, zero, accum, experts, _ = LAYOUTS[layout]
     return jax_trainer.TrainConfig(
         dataset_path="unused", task_type="masked_lm",
         model_name="bert_small", seq_len=SEQ, vocab_size=VOCAB,
@@ -61,12 +66,12 @@ def _jax_config(layout: str):
 
 
 def _jax_setup(layout: str):
-    """JAX's task, mesh, rules and config of ``layout`` on a 2-device
-    sub-mesh."""
+    """JAX's task, mesh, rules and config of ``layout`` on a sub-mesh of
+    the layout's world."""
     config = _jax_config(layout)
     mp, pp = config.model_parallelism, config.pipeline_parallelism
-    mesh = get_mesh(jax.devices()[:2], model_parallelism=mp,
-                    pipe_parallelism=pp)
+    mesh = get_mesh(jax.devices()[:LAYOUTS[layout][6]],
+                    model_parallelism=mp, pipe_parallelism=pp)
     task = jax_trainer._task_from_config(config, mesh)
     rules = (jax_sharding.rules_for_task(task.name, config.model_name)
              if mp > 1 or pp > 1 else ())
@@ -118,7 +123,7 @@ from lance_distributed_training_tpu_torch.parallel.sharding import (
 
 
 def one(data):
-    mp, pp, fsdp, zero, accum, experts = data["degrees"]
+    mp, pp, fsdp, zero, accum, experts, _ = data["degrees"]
     config = trainer.TrainConfig(
         dataset_path="unused", task_type="masked_lm",
         model_name="bert_small", seq_len=data["seq"],
@@ -201,9 +206,9 @@ def _jax_init(layout: str):
 
 def layout_steps(layouts, tmp) -> dict:
     """Each of ``layouts``' port run (and its DP reference) and JAX's: the
-    port's two ranks run every layout in one gloo job while JAX steps its
-    own."""
-    plans, files = {}, []
+    port's ranks run every layout of a world in one gloo job while JAX
+    steps its own."""
+    plans, files = {}, {}
     for layout in layouts:
         degrees = LAYOUTS[layout]
         accum = degrees[4]
@@ -223,9 +228,11 @@ def layout_steps(layouts, tmp) -> dict:
                         for b in batches],
             "masks": [torch.from_numpy(m) for m in masks]},
             tmp / f"{layout}.pt")
-        files += [tmp / f"{layout}.pt", tmp / f"{layout}.out"]
+        files.setdefault(degrees[6], []).extend(
+            [tmp / f"{layout}.pt", tmp / f"{layout}.out"])
         plans[layout] = (batches, rngs, init, convert, probes)
-    job = start_gloo(_STEP_CHILD, 2, *files)
+    jobs = [start_gloo(_STEP_CHILD, world, *paths)
+            for world, paths in files.items()]
     out = {}
     for layout, (batches, rngs, init, convert, probes) in plans.items():
         start, losses, norms, after = _jax_step(layout, batches, rngs)
@@ -236,7 +243,8 @@ def layout_steps(layouts, tmp) -> dict:
         out[layout] = {"jax_losses": losses, "jax_norms": norms,
                        "init": {k: before[k] for k in probes},
                        "jax_probes": {k: after[k] for k in probes}}
-    job.wait(600)
+    for job in jobs:
+        job.wait(600)
     for layout in layouts:
         out[layout]["port"] = torch.load(tmp / f"{layout}.out")
     return out
@@ -283,10 +291,10 @@ def check_held_bytes(steps, layout, named):
     """The bytes a rank holds are the plan's, and fewer than replicated
     (``named``: the full model's ``flax_named_shapes``)."""
     held = steps[layout]["port"]["held"]
-    mp, pp, fsdp, zero, accum, experts = LAYOUTS[layout]
+    mp, pp, fsdp, zero, accum, experts, world = LAYOUTS[layout]
     rules = ((sharding.TRANSFORMER_RULES if pp == 1 else
               sharding.PIPELINE_RULES) if mp > 1 or pp > 1 else ())
-    mesh = comm.mesh_shape(2, mp, 1, pp)
+    mesh = comm.mesh_shape(world, mp, 1, pp)
     plan = sharding.plan_model(named, rules, mesh, fsdp=fsdp,
                                zero_level=zero)
     want = sharding.plan_bytes(plan, mesh, moments=1, accum=accum > 1)
