@@ -390,8 +390,9 @@ Phases, each printing one JSON line:
              beside the causal_lm phase's packed arm.
 25. parallel — the layouts beyond data parallelism, BERT-base masked-LM at
              full width (768/12/12/3072, vocabulary 30522, sequence 512,
-             global batch 32, the slice phase's first 128 rows, 4 steps,
-             the eval at the end) through ``cli train`` as two ranks
+             global batch 32, the slice phase's first 96 rows, 3 steps,
+             the eval over them at the end) through ``cli train`` as two
+             ranks
              sharing the one card: ``tp`` (``--model_parallelism 2 --flash_attention``),
              ``fsdp`` (``--fsdp --flash_attention``), ``zero2`` (``--zero 2
              --grad_accum 2 --flash_attention``), ``ep`` (``--num_experts 8
@@ -400,7 +401,8 @@ Phases, each printing one JSON line:
              ``tp8`` (``--model_parallelism 8 --flash_attention``: 8 does
              not divide the 12 heads, so the heads stay whole on every
              rank and only the attention's ``out`` is split, JAX's plan)
-             as eight ranks at global batch 16 over its first 64 rows
+             as eight ranks at global batch 16 over its first 32 rows,
+             2 steps (PARALLEL_DEPTH)
              (PARALLEL_BATCH: eight at batch 32 exceed the card), held
              against a reference at batch 16. First a
              probe, each collective in a pair of processes of its own
@@ -451,6 +453,25 @@ Phases, each printing one JSON line:
              the later half of the steps, rank 0's and each rank's), the
              valid tokens/s and each rank's peak memory: times of two (or
              eight) ranks on one card over gloo, not of the layouts.
+             Checkpoints (PARALLEL_SAVES, PARALLEL_RESUMES): ``fsdp`` and
+             ``zero2`` save a sharded step every PARALLEL_CKPT_STEP (2)
+             micro-steps, and at that step each rank first takes the
+             parent's path on the same state (the whole state gathered
+             leaf by leaf to rank 0's host, written there as one file);
+             ``tp_from_fsdp`` and ``tp_from_zero2`` (``--model_parallelism
+             2``, the latter ``--grad_accum 2``) resume step 2 and train
+             3 steps (the epoch's last batch, the next epoch's first two),
+             their reference continuing the saved optimizer state and
+             step counts, with the same checks as every layout. Each rank prints, beside the card's name and
+             power limit, each save's time on the training thread (and
+             the part awaiting the previous write), its write, its bytes
+             against its held bytes, the host's anonymous and mapped-file
+             bytes added over the save and its write, the restore's time,
+             bytes read and largest block, and the parent's gather, write
+             and whole-file read with their host bytes. Checks: the saved
+             step read whole equals the gathered state, and the state a
+             resumed run restored, read back whole, equals the saved step,
+             bit for bit, leaf by leaf.
 
 26. analysis — the port's static checker and its runtime witnesses. In
              the background while the rest runs: ``cli check`` over the
@@ -1228,13 +1249,11 @@ def trainer_run(card: dict, slice_step_ms) -> dict:
         pre, ptrace, precords, plaunch, ppeak = runs["preempted"]
         res, rtrace, rrecords, rlaunch, rpeak = runs["resumed"]
         manager = CheckpointManager(os.path.join(tmp, "ckpt"))
-        # The emergency checkpoint's accumulator count, read without
-        # loading its tensors.
-        emergency = torch.load(manager.state_path(TRAINER_DRAIN),
-                               mmap=True, weights_only=True)
-        emergency_micro = emergency["train_step"]["micro_step"]
-        del emergency
-        ckpt_bytes = os.path.getsize(manager.state_path(TRAINER_DRAIN))
+        # The emergency checkpoint's accumulator count, read from its index
+        # without loading a tensor.
+        with manager.reader(TRAINER_DRAIN) as reader:
+            emergency_micro = reader.tree()["train_step"]["micro_step"]
+        ckpt_bytes = manager.step_bytes(TRAINER_DRAIN)
         profile = control["profile_trace"]
         with open(profile, encoding="utf-8") as f:
             text = f.read()
@@ -5086,11 +5105,33 @@ PARALLEL_LAYOUTS = {
     # A degree that divides the width but not BERT-base's 12 heads: the
     # heads stay whole on every rank, only the attention's out is split.
     "tp8": ["--model_parallelism", "8", "--flash_attention"],
+    # Resumed under tp from the newest step of another layout's checkpoint
+    # (PARALLEL_RESUMES); the accumulation is the saving run's, so that the
+    # state tree is the same.
+    "tp_from_fsdp": ["--model_parallelism", "2", "--flash_attention"],
+    "tp_from_zero2": ["--model_parallelism", "2", "--grad_accum", "2",
+                      "--flash_attention"],
 }
 # The ranks of each layout, all sharing the one card.
-PARALLEL_RANKS = {"tp": 2, "fsdp": 2, "zero2": 2, "ep": 2, "pp": 2, "tp8": 8}
+PARALLEL_RANKS = {"tp": 2, "fsdp": 2, "zero2": 2, "ep": 2, "pp": 2, "tp8": 8,
+                  "tp_from_fsdp": 2, "tp_from_zero2": 2}
+# The layouts that save a sharded checkpoint every PARALLEL_CKPT_STEP
+# micro-steps (once in their PARALLEL_STEPS), and the runs that resume
+# that step of one under another layout: they train the epoch's last
+# batches, then the next epoch's (--epochs 2). At the save each rank of a
+# saving run first takes the parent's path on the same state (the whole
+# state gathered leaf by leaf to rank 0's host and written there as one
+# file), for its figures beside the sharded save's; a resumed run's ranks
+# then read that file whole, as the parent's restore did.
+PARALLEL_SAVES = ("fsdp", "zero2")
+PARALLEL_RESUMES = {"tp_from_fsdp": "fsdp", "tp_from_zero2": "zero2"}
+PARALLEL_CKPT_STEP = 2
 PARALLEL_MODEL, PARALLEL_DEVICE = "bert_base", "cuda"
-PARALLEL_STEPS = 4  # micro-steps a layout; its times are the staging's
+PARALLEL_STEPS = 3  # micro-steps a layout; its times are the staging's
+# A layout's micro-steps where they are fewer: tp8's eight ranks take
+# 5.8-10.3 s a micro-step on the H100 (host staging), and two give its
+# first loss and the loss after its first update.
+PARALLEL_DEPTH = {"tp8": 2}
 PARALLEL_FIRST = 3  # micro-batches recorded: up to one update and a step
 # A layout's global batch where it is smaller than the others': tp8's
 # eight ranks each hold the whole attention's activations and the whole
@@ -5124,10 +5165,11 @@ PARALLEL_COS_MIN = 0.8
 # bf16 GEMMs split another way may flip the argmax of a masked position
 # whose two largest logits lie within rounding; one flip moves the
 # accuracy (about 0.17 over 128 rows of 18-73 masked positions) by at most
-# 4.3e-4, about 2.5e-3 of it, and the limit allows one or two (none over
-# tp8's 64 rows, where one moves it by up to 5.2e-3 of it). On the H100
-# the layouts read it within 1.2e-7 (the data shares' sums added in
-# another order), tp8 exactly.
+# 4.3e-4, about 2.5e-3 of it, and the limit allows one or two (one over
+# the 96 rows of three steps, about 3.4e-3; none over tp8's 32 or 64 rows,
+# where one moves it by up to 5.2e-3 of it at 64). On the H100 the
+# layouts read it within 1.2e-7 (the data shares' sums added in another
+# order), tp8 exactly.
 PARALLEL_EVAL_TOL = 5e-3
 PARALLEL_COS_NUMEL = 16384  # JAX's fsdp_min_size
 TP_SHAPE = (32, 6, 512, 64)  # flash's shape under --model_parallelism 2
@@ -5260,17 +5302,142 @@ def probe_collectives() -> dict:
 _RANK_MAIN = r"""
 import gc
 import json
+import os
 import sys
+import threading
 import time
+from functools import partial
 import torch
+import torch.distributed as dist
 from lance_distributed_training_tpu_torch import cli, ops, trainer
 from lance_distributed_training_tpu_torch.models import tasks
 
 rank = int(sys.argv[1])
-runs = json.loads(sys.argv[2])  # [[layout, dump path, argv], ...]
+# [[layout, dump path, argv, {"gather_to": path, "gather_at": step,
+#   "restored_to": path, "gathered_from": path}], ...]
+runs = json.loads(sys.argv[2])
 keep = int(sys.argv[3])  # micro-batches and masks to record
 first = {}
+current = {}  # the checkpoint paths of the run under way
 _draw = tasks.draw_mlm_mask
+
+
+class HostMemory:
+    # This process's resident bytes, sampled every 5 ms on a thread of
+    # its own, for the host's peak over a window: anonymous (resident
+    # less shared: what the process holds) and shared (mapped files, such
+    # as a shard read through mmap, which the page cache can drop).
+    def __init__(self):
+        self.samples = []
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        threading.Thread(target=self._run, daemon=True).start()
+
+    def rss(self):
+        with open("/proc/self/statm") as f:
+            _, resident, shared = map(int, f.read().split()[:3])
+        return ((resident - shared) * self._page, shared * self._page)
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            self.samples.append((time.monotonic(), self.rss()))
+
+    def window(self, t0, t1, before):
+        # The peaks over [t0, t1] against ``before`` (an rss() reading).
+        inside = [m for t, m in list(self.samples) if t0 <= t <= t1]
+        inside = inside or [self.rss()]
+        anon, shared = (max(m[i] for m in inside) for i in (0, 1))
+        return {"anon_before": before[0], "anon_peak": anon,
+                "anon_added": anon - before[0],
+                "shared_added": shared - before[1]}
+
+
+memory = HostMemory()
+
+
+def leaf_to_host(sharded, t, layout):
+    # The parent's ShardedState._leaf_to_host over comm.gather_to_host: the
+    # whole leaf whose block under layout is t, on rank 0's host (None
+    # elsewhere), gathered over the group of rank 0 along the layout's
+    # axis, or rank 0's own copy of a replicated leaf.
+    me = dist.get_rank()
+    if layout is None or sharded.topo.size[layout[0]] == 1:
+        return t.detach().cpu() if me == 0 else None
+    axis, dim = layout
+    if 0 not in sharded.topo.ranks[axis]:
+        return None
+    group = sharded.topo.group[axis]
+    src = t.detach().movedim(dim, 0).contiguous()
+    if dist.get_backend(group) != "nccl":
+        src = src.cpu()
+    parts = ([torch.empty_like(src) for _ in range(dist.get_world_size(
+        group))] if me == 0 else None)
+    dist.gather(src, parts, dst=0, group=group)
+    if me != 0:
+        return None
+    return torch.cat([part.cpu() for part in parts]).movedim(
+        0, dim).contiguous()
+
+
+def gather_path(sharded, optimizer, train_step, path):
+    # The parent's save on the same state: ShardedState.host_state (the
+    # whole state to rank 0's host, leaf by leaf), then rank 0 writes it
+    # as one state.pt. Collective.
+    t0, base = time.monotonic(), memory.rss()
+    whole = sharded._whole(partial(leaf_to_host, sharded), optimizer,
+                           train_step.accum)
+    t1 = time.monotonic()
+    out = {"gather_ms": (t1 - t0) * 1e3}
+    if rank == 0:
+        model_state, opt_state, accum = whole
+        torch.save({"model": model_state, "optimizer": opt_state,
+                    "train_step": dict(train_step.state_dict(),
+                                       accum=accum)}, path)
+        out.update(write_ms=(time.monotonic() - t1) * 1e3,
+                   bytes=os.path.getsize(path))
+    del whole
+    dist.barrier()
+    out["host"] = memory.window(t0, time.monotonic(), base)
+    return out
+
+
+_save = trainer._save_checkpoint
+
+
+def save_checkpoint(ckpt, journal, model, optimizer, train_step, *args,
+                    **kwargs):
+    if current.get("gather_at") == journal.abs_step:
+        # First, so that neither's host window holds the other's bytes.
+        first["gather"] = gather_path(kwargs["sharded"], optimizer,
+                                      train_step, current["gather_to"])
+    t0, base = time.monotonic(), memory.rss()
+    _save(ckpt, journal, model, optimizer, train_step, *args, **kwargs)
+    first["saves"].append({"step": journal.abs_step, "t0": t0,
+                           "t1": time.monotonic(), "before": base})
+
+
+_restore = trainer._restore_checkpoint
+
+
+def restore_checkpoint(ckpt, model, optimizer, train_step, sharded, *args):
+    t0, base = time.monotonic(), memory.rss()
+    out = _restore(ckpt, model, optimizer, train_step, sharded, *args)
+    first["restore"] = memory.window(t0, time.monotonic(), base)
+    return out
+
+
+def dump_restored(step, path):
+    # The restored state read back whole (collective), on rank 0's host.
+    model_state, opt_state, accum = step.sharded.full_state(step.optimizer,
+                                                            step.accum)
+    if rank == 0:
+        torch.save({
+            "model": {k: v.cpu() for k, v in model_state.items()},
+            "optimizer": {i: {k: v.cpu() if torch.is_tensor(v) else v
+                              for k, v in s.items()}
+                          for i, s in opt_state["state"].items()},
+            "accum": None if accum is None else [a.cpu() for a in accum]},
+            path)
 
 
 def draw(batch, generator):
@@ -5289,6 +5456,10 @@ def call(self, batch, *args, **kwargs):
     # micro-step's global gradient norm (--log_grad_norm); after the first
     # update the whole parameters again.
     first["sharded"] = self.sharded
+    if "updates0" not in first:
+        first["updates0"] = self.updates  # a resumed run's count
+        if current.get("restored_to"):
+            dump_restored(self, current["restored_to"])
     if "state" not in first:
         state = self.sharded.full_params()
         first["state"] = ({k: v.cpu().clone() for k, v in state.items()}
@@ -5300,7 +5471,7 @@ def call(self, batch, *args, **kwargs):
     loss = _call(self, batch, *args, **kwargs)
     if "grad_norm" not in first:
         first["grad_norm"] = float(self.last_grad_norm)
-    if self.updates == 1 and "updated" not in first:
+    if self.updates == first["updates0"] + 1 and "updated" not in first:
         # The whole parameters after the first update (collective too).
         state = self.sharded.full_params()
         first["updated"] = ({k: v.cpu().clone() for k, v in state.items()}
@@ -5325,10 +5496,14 @@ def evaluate(*args, **kwargs):
 tasks.draw_mlm_mask = draw
 trainer.TrainStep.__call__ = call
 trainer.evaluate = evaluate
+trainer._save_checkpoint = save_checkpoint
+trainer._restore_checkpoint = restore_checkpoint
 cuda = torch.cuda.is_available()
-for name, dump, argv in runs:
+for name, dump, argv, paths in runs:
     first.clear()
-    first.update(masks=[], batches=[])
+    first.update(masks=[], batches=[], saves=[])
+    current.clear()
+    current.update(paths)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -5337,11 +5512,34 @@ for name, dump, argv in runs:
     seconds = time.monotonic() - t0
     launches = {k: ops.LAUNCHES[k] for k in ops.LAUNCHES}
     first.pop("sharded", None)
-    torch.save(first, dump)
     fields = {k: result.get(k) for k in (
         "losses", "step_ms", "steps", "eval_accuracy", "eval_rows",
         "valid_tokens_per_sec", "tokens_per_sec", "parallel", "train_time",
-        "world_size")}
+        "world_size", "ckpt_save_ms", "ckpt_wait_ms", "ckpt_write_ms",
+        "ckpt_bytes",
+        "ckpt_step_bytes", "ckpt_restore_ms", "ckpt_restore_bytes",
+        "ckpt_restore_largest_bytes", "ckpt_restore_scanned_bytes")}
+    # The host's peak over each save: its call and its shard's write.
+    writes = result.get("ckpt_write_ms") or []
+    fields["ckpt_save_host"] = [
+        dict(memory.window(sv["t0"], sv["t1"] + (
+            writes[i] / 1e3 if i < len(writes) else 0) + 0.05,
+            sv["before"]), step=sv["step"])
+        for i, sv in enumerate(first.pop("saves"))]
+    fields["ckpt_restore_host"] = first.pop("restore", None)
+    fields["gather_path"] = first.pop("gather", None)
+    if paths.get("gathered_from"):
+        # The parent's restore on this rank: the whole file into its host.
+        t0, base = time.monotonic(), memory.rss()
+        whole = torch.load(paths["gathered_from"], map_location="cpu",
+                           weights_only=True)
+        t1 = time.monotonic()
+        fields["gather_path_restore"] = {
+            "read_ms": (t1 - t0) * 1e3,
+            "bytes": os.path.getsize(paths["gathered_from"]),
+            "host": memory.window(t0, t1, base)}
+        del whole
+    torch.save(first, dump)
     fields.update(layout=name, launches=launches, seconds=seconds,
                   grad_norm=first["grad_norm"],
                   peak=torch.cuda.max_memory_allocated() if cuda else None,
@@ -5359,12 +5557,16 @@ def _layout_batch(name: str) -> int:
     return PARALLEL_BATCH.get(name, SHAPE[0])
 
 
+def _layout_steps(name: str) -> int:
+    return PARALLEL_DEPTH.get(name, PARALLEL_STEPS)
+
+
 def _layout_data(tmp: str, name: str) -> str:
     """The corpus a layout trains on and evaluates (its first
-    ``PARALLEL_STEPS x batch`` rows): ``tmp/tokens``, or
-    ``tmp/tokens_<layout>`` for a layout of PARALLEL_BATCH."""
+    ``steps x batch`` rows): ``tmp/tokens``, or ``tmp/tokens_<layout>``
+    for a layout of PARALLEL_BATCH or PARALLEL_DEPTH."""
     return os.path.join(tmp, f"tokens_{name}" if name in PARALLEL_BATCH
-                        else "tokens")
+                        or name in PARALLEL_DEPTH else "tokens")
 
 
 def _parallel_ranks(tmp: str) -> dict:
@@ -5377,6 +5579,17 @@ def _parallel_ranks(tmp: str) -> dict:
     groups: dict = {}
     for name, flags in PARALLEL_LAYOUTS.items():
         world = PARALLEL_RANKS[name]
+        epochs, ckpt, paths = 1, [], {}
+        if name in PARALLEL_SAVES:
+            ckpt = ["--checkpoint_dir", _ckpt_dir(tmp, name),
+                    "--checkpoint_every_steps", str(PARALLEL_CKPT_STEP)]
+            paths = {"gather_to": _gathered(tmp, name),
+                     "gather_at": PARALLEL_CKPT_STEP}
+        elif name in PARALLEL_RESUMES:
+            source = PARALLEL_RESUMES[name]
+            epochs, ckpt = 2, ["--checkpoint_dir", _ckpt_dir(tmp, source)]
+            paths = {"restored_to": os.path.join(tmp, f"{name}.restored.pt"),
+                     "gathered_from": _gathered(tmp, source)}
         groups.setdefault(world, []).append([
             name, os.path.join(tmp, f"{name}.{{rank}}.pt"), [
                 "train", "--dataset_path", _layout_data(tmp, name),
@@ -5384,11 +5597,12 @@ def _parallel_ranks(tmp: str) -> dict:
                 "--model_name", PARALLEL_MODEL, "--seq_len", str(s),
                 "--batch_size", str(_layout_batch(name)), "--optimizer",
                 "adamw", "--lr", "1e-4",
-                "--max_steps", str(PARALLEL_STEPS), "--epochs", "1",
+                "--max_steps", str(_layout_steps(name)),
+                "--epochs", str(epochs),
                 "--log_every", "4", "--log_grad_norm",
-                "--device", PARALLEL_DEVICE, *FIXED, *flags,
+                "--device", PARALLEL_DEVICE, *FIXED, *flags, *ckpt,
                 "--coordinator_address", f"127.0.0.1:{_free_port()}",
-                "--num_processes", str(world)]])
+                "--num_processes", str(world)], paths])
     env = dict(os.environ,
                LDT_METRICS_PATH=os.path.join(tmp, "parallel.jsonl"))
     results = {name: [] for name in PARALLEL_LAYOUTS}
@@ -5397,7 +5611,8 @@ def _parallel_ranks(tmp: str) -> dict:
         procs, failed = [], []
         try:
             for rank in range(world):
-                mine = [[n, d.format(rank=rank), a] for n, d, a in runs]
+                mine = [[n, d.format(rank=rank), a, p]
+                        for n, d, a, p in runs]
                 procs.append(subprocess.Popen(
                     [sys.executable, "-c", _RANK_MAIN, str(rank),
                      json.dumps(mine), str(PARALLEL_FIRST)],
@@ -5425,6 +5640,15 @@ def _parallel_ranks(tmp: str) -> dict:
                     proc.kill()
                     proc.wait()
     return results
+
+
+def _ckpt_dir(tmp: str, name: str) -> str:
+    return os.path.join(tmp, f"ckpt_{name}")
+
+
+def _gathered(tmp: str, name: str) -> str:
+    """The parent's one-file checkpoint of a saving layout's last step."""
+    return os.path.join(tmp, f"gathered_{name}.pt")
 
 
 def _card_memory(when: str) -> None:
@@ -5475,6 +5699,9 @@ def _dp_reference(name: str, tmp: str) -> dict:
     from lance_distributed_training_tpu_torch.ops.flash import (
         make_flash_attention,
     )
+    from lance_distributed_training_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
 
     _, _, s, _ = SHAPE
     shared = name not in ("fsdp", "zero2")  # the ranks hold one data share
@@ -5497,6 +5724,16 @@ def _dp_reference(name: str, tmp: str) -> dict:
     optimizer, lr = trainer.make_optimizer(config, task.model.parameters())
     step = trainer.make_train_step(task, optimizer, lr, grad_accum=accum,
                                    grad_norm=True)
+    if name in PARALLEL_RESUMES:
+        # A resumed layout's reference continues the saved state whole: the
+        # optimizer's moments and counts, the accumulator, the updates.
+        saved = CheckpointManager(
+            _ckpt_dir(tmp, PARALLEL_RESUMES[name])).read_state(
+                PARALLEL_CKPT_STEP)
+        optimizer.load_state_dict(saved["optimizer"])
+        step.load_state_dict(saved["train_step"])
+        del saved
+    start = step.updates
     losses, norm, cosines = [], None, None
     for i in range(accum + 1):
         batch = {k: torch.cat([f["batches"][i][k] for f in shares]).to(dev)
@@ -5505,7 +5742,7 @@ def _dp_reference(name: str, tmp: str) -> dict:
         losses.append(float(step(batch, mlm_mask=mask)))
         if norm is None:
             norm = float(step.last_grad_norm)
-        if step.updates == 1 and cosines is None:
+        if step.updates == start + 1 and cosines is None:
             cosines = _update_cosines(task.model, firsts[0]["state"],
                                       firsts[0]["updated"])
     del step, optimizer
@@ -5578,6 +5815,105 @@ def _cosine_fields(cosines: dict) -> dict:
     return out
 
 
+_SAVED: dict = {}  # a saving layout's newest step, read whole, by layout
+
+
+def _saved_state(tmp: str, name: str):
+    """The step PARALLEL_CKPT_STEP of saving layout ``name``'s checkpoint,
+    every leaf whole on this host (read once)."""
+    from lance_distributed_training_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+
+    if name not in _SAVED:
+        _SAVED[name] = CheckpointManager(_ckpt_dir(tmp, name)).read_state(
+            PARALLEL_CKPT_STEP)
+    return _SAVED[name]
+
+
+def _tree_differences(got, want, where: str = "") -> list:
+    """The leaves where two state trees differ: keys, shape, dtype or any
+    bit."""
+    import torch
+
+    if torch.is_tensor(want):
+        same = (torch.is_tensor(got) and got.dtype == want.dtype
+                and got.shape == want.shape and torch.equal(
+                    got.contiguous().view(-1).view(torch.uint8),
+                    want.contiguous().view(-1).view(torch.uint8)))
+        return [] if same else [where]
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [f"{where}: keys"]
+        return [d for k in want
+                for d in _tree_differences(got[k], want[k], f"{where}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [f"{where}: length"]
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in _tree_differences(g, w, f"{where}/{i}")]
+    return [] if got == want else [where]
+
+
+def _checkpoint_fields(name: str, ranks: list, tmp: str) -> dict:
+    """A saving layout's per-rank save figures beside the parent's gather
+    path's on the same state, and whether its newest step read whole
+    equals the gathered state; a resumed layout's per-rank restore figures
+    beside the parent's whole-file read, and whether the state it restored
+    under its own layout, read back whole, equals the saved step."""
+    import torch
+
+    # Each rank's saves (a resumed run's: its epoch's end, under its own
+    # layout).
+    out = {"nvidia_smi": nvidia_smi(), "ckpt_step": PARALLEL_CKPT_STEP,
+           "step_bytes": ranks[0]["ckpt_step_bytes"],
+           "save": [{"rank": i, "ckpt_save_ms": r["ckpt_save_ms"],
+                     "ckpt_wait_ms": r["ckpt_wait_ms"],
+                     "ckpt_write_ms": r["ckpt_write_ms"],
+                     "bytes_written": r["ckpt_bytes"],
+                     "held_bytes": r["parallel"]["held_bytes"]["total"],
+                     "host": r["ckpt_save_host"]}
+                    for i, r in enumerate(ranks)]}
+    if name in PARALLEL_SAVES:
+        saved = _saved_state(tmp, name)
+        gathered = torch.load(_gathered(tmp, name), map_location="cpu",
+                              weights_only=True)
+        out.update(
+            gather_path=[dict(r["gather_path"], rank=i)
+                         for i, r in enumerate(ranks)],
+            differing_leaves=_tree_differences(
+                {k: saved[k] for k in gathered}, gathered))
+        out["saved_equals_gathered"] = not out["differing_leaves"]
+        del gathered
+        return out
+    saved = _saved_state(tmp, PARALLEL_RESUMES[name])
+    restored = torch.load(os.path.join(tmp, f"{name}.restored.pt"),
+                          map_location="cpu", weights_only=True)
+    differing = (_tree_differences(restored["model"], saved["model"],
+                                   "model")
+                 + _tree_differences(restored["optimizer"],
+                                     saved["optimizer"]["state"],
+                                     "optimizer")
+                 + _tree_differences(restored["accum"],
+                                     saved["train_step"]["accum"], "accum"))
+    out.update(
+        resumed_from=PARALLEL_RESUMES[name],
+        restore=[{
+            "rank": i, "ckpt_restore_ms": r["ckpt_restore_ms"],
+            "bytes_read": r["ckpt_restore_bytes"],
+            "bytes_scanned": r["ckpt_restore_scanned_bytes"],
+            "largest_read": r["ckpt_restore_largest_bytes"],
+            "held_bytes": r["parallel"]["held_bytes"]["total"],
+            "host": r["ckpt_restore_host"]}
+            for i, r in enumerate(ranks)],
+        gather_path_restore=[dict(r["gather_path_restore"], rank=i)
+                             for i, r in enumerate(ranks)],
+        leaves=len(restored["model"]), differing_leaves=differing,
+        restored_equals_saved=not differing)
+    del restored
+    return out
+
+
 def _rel(a: float, b: float) -> float:
     return abs(a - b) / abs(b)
 
@@ -5624,14 +5960,14 @@ def parallel_run() -> dict:
     _, _, s, _ = SHAPE
     launches, report = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        # Each layout's corpus: the slice corpus's first PARALLEL_STEPS
-        # batches, the rows the runs train on and those their eval reads
+        # Each layout's corpus: the slice corpus's first batches, one a
+        # step, the rows the runs train on and those their eval reads
         # (every rank evaluates).
         lengths, docs = _slice_docs()
         corpus = {}
         for name in PARALLEL_LAYOUTS:
             path = _layout_data(tmp, name)
-            rows = PARALLEL_STEPS * _layout_batch(name)
+            rows = _layout_steps(name) * _layout_batch(name)
             if path not in corpus:
                 create_text_token_dataset(path, docs[:rows], seq_len=s,
                                           pack=False)
@@ -5645,7 +5981,8 @@ def parallel_run() -> dict:
             losses = r0["losses"]
             after = _grad_accum(name)  # the first loss after an update
             rows, valid_tokens = corpus[_layout_data(tmp, name)]
-            timed = PARALLEL_STEPS // 2  # timed: the later half
+            steps = _layout_steps(name)
+            timed = steps // 2  # timed: the later half
             step_ms = statistics.median(r0["step_ms"][timed:])
             fields = {
                 "layout": name, "flags": PARALLEL_LAYOUTS[name],
@@ -5669,10 +6006,10 @@ def parallel_run() -> dict:
                 **_cosine_fields(ref["cosines"]),
                 "last5_mean_loss": statistics.fmean(losses[-5:]),
                 "losses": losses,
-                f"step_ms_median_{timed + 1}_{PARALLEL_STEPS}": step_ms,
+                "step_ms_median_later_half": step_ms,
                 "step_ms_median_each_rank": [
                     statistics.median(r["step_ms"][timed:]) for r in ranks],
-                "valid_tokens_per_sec": valid_tokens / PARALLEL_STEPS
+                "valid_tokens_per_sec": valid_tokens / steps
                 / (step_ms / 1e3),
                 "eval_masked_token_accuracy": [r["eval_accuracy"]
                                                for r in ranks],
@@ -5695,6 +6032,8 @@ def parallel_run() -> dict:
                 "replicated_bytes": r0["parallel"]["replicated_bytes"],
                 "seconds": r0["seconds"],
             }
+            if name in PARALLEL_SAVES or name in PARALLEL_RESUMES:
+                fields["checkpoint"] = _checkpoint_fields(name, ranks, tmp)
             emit("parallel", **fields)
             launches[f"parallel_{name}"] = {
                 k: r0["launches"][k] for k in flash.LAUNCHES}
@@ -5707,6 +6046,7 @@ def parallel_run() -> dict:
             _check_parallel(name, every[name], fields)
         except RuntimeError as exc:
             problems.append(str(exc))
+    _SAVED.clear()
     if problems:
         raise RuntimeError("; ".join(problems))
     return {"launches": launches, "tp_errors": tp_errors, "probe": probed,
@@ -5716,11 +6056,19 @@ def parallel_run() -> dict:
 def _check_parallel(name: str, ranks: list, fields: dict) -> None:
     """The phase's checks of one layout (the module's docstring)."""
     phase = f"parallel {name}"
+    ckpt = fields.get("checkpoint")
+    if ckpt is not None and ckpt["differing_leaves"]:
+        what = ("its newest step read whole differs from the gathered state"
+                if name in PARALLEL_SAVES else
+                f"the state restored from {ckpt['resumed_from']}'s step "
+                "differs from the saved one")
+        raise RuntimeError(f"{phase}: {what} at "
+                           f"{ckpt['differing_leaves'][:5]}")
     if any(t != "gloo-host-staged" for t in fields["transport"]):
         raise RuntimeError(f"{phase}: transport {fields['transport']}")
     if len(ranks) != PARALLEL_RANKS[name]:
         raise RuntimeError(f"{phase}: {len(ranks)} ranks reported")
-    _check_trained(phase, fields, PARALLEL_STEPS)
+    _check_trained(phase, fields, _layout_steps(name))
     if any(r["losses"] != fields["losses"] for r in ranks):
         raise RuntimeError(f"{phase}: the ranks logged different losses")
     if any(n != fields["dataset_rows"] for n in fields["eval_rows"]
@@ -5760,7 +6108,7 @@ def _check_parallel(name: str, ranks: list, fields: dict) -> None:
                            f"{fields['update_cosine_min']} with the "
                            f"data-parallel step's (limit {PARALLEL_COS_MIN})")
     flash_on = "--flash_attention" in PARALLEL_LAYOUTS[name]
-    per_step = LAYERS * PARALLEL_STEPS if flash_on else 0
+    per_step = LAYERS * _layout_steps(name) if flash_on else 0
     for rank, r in enumerate(ranks):
         # Every rank evaluates its data share's slice of each global eval
         # batch: LAYERS forwards a batch on each.

@@ -47,7 +47,7 @@ import torch.distributed as dist
 
 __all__ = ["AXES", "Topology", "mesh_shape", "choose_transport",
            "host_staged", "transport_name", "all_reduce", "all_gather",
-           "reduce_scatter", "gather_to_host", "broadcast", "send_recv",
+           "reduce_scatter", "broadcast", "send_recv",
            "copy_to", "reduce_from", "scatter_to", "shift"]
 
 AXES = ("data", "model", "seq", "pipe")
@@ -159,25 +159,6 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     out = _out_like(src, (src.shape[0] // size, *src.shape[1:]), 2)
     dist.reduce_scatter_tensor(out, _to_host(src, 1), group=group)
     return out.to(t.device).movedim(0, dim).contiguous().to(t.dtype)
-
-
-def gather_to_host(t: torch.Tensor, group, dst: int, dim: int = 0):
-    """Every rank's ``t`` of ``group`` concatenated along ``dim`` in group
-    rank order, on the host of global rank ``dst`` (``None`` on the other
-    ranks). Over gloo each block travels from the host (a CPU tensor, or
-    a staged copy of a CUDA one); over NCCL the blocks land on ``dst``'s
-    card, one leaf's worth, and are copied to its host there."""
-    src = t.movedim(dim, 0).contiguous()
-    if dist.get_backend(group) != "nccl":
-        src = src.cpu()  # ldt: ignore[LDT1714] -- a checkpoint's leaf, bound for the host
-    mine = dist.get_rank() == dst
-    parts = ([torch.empty_like(src)
-              for _ in range(dist.get_world_size(group))] if mine else None)
-    dist.gather(src, parts, dst=dst, group=group)
-    if not mine:
-        return None
-    return torch.cat([part.cpu() for part in parts]).movedim(
-        0, dim).contiguous()
 
 
 def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:

@@ -49,11 +49,13 @@ of clipping is the norm of the whole logical gradient: each split leaf's
 squared norm is summed over its group first. :meth:`ShardedState.full_state`
 gathers the whole state in the data-parallel format (the module's
 ``state_dict`` names, the optimizer's ``state_dict``, the accumulator
-list) on every rank; :meth:`ShardedState.host_state` gathers the same
-format to rank 0's host one leaf at a time (a checkpoint: no rank's
-device holds more than its blocks and one gathered leaf), and
-:meth:`ShardedState.load_full_state` cuts a rank's blocks from it on the
-host and moves only the blocks.
+list) on every rank. A checkpoint gathers nothing:
+:meth:`ShardedState.local_state` is the same tree with each leaf this
+rank's block (a :class:`..utils.checkpoint.Piece` of a split leaf, written
+by the lowest rank that holds the block; a whole leaf is rank 0's to
+write), and :meth:`ShardedState.read_sharded_state` cuts this rank's
+blocks under the live layout from a step's pieces, reading only the bytes
+that overlap them, whatever layout wrote the step.
 """
 
 from __future__ import annotations
@@ -64,9 +66,9 @@ from functools import partial
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
+from ..utils.checkpoint import CheckpointRefused, LeafRef, Piece
 from . import comm
 
 __all__ = ["shard_model_", "ShardedState", "block_of", "fsdp_units"]
@@ -547,68 +549,130 @@ class ShardedState:
         rank calls it; every rank gets it."""
         return self._whole(self._gather, optimizer, accum)
 
-    def _leaf_to_host(self, t: torch.Tensor, layout) -> Optional[torch.Tensor]:
-        """The whole leaf whose block under ``layout`` is ``t``, on rank
-        0's host (``None`` elsewhere): gathered over the group of rank 0
-        along the layout's axis (the other groups hold replicas and send
-        nothing), or rank 0's own copy of a replicated leaf."""
-        me = dist.get_rank() if dist.is_initialized() else 0
+    def _piece(self, t: torch.Tensor, layout):
+        """``t`` as a checkpoint leaf: the :class:`Piece` of the whole leaf
+        whose block under ``layout`` it is, written by the lowest rank that
+        holds the block (its index 0 on every other axis), or ``t`` itself
+        where ``layout`` leaves it whole (rank 0 writes it)."""
         if layout is None or self.topo.size[layout[0]] == 1:
-            return t.detach().cpu() if me == 0 else None  # ldt: ignore[LDT1714] -- a checkpoint's leaf, bound for the host
+            return t
         axis, dim = layout
-        if 0 not in self.topo.ranks[axis]:
-            return None
-        whole = comm.gather_to_host(t.detach(), self.topo.group[axis], 0,
-                                    dim)
-        if whole is not None:
-            self.peaks["checkpoint_leaf"] = max(
-                self.peaks["checkpoint_leaf"], _nbytes(whole))
-        return whole
+        shape = list(t.shape)
+        shape[dim] *= self.topo.size[axis]
+        write = all(i == 0 for a, i in self.topo.index.items() if a != axis)
+        return Piece(t, tuple(shape), dim, self.topo.index[axis] * t.shape[dim],
+                     axis, write)
 
-    def host_state(self, optimizer, accum: Optional[list]):
-        """:meth:`full_state` on rank 0's host, ``None`` on the other
-        ranks, gathered one leaf at a time: rank 0 copies each whole leaf
-        to its host before the next is gathered, so that no rank's device
-        holds more than its blocks and one gathered leaf. Collective:
-        every rank calls it."""
-        whole = self._whole(self._leaf_to_host, optimizer, accum)
-        me = dist.get_rank() if dist.is_initialized() else 0
-        return whole if me == 0 else None
+    def local_state(self, optimizer, accum: Optional[list]) -> tuple:
+        """:meth:`full_state`'s tree with each leaf this rank's block
+        (:meth:`_piece`): what this rank saves of a checkpoint. fsdp's
+        blocks are the masters, never the module's freed parameters. No
+        collective; ``peaks["checkpoint_leaf"]`` keeps the largest leaf
+        this rank writes."""
+        first = all(i == 0 for i in self.topo.index.values())
 
-    def load_full_state(self, model_state: dict, optimizer, opt_state: dict,
-                        accum: Optional[list], saved_accum) -> None:
-        """This rank's blocks of a whole state (:meth:`full_state`'s
-        format, on the host) into the model, the optimizer and ``accum``:
-        each block is cut on the host and only the block moves."""
+        def leaf(t, layout):
+            out = self._piece(t, layout)
+            if out.write if isinstance(out, Piece) else first:
+                self.peaks["checkpoint_leaf"] = max(
+                    self.peaks["checkpoint_leaf"], _nbytes(t))
+            return out
+
+        return self._whole(leaf, optimizer, accum)
+
+    def whole_shapes(self) -> dict:
+        """The whole shape of every entry of the model's ``state_dict``."""
+        shapes = {k: tuple(v.shape)
+                  for k, v in self.model.state_dict().items()}
+        shapes.update({e.name: tuple(self.plan[e.name].shape)
+                       for e in self.entries})
+        return shapes
+
+    def _read(self, reader, ref, shape, layout) -> torch.Tensor:
+        """This rank's block under ``layout`` of the saved leaf ``ref``,
+        whose whole shape must be ``shape``."""
+        if not isinstance(ref, LeafRef):
+            raise CheckpointRefused(f"{ref!r} where a tensor of {shape} "
+                                    "belongs")
+        if reader.shape(ref.name) != tuple(shape):
+            raise CheckpointRefused(
+                f"{ref.name} has shape {reader.shape(ref.name)}; this run's "
+                f"is {tuple(shape)}")
+        if layout is None or self.topo.size[layout[0]] == 1:
+            return reader.read(ref.name)
+        axis, dim = layout
+        return reader.read(ref.name, dim, self.topo.index[axis],
+                           self.topo.size[axis])
+
+    def read_sharded_state(self, reader, model_tree: dict, opt_tree: dict,
+                           accum_tree, optimizer) -> tuple:
+        """This rank's share of a checkpoint step under the live layout, on
+        the host: ``(model blocks by state_dict name, the optimizer's
+        state_dict of blocks, accumulator blocks or None)``. ``reader`` is
+        the step's :class:`..utils.checkpoint.StepReader`, the trees are
+        the parts of its :meth:`~..utils.checkpoint.StepReader.tree` that
+        :meth:`local_state` wrote; each block is read from the pieces that
+        overlap it, so a split leaf is assembled whole only where this
+        layout holds it whole. Raises
+        :class:`..utils.checkpoint.CheckpointRefused` where a leaf's shape
+        or the accumulator's presence is not this state's."""
+        shapes = self.whole_shapes()
+        model = {}
+        for e in self.entries:
+            layout = (e.master_layout if e.shard
+                      else self.plan[e.name].param)
+            model[e.name] = self._read(reader, model_tree[e.name],
+                                       shapes[e.name], layout)
+        for name, ref in model_tree.items():
+            if name not in model:
+                model[name] = self._read(reader, ref, shapes[name], None)
+        state = {}
+        for i, saved in opt_tree["state"].items():
+            if not 0 <= int(i) < len(self.entries):
+                raise CheckpointRefused(f"optimizer state {i} names no "
+                                        "parameter of this run")
+            e = self.entries[int(i)]
+            state[int(i)] = local = {}
+            for k, v in saved.items():
+                if not isinstance(v, LeafRef):
+                    local[k] = v
+                elif reader.shape(v.name) == ():  # a step counter
+                    local[k] = reader.read(v.name)
+                else:
+                    local[k] = self._read(reader, v, self.plan[e.name].shape,
+                                          e.master_layout)
+        if (accum_tree is None) != (self.grad_accum == 1):
+            raise CheckpointRefused(
+                "the checkpoint was taken with"
+                f"{'out' if accum_tree is None else ''} a gradient "
+                "accumulator and this run has"
+                f"{'' if accum_tree is None else ' none'}")
+        accum = None
+        if accum_tree is not None:
+            accum = [self._read(reader, ref, self.plan[e.name].shape,
+                                self._accum_held(e))
+                     for e, ref in zip(self.entries, accum_tree)]
+        opt = {"state": state, "param_groups": opt_tree["param_groups"]}
+        return model, opt, accum
+
+    def load_sharded_state(self, model: dict, opt_state: dict,
+                           saved_accum: Optional[list], optimizer,
+                           accum: Optional[list]) -> None:
+        """:meth:`read_sharded_state`'s blocks into the model, the
+        optimizer and ``accum``."""
         with torch.no_grad():
             for e in self.entries:
-                full = model_state[e.name]
-                leaf = self.plan[e.name].param
-                if e.shard:
-                    e.master.data.copy_(self._block(full, e.master_layout))
-                elif leaf is not None and leaf[0] in ("model", "pipe"):
-                    e.param.data.copy_(self._block(full, leaf))
-                else:
-                    e.param.data.copy_(full)
+                target = e.master if e.shard else e.param
+                target.data.copy_(model[e.name])
             params = {e.name for e in self.entries}
-            rest = {k: v for k, v in model_state.items() if k not in params}
+            rest = {k: v for k, v in model.items() if k not in params}
             if rest:
                 self.model.load_state_dict(rest, strict=False)
-        local = {"param_groups": opt_state["param_groups"], "state": {}}
-        for i, saved in opt_state["state"].items():
-            e = self.entries[int(i)]
-            local["state"][int(i)] = {
-                k: (self._block(v, e.master_layout).clone()
-                    if torch.is_tensor(v) and v.dim() > 0
-                    and e.master_layout is not None else v)
-                for k, v in saved.items()}
-        optimizer.load_state_dict(local)
+        optimizer.load_state_dict(opt_state)
         if accum is not None and saved_accum is not None:
             with torch.no_grad():
-                for e, acc, full in zip(self.entries, accum, saved_accum):
-                    layout = self._accum_held(e)
-                    acc.copy_(full if layout is None or self.topo.size[
-                        layout[0]] == 1 else self._block(full, layout))
+                for acc, block in zip(accum, saved_accum):
+                    acc.copy_(block)
 
     def materialize(self) -> None:
         """fsdp: the whole parameters back in the module for good (after

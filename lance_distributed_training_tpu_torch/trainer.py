@@ -61,8 +61,9 @@ under the run's layout, as JAX's sharded eval step: each data share reads
 its slice of every global eval batch (the ranks of one model group, ring
 or pipeline the same slice) and the ``(sum, count)`` pairs are summed over
 the data shares, so that every rank returns the whole eval's accuracy. A
-checkpoint holds the whole state in the data-parallel format, gathered
-to rank 0's host one leaf at a time.
+checkpoint is sharded: every rank writes its own blocks (each replicated
+leaf once, by the lowest rank that holds it) and a resume reads this
+rank's blocks under the run's layout, whatever layout saved the step.
 
 Beyond the main path, as the JAX trainer: gradient accumulation
 (``grad_accum``, ``optax.MultiSteps``' semantics in :class:`TrainStep`),
@@ -128,10 +129,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 import statistics
 import time
 import warnings
+from datetime import timedelta
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -163,7 +164,6 @@ from .parallel.mesh import (
     maybe_initialize_distributed,
     process_topology,
     shutdown_distributed,
-    sync_global_devices,
 )
 from .parallel.comm import Topology, all_reduce, transport_name
 from .parallel.layout import ShardedState, shard_model_
@@ -174,7 +174,8 @@ from .models.moe import set_moe_group
 from .tune import AutoTuner, collect_tunables
 from .utils import compiletrack
 from .utils.chaos import StepTrace, TrainerChaos, batch_digest
-from .utils.checkpoint import CheckpointManager, pack_rng_key, unpack_rng_key
+from .utils.checkpoint import (CheckpointManager, CheckpointRefused,
+                               pack_rng_key, unpack_rng_key)
 from .utils.metrics import MetricLogger, StepTimer
 from .utils.profiling import ProfileWindow
 from .utils.signals import PreemptionHandler
@@ -778,9 +779,16 @@ def train(config: TrainConfig) -> dict:
     is then skipped). With ``eval_every`` each ``history`` entry of such an
     epoch adds ``val_acc`` and ``val_rows``. With ``checkpoint_dir``:
     ``ckpt_save_ms`` (each save's time on the training thread),
-    ``ckpt_write_ms`` (each file write on the writer thread),
-    ``ckpt_last_success_step``, ``ckpt_restore_ms`` (None without a
-    restore) and ``ckpt_bytes`` (the newest state file's size). Under
+    ``ckpt_wait_ms`` (the part of it awaiting the previous step's write
+    and commit), ``ckpt_write_ms`` (each shard write on the writer thread),
+    ``ckpt_last_success_step``, ``ckpt_restore_ms``,
+    ``ckpt_restore_bytes``, ``ckpt_restore_largest_bytes`` and
+    ``ckpt_restore_scanned_bytes`` (this process's restore time, the bytes
+    of the leaves and blocks it restored, the largest of them, and the
+    shard bytes it read for them; None without a restore), ``ckpt_bytes``
+    (this process's shard
+    bytes of its newest committed save, 0 when it wrote none) and
+    ``ckpt_step_bytes`` (every process's bytes of the newest step). Under
     ``grad_accum``, ``accum_fold_ms`` is the median fold time on the card
     (None on the CPU);
     with ``profile_dir``, ``profile_trace`` names the trace file. Every run
@@ -1394,6 +1402,11 @@ def _registry_deltas(before: dict, after: dict, *, workers: bool,
     return {n: int(after[n] - before[n]) for n in names}
 
 
+# How long a failing process waits for its peers to fail too before its
+# emergency checkpoint (the timeout of ``CheckpointManager.gate``).
+_PEER_WAIT_S = 60.0
+
+
 class _CkptJournal:
     """Checkpoint bookkeeping shared between the step loop and the
     emergency save. Updated only at completed-step boundaries, so the live
@@ -1415,63 +1428,108 @@ class _CkptJournal:
 
 def _save_checkpoint(ckpt: CheckpointManager, journal: _CkptJournal,
                      model, optimizer, train_step, mask_gen, rank: int,
-                     world: int, wait: bool = False, sharded=None) -> None:
-    """Every process's mask generator state, gathered to rank 0, goes into
-    the cursor; rank 0 writes the pair (the replicas are equal, or under a
-    sharded layout the whole state, gathered to rank 0's host one leaf at
-    a time, in the data-parallel format); every rank passes a barrier
-    after the save."""
-    states = [pack_rng_key(mask_gen)]
-    if world > 1:
-        states = [None] * world
-        dist.all_gather_object(states, pack_rng_key(mask_gen))
+                     world: int, wait: bool = False, sharded=None,
+                     data_index: int = 0) -> None:
+    """Every process's mask generator state and data share, gathered, go
+    into the cursor; every process saves its share of the state: under a
+    sharded layout its blocks (``ShardedState.local_state``), each written
+    by one process, else the replicated state, which rank 0 writes."""
+    shares = ckpt.all_gather([pack_rng_key(mask_gen), data_index])
     if sharded is not None:
-        gathered = sharded.host_state(optimizer, train_step.accum)
-        if gathered is not None:
-            model_state, opt_state, accum = gathered
-            step_state = dict(train_step.state_dict(), accum=accum)
-    elif rank == 0:
+        model_state, opt_state, accum = sharded.local_state(
+            optimizer, train_step.accum)
+        step_state = dict(train_step.state_dict(), accum=accum)
+    else:
         model_state, opt_state = model.state_dict(), optimizer.state_dict()
         step_state = train_step.state_dict()
-    if rank == 0:
-        cursor = dict(journal.cursor_base)
-        cursor.update(global_step=journal.abs_step, rng=states)
-        ckpt.save(journal.abs_step,
-                  {"model": model_state, "optimizer": opt_state,
-                   "train_step": step_state},
-                  cursor=cursor, wait=wait)
-        del model_state, opt_state, step_state
-    sync_global_devices()
+    cursor = dict(journal.cursor_base)
+    cursor.update(global_step=journal.abs_step,
+                  rng=[state for state, _ in shares],
+                  rng_data_index=[index for _, index in shares])
+    ckpt.save(journal.abs_step,
+              {"model": model_state, "optimizer": opt_state,
+               "optimizer_class": type(optimizer).__name__,
+               "train_step": step_state},
+              cursor=cursor, wait=wait)
     # An intact duplicate (save returned False) holds this step as well.
     journal.saved_step = journal.abs_step
 
 
+def _check_saved_tree(tree, names, optimizer) -> None:
+    """Refuse a step whose state tree is not this run's: another model (its
+    ``state_dict`` names) or another optimizer, as JAX's orbax restore
+    refuses a changed tree. A layout change of the same tree is taken (a
+    step of the earlier format names no optimizer)."""
+    saved, names = set(tree["model"]), set(names)
+    if saved != names:
+        extra, lacks = sorted(saved - names), sorted(names - saved)
+        raise CheckpointRefused(
+            f"its model is not this run's: it holds {extra[:3]} that this "
+            f"run does not and lacks {lacks[:3]} (another model, or the "
+            "pipeline's stacked blocks against separate ones)")
+    mine = type(optimizer).__name__
+    theirs = tree.get("optimizer_class", mine)
+    if theirs != mine:
+        raise CheckpointRefused(
+            f"its optimizer is not this run's ({theirs} against {mine})")
+
+
+def _saved_generator(cursor: dict, rank: int, data_index: int) -> list:
+    """The saved mask generator state this process continues: that of the
+    lowest process that drew for its data share. A layout of as many data
+    shares continues each share's draws; under fewer or more (fsdp's two
+    against tp's one at the same world size) share ``d`` takes saved
+    share ``d`` modulo their number, so that the ranks of one share draw
+    alike. A cursor without data shares is the data-parallel runs' (share
+    = rank)."""
+    rngs = cursor["rng"]
+    shares = cursor.get("rng_data_index")
+    if shares is None:
+        return rngs[rank]
+    return rngs[shares.index(data_index % (max(shares) + 1))]
+
+
 def _restore_checkpoint(ckpt: CheckpointManager, model, optimizer,
                         train_step, sharded, mask_gen, rank: int, world: int,
-                        epochs: int):
-    """Restore the newest intact checkpoint into the live objects:
-    ``(start_epoch, epoch_step, global_step)``, or ``None`` when there is
-    none. Resuming under a different world size raises. A sharded state
-    takes its blocks of the whole state the file holds."""
-    restored = ckpt.restore_latest()
+                        epochs: int, data_index: int = 0):
+    """Restore the newest step intact on every process into the live
+    objects: ``(start_epoch, epoch_step, global_step)``, or ``None`` when
+    there is none. Resuming under a different world size raises. A sharded
+    state reads its blocks under this run's layout, whatever layout saved
+    the step; a replicated one reads the whole state."""
+    def read(reader):
+        tree = reader.tree()
+        if sharded is None:
+            _check_saved_tree(tree, model.state_dict(), optimizer)
+            return reader.whole()
+        _check_saved_tree(tree, sharded.whole_shapes(), optimizer)
+        step_tree = tree["train_step"]
+        blocks = sharded.read_sharded_state(
+            reader, tree["model"], tree["optimizer"], step_tree.get("accum"),
+            optimizer)
+        return blocks, dict(step_tree, accum=None)
+
+    restored = ckpt.restore_latest(read)
     if restored is None:
         return None
     state, cursor, step = restored
     rngs = cursor.get("rng") or []
     if len(rngs) != world:
+        # The per-process mask generators have no continuation under
+        # another process count.
         raise ValueError(
             f"checkpoint step {step} was taken by {len(rngs)} processes; "
             f"this run has {world}")
     if sharded is not None:
-        sharded.load_full_state(state["model"], optimizer, state["optimizer"],
-                                train_step.accum,
-                                state["train_step"].get("accum"))
-        train_step.load_state_dict(dict(state["train_step"], accum=None))
+        (model_blocks, opt_state, saved_accum), step_state = state
+        train_step.load_state_dict(step_state)
+        sharded.load_sharded_state(model_blocks, opt_state, saved_accum,
+                                   optimizer, train_step.accum)
     else:
         model.load_state_dict(state["model"])
         optimizer.load_state_dict(state["optimizer"])
         train_step.load_state_dict(state["train_step"])
-    unpack_rng_key(rngs[rank], mask_gen)
+    unpack_rng_key(_saved_generator(cursor, rank, data_index), mask_gen)
     start_epoch = min(int(cursor.get("epoch", 0)), epochs)
     epoch_step = int(cursor.get("step", 0)) if start_epoch < epochs else 0
     return start_epoch, epoch_step, int(cursor.get("global_step", step))
@@ -1666,16 +1724,22 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     # optimizer, the accumulator and the generators together with the
     # data-plane cursor (epoch, batches consumed, absolute step), so the
     # resumed stream — and with it the loss trajectory — is the
-    # uninterrupted run's.
-    ckpt = CheckpointManager(config.checkpoint_dir) \
-        if config.checkpoint_dir else None
+    # uninterrupted run's. Across processes the checkpoint's collectives
+    # go over gloo groups of their own, apart from the training's.
+    ckpt = None
+    if config.checkpoint_dir:
+        ckpt = CheckpointManager(config.checkpoint_dir) if world == 1 else \
+            CheckpointManager(
+                config.checkpoint_dir, group=dist.new_group(backend="gloo"),
+                gate=dist.new_group(backend="gloo", timeout=timedelta(
+                    seconds=_PEER_WAIT_S)))
     start_epoch = resume_epoch_step = resume_global_step = 0
     restore_ms = None
     if ckpt is not None and config.resume:
         t0 = time.perf_counter()
         resumed = _restore_checkpoint(ckpt, task.model, optimizer, step,
-                                      sharded,
-                                      mask_gen, rank, world, config.epochs)
+                                      sharded, mask_gen, rank, world,
+                                      config.epochs, data_index)
         if resumed is not None:
             start_epoch, resume_epoch_step, resume_global_step = resumed
             if cuda:
@@ -1779,7 +1843,8 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
 
     def save(wait: bool = False) -> None:
         _save_checkpoint(ckpt, journal, task.model, optimizer, step,
-                         mask_gen, rank, world, wait=wait, sharded=sharded)
+                         mask_gen, rank, world, wait=wait, sharded=sharded,
+                         data_index=data_index)
 
     pool = _loader_buffer_pool(config)
     pool_start = pool.counters() if pool is not None else None
@@ -2081,12 +2146,21 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         if ckpt is not None:
             try:
                 # A crashed run persists its last completed step, awaited,
-                # when the live state sits at a step boundary. Across
-                # processes the peers may never reach the save's
-                # collectives, so only a lone process saves here.
-                if journal.dirty and journal.at_boundary and world == 1:
-                    save(wait=True)
-                ckpt.close()
+                # when the live state sits at that step's boundary on
+                # every process: each saves its share. Across processes
+                # only when every process failed: a peer blocked in a
+                # training collective never comes, and then nothing is
+                # committed, a pending step neither, and a restart falls
+                # back past it.
+                if ckpt.peers_present():
+                    ready = ckpt.all_gather(
+                        (journal.dirty and journal.at_boundary,
+                         journal.abs_step))
+                    if ready[0][0] and ready.count(ready[0]) == world:
+                        save(wait=True)
+                    ckpt.close()
+                else:
+                    ckpt.close(commit=False)
             except Exception:  # noqa: BLE001 — never mask the run's error
                 pass
         raise
@@ -2132,11 +2206,17 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     if ckpt is not None:
         newest = ckpt.latest_step()
         results.update(
-            ckpt_save_ms=ckpt.save_ms, ckpt_write_ms=ckpt.write_ms,
+            ckpt_save_ms=ckpt.save_ms, ckpt_wait_ms=ckpt.wait_ms,
+            ckpt_write_ms=ckpt.write_ms,
             ckpt_last_success_step=ckpt.last_success_step,
             ckpt_restore_ms=restore_ms,
-            ckpt_bytes=(os.path.getsize(ckpt.state_path(newest))
-                        if newest is not None else None))
+            ckpt_restore_bytes=ckpt.restore_bytes,
+            ckpt_restore_largest_bytes=ckpt.restore_largest,
+            ckpt_restore_scanned_bytes=ckpt.restore_scanned,
+            ckpt_bytes=(ckpt.bytes_written[-1] if ckpt.bytes_written
+                        else None),
+            ckpt_step_bytes=(ckpt.step_bytes(newest)
+                             if newest is not None else None))
     if pool is not None:
         end = pool.counters()
         results.update(bufpool_hits=end["hits"] - pool_start["hits"],

@@ -73,7 +73,7 @@ with tempfile.TemporaryDirectory() as tmp:
     for name in names:
         path = cs._layout_data(tmp, name)
         if not os.path.exists(path):
-            rows = cs.PARALLEL_STEPS * cs._layout_batch(name)
+            rows = cs._layout_steps(name) * cs._layout_batch(name)
             create_text_token_dataset(path, docs[:rows],
                                       seq_len=cs.SHAPE[2], pack=False)
     every = cs._parallel_ranks(tmp)

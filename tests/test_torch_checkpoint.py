@@ -228,10 +228,10 @@ def test_failed_background_write_raises_at_the_next_wait(tmp_path,
                                                          monkeypatch):
     mgr = CheckpointManager(str(tmp_path / "ck"))
 
-    def broken(obj, f):
+    def broken(f, tensors):
         raise OSError("disk full")
 
-    monkeypatch.setattr(checkpoint.torch, "save", broken)
+    monkeypatch.setattr(checkpoint, "_write_tensors", broken)
     mgr.save(1, _state(), cursor={"epoch": 0, "step": 1})
     with pytest.raises(RuntimeError, match="disk full"):
         mgr.close()

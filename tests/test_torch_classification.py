@@ -52,6 +52,7 @@ from lance_distributed_training_tpu_torch.models import (
     resnet,
 )
 from test_torch_threads import _one_torch_thread  # noqa: F401
+from torch_jax_native import privatise_jax_native
 
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -196,13 +197,9 @@ def jax_coeff(tmp_path, monkeypatch):
     native extractor built privately for this test (its own build links
     every process into one shared temp file)."""
     from lance_distributed_training_tpu.data import device_decode
-    from lance_distributed_training_tpu.native import jpeg as jax_jpeg
     from lance_distributed_training_tpu.ops import jpeg_device
 
-    monkeypatch.setattr(jax_jpeg, "_LIB_PATH", str(tmp_path / "jax_ldt.so"))
-    monkeypatch.setattr(jax_jpeg, "_lib", None)
-    monkeypatch.setattr(jax_jpeg, "_load_failed", False)
-    monkeypatch.delenv("LDT_DISABLE_NATIVE", raising=False)
+    privatise_jax_native(monkeypatch, tmp_path)
     return (device_decode.CoeffImageDecoder(image_size=SIZE),
             jpeg_device.make_batch_transform(SIZE))
 

@@ -73,6 +73,7 @@ from lance_distributed_training_tpu_torch.models import (
     load_flax_clip,
 )
 from test_torch_threads import _one_torch_thread  # noqa: F401
+from torch_jax_native import privatise_jax_native
 
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -206,13 +207,7 @@ def test_loss_and_metric_match_jax():
 @pytest.fixture
 def jax_native(tmp_path, monkeypatch):
     """The JAX package's native decoder, built privately for this test."""
-    from lance_distributed_training_tpu.native import jpeg as jax_jpeg
-
-    monkeypatch.setattr(jax_jpeg, "_LIB_PATH", str(tmp_path / "jax_ldt.so"))
-    monkeypatch.setattr(jax_jpeg, "_lib", None)
-    monkeypatch.setattr(jax_jpeg, "_load_failed", False)
-    monkeypatch.delenv("LDT_DISABLE_NATIVE", raising=False)
-    return jax_jpeg
+    return privatise_jax_native(monkeypatch, tmp_path)
 
 
 def _ragged_captions(path, rows=24, seed=3):

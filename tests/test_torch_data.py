@@ -38,6 +38,7 @@ from lance_distributed_training_tpu_torch.data import (
 )
 from lance_distributed_training_tpu_torch.data.token_pack import TokenDecoder
 from test_torch_threads import _one_torch_thread  # noqa: F401
+from torch_jax_native import privatise_jax_native
 
 
 SEQ = 12
@@ -195,13 +196,7 @@ def jax_native(tmp_path, monkeypatch):
     """The JAX package's native decoder, built privately for this test:
     its own build links every process into one shared temp file, which
     concurrent test workers can break (``native/jpeg.py:52``)."""
-    from lance_distributed_training_tpu.native import jpeg as jax_jpeg
-
-    monkeypatch.setattr(jax_jpeg, "_LIB_PATH", str(tmp_path / "jax_ldt.so"))
-    monkeypatch.setattr(jax_jpeg, "_lib", None)
-    monkeypatch.setattr(jax_jpeg, "_load_failed", False)
-    monkeypatch.delenv("LDT_DISABLE_NATIVE", raising=False)
-    return jax_jpeg
+    return privatise_jax_native(monkeypatch, tmp_path)
 
 
 @pytest.mark.parametrize("arm", ["native", "pil"])

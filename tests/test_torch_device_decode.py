@@ -41,6 +41,7 @@ from lance_distributed_training_tpu_torch.data import (
 from lance_distributed_training_tpu_torch.native import coeffs
 from lance_distributed_training_tpu_torch.ops import jpeg_device
 from test_torch_threads import _one_torch_thread  # noqa: F401
+from torch_jax_native import private_jax_native
 
 
 PAGE_KEYS = jpeg_device.COEFF_KEYS
@@ -148,18 +149,12 @@ def jx(tmp_path_factory):
     from lance_distributed_training_tpu.data import (
         device_decode as jax_device_decode,
     )
-    from lance_distributed_training_tpu.native import jpeg as jax_jpeg
     from lance_distributed_training_tpu.ops import (
         jpeg_device as jax_jpeg_device,
     )
 
-    lib = tmp_path_factory.mktemp("jax_native") / "jax_ldt.so"
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_jpeg, "_LIB_PATH", str(lib))
-        mp.setattr(jax_jpeg, "_lib", None)
-        mp.setattr(jax_jpeg, "_load_failed", False)
-        mp.delenv("LDT_DISABLE_NATIVE", raising=False)
-        assert jax_jpeg.native_available()
+    with private_jax_native(tmp_path_factory.mktemp("jax_native")) \
+            as jax_jpeg:
         yield types.SimpleNamespace(jnp=jax.numpy, native=jax_jpeg,
                                     device_decode=jax_device_decode,
                                     ops=jax_jpeg_device)

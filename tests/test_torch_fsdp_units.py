@@ -1,5 +1,5 @@
-"""``--fsdp`` gathered unit by unit, and the sharded checkpoint gathered
-leaf by leaf to rank 0.
+"""``--fsdp`` gathered unit by unit, and the sharded checkpoint written by
+every rank.
 
 Two gloo ranks on the CPU take two updates under ``fsdp`` (SGD with
 momentum) and, from the same weights and batches, a DDP run takes the
@@ -20,13 +20,12 @@ encoder block or one ResNet block), below the whole model's fsdp leaves,
 which a gather of every leaf before the forward would hold at once.
 
 A sharded save under ``fsdp``, ``--model_parallelism 2`` and ``--zero 2``
-holds at most one whole leaf at a time (the largest leaf of the
-parameters and the AdamW moments), on rank 0 only, and writes the whole
-state in the data-parallel format.
+copies to each rank's host only what it writes: rank 1 no whole leaf of
+the parameters and the AdamW moments, rank 0 at most the largest; read
+back whole, the step holds the whole state in the data-parallel format.
 """
 
 import math
-import os
 
 import numpy as np
 import pytest
@@ -221,18 +220,18 @@ def test_sharded_save_holds_one_whole_leaf_at_a_time(tmp_path, flags):
     whole = model.state_dict()
     largest = max(math.prod(v.shape) * 4 for v in whole.values())
     peaks = [r["parallel"]["peak_bytes"]["checkpoint_leaf"] for r in results]
-    # Rank 0 gathered each split leaf whole, one at a time; rank 1 gathers
-    # nothing.
-    assert 0 < peaks[0] <= largest and peaks[1] == 0
-    state = torch.load(CheckpointManager(ckpt).state_path(2),
-                       map_location="cpu", weights_only=True)
+    # Each rank copies to its host only what it writes: its blocks of the
+    # split leaves (rank 1: nothing whole) and, on rank 0, the whole
+    # leaves.
+    assert 0 < peaks[0] <= largest and 0 < peaks[1] < largest
+    state = CheckpointManager(ckpt).read_state(2)
     assert {k: tuple(v.shape) for k, v in state["model"].items()} == {
         k: tuple(v.shape) for k, v in whole.items()}
     moments = [s["exp_avg"] for s in state["optimizer"]["state"].values()]
     params = list(model.parameters())
     assert [tuple(m.shape) for m in moments] == [tuple(p.shape)
                                                  for p in params]
-    assert os.path.getsize(CheckpointManager(ckpt).state_path(2)) > 0
+    assert CheckpointManager(ckpt).step_bytes(2) > 0
 
 
 def test_the_sharded_state_frees_the_model_with_it():

@@ -52,6 +52,7 @@ from lance_distributed_training_tpu_torch.models.pretrained import (
 from test_torch_classification import RTOL as TRAIN_RTOL
 from test_torch_resnet import ATOL, RTOL
 from test_torch_threads import _one_torch_thread  # noqa: F401
+from torch_jax_native import privatise_jax_native
 
 
 SIZE, BATCH, WIDTH = 32, 8, 8
@@ -247,12 +248,7 @@ def test_first_step_from_the_checkpoint_equals_the_jax_task(
     decoders: the JAX one is built privately for this test, since its own
     build links every process into one shared temp file, and a worker that
     loses that race decodes with PIL (8.0e-3 off the port's first loss)."""
-    from lance_distributed_training_tpu.native import jpeg as jax_jpeg
-
-    monkeypatch.setattr(jax_jpeg, "_LIB_PATH", str(tmp_path / "jax_ldt.so"))
-    monkeypatch.setattr(jax_jpeg, "_lib", None)
-    monkeypatch.setattr(jax_jpeg, "_load_failed", False)
-    monkeypatch.delenv("LDT_DISABLE_NATIVE", raising=False)
+    jax_jpeg = privatise_jax_native(monkeypatch, tmp_path)
 
     def resnet18_f64(**kw):
         model = resnet.resnet18(dtype=torch.float64, num_filters=WIDTH, **kw)

@@ -174,7 +174,8 @@ def test_corrupt_newest_step_falls_back_and_still_matches(
          checkpoint_dir=ck, checkpoint_every_steps=3, **cfg)
     mgr = CheckpointManager(ck)
     assert mgr.all_steps() == [3, 6, 7]
-    with open(mgr.state_path(7), "r+b") as f:
+    shard, = mgr.shard_paths(7)
+    with open(shard, "r+b") as f:
         f.truncate(100)
     r2, resumed = _run(tmp_path, monkeypatch, "resume.jsonl",
                        checkpoint_dir=ck, checkpoint_every_steps=3, **cfg)
@@ -325,9 +326,8 @@ def _name_the_first_difference(tmp_path, path, pre_update, first, want):
     to a run cannot hide the difference."""
     diag_ck = str(tmp_path / "diag_ck")
     diag = _two_processes(tmp_path, path, "diag", diag_ck)
-    updates = {"uninterrupted": torch.load(
-        CheckpointManager(diag_ck).state_path(2), map_location="cpu",
-        weights_only=True)["model"], "preempted": pre_update}
+    updates = {"uninterrupted": CheckpointManager(diag_ck).read_state(2)[
+        "model"], "preempted": pre_update}
     dump = tmp_path / "params_after_first_update.pt"
     torch.save(updates, dump)
     differ = next((name for name, value in updates["uninterrupted"].items()
@@ -356,8 +356,7 @@ def test_two_gloo_processes_preempted_and_resumed_match_the_uninterrupted(
     assert len(cursor["rng"]) == 2 and cursor["rng"][0] != cursor["rng"][1]
     # Micro-step 2 closes the first window: read the preempted run's
     # parameters there before the resumed run's saves rotate ``ck``.
-    pre_update = torch.load(CheckpointManager(ck).state_path(2),
-                            map_location="cpu", weights_only=True)["model"]
+    pre_update = CheckpointManager(ck).read_state(2)["model"]
     resumed = _two_processes(tmp_path, token_path, "resumed", ck)
     for got, want, first in zip(resumed, control, pre):
         assert got["global_step"] == want["global_step"] == 6

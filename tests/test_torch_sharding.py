@@ -38,10 +38,10 @@ mask draw:
   squared block norms are summed over its group, where one process takes
   the whole leaf's norm).
 
-A sharded run's checkpoint holds the whole state in the data-parallel
-format: an FSDP run preempted and resumed matches the uninterrupted run
-bit for bit, and a data-parallel run resumed from it continues it bit for
-bit. Every JAX refusal of these layouts is kept with JAX's message, and
+A sharded run's checkpoint holds each rank's blocks (read back whole, the
+data-parallel format's tree): an FSDP run preempted and resumed matches
+the uninterrupted run bit for bit, and a data-parallel run resumed from
+it continues it bit for bit. Every JAX refusal of these layouts is kept with JAX's message, and
 the CLI's five flags are JAX's.
 """
 

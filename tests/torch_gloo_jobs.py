@@ -48,13 +48,26 @@ def run_gloo(body: str, world: int, *args, timeout: float = 300.0,
 
 class start_gloo:
     """:func:`run_gloo` started: the ranks run while the caller works;
-    :meth:`wait` collects them."""
+    :meth:`wait` collects them. A job whose rendezvous port another
+    process took between :func:`free_port` and the bind (``EADDRINUSE``,
+    before any rank ran its body) runs again on a new port, twice at
+    most."""
 
     def __init__(self, body: str, world: int, *args, init: bool = True):
-        self.procs = _spawn(body, world, args, init)
+        self._job = (body, world, args, init)
+        self.procs = _spawn(*self._job)
 
     def wait(self, timeout: float = 300.0) -> list:
+        for _ in range(2):
+            try:
+                return _collect(self.procs, timeout)
+            except _PortTaken:
+                self.procs = _spawn(*self._job)
         return _collect(self.procs, timeout)
+
+
+class _PortTaken(AssertionError):
+    """A rank could not bind the rendezvous port."""
 
 
 def _spawn(body: str, world: int, args, init: bool) -> list:
@@ -70,11 +83,16 @@ def _spawn(body: str, world: int, args, init: bool) -> list:
 
 
 def _collect(procs: list, timeout: float) -> list:
+    """Each rank's output, rank 0 first: where rank 0 (the rendezvous
+    host) could not bind its port, the other ranks, which may be waiting
+    on whatever process holds it, are stopped and ``_PortTaken`` raised."""
     outs = []
     try:
         for proc in procs:
             out, _ = proc.communicate(timeout=timeout)
             outs.append(out)
+            if proc.returncode and "EADDRINUSE" in out:
+                raise _PortTaken(f"rank {len(outs) - 1}: {out[-2000:]}")
     finally:
         for proc in procs:
             if proc.poll() is None:

@@ -18,19 +18,27 @@ import contextlib
 import pytest
 
 
+def privatise_jax_native(patch, directory):
+    """The JAX package's ``native.jpeg`` pointed, for ``patch``'s scope (a
+    ``pytest.MonkeyPatch``), at libraries of its own in ``directory`` (a
+    ``pathlib.Path``): the package path and the per-user cache path both,
+    its load state reset. Returns the module."""
+    from lance_distributed_training_tpu.native import jpeg as jax_jpeg
+
+    patch.setattr(jax_jpeg, "_LIB_PATH", str(directory / "jax_ldt.so"))
+    patch.setattr(jax_jpeg, "_CACHE_LIB", str(directory / "jax_ldt_cache.so"))
+    patch.setattr(jax_jpeg, "_lib", None)
+    patch.setattr(jax_jpeg, "_load_failed", False)
+    patch.delenv("LDT_DISABLE_NATIVE", raising=False)
+    return jax_jpeg
+
+
 @contextlib.contextmanager
 def private_jax_native(directory):
     """The JAX package's ``native.jpeg`` bound to a library built in
     ``directory`` (a ``pathlib.Path``), loaded, for the ``with`` block."""
-    from lance_distributed_training_tpu.native import jpeg as jax_jpeg
-
     with pytest.MonkeyPatch.context() as patch:
-        patch.setattr(jax_jpeg, "_LIB_PATH", str(directory / "jax_ldt.so"))
-        patch.setattr(jax_jpeg, "_CACHE_LIB",
-                      str(directory / "jax_ldt_cache.so"))
-        patch.setattr(jax_jpeg, "_lib", None)
-        patch.setattr(jax_jpeg, "_load_failed", False)
-        patch.delenv("LDT_DISABLE_NATIVE", raising=False)
+        jax_jpeg = privatise_jax_native(patch, directory)
         assert jax_jpeg.native_available(), \
             "the JAX package's native decoder did not build"
         yield jax_jpeg
