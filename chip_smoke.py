@@ -331,14 +331,22 @@ Phases, each printing one JSON line:
              again scheduled and again unscheduled; every
              run's batches must equal the
              in-process epoch's bit for bit and each scheduled run must
-             reorder its dispatch and route a batch to the heavy lane;
-             prints each run's images/s, the
+             reorder its dispatch; each scheduled run's heavy lane is held
+             to the scheduler's rule (JAX ``data/schedule.py``), read from
+             a trace of every dispatch: a batch dispatched past the
+             four-prediction warm-up with a prediction above twice the
+             running mean of the earlier ones goes to the heavy lane, and
+             every other batch does not, every batch of the plan
+             dispatched once and ``sched_heavy_lane_batches_total``
+             counting the trace's heavy-lane dispatches (a run may route
+             none: heaviest-first dispatch can spend the stragglers inside
+             the warm-up); prints each run's images/s, the
              consumer's p50/p95 wait a batch, the reorders, heavy-lane
-             routes and the p95 of ``sched_predicted_error_ms``; a
-             scheduled run that routed no batch to the heavy lane first
-             prints each straggler batch's predicted ms, the lane's
-             threshold at its dispatch and its measured ms, beside the
-             light batches' medians.
+             routes and the p95 of ``sched_predicted_error_ms``, and each
+             run's reading of the rule; a run off the rule first prints
+             each straggler batch's predicted ms, the lane's threshold at
+             its dispatch and its measured ms, beside the light batches'
+             medians.
 22. remat   — BERT-base masked-LM (768/12/12/3072, sequence 512, batch
              32, AdamW lr 1e-4, 20 steps, no eval) through ``cli train
              --flash_attention`` without and with ``--remat`` from one seed,
@@ -458,11 +466,24 @@ Phases, each printing one JSON line:
              micro-steps, and at that step each rank first takes the
              parent's path on the same state (the whole state gathered
              leaf by leaf to rank 0's host, written there as one file);
-             ``tp_from_fsdp`` and ``tp_from_zero2`` (``--model_parallelism
-             2``, the latter ``--grad_accum 2``) resume step 2 and train
-             3 steps (the epoch's last batch, the next epoch's first two),
-             their reference continuing the saved optimizer state and
-             step counts, with the same checks as every layout. Each rank prints, beside the card's name and
+             three runs resume step 2 and train 3 steps (the epoch's last
+             batch, the next epoch's first two), their reference
+             continuing the saved optimizer state and step counts, with
+             the same checks as every layout: ``tp_from_fsdp``
+             (``--model_parallelism 2``, two ranks: another layout at the
+             same world size), ``dp1_from_fsdp`` (one process, data
+             parallel: two ranks to one) and ``tp2x2_from_zero2`` (four
+             ranks, ``--model_parallelism 2`` over data 2 x model 2,
+             ``--grad_accum 2``: two ranks to four). Every layout's masks
+             are the draws, over its global batches, of the run's one
+             generator (``trainer.draw_mlm_mask`` sliced by data share):
+             from the seed for a fresh run, from the saved cursor's state
+             for a resumed one, bit for bit, the ranks of one data share
+             alike; a resumed run's global batches are, bit for bit, the
+             ones the saving run trains next (its third, then its first
+             two: the unshuffled plan repeats in epoch 1). Each rank of a
+             resume reads its held bytes plus the whole leaves no layout
+             holds in parts (0-d counters, buffers), no more. Each rank prints, beside the card's name and
              power limit, each save's time on the training thread (and
              the part awaiting the previous write), its write, its bytes
              against its held bytes, the host's anonymous and mapped-file
@@ -4042,9 +4063,9 @@ def _scheduled_arm(tmp: str) -> dict:
     epoch unscheduled and with ``Decode(schedule=SCHED_OPTS)`` (the cost
     model warm-started from that file), in the order ``SCHED_ORDER`` (the
     warm-up scheduled, so that it spawns the heavy lane too).
-    Every run's batches must equal the first's bit for bit, and each
-    scheduled run must reorder dispatch and route a batch to the heavy
-    lane."""
+    Every run's batches must equal the first's bit for bit, each
+    scheduled run must reorder dispatch, and each scheduled run's lanes
+    must be the scheduler's rule's (:func:`_heavy_lane_rule`)."""
     from lance_distributed_training_tpu_torch.data import (
         Dataset,
         decoder_for_task,
@@ -4160,31 +4181,51 @@ def _scheduled_arm(tmp: str) -> dict:
                            f"{ledger_lines} cost records")
     if not all(r["reorders"] > 0 for r in runs if r["arm"] == "scheduled"):
         raise RuntimeError("graph: a scheduled run reordered no dispatch")
-    if not all(r["heavy_lane_batches"] > 0 for r in runs
-               if r["arm"] == "scheduled"):
+    # The heavy lane is held to the scheduler's own rule (JAX
+    # data/schedule.py, DecodeScheduler.imap): a batch dispatched past the
+    # warm-up whose prediction exceeds _HEAVY_RATIO times the running mean
+    # of the predictions dispatched before it goes to the heavy lane, and
+    # every other batch does not. Whether any batch clears that line
+    # depends on the predictions (heaviest-first dispatch can spend the
+    # stragglers inside the warm-up), so a run that routes none keeps the
+    # rule as well as one that routes several.
+    scheduled = [r for r in runs if r["arm"] != "plain"]
+    rule = [_heavy_lane_rule(t, r["heavy_lane_batches"])
+            for r, t in zip(scheduled, traces)]
+    emit("graph", check="heavy_lane_rule", runs=rule)
+    broken = [r for r in rule if r["off_rule"] or not r["counted"]
+              or r["dispatched"] != SCHED_BATCHES]
+    if broken:
         # Why: each scheduled run's predictions for the straggler batches
         # against the lane's threshold at their dispatch, and the decode
         # times measured.
-        emit("graph", check="heavy_lane_missed", runs=[
+        emit("graph", check="heavy_lane_off_rule", runs=[
             _heavy_lane_reading(t, corpus["heavy_batches"]) for t in traces])
-        raise RuntimeError("graph: a scheduled run routed no batch to the "
-                           "heavy lane")
+        raise RuntimeError(
+            "graph: a scheduled run's heavy lane broke the scheduler's rule "
+            f"(dispatches off the rule, the counter against the trace, or "
+            f"batches dispatched of {SCHED_BATCHES}): {broken}")
     return fields
 
 
 def _trace_schedule(sched, pool, submit_lane) -> dict:
-    """Records of one scheduled run, for :func:`_heavy_lane_reading`: each
-    plan item's predicted cost (in plan order), the lane and the
-    heavy-lane threshold at its dispatch (``_HEAVY_RATIO`` times the
-    running mean of the earlier predictions, ``None`` in the warm-up),
-    and each item's measured decode ms. Wraps the scheduler's cost model
-    and ``pool.submit_lane``; the caller restores the pool's."""
+    """Records of one scheduled run, for :func:`_heavy_lane_reading` and
+    :func:`_heavy_lane_rule`: each plan item's predicted cost (in plan
+    order), the lane and the heavy-lane threshold at its dispatch
+    (``_HEAVY_RATIO`` times the running mean of the predictions dispatched
+    before it, ``None`` in the warm-up), the lane the scheduler's rule
+    gives it there, and each item's measured decode ms. The running sum
+    adds the predictions in dispatch order from 0.0, as the scheduler's
+    ``_pred_sum`` does, so that the rule is evaluated on the same floats.
+    Wraps the scheduler's cost model and ``pool.submit_lane``; the caller
+    restores the pool's."""
     from lance_distributed_training_tpu_torch.data.cache import (
         item_fingerprint,
     )
 
     trace = {"keys": [], "pred": {}, "lane": {}, "threshold": {},
-             "ms": {}}
+             "rule": {}, "ms": {}, "sum": 0.0, "n": 0,
+             "warmup": sched._HEAVY_WARMUP}
     model = sched.model
     predict, observe = model.predict, model.observe
 
@@ -4200,17 +4241,45 @@ def _trace_schedule(sched, pool, submit_lane) -> dict:
 
     def traced_submit(item, lane="default"):
         key = item_fingerprint(item)
-        n = sched._pred_n - 1  # the predictions before this one
-        pred = trace["pred"].get(key)
+        n = trace["n"]  # the predictions dispatched before this one
+        pred = trace["pred"][key]
+        threshold = (sched._HEAVY_RATIO * (trace["sum"] / n)
+                     if n >= sched._HEAVY_WARMUP else None)
         trace["lane"][key] = lane
-        trace["threshold"][key] = (
-            sched._HEAVY_RATIO * (sched._pred_sum - pred) / n
-            if n >= sched._HEAVY_WARMUP and pred is not None else None)
+        trace["threshold"][key] = threshold
+        trace["rule"][key] = ("heavy" if threshold is not None
+                              and pred > threshold else "default")
+        trace["sum"] += pred
+        trace["n"] = n + 1
         return submit_lane(item, lane)
 
     model.predict, model.observe = traced_predict, traced_observe
     pool.submit_lane = traced_submit
     return trace
+
+
+def _heavy_lane_rule(trace: dict, counted: int) -> dict:
+    """One scheduled run against the scheduler's rule: the batches it
+    dispatched, those past the warm-up, those the rule sends to the heavy
+    lane and those the lane took, every dispatch whose lane is not the
+    rule's (its plan position, predicted ms, threshold, lane), and whether
+    the run's ``sched_heavy_lane_batches_total`` counts the trace's
+    heavy-lane dispatches."""
+    keys = trace["keys"]
+    heavy = sum(lane == "heavy" for lane in trace["lane"].values())
+    return {
+        "dispatched": len(trace["lane"]),
+        "past_warmup": max(0, len(trace["lane"]) - trace["warmup"]),
+        "rule_heavy": sum(lane == "heavy" for lane in trace["rule"].values()),
+        "heavy_lane": heavy, "heavy_lane_batches": counted,
+        "counted": counted == heavy,
+        "off_rule": [{
+            "batch": i, "predicted_ms": trace["pred"][k],
+            "threshold_ms": trace["threshold"][k],
+            "lane": trace["lane"][k], "rule": trace["rule"][k]}
+            for i, k in enumerate(keys)
+            if k in trace["lane"] and trace["lane"][k] != trace["rule"][k]],
+    }
 
 
 def _heavy_lane_reading(trace: dict, heavy: list) -> dict:
@@ -5109,12 +5178,17 @@ PARALLEL_LAYOUTS = {
     # (PARALLEL_RESUMES); the accumulation is the saving run's, so that the
     # state tree is the same.
     "tp_from_fsdp": ["--model_parallelism", "2", "--flash_attention"],
-    "tp_from_zero2": ["--model_parallelism", "2", "--grad_accum", "2",
-                      "--flash_attention"],
+    # Resumed under another process count: fsdp's two-rank step by one
+    # data-parallel process, zero2's by four ranks of data 2 x model 2.
+    "dp1_from_fsdp": ["--flash_attention"],
+    "tp2x2_from_zero2": ["--model_parallelism", "2", "--grad_accum", "2",
+                         "--flash_attention"],
 }
-# The ranks of each layout, all sharing the one card.
+# The ranks of each layout, all sharing the one card (one: a process of
+# its own, no process group).
 PARALLEL_RANKS = {"tp": 2, "fsdp": 2, "zero2": 2, "ep": 2, "pp": 2, "tp8": 8,
-                  "tp_from_fsdp": 2, "tp_from_zero2": 2}
+                  "tp_from_fsdp": 2, "dp1_from_fsdp": 1,
+                  "tp2x2_from_zero2": 4}
 # The layouts that save a sharded checkpoint every PARALLEL_CKPT_STEP
 # micro-steps (once in their PARALLEL_STEPS), and the runs that resume
 # that step of one under another layout: they train the epoch's last
@@ -5124,7 +5198,8 @@ PARALLEL_RANKS = {"tp": 2, "fsdp": 2, "zero2": 2, "ep": 2, "pp": 2, "tp8": 8,
 # file), for its figures beside the sharded save's; a resumed run's ranks
 # then read that file whole, as the parent's restore did.
 PARALLEL_SAVES = ("fsdp", "zero2")
-PARALLEL_RESUMES = {"tp_from_fsdp": "fsdp", "tp_from_zero2": "zero2"}
+PARALLEL_RESUMES = {"tp_from_fsdp": "fsdp", "dp1_from_fsdp": "fsdp",
+                    "tp2x2_from_zero2": "zero2"}
 PARALLEL_CKPT_STEP = 2
 PARALLEL_MODEL, PARALLEL_DEVICE = "bert_base", "cuda"
 PARALLEL_STEPS = 3  # micro-steps a layout; its times are the staging's
@@ -5310,16 +5385,16 @@ from functools import partial
 import torch
 import torch.distributed as dist
 from lance_distributed_training_tpu_torch import cli, ops, trainer
-from lance_distributed_training_tpu_torch.models import tasks
 
 rank = int(sys.argv[1])
 # [[layout, dump path, argv, {"gather_to": path, "gather_at": step,
-#   "restored_to": path, "gathered_from": path}], ...]
+#   "restored_to": path, "gathered_from": path, "link_from": path,
+#   "link_to": path, "link_step": step}], ...]
 runs = json.loads(sys.argv[2])
 keep = int(sys.argv[3])  # micro-batches and masks to record
 first = {}
 current = {}  # the checkpoint paths of the run under way
-_draw = tasks.draw_mlm_mask
+_draw = trainer.draw_mlm_mask
 
 
 class HostMemory:
@@ -5401,6 +5476,18 @@ def gather_path(sharded, optimizer, train_step, path):
     return out
 
 
+def link_step(src, dst, step):
+    # dst: a checkpoint directory holding src's step alone, each file a
+    # hard link (no byte copied; the run's own saves write new files).
+    for sub in (str(step), "cursors"):
+        for root, _, files in os.walk(os.path.join(src, sub)):
+            out = os.path.join(dst, os.path.relpath(root, src))
+            os.makedirs(out, exist_ok=True)
+            for f in files:
+                if sub == str(step) or f == f"{step}.json":
+                    os.link(os.path.join(root, f), os.path.join(out, f))
+
+
 _save = trainer._save_checkpoint
 
 
@@ -5426,10 +5513,23 @@ def restore_checkpoint(ckpt, model, optimizer, train_step, sharded, *args):
     return out
 
 
+def whole_params(step):
+    # The whole model's state_dict: gathered under a layout (collective),
+    # the model's own in a data-parallel process.
+    if step.sharded is not None:
+        return step.sharded.full_params()
+    return getattr(step.task.model, "module", step.task.model).state_dict()
+
+
 def dump_restored(step, path):
     # The restored state read back whole (collective), on rank 0's host.
-    model_state, opt_state, accum = step.sharded.full_state(step.optimizer,
-                                                            step.accum)
+    if step.sharded is not None:
+        model_state, opt_state, accum = step.sharded.full_state(
+            step.optimizer, step.accum)
+    else:
+        model_state, opt_state, accum = (whole_params(step),
+                                         step.optimizer.state_dict(),
+                                         step.accum)
     if rank == 0:
         torch.save({
             "model": {k: v.cpu() for k, v in model_state.items()},
@@ -5440,8 +5540,8 @@ def dump_restored(step, path):
             path)
 
 
-def draw(batch, generator):
-    mask = _draw(batch, generator)
+def draw(batch, generator, share=(0, 1)):
+    mask = _draw(batch, generator, share)
     if len(first["masks"]) < keep:
         first["masks"].append(mask.cpu().clone())
     return mask
@@ -5455,13 +5555,13 @@ def call(self, batch, *args, **kwargs):
     # take their first step together); the first micro-batches; the first
     # micro-step's global gradient norm (--log_grad_norm); after the first
     # update the whole parameters again.
-    first["sharded"] = self.sharded
+    first["step"] = self
     if "updates0" not in first:
         first["updates0"] = self.updates  # a resumed run's count
         if current.get("restored_to"):
             dump_restored(self, current["restored_to"])
     if "state" not in first:
-        state = self.sharded.full_params()
+        state = whole_params(self)
         first["state"] = ({k: v.cpu().clone() for k, v in state.items()}
                           if rank == 0 else None)
         del state
@@ -5473,7 +5573,7 @@ def call(self, batch, *args, **kwargs):
         first["grad_norm"] = float(self.last_grad_norm)
     if self.updates == first["updates0"] + 1 and "updated" not in first:
         # The whole parameters after the first update (collective too).
-        state = self.sharded.full_params()
+        state = whole_params(self)
         first["updated"] = ({k: v.cpu().clone() for k, v in state.items()}
                             if rank == 0 else None)
         del state
@@ -5486,14 +5586,14 @@ _evaluate = trainer.evaluate
 def evaluate(*args, **kwargs):
     # The whole parameters the eval reads (collective: every rank
     # evaluates).
-    state = first["sharded"].full_params()
+    state = whole_params(first["step"])
     first["final"] = ({k: v.cpu().clone() for k, v in state.items()}
                       if rank == 0 else None)
     del state
     return _evaluate(*args, **kwargs)
 
 
-tasks.draw_mlm_mask = draw
+trainer.draw_mlm_mask = draw
 trainer.TrainStep.__call__ = call
 trainer.evaluate = evaluate
 trainer._save_checkpoint = save_checkpoint
@@ -5508,10 +5608,30 @@ for name, dump, argv, paths in runs:
         torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.monotonic()
-    result = cli.main(argv + ["--process_id", str(rank)])
+    if rank == 0 and paths.get("link_from"):
+        # Before the run: its peers wait for rank 0 in the rendezvous.
+        link_step(paths["link_from"], paths["link_to"], paths["link_step"])
+    if "--num_processes" in argv:
+        argv = argv + ["--process_id", str(rank)]
+    result = cli.main(argv)
     seconds = time.monotonic() - t0
     launches = {k: ops.LAUNCHES[k] for k in ops.LAUNCHES}
-    first.pop("sharded", None)
+    first.pop("step", None)
+    if result.get("parallel") is None:
+        # One data-parallel process: its state is whole, its mesh data 1.
+        def size(t):
+            return t.numel() * t.element_size()
+        params = sum(size(p) for p in result["model"].parameters())
+        moments = sum(size(v) for st in result["optimizer"].state.values()
+                      for v in st.values()
+                      if torch.is_tensor(v) and v.dim() > 0)
+        held = {"params": params, "optimizer_state": moments,
+                "accumulator": 0, "total": params + moments}
+        result["parallel"] = {
+            "mesh": {"data": 1}, "index": {"data": 0},
+            "transport": "none (one process)", "held_bytes": held,
+            "peak_bytes": {}, "plan_bytes": held, "replicated_bytes": held,
+            "fsdp_unit_bytes": {"root": 0, "largest": 0, "units": 0}}
     fields = {k: result.get(k) for k in (
         "losses", "step_ms", "steps", "eval_accuracy", "eval_rows",
         "valid_tokens_per_sec", "tokens_per_sec", "parallel", "train_time",
@@ -5586,10 +5706,16 @@ def _parallel_ranks(tmp: str) -> dict:
             paths = {"gather_to": _gathered(tmp, name),
                      "gather_at": PARALLEL_CKPT_STEP}
         elif name in PARALLEL_RESUMES:
+            # A checkpoint directory of its own, holding the saving run's
+            # step alone (hard links), so that another resume's saves are
+            # not the newest step there.
             source = PARALLEL_RESUMES[name]
-            epochs, ckpt = 2, ["--checkpoint_dir", _ckpt_dir(tmp, source)]
+            epochs, ckpt = 2, ["--checkpoint_dir", _ckpt_dir(tmp, name)]
             paths = {"restored_to": os.path.join(tmp, f"{name}.restored.pt"),
-                     "gathered_from": _gathered(tmp, source)}
+                     "gathered_from": _gathered(tmp, source),
+                     "link_from": _ckpt_dir(tmp, source),
+                     "link_to": _ckpt_dir(tmp, name),
+                     "link_step": PARALLEL_CKPT_STEP}
         groups.setdefault(world, []).append([
             name, os.path.join(tmp, f"{name}.{{rank}}.pt"), [
                 "train", "--dataset_path", _layout_data(tmp, name),
@@ -5601,8 +5727,9 @@ def _parallel_ranks(tmp: str) -> dict:
                 "--epochs", str(epochs),
                 "--log_every", "4", "--log_grad_norm",
                 "--device", PARALLEL_DEVICE, *FIXED, *flags, *ckpt,
-                "--coordinator_address", f"127.0.0.1:{_free_port()}",
-                "--num_processes", str(world)], paths])
+                *(["--coordinator_address", f"127.0.0.1:{_free_port()}",
+                   "--num_processes", str(world)] if world > 1 else [])],
+            paths])
     env = dict(os.environ,
                LDT_METRICS_PATH=os.path.join(tmp, "parallel.jsonl"))
     results = {name: [] for name in PARALLEL_LAYOUTS}
@@ -5682,16 +5809,24 @@ def _grad_accum(name: str) -> int:
             if "--grad_accum" in flags else 1)
 
 
-def _dp_reference(name: str, tmp: str) -> dict:
+def _share_ranks(ranks: list) -> list:
+    """The lowest rank of each data share, in data-index order."""
+    lowest: dict = {}
+    for rank, r in enumerate(ranks):
+        lowest.setdefault(r["parallel"]["index"]["data"], rank)
+    return [lowest[d] for d in sorted(lowest)]
+
+
+def _dp_reference(name: str, tmp: str, ranks: list) -> dict:
     """The data-parallel run of the layout's first update in this process:
     the whole model on rank 0's gathered weights, AdamW as the trainer
     builds it (``trainer.make_optimizer``, ``make_train_step``), the
-    global micro-batches (the data shares' rows in order, or the one share
-    the ranks hold alike) and the ranks' masks; ``{"losses": the
-    grad_accum + 1 micro-steps' losses (the last after the update),
-    "grad_norm": the first micro-step's global norm, "eval_accuracy" and
-    "eval_rows": the whole model's eval on the layout's weights at its
-    eval}``."""
+    global micro-batches (the data shares' rows in order, one rank a
+    share) and the ranks' masks; ``{"losses": the grad_accum + 1
+    micro-steps' losses (the last after the update), "grad_norm": the
+    first micro-step's global norm, "eval_accuracy" and "eval_rows": the
+    whole model's eval on the layout's weights at its eval,
+    "param_names": the model's parameters}``."""
     import torch
     from lance_distributed_training_tpu_torch import trainer
     from lance_distributed_training_tpu_torch.data import Dataset
@@ -5704,9 +5839,8 @@ def _dp_reference(name: str, tmp: str) -> dict:
     )
 
     _, _, s, _ = SHAPE
-    shared = name not in ("fsdp", "zero2")  # the ranks hold one data share
     firsts = [torch.load(os.path.join(tmp, f"{name}.{r}.pt"))
-              for r in range(1 if shared else PARALLEL_RANKS[name])]
+              for r in _share_ranks(ranks)]
     flags = PARALLEL_LAYOUTS[name]
     accum = _grad_accum(name)
     shares = firsts
@@ -5760,11 +5894,97 @@ def _dp_reference(name: str, tmp: str) -> dict:
         config, dev, lambda idx: dataset.take(idx, columns=columns),
         dataset.count_rows(), decode)
     accuracy, rows = trainer.evaluate(loader, trainer.make_eval_step(task))
+    param_names = sorted(n for n, _ in task.model.named_parameters())
     del task, firsts
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {"losses": losses, "grad_norm": norm, "cosines": cosines,
-            "eval_accuracy": accuracy, "eval_rows": rows}
+            "eval_accuracy": accuracy, "eval_rows": rows,
+            "param_names": param_names}
+
+
+def _global_batches(name: str, ranks: list, tmp: str) -> tuple:
+    """A layout's recorded micro-steps, whole: ``(batches, masks, alike)``,
+    each data share's rows stacked in order (one rank a share), and
+    whether every rank's masks equal those of its share's lowest rank.
+    The record files are mapped, not read."""
+    import torch
+
+    records = [torch.load(os.path.join(tmp, f"{name}.{r}.pt"), mmap=True,
+                          map_location="cpu") for r in range(len(ranks))]
+    lowest = _share_ranks(ranks)  # by data index
+    reps = [records[i] for i in lowest]
+    steps = min(len(rec["masks"]) for rec in records)
+    batches = [{k: torch.cat([rec["batches"][i][k] for rec in reps])
+                for k in ("input_ids", "attention_mask")}
+               for i in range(steps)]
+    masks = [torch.cat([rec["masks"][i] for rec in reps])
+             for i in range(steps)]
+    alike = all(torch.equal(
+        records[i]["masks"][j],
+        records[lowest[r["parallel"]["index"]["data"]]]["masks"][j])
+        for i, r in enumerate(ranks) for j in range(steps))
+    return batches, masks, alike
+
+
+def _batch_sha(batch: dict) -> str:
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for key in sorted(batch):
+        h.update(batch[key].contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _draw_fields(name: str, every: dict, tmp: str) -> dict:
+    """A layout's recorded masks against the run's one generator: each
+    micro-step's global mask drawn here, on the card, over the global
+    batch (``trainer.draw_mlm_mask``) from the generator the run starts
+    with (the seed's, or for a resumed run the saved cursor's state); and
+    for a resumed run whether its global batches are the ones the saving
+    run trains after the saved step (the saving run's batch
+    ``(PARALLEL_CKPT_STEP + j) % its steps``: its corpus is one epoch of
+    its steps, the unshuffled plan the same in every epoch)."""
+    import torch
+    from lance_distributed_training_tpu_torch import trainer
+    from lance_distributed_training_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        unpack_rng_key,
+    )
+
+    dev = torch.device(PARALLEL_DEVICE)
+    batches, masks, alike = _global_batches(name, every[name], tmp)
+    gen = torch.Generator(device=dev)
+    source = PARALLEL_RESUMES.get(name)
+    if source is None:
+        gen.manual_seed(trainer.TrainConfig(dataset_path="").seed + 1)
+    else:
+        unpack_rng_key(CheckpointManager(_ckpt_dir(tmp, source)).cursor(
+            PARALLEL_CKPT_STEP)["rng"], gen)
+    drawn = [trainer.draw_mlm_mask({k: v.to(dev) for k, v in b.items()},
+                                   gen).cpu() for b in batches]
+    out = {"mask_steps": len(masks),
+           "mask_generator": ("seed" if source is None else
+                              f"{source} step {PARALLEL_CKPT_STEP} cursor"),
+           "masks_equal_draws": all(torch.equal(a, b)
+                                    for a, b in zip(masks, drawn)),
+           "share_ranks_draw_alike": alike,
+           "masked_positions": [int(m.sum()) for m in masks],
+           "batch_sha256": [_batch_sha(b)[:16] for b in batches]}
+    if source is not None:
+        theirs, _, _ = _global_batches(source, every[source], tmp)
+        steps = _layout_steps(source)
+        want = [theirs[(PARALLEL_CKPT_STEP + j) % steps]
+                for j in range(len(batches))]
+        out.update(
+            saving_run_next_sha256=[_batch_sha(b)[:16] for b in want],
+            batches_equal_saving_runs_next=all(
+                _batch_sha(a) == _batch_sha(b)
+                for a, b in zip(batches, want)))
+    return out
 
 
 def _update_cosines(model, before: dict, layout_after: dict) -> dict:
@@ -5855,12 +6075,34 @@ def _tree_differences(got, want, where: str = "") -> list:
     return [] if got == want else [where]
 
 
-def _checkpoint_fields(name: str, ranks: list, tmp: str) -> dict:
+def _unsplit_bytes(index: dict, params) -> int:
+    """The bytes of a step's leaves that ``held_bytes`` leaves out and
+    every rank reads whole: 0-d leaves (the optimizer's step counters)
+    and the model's buffers."""
+    import torch
+
+    total = 0
+    for name, leaf in index["leaves"].items():
+        buffer = (name.startswith("model/")
+                  and name[len("model/"):] not in params)
+        if not leaf["shape"] or buffer:
+            total += int(np.prod(leaf["shape"])) * torch.empty(
+                (), dtype=getattr(torch, leaf["dtype"])).element_size()
+    return total
+
+
+def _checkpoint_fields(name: str, ranks: list, tmp: str,
+                       params=()) -> dict:
     """A saving layout's per-rank save figures beside the parent's gather
     path's on the same state, and whether its newest step read whole
     equals the gathered state; a resumed layout's per-rank restore figures
-    beside the parent's whole-file read, and whether the state it restored
-    under its own layout, read back whole, equals the saved step."""
+    beside the parent's whole-file read, whether the state it restored
+    under its own layout, read back whole, equals the saved step, and
+    whether each rank read its held bytes plus the step's unsplit leaves
+    (:func:`_unsplit_bytes`; ``params``: the model's parameter names)."""
+    from lance_distributed_training_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
     import torch
 
     # Each rank's saves (a resumed run's: its epoch's end, under its own
@@ -5887,6 +6129,8 @@ def _checkpoint_fields(name: str, ranks: list, tmp: str) -> dict:
         del gathered
         return out
     saved = _saved_state(tmp, PARALLEL_RESUMES[name])
+    unsplit = _unsplit_bytes(CheckpointManager(_ckpt_dir(
+        tmp, PARALLEL_RESUMES[name])).index(PARALLEL_CKPT_STEP), set(params))
     restored = torch.load(os.path.join(tmp, f"{name}.restored.pt"),
                           map_location="cpu", weights_only=True)
     differing = (_tree_differences(restored["model"], saved["model"],
@@ -5904,12 +6148,19 @@ def _checkpoint_fields(name: str, ranks: list, tmp: str) -> dict:
             "bytes_scanned": r["ckpt_restore_scanned_bytes"],
             "largest_read": r["ckpt_restore_largest_bytes"],
             "held_bytes": r["parallel"]["held_bytes"]["total"],
+            "held_and_unsplit_bytes": r["parallel"]["held_bytes"]["total"]
+            + unsplit,
             "host": r["ckpt_restore_host"]}
             for i, r in enumerate(ranks)],
+        unsplit_bytes=unsplit, processes_saved=PARALLEL_RANKS[
+            PARALLEL_RESUMES[name]], processes_restored=len(ranks),
         gather_path_restore=[dict(r["gather_path_restore"], rank=i)
                              for i, r in enumerate(ranks)],
         leaves=len(restored["model"]), differing_leaves=differing,
         restored_equals_saved=not differing)
+    out["reads_held_bytes"] = all(
+        e["bytes_read"] == e["held_and_unsplit_bytes"]
+        for e in out["restore"])
     del restored
     return out
 
@@ -5976,7 +6227,7 @@ def parallel_run() -> dict:
         every = _parallel_ranks(tmp)
         for name in PARALLEL_LAYOUTS:
             ranks = every[name]
-            ref = _dp_reference(name, tmp)
+            ref = _dp_reference(name, tmp, ranks)
             r0 = ranks[0]
             losses = r0["losses"]
             after = _grad_accum(name)  # the first loss after an update
@@ -5988,8 +6239,9 @@ def parallel_run() -> dict:
                 "layout": name, "flags": PARALLEL_LAYOUTS[name],
                 "ranks": PARALLEL_RANKS[name],
                 "batch": _layout_batch(name),
-                "timing": f"{PARALLEL_RANKS[name]} ranks on one card over "
-                          "gloo (host-staged)",
+                "timing": (f"{PARALLEL_RANKS[name]} ranks on one card over "
+                           "gloo (host-staged)" if len(ranks) > 1 else
+                           "one process on the card"),
                 "transport": [r["parallel"]["transport"] for r in ranks],
                 "mesh": r0["parallel"]["mesh"], "steps": r0["steps"],
                 "first_loss": losses[0], "dp_first_loss": ref["losses"][0],
@@ -6032,8 +6284,10 @@ def parallel_run() -> dict:
                 "replicated_bytes": r0["parallel"]["replicated_bytes"],
                 "seconds": r0["seconds"],
             }
+            fields["draws"] = _draw_fields(name, every, tmp)
             if name in PARALLEL_SAVES or name in PARALLEL_RESUMES:
-                fields["checkpoint"] = _checkpoint_fields(name, ranks, tmp)
+                fields["checkpoint"] = _checkpoint_fields(
+                    name, ranks, tmp, ref["param_names"])
             emit("parallel", **fields)
             launches[f"parallel_{name}"] = {
                 k: r0["launches"][k] for k in flash.LAUNCHES}
@@ -6064,7 +6318,25 @@ def _check_parallel(name: str, ranks: list, fields: dict) -> None:
                 "differs from the saved one")
         raise RuntimeError(f"{phase}: {what} at "
                            f"{ckpt['differing_leaves'][:5]}")
-    if any(t != "gloo-host-staged" for t in fields["transport"]):
+    if name in PARALLEL_RESUMES and not ckpt["reads_held_bytes"]:
+        raise RuntimeError(
+            f"{phase}: a rank read other than its held bytes and the "
+            f"step's {ckpt['unsplit_bytes']} unsplit bytes: "
+            f"{[(e['bytes_read'], e['held_and_unsplit_bytes']) for e in ckpt['restore']]}")
+    draws = fields["draws"]
+    if not (draws["masks_equal_draws"] and draws["share_ranks_draw_alike"]):
+        raise RuntimeError(
+            f"{phase}: the masks are not the one generator's global draws "
+            f"from the {draws['mask_generator']} (equal: "
+            f"{draws['masks_equal_draws']}; the ranks of a share alike: "
+            f"{draws['share_ranks_draw_alike']})")
+    if name in PARALLEL_RESUMES and not draws[
+            "batches_equal_saving_runs_next"]:
+        raise RuntimeError(
+            f"{phase}: global batches {draws['batch_sha256']}, the saving "
+            f"run's next {draws['saving_run_next_sha256']}")
+    if len(ranks) > 1 and any(t != "gloo-host-staged"
+                              for t in fields["transport"]):
         raise RuntimeError(f"{phase}: transport {fields['transport']}")
     if len(ranks) != PARALLEL_RANKS[name]:
         raise RuntimeError(f"{phase}: {len(ranks)} ranks reported")
@@ -6119,6 +6391,8 @@ def _check_parallel(name: str, ranks: list, fields: dict) -> None:
         if got != want:
             raise RuntimeError(f"{phase}: rank {rank} flash launches {got}, "
                                f"expected {want}")
+        if PARALLEL_RANKS[name] == 1:
+            continue  # one data-parallel process: no plan, the state whole
         held, plan = r["parallel"]["held_bytes"], r["parallel"]["plan_bytes"]
         if held != plan:
             raise RuntimeError(f"{phase}: rank {rank} holds {held}, its plan "

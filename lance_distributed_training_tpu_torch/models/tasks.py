@@ -14,7 +14,10 @@ captions may come bucketed by K3 (one caption a row). The JAX tasks draw
 their random masks (the MLM mask, the per-image flip) with ``jax.random``;
 here ``forward`` takes the draw explicitly (``mlm_mask``, ``flip_mask``)
 or makes it from a ``torch.Generator`` (the two generators give different
-bits, so parity tests pass the draw in).
+bits, so parity tests pass the draw in). As JAX draws each mask over the
+global batch from one key, the trainer draws it over the global batch
+from one generator, the same on every process, and each data share takes
+its rows (:func:`draw_mlm_mask`'s ``share``).
 
 Across processes the text losses are the JAX package's weighted mean over
 the GLOBAL batch: with ``loss_group`` each process divides its weighted
@@ -150,11 +153,22 @@ def _weighted_mean(raw, w, group) -> torch.Tensor:
     return (raw * w).sum() / torch.clamp(total, min=1.0) * scale
 
 
-def draw_mlm_mask(batch, generator: torch.Generator) -> torch.Tensor:
+def draw_mlm_mask(batch, generator: torch.Generator,
+                  share: tuple = (0, 1)) -> torch.Tensor:
     """The training MLM mask of a batch: each valid position with
-    probability ``MASK_PROB``, from ``generator``."""
+    probability ``MASK_PROB``, from ``generator``. ``share = (index,
+    count)`` names the batch as data share ``index`` of ``count`` equal
+    shares of the global batch: the draw is over the global batch's shape
+    (the shares' rows stacked in order, as JAX assembles the global array
+    from each process's rows) and the share takes its rows of it, so that
+    every process draws the one global mask that JAX's ``bernoulli`` over
+    ``ids.shape`` draws from one key."""
     ids = batch["input_ids"]
-    draw = torch.rand(ids.shape, generator=generator, device=ids.device)
+    index, count = share
+    rows = ids.shape[0]
+    draw = torch.rand((rows * count,) + tuple(ids.shape[1:]),
+                      generator=generator, device=ids.device)
+    draw = draw[index * rows:(index + 1) * rows]
     return (draw < MASK_PROB) & (batch["attention_mask"] > 0)
 
 

@@ -42,7 +42,7 @@ ring over ``seq_parallelism`` sequence blocks (``parallel/
 ring_attention.py``, K5). One process holds every ring position on its
 device. Across processes the ranks form JAX's ``('data', 'seq')`` mesh,
 data outermost: the members of one ring read the same rows (sampler rank =
-data index), share one MLM mask draw (seeded by the data index), and each
+data index), take the same rows of the one global MLM mask draw, and each
 trains on its sequence block with its global ``position_ids``, the key and
 value blocks passing between them; DDP spans the world. The eval runs on
 the ring too: each member folds its block of the rows under the whole
@@ -63,7 +63,12 @@ or pipeline the same slice) and the ``(sum, count)`` pairs are summed over
 the data shares, so that every rank returns the whole eval's accuracy. A
 checkpoint is sharded: every rank writes its own blocks (each replicated
 leaf once, by the lowest rank that holds it) and a resume reads this
-rank's blocks under the run's layout, whatever layout saved the step.
+rank's blocks under the run's layout, whatever layout and whatever number
+of processes saved the step. As JAX draws from one key, the flips and the
+MLM masks come from one generator, seeded alike and advanced alike on
+every process, drawn over the global batch and sliced by data share; the
+cursor carries its one state, so that a resume under another process
+count continues the draws.
 
 Beyond the main path, as the JAX trainer: gradient accumulation
 (``grad_accum``, ``optax.MultiSteps``' semantics in :class:`TrainStep`),
@@ -1270,13 +1275,6 @@ def _check_seq_parallelism(config: TrainConfig) -> None:
         )
 
 
-def _share_seed(seed: int, data_index: int) -> int:
-    """The MLM mask generator's seed for data share ``data_index``: share 0
-    keeps ``seed + 1``, the others draw apart (an odd stride modulo 2^32:
-    the CPU generator reads only a seed's low 32 bits)."""
-    return (seed + 1 + data_index * 0x9E3779B1) % 2 ** 32
-
-
 def _sequence_block(batch: dict, mlm_mask: torch.Tensor, index: int,
                     parts: int):
     """Block ``index`` of ``parts`` along the sequence of a padded text
@@ -1427,14 +1425,21 @@ class _CkptJournal:
 
 
 def _save_checkpoint(ckpt: CheckpointManager, journal: _CkptJournal,
-                     model, optimizer, train_step, mask_gen, rank: int,
-                     world: int, wait: bool = False, sharded=None,
-                     data_index: int = 0) -> None:
-    """Every process's mask generator state and data share, gathered, go
-    into the cursor; every process saves its share of the state: under a
-    sharded layout its blocks (``ShardedState.local_state``), each written
-    by one process, else the replicated state, which rank 0 writes."""
-    shares = ckpt.all_gather([pack_rng_key(mask_gen), data_index])
+                     model, optimizer, train_step, mask_gen,
+                     wait: bool = False, sharded=None) -> None:
+    """The run's one generator state goes into the cursor as ``rng``, in
+    JAX's one-key form; every process saves its share of the state: under
+    a sharded layout its blocks (``ShardedState.local_state``), each
+    written by one process, else the replicated state, which rank 0
+    writes. Every process's generator state is gathered first: they must
+    be one state (every process draws the same global draws), or the
+    save raises."""
+    states = ckpt.all_gather(pack_rng_key(mask_gen))
+    differ = [r for r, state in enumerate(states) if state != states[0]]
+    if differ:
+        raise RuntimeError(
+            f"the draw generators of processes {differ} differ from process "
+            "0's: every process must draw the same global flips and masks")
     if sharded is not None:
         model_state, opt_state, accum = sharded.local_state(
             optimizer, train_step.accum)
@@ -1443,9 +1448,7 @@ def _save_checkpoint(ckpt: CheckpointManager, journal: _CkptJournal,
         model_state, opt_state = model.state_dict(), optimizer.state_dict()
         step_state = train_step.state_dict()
     cursor = dict(journal.cursor_base)
-    cursor.update(global_step=journal.abs_step,
-                  rng=[state for state, _ in shares],
-                  rng_data_index=[index for _, index in shares])
+    cursor.update(global_step=journal.abs_step, rng=states[0])
     ckpt.save(journal.abs_step,
               {"model": model_state, "optimizer": opt_state,
                "optimizer_class": type(optimizer).__name__,
@@ -1474,29 +1477,38 @@ def _check_saved_tree(tree, names, optimizer) -> None:
             f"its optimizer is not this run's ({theirs} against {mine})")
 
 
-def _saved_generator(cursor: dict, rank: int, data_index: int) -> list:
-    """The saved mask generator state this process continues: that of the
-    lowest process that drew for its data share. A layout of as many data
-    shares continues each share's draws; under fewer or more (fsdp's two
-    against tp's one at the same world size) share ``d`` takes saved
-    share ``d`` modulo their number, so that the ranks of one share draw
-    alike. A cursor without data shares is the data-parallel runs' (share
-    = rank)."""
-    rngs = cursor["rng"]
-    shares = cursor.get("rng_data_index")
-    if shares is None:
-        return rngs[rank]
-    return rngs[shares.index(data_index % (max(shares) + 1))]
+def _saved_generator(cursor: dict) -> list:
+    """The saved generator state the run continues: the cursor's one
+    ``rng`` state. A cursor of the earlier format holds a list of every
+    process's state (with ``rng_data_index``, each one's data share):
+    one entry continues as it is; of several, data share 0's becomes the
+    run's one generator, as JAX's legacy resume takes a fresh key: the
+    stream's position is intact, only the masks do not continue the saved
+    per-share draws (said in a warning where the states differ)."""
+    rng = cursor["rng"]
+    if not rng or not isinstance(rng[0], list):
+        return rng
+    shares = cursor.get("rng_data_index") or list(range(len(rng)))
+    if any(state != rng[0] for state in rng):
+        warnings.warn(
+            f"checkpoint cursor of the earlier format: {len(rng)} processes "
+            "drew with generators of their own; data share 0's continues "
+            "as the run's one generator, so the masks do not continue the "
+            "saved per-share draws (the data stream's position does)",
+            stacklevel=2)
+    return rng[shares.index(0)]
 
 
 def _restore_checkpoint(ckpt: CheckpointManager, model, optimizer,
-                        train_step, sharded, mask_gen, rank: int, world: int,
-                        epochs: int, data_index: int = 0):
+                        train_step, sharded, mask_gen, epochs: int):
     """Restore the newest step intact on every process into the live
     objects: ``(start_epoch, epoch_step, global_step)``, or ``None`` when
-    there is none. Resuming under a different world size raises. A sharded
-    state reads its blocks under this run's layout, whatever layout saved
-    the step; a replicated one reads the whole state."""
+    there is none. Whatever number of processes saved the step, as JAX's
+    orbax restore onto the live mesh: a sharded state reads this rank's
+    blocks under this run's layout, whatever layout saved the step; a
+    replicated one reads the whole state; the generator continues from the
+    cursor's one state, and the loader from the cursor's epoch and step of
+    the plan this run's world size builds."""
     def read(reader):
         tree = reader.tree()
         if sharded is None:
@@ -1513,13 +1525,6 @@ def _restore_checkpoint(ckpt: CheckpointManager, model, optimizer,
     if restored is None:
         return None
     state, cursor, step = restored
-    rngs = cursor.get("rng") or []
-    if len(rngs) != world:
-        # The per-process mask generators have no continuation under
-        # another process count.
-        raise ValueError(
-            f"checkpoint step {step} was taken by {len(rngs)} processes; "
-            f"this run has {world}")
     if sharded is not None:
         (model_blocks, opt_state, saved_accum), step_state = state
         train_step.load_state_dict(step_state)
@@ -1529,7 +1534,7 @@ def _restore_checkpoint(ckpt: CheckpointManager, model, optimizer,
         model.load_state_dict(state["model"])
         optimizer.load_state_dict(state["optimizer"])
         train_step.load_state_dict(state["train_step"])
-    unpack_rng_key(_saved_generator(cursor, rank, data_index), mask_gen)
+    unpack_rng_key(_saved_generator(cursor), mask_gen)
     start_epoch = min(int(cursor.get("epoch", 0)), epochs)
     epoch_step = int(cursor.get("step", 0)) if start_epoch < epochs else 0
     return start_epoch, epoch_step, int(cursor.get("global_step", step))
@@ -1585,6 +1590,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
         raise ValueError(f"global batch {config.batch_size} not divisible by "
                          f"{data_world} processes")
     image = config.task_type in _IMAGE_TASKS
+    masked_lm = config.task_type == "masked_lm"
     folder = config.data_format == "folder"
     remote = _remote(config)
     if folder:
@@ -1681,10 +1687,11 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
             task.model, device_ids=[device.index] if cuda else None,
             broadcast_buffers=False)
         train_task = task.with_model(ddp)
-    # The image tasks draw one flip per image of the global batch and each
-    # process slices it; masked-LM draws per data share.
-    mask_gen = torch.Generator(device=device).manual_seed(
-        config.seed + 1 if image else _share_seed(config.seed, data_index))
+    # The one generator of the run's draws, seeded alike on every process
+    # (JAX's one key): the image tasks draw one flip per image of the
+    # global batch and masked-LM one mask over it; each data share slices
+    # its rows.
+    mask_gen = torch.Generator(device=device).manual_seed(config.seed + 1)
 
     # The row pools, resolved once a run (deterministic, so every process
     # derives the same) and passed to every epoch's loader: the filter's
@@ -1738,8 +1745,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
     if ckpt is not None and config.resume:
         t0 = time.perf_counter()
         resumed = _restore_checkpoint(ckpt, task.model, optimizer, step,
-                                      sharded, mask_gen, rank, world,
-                                      config.epochs, data_index)
+                                      sharded, mask_gen, config.epochs)
         if resumed is not None:
             start_epoch, resume_epoch_step, resume_global_step = resumed
             if cuda:
@@ -1843,8 +1849,7 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
 
     def save(wait: bool = False) -> None:
         _save_checkpoint(ckpt, journal, task.model, optimizer, step,
-                         mask_gen, rank, world, wait=wait, sharded=sharded,
-                         data_index=data_index)
+                         mask_gen, wait=wait, sharded=sharded)
 
     pool = _loader_buffer_pool(config)
     pool_start = pool.counters() if pool is not None else None
@@ -2023,12 +2028,17 @@ def _train(config: TrainConfig, device: torch.device) -> dict:
                                               generator=mask_gen,
                                               device=device) < 0.5
                             loss = step(batch, flip_mask=draw[lo:hi])
-                        elif ring is not None:
-                            # The ring's members draw alike over the whole
-                            # rows and each trains on its sequence block.
-                            block, drawn = _sequence_block(
-                                batch, draw_mlm_mask(batch, mask_gen),
-                                seq_index, sp)
+                        elif masked_lm:
+                            # One draw over the global batch, sliced per
+                            # data share (JAX's bernoulli over the global
+                            # array); a ring's members take the same rows
+                            # and each trains on its sequence block.
+                            drawn = draw_mlm_mask(batch, mask_gen,
+                                                  (data_index, data_world))
+                            block = batch
+                            if ring is not None:
+                                block, drawn = _sequence_block(
+                                    batch, drawn, seq_index, sp)
                             loss = step(block, mlm_mask=drawn)
                         else:
                             loss = step(batch, mask_gen)

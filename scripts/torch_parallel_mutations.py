@@ -78,7 +78,8 @@ with tempfile.TemporaryDirectory() as tmp:
                                       seq_len=cs.SHAPE[2], pack=False)
     every = cs._parallel_ranks(tmp)
     for name in names:
-        ranks, ref = every[name], cs._dp_reference(name, tmp)
+        ranks = every[name]
+        ref = cs._dp_reference(name, tmp, ranks)
         after = cs._grad_accum(name)
         losses = ranks[0]["losses"]
         row = {"layout": name,

@@ -198,14 +198,35 @@ def test_two_shards_stripe_disjointly(image_dataset):
             image_dataset.uri, process_index=rank, process_count=2))
 
 
+def settled_generation(coord, count: int) -> int:
+    """The coordinator's generation read under its lock at a moment its
+    table holds ``count`` members, awaiting the rebalance that makes it
+    so. Under load a member's heartbeats can miss one lease TTL, and the
+    member then expires and re-registers, two membership changes of their
+    own; a generation read while the table lacks it names the wrong
+    table."""
+    while True:
+        held = watch(coord, "_rebalance_locked",
+                     lambda: len(coord._members) == count)
+        assert held.wait(30)
+        with coord._lock:
+            if len(coord._members) == count:
+                return coord.generation
+
+
 def test_heartbeat_expiry_reassigns_the_lease(image_dataset):
     coord = start_coordinator("port")
     members = [start_member("port", image_dataset.uri, coord)
                for _ in range(2)]
     try:
-        gen = coord.generation
+        kept = members[1].fleet_agent.server_id
+        gen = settled_generation(coord, 2)
+        # The change the partition makes: the lost member gone and the
+        # other one in, at a later generation (not a table of one that a
+        # missed heartbeat of either made before or after).
         one = watch(coord, "_rebalance_locked",
-                    lambda: len(coord._members) == 1)
+                    lambda: coord.generation > gen
+                    and set(coord._members) == {kept})
         chaos.ChaosController(members[0]).partition()  # heartbeats stop
         assert one.wait(30)
         health = coord._healthz()

@@ -234,18 +234,24 @@ def test_max_steps_stop_mid_epoch_takes_no_epoch_checkpoint(
     assert mgr.cursor(12)["epoch"] == 1 and mgr.cursor(12)["step"] == 0
 
 
-def test_resume_under_another_world_size_raises(tmp_path, monkeypatch,
+def test_a_step_of_two_processes_resumes_in_one(tmp_path, monkeypatch,
                                                 token_path):
+    """The drained step, its cursor in the earlier per-process form as if
+    two processes had saved it at the one generator state, resumes in one
+    process and continues the uninterrupted run bit for bit."""
+    cfg = _text_config(token_path)
+    _, control = _run(tmp_path, monkeypatch, "control.jsonl", **cfg)
     ck = str(tmp_path / "ck")
     _run(tmp_path, monkeypatch, "t.jsonl", chaos="drain@2",
-         checkpoint_dir=ck, **_text_config(token_path))
+         checkpoint_dir=ck, **cfg)
     mgr = CheckpointManager(ck)
     state, cursor, step = mgr.restore_latest()
-    cursor["rng"] = cursor["rng"] * 2  # as if two processes had saved it
+    cursor["rng"] = [cursor["rng"]] * 2  # as if two processes had saved it
+    cursor["rng_data_index"] = [0, 1]
     mgr.save(step + 1, state, cursor=cursor, wait=True)
-    with pytest.raises(ValueError, match="taken by 2 processes"):
-        _run(tmp_path, monkeypatch, "t2.jsonl", checkpoint_dir=ck,
-             **_text_config(token_path))
+    _, resumed = _run(tmp_path, monkeypatch, "t2.jsonl", checkpoint_dir=ck,
+                      **cfg)
+    _assert_resumed_equals(control, resumed, 3)
 
 
 # The children run torch on one intra-op thread, the bound every port
@@ -343,17 +349,21 @@ def _name_the_first_difference(tmp_path, path, pre_update, first, want):
 
 def test_two_gloo_processes_preempted_and_resumed_match_the_uninterrupted(
         tmp_path, token_path):
-    """Two processes, each with its own mask generator: preempted at
+    """Two processes, drawing from the run's one generator: preempted at
     micro-step 3 (mid-window) and resumed, their losses and weights equal
-    the uninterrupted two-process run's, bit for bit. A micro-step 3 loss
-    that differs comes with both runs' parameters after the first update
-    and the name of the first tensor that differs."""
+    the uninterrupted two-process run's, bit for bit. The cursor holds the
+    one generator state: the seed's after three global draws. A
+    micro-step 3 loss that differs comes with both runs' parameters after
+    the first update and the name of the first tensor that differs."""
     control = _two_processes(tmp_path, token_path, "control")
     ck = str(tmp_path / "ck")
     pre = _two_processes(tmp_path, token_path, "pre", ck, chaos="drain@3")
     assert all(p["preempted"] and p["global_step"] == 3 for p in pre)
     cursor = CheckpointManager(ck).cursor(3)
-    assert len(cursor["rng"]) == 2 and cursor["rng"][0] != cursor["rng"][1]
+    gen = torch.Generator().manual_seed(1)  # seed 0 + 1, every process
+    for _ in range(3):
+        torch.rand((8, 16), generator=gen)  # the global batch's draw
+    assert cursor["rng"] == gen.get_state().tolist()
     # Micro-step 2 closes the first window: read the preempted run's
     # parameters there before the resumed run's saves rotate ``ck``.
     pre_update = CheckpointManager(ck).read_state(2)["model"]

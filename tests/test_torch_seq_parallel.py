@@ -185,18 +185,28 @@ def test_cli_seq_parallel_trains_and_evaluates_on_cpu(tmp_path, monkeypatch,
     assert "[metrics] step=2" in capsys.readouterr().out
 
 
-def test_each_data_share_draws_its_own_mask():
-    seeds = [trainer._share_seed(7, index) for index in range(4)]
-    assert seeds[0] == 8 and len(set(seeds)) == 4
-    batch = {"input_ids": torch.zeros((4, 64), dtype=torch.int32),
-             "attention_mask": torch.ones((4, 64), dtype=torch.int8)}
+def test_data_shares_take_disjoint_rows_of_one_draw():
+    """Each data share, from the run's one generator at the same state,
+    takes its rows of the one draw over the global batch: the shares'
+    masks stacked in order are the global batch's mask, and two shares'
+    masks differ."""
     from lance_distributed_training_tpu_torch.models.tasks import (
         draw_mlm_mask,
     )
 
-    masks = [draw_mlm_mask(batch, torch.Generator().manual_seed(s))
-             for s in seeds[:2]]
-    assert not torch.equal(masks[0], masks[1])
+    lengths = torch.tensor([64, 40, 64, 17, 64, 64, 33, 64])
+    valid = (torch.arange(64)[None, :] < lengths[:, None]).to(torch.int8)
+    whole = {"input_ids": torch.zeros((8, 64), dtype=torch.int32),
+             "attention_mask": valid}
+    want = draw_mlm_mask(whole, torch.Generator().manual_seed(8))
+    for count in (2, 4):
+        rows = 8 // count
+        masks = [draw_mlm_mask(
+            {k: v[d * rows:(d + 1) * rows] for k, v in whole.items()},
+            torch.Generator().manual_seed(8), (d, count))
+            for d in range(count)]
+        assert torch.equal(torch.cat(masks), want)
+        assert not torch.equal(masks[0], masks[1])
 
 
 def test_sequence_block_keeps_global_positions():

@@ -670,13 +670,13 @@ masks = []
 _draw = tasks.draw_mlm_mask
 
 
-def draw(batch, generator):
-    mask = _draw(batch, generator)
+def draw(batch, generator, share=(0, 1)):
+    mask = _draw(batch, generator, share)
     masks.append(mask.int().tolist())
     return mask
 
 
-tasks.draw_mlm_mask = draw
+trainer.draw_mlm_mask = draw
 
 
 def load_full_state(sharded, model_state, optimizer, opt_state, accum,
@@ -713,13 +713,12 @@ def load_full_state(sharded, model_state, optimizer, opt_state, accum,
 
 
 def parent_restore(ckpt, model, optimizer, train_step, sharded, mask_gen,
-                   rank, world, epochs, data_index):
+                   epochs):
     state, cursor, step = ckpt.restore_latest()
     load_full_state(sharded, state["model"], optimizer, state["optimizer"],
                     train_step.accum, state["train_step"].get("accum"))
     train_step.load_state_dict(dict(state["train_step"], accum=None))
-    unpack_rng_key(trainer._saved_generator(cursor, rank, data_index),
-                   mask_gen)
+    unpack_rng_key(cursor["rng"], mask_gen)
     start_epoch = min(int(cursor.get("epoch", 0)), epochs)
     epoch_step = int(cursor.get("step", 0)) if start_epoch < epochs else 0
     return start_epoch, epoch_step, int(cursor.get("global_step", step))
@@ -814,11 +813,11 @@ def test_the_continuation_equals_the_parent_paths_bit_for_bit(pair):
 
 
 def test_the_ranks_of_a_data_share_draw_alike_after_the_resume(pair):
-    """The mask generators continue by data share: the ranks that hold
-    one share take the generator saved for it (or for the share it maps
-    to, where the layouts split the batch in another number of shares),
-    so that they draw the same masks; the parent's path with the same
-    choice draws the same."""
+    """The run's one generator continues from the cursor's one state on
+    every rank: the ranks that hold one share take the same rows of the
+    global draw, so that they draw the same masks, and two shares take
+    other rows of it; the parent's path from the same state draws the
+    same."""
     by_share: dict = {}
     for got, parent in zip(pair["sharded"], pair["parent"]):
         assert got["masks"] == parent["masks"] and len(got["masks"]) == 2
@@ -918,14 +917,12 @@ losses, norms = run(topo, step, [0, 1])
 ckpt = CheckpointManager(ck)
 journal = trainer._CkptJournal()
 journal.abs_step, journal.cursor_base = 2, {"epoch": 0, "step": 2}
-trainer._save_checkpoint(ckpt, journal, task.model, opt, step, gen, RANK,
-                         WORLD, wait=True, sharded=sharded,
-                         data_index=topo.index["data"])
+trainer._save_checkpoint(ckpt, journal, task.model, opt, step, gen,
+                         wait=True, sharded=sharded)
 ckpt.close()
 topo, task, sharded, opt, step = build(2, False)
 resumed = trainer._restore_checkpoint(CheckpointManager(ck), task.model,
-                                      opt, step, sharded, gen, RANK, WORLD,
-                                      1, topo.index["data"])
+                                      opt, step, sharded, gen, 1)
 more = run(topo, step, [2, 3])
 state = sharded.full_state(opt, step.accum)[0]
 if RANK == 0:
